@@ -1,0 +1,236 @@
+"""The port's core l1,inf projections against ``repro.core.l1inf``.
+
+Same numpy inputs through both packages (JAX on the CPU). Tolerances are
+the JAX suite's own for agreement between implementations
+(``tests/test_projection_core.py``: atol 5e-5 * max(|Y|, 1), rtol 1e-4).
+
+Newton evaluation counts: the port keeps the stopping rule (ascend while
+any theta moves, cap, cap-exit re-eval), so the counts are equal except
+where the last ascent step is itself fp rounding. XLA and torch sum the
+Eq.-(19) payloads over the columns in different orders; from the SAME
+sorted prefix sums and breakpoints (so not the cumsum), a (1000, 64) case
+has JAX land on theta = 160.88495, above the fixed point, and stop, while
+torch lands 4 ulps below at 160.88487 and takes one more step. Where the
+counts differ, ``_assert_iters`` requires a difference of exactly one and
+final thetas within 4 ulps; anything more fails.
+
+Reference fault: ``repro``'s ``project_l1inf_sorted`` misses the exact
+projection on some inputs (f32 prefix scan over all n*m breakpoint
+payloads, then only 4 Newton polish steps): at (1000, 64), C = 0.05 of
+the norm, it is 0.049 off the heap oracle while the port's sorted is
+within 1e-7. Every sorted case is held to the heap oracle; the JAX result
+is compared only where it is itself exact, and the cases where it is not
+are listed in ``_SORTED_REFERENCE_FAULTS`` (ROADMAP fault C-3), so a new
+one fails the test.
+"""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from repro.core import l1inf as J
+from repro.core import project_l1inf_heap
+from repro_torch.core import l1inf as T
+from repro_torch.core.simplex import project_l1_ball
+from repro.core.simplex import project_l1_ball as project_l1_ball_jax
+
+SHAPES = [(7, 5), (100, 100), (33, 257), (1000, 64), (2, 1000), (1, 30),
+          (40, 1)]
+
+
+def _case(shape, Cfrac, seed=0):
+    rng = np.random.default_rng(seed + shape[0] * 7919 + shape[1])
+    Y = rng.normal(size=shape).astype(np.float32)
+    C = float(Cfrac * np.abs(Y).max(axis=0).sum())
+    return Y, C
+
+
+_SORTED_REFERENCE_FAULTS = {((1000, 64), 0.05)}
+
+
+def _assert_iters(it_t, it_j, th_t, th_j):
+    if it_t == it_j:
+        return
+    ulp = float(np.spacing(np.float32(abs(th_j))))
+    assert abs(it_t - it_j) == 1, (it_t, it_j)
+    assert abs(th_t - th_j) <= 4 * ulp, (th_t, th_j, ulp)
+
+
+def _close(a, b, Y):
+    scale = max(float(np.abs(Y).max()), 1.0)
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32),
+                               atol=5e-5 * scale, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("Cfrac", [0.02, 0.3, 1.3])
+def test_newton_matches_jax(shape, Cfrac):
+    Y, C = _case(shape, Cfrac)
+    Xj, sj = J.project_l1inf_newton_stats(jnp.asarray(Y), C)
+    Xt, st = T.project_l1inf_newton_stats(torch.from_numpy(Y), C)
+    _close(Xj, Xt.numpy(), Y)
+    _assert_iters(st["iters"], int(sj["iters"]), float(st["theta"]),
+                  float(sj["theta"]))
+    np.testing.assert_allclose(float(st["theta"]), float(sj["theta"]),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("Cfrac", [0.05, 0.6])
+def test_sorted_matches_jax(shape, Cfrac):
+    Y, C = _case(shape, Cfrac, seed=1)
+    Xt = T.project_l1inf_sorted(torch.from_numpy(Y), C).numpy()
+    Xj = np.asarray(J.project_l1inf_sorted(jnp.asarray(Y), C))
+    Xh = project_l1inf_heap(Y.astype(np.float64), C)
+    _close(Xt, Xh, Y)
+    scale = max(float(np.abs(Y).max()), 1.0)
+    if np.allclose(Xj, Xh, atol=5e-5 * scale, rtol=1e-4):
+        _close(Xt, Xj, Y)
+    else:
+        assert (shape, Cfrac) in _SORTED_REFERENCE_FAULTS
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_axis_and_dispatch(axis):
+    Y, C = _case((20, 30), 0.2, seed=2)
+    for method in ("newton", "sorted"):
+        _close(J.project_l1inf(jnp.asarray(Y), C, axis=axis, method=method),
+               T.project_l1inf(torch.from_numpy(Y), C, axis=axis,
+                               method=method).numpy(), Y)
+    with pytest.raises(ValueError):
+        T.project_l1inf(torch.from_numpy(Y), C, method="heap")
+
+
+@pytest.mark.parametrize("C", [-1.0, 0.0, 1e6, 3.0])
+def test_theta_matches_jax(C):
+    Y, _ = _case((30, 40), 0.1, seed=3)
+    np.testing.assert_allclose(
+        float(T.theta_l1inf(torch.from_numpy(Y), C)),
+        float(J.theta_l1inf(jnp.asarray(Y), C)), rtol=1e-5, atol=1e-6)
+
+
+def test_warm_start_and_cap_match_jax():
+    Y, C = _case((60, 80), 0.1, seed=4)
+    _, s0 = J.project_l1inf_newton_stats(jnp.asarray(Y), C)
+    for theta0 in (float(s0["theta"]), 7.0 * float(s0["theta"])):
+        Xj, sj = J.project_l1inf_newton_stats(jnp.asarray(Y), C,
+                                              theta0=theta0)
+        Xt, st = T.project_l1inf_newton_stats(torch.from_numpy(Y), C,
+                                              theta0=theta0)
+        _close(Xj, Xt.numpy(), Y)
+        _assert_iters(st["iters"], int(sj["iters"]), float(st["theta"]),
+                      float(sj["theta"]))
+    # max_iter cap exit: mu re-evaluated at the final theta in both
+    Xj, sj = J.project_l1inf_newton_stats(jnp.asarray(Y), C, max_iter=3)
+    Xt, st = T.project_l1inf_newton_stats(torch.from_numpy(Y), C,
+                                          max_iter=3)
+    assert st["iters"] == int(sj["iters"]) == 3
+    _close(Xj, Xt.numpy(), Y)
+
+
+def _packed(seed):
+    rng = np.random.default_rng(seed)
+    sizes = [(40, 50), (64, 130), (24, 33)]
+    n_max = max(n for n, _ in sizes)
+    cols, sids, Cs = [], [], []
+    for g, (n, m) in enumerate(sizes):
+        Yg = rng.normal(size=(n, m)) * rng.choice([0.3, 1.0, 4.0])
+        pad = np.zeros((n_max, m), np.float32)
+        pad[:n] = Yg
+        cols.append(pad)
+        sids += [g] * m
+        Cs.append(float(0.2 * np.abs(Yg).max(axis=0).sum()))
+    cols.append(np.ones((n_max, 11), np.float32))   # lane padding
+    sids += [3] * 11
+    return (np.concatenate(cols, axis=1), np.array(sids, np.int32),
+            np.array(Cs, np.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("warm", [False, True])
+def test_segmented_matches_jax(seed, warm):
+    Y, sids, Cs = _packed(seed)
+    theta0 = None
+    if warm:
+        _, th, _ = J.project_l1inf_segmented(jnp.asarray(Y), sids, Cs,
+                                             num_segments=3)
+        theta0 = np.asarray(th) * np.array([0.5, 1.0, 3.0], np.float32)
+    Xj, thj, itj = J.project_l1inf_segmented(
+        jnp.asarray(Y), sids, Cs, num_segments=3,
+        theta0=None if theta0 is None else jnp.asarray(theta0))
+    Xt, tht, itt = T.project_l1inf_segmented(
+        torch.from_numpy(Y), torch.from_numpy(sids), torch.from_numpy(Cs),
+        num_segments=3,
+        theta0=None if theta0 is None else torch.from_numpy(theta0))
+    _close(Xj, Xt.numpy(), Y)
+    np.testing.assert_allclose(tht.numpy(), np.asarray(thj), rtol=1e-5,
+                               atol=1e-6)
+    for g in range(3):
+        if itt != int(itj):
+            _assert_iters(itt, int(itj), float(tht[g]), float(thj[g]))
+    np.testing.assert_array_equal(Xt.numpy()[:, sids == 3], 1.0)
+
+
+def test_segmented_inside_and_nonpositive_radius():
+    Y, sids, Cs = _packed(2)
+    Cs = np.array([1e6, -1.0, Cs[2]], np.float32)
+    Xj, thj, _ = J.project_l1inf_segmented(jnp.asarray(Y), sids, Cs,
+                                           num_segments=3)
+    Xt, tht, _ = T.project_l1inf_segmented(torch.from_numpy(Y), sids, Cs,
+                                           num_segments=3)
+    _close(Xj, Xt.numpy(), Y)
+    np.testing.assert_allclose(tht.numpy(), np.asarray(thj), rtol=1e-5)
+    np.testing.assert_array_equal(Xt.numpy()[:, sids == 0], Y[:, sids == 0])
+    assert (Xt.numpy()[:, sids == 1] == 0).all()
+
+
+def test_active_compaction_is_stable_like_jax():
+    rng = np.random.default_rng(5)
+    active = rng.uniform(size=300) < 0.6
+    key = rng.choice([-1.0, 0.0, 2.0], size=300).astype(np.float32)  # ties
+    pj, nj = J.active_compaction(jnp.asarray(active), key=jnp.asarray(key))
+    pt, nt = T.active_compaction(torch.from_numpy(active),
+                                 key=torch.from_numpy(key))
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    assert int(nt) == int(nj)
+    pj, _ = J.active_compaction(jnp.asarray(active))
+    pt, _ = T.active_compaction(torch.from_numpy(active))
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+
+
+def test_support_helpers_match_jax():
+    rng = np.random.default_rng(6)
+    X = rng.normal(size=(5, 12)).astype(np.float32)
+    X[:, [1, 4, 9]] = 0.0
+    sup_j = J.column_support(jnp.asarray(X))
+    sup_t = T.column_support(torch.from_numpy(X))
+    np.testing.assert_array_equal(sup_t.numpy(), np.asarray(sup_j))
+    idx = T.support_indices(sup_t)
+    np.testing.assert_array_equal(idx, J.support_indices(sup_j))
+    np.testing.assert_array_equal(
+        T.compact_columns(torch.from_numpy(X), idx, axis=1).numpy(),
+        np.asarray(J.compact_columns(jnp.asarray(X), idx, axis=1)))
+    np.testing.assert_allclose(float(T.l1inf_norm(torch.from_numpy(X))),
+                               float(J.l1inf_norm(jnp.asarray(X))),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("radius", [0.5, 3.0, 1e4])
+def test_l1_ball_matches_jax(radius):
+    y = np.random.default_rng(7).normal(size=(6, 9)).astype(np.float32)
+    np.testing.assert_allclose(
+        project_l1_ball(torch.from_numpy(y), radius).numpy(),
+        np.asarray(project_l1_ball_jax(jnp.asarray(y), radius)),
+        atol=1e-6, rtol=1e-5)
+
+
+def test_bf16_input_keeps_dtype():
+    Y, C = _case((16, 24), 0.2, seed=8)
+    Yb = torch.from_numpy(Y).to(torch.bfloat16)
+    X = T.project_l1inf_newton(Yb, C)
+    assert X.dtype == torch.bfloat16
+    Xj = J.project_l1inf_newton(jnp.asarray(Y, jnp.bfloat16), C)
+    np.testing.assert_allclose(X.float().numpy(),
+                               np.asarray(Xj, np.float32), atol=3e-2,
+                               rtol=3e-2)
