@@ -17,7 +17,19 @@ and prints no result. Phases:
                equal, mu to atol 1e-5 * colmax; clip_apply: bit-equal in f32
                and bf16. Device times (a CUDA graph of back-to-back calls
                between CUDA events, warm L2) of kernel, plain version and,
-               for clip_apply, ``torch.clamp`` as a yardstick.
+               for clip_apply, ``torch.clamp`` as a yardstick; at the SAE
+               shape also the kernels' times with L2 flushed, as in 2b.
+  2b. fused  — the fused step's two kernels (adam_colstats, adam_clip_apply)
+               against their plain versions on the leaves the fused step
+               hands them: the SAE's ``enc1/w`` (10000 x 96, max axis 1),
+               paper Fig. 2's 1000 x 10000 (max axis 0) and a (4, 512, 384)
+               stack; f32 and bf16 params, f32 and bf16 moments, with and
+               without a mask, sum |u| / clip and sum u^2 / scale. Moments
+               and pass-2 output bit-equal, column maxima exact, column sums
+               to rtol 1e-6; pass 2 at the identity level reproduces pass
+               1's column maxima bit for bit; a rerun is bit-equal. Device
+               times with L2 warm and with L2 flushed (a 256 MB write before
+               every call; the flush's own time is subtracted).
   3. project — ``project_l1inf_kernel`` against ``project_l1inf_newton`` at
                those shapes (atol 3e-4 * scale, rtol 3e-3; a rerun must be
                bit-equal), with launches and wall times per projection, and
@@ -29,8 +41,19 @@ and prints no result. Phases:
                every kernel's launch count read just around them; then the
                same 20 steps under ``solver="newton"`` (final params to
                atol 3e-4 * scale).
+  4b. fused_train — this slice's main path: 20 projected SAE steps at the
+               same width with ``norm="l12"`` (radius 10, paper Table 1's
+               eta) through ``solver="fused"``, then ``solver="newton"``;
+               the same for ``norm="bilevel"`` (radius 0.1). Each fused run
+               launches adam_colstats and adam_clip_apply once a step and
+               no mu_solve; params within 1e-5 * scale of Newton. Then one
+               bilevel run with ``solver="kernel"``: colstats and clip_apply
+               launched, mu_solve not.
   5. train_sae — ``train_sae`` as the JAX package runs it (``"fused"``, so
                Newton for plain l1,inf), 2 epochs of each descent.
+  5b. train_sae_table1 — ``train_sae`` with ``norm="l12"`` (radius 10) and
+               ``norm="l1inf_masked"`` (radius 0.1), paper Table 1's two
+               other rows, 2 epochs of each descent at lr 2e-3.
   6. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
@@ -51,6 +74,17 @@ SOURCE = "src/repro_torch/csrc/l1inf.cu"
 REPLACES = {"colstats": "src/repro/kernels/l1inf/kernel.py:58",
             "mu_solve": "src/repro/kernels/l1inf/kernel.py:136",
             "clip_apply": "src/repro/kernels/l1inf/kernel.py:198"}
+FUSED_SOURCE = "src/repro_torch/csrc/fused_step.cu"
+FUSED_REPLACES = {
+    "adam_colstats": "src/repro/kernels/fused_step/kernel.py:154",
+    "adam_clip_apply": "src/repro/kernels/fused_step/kernel.py:196"}
+# (L, R, C) leaf stack and whether the max axis is the trailing dim
+FUSED_SHAPES = {"sae_enc1": ((1, 10000, 96), True),
+                "fig2_wide": ((1, 1000, 10000), False),
+                "stack": ((4, 512, 384), False)}
+# enc1/w radius of each norm the SAE runs here (paper Table 1's eta for
+# l12; scripts/torch_profile.py reads this table too)
+RADIUS = {"l1inf": 0.2, "l12": 10.0, "bilevel": 0.1, "l1inf_masked": 0.1}
 FAILURES = []
 
 
@@ -65,11 +99,26 @@ def check(ok, what):
     return bool(ok)
 
 
-def time_ms(torch, fn, budget_ms=100.0):
-    """Mean device time of one fn() call in ms. fn is captured back to back
-    into a CUDA graph, which is replayed once between two CUDA events, so
-    the host's launch overhead stays out of the number; inputs stay warm in
-    L2. fn must not synchronise."""
+def _graph_ms(torch, fn, reps):
+    """Device time in ms of one replay of a CUDA graph of ``reps``
+    back-to-back fn() calls, between two CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _warm(torch, fn):
+    """Run fn a few times on a side stream (graph capture needs it) and
+    return one eager call's device time in ms."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -81,19 +130,27 @@ def time_ms(torch, fn, budget_ms=100.0):
         end.record(side)
     end.synchronize()
     torch.cuda.current_stream().wait_stream(side)
-    reps = int(min(200, max(10, budget_ms / max(start.elapsed_time(end),
-                                                1e-3))))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end)
+
+
+def time_ms(torch, fn, budget_ms=100.0):
+    """Mean device time of one fn() call in ms. fn is captured back to back
+    into a CUDA graph, which is replayed once between two CUDA events, so
+    the host's launch overhead stays out of the number; inputs stay warm in
+    L2. fn must not synchronise."""
+    once = _warm(torch, fn)
+    reps = int(min(200, max(10, budget_ms / max(once, 1e-3))))
+    return _graph_ms(torch, fn, reps) / reps
+
+
+def time_cold_ms(torch, fn, flush, reps=20):
+    """Mean device time of one fn() call in ms with L2 flushed before it:
+    graphs of ``reps`` x (flush) and ``reps`` x (flush, fn) are timed as in
+    ``time_ms`` and the difference is divided by ``reps``."""
+    both = lambda: (flush(), fn())
+    _warm(torch, both)
+    return (_graph_ms(torch, both, reps) - _graph_ms(torch, flush, reps)) \
+        / reps
 
 
 def wall_ms(torch, fn, reps=5):
@@ -125,6 +182,7 @@ def main():
     from repro_torch.core import (ProjectionEngine, ProjectionSpec,
                                   project_l1inf_newton, sparsity_report)
     from repro_torch.kernels.l1inf import kernel as K
+    from repro_torch.kernels.fused_step import kernel as FK
     from repro_torch.kernels.l1inf import ref
     from repro_torch.kernels.l1inf.ops import project_l1inf_kernel
     from repro_torch.optim import AdamConfig, adam_init
@@ -173,6 +231,9 @@ def main():
     bm = 128
     errs = {k: 0.0 for k in REPLACES}
     timing = {}
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    flush = lambda: flush_buf.fill_(1.0)          # 256 MB through L2
+    flushed = {}                        # shape -> kernel times, L2 flushed
     for name, Y in inputs.items():
         n, m = Y.shape
         A = Y.abs()
@@ -228,13 +289,114 @@ def main():
                            "bytes"),
         }
         timing[name] = t
+        flushed[name] = cold = {}
+        if name == "sae_enc1":
+            cold.update({
+                "colstats": time_cold_ms(torch, lambda: K.colstats(A),
+                                         flush),
+                "mu_solve": time_cold_ms(torch, lambda: K.mu_solve(
+                    A, theta, block_m=bm, nact_blocks=nact), flush),
+                "clip_apply": time_cold_ms(
+                    torch, lambda: K.clip_apply(Y, mu), flush)})
         emit({"phase": "kernels", "shape": name, "n": n, "m": m,
               "mu_solve_prefix_cols": P,
               "colstats_sum_rel_err": rel,
               "mu_solve_max_abs_err": float(dmu.max()),
-              "ms": {k: {"kernel": v[0], "plain": v[1], "library": v[2],
+              "ms": {k: {"kernel": v[0], "kernel_l2_flushed": cold.get(k),
+                         "plain": v[1], "library": v[2],
                          "bound": v[3], "bound_by": v[4]}
                      for k, v in t.items()}})
+
+    # -- 2b. the fused step's kernels against their plain versions ----------
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (param dtype, moment dtype, mask, stat, mode, weight decay)
+    variants = [(f32, f32, False, "abs", "clip", 0.0),
+                (f32, f32, True, "sq", "scale", 0.01),
+                (bf16, f32, True, "abs", "clip", 0.01),
+                (bf16, f32, False, "sq", "scale", 0.0),
+                (f32, bf16, True, "abs", "clip", 0.0)]
+    ferrs = {k: 0.0 for k in FUSED_REPLACES}
+    ftiming = {}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for name, (shape, transpose) in FUSED_SHAPES.items():
+        L, R, C = shape
+        mcols = R if transpose else C
+        g0, m0, p0 = (torch.randn(shape, generator=gen, device=dev)
+                      for _ in range(3))
+        v0 = torch.rand(shape, generator=gen, device=dev) * 1e-2
+        mk0 = (torch.rand(shape, generator=gen, device=dev) > 0.3).float()
+        sc = torch.tensor([0.9, 1e-3, 1 - 0.9 ** 3, 1 - 0.999 ** 3],
+                          dtype=f32, device=dev)
+        red = 2 if transpose else 1
+        worst = {"colsum_rel_err": 0.0}
+        for pdt, mdt, use_mask, stat, mode, wd in variants:
+            what = f"{name} {pdt} moments {mdt} mask={use_mask} {stat}/{mode}"
+            g, p = g0.to(pdt), p0.to(pdt)
+            m, v = (m0 * 0.1).to(mdt), v0.to(mdt)
+            mk = mk0.to(pdt) if use_mask else None
+            kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=wd,
+                      transpose=transpose)
+            a = FK.adam_colstats(sc, g, m, v, p, mk, stat=stat, **kw)
+            b = FK.adam_colstats_plain(sc, g, m, v, p, mk, stat=stat, **kw)
+            check(bits_equal(torch, a[0], b[0]) and
+                  bits_equal(torch, a[1], b[1]), f"adam_colstats moments "
+                  f"{what}: not bit-equal to the plain version")
+            check(torch.equal(a[3], b[3]), f"adam_colstats colmax {what}")
+            rel = float(((a[2] - b[2]).abs() / b[2].clamp(min=1e-30)).max())
+            check(rel <= 1e-6, f"adam_colstats colsum {what}: rel {rel}")
+            worst["colsum_rel_err"] = max(worst["colsum_rel_err"], rel)
+            ferrs["adam_colstats"] = max(ferrs["adam_colstats"], float(
+                (a[2] - b[2]).abs().max()))
+            mu = (a[3] * 0.5 if mode == "clip"
+                  else torch.full_like(a[3], 0.7)).contiguous()
+            x1 = FK.adam_clip_apply(sc, a[0], a[1], p, mu, mk, mode=mode,
+                                    **kw)
+            x2 = FK.adam_clip_apply_plain(sc, a[0], a[1], p, mu, mk,
+                                          mode=mode, **kw)
+            check(bits_equal(torch, x1, x2), f"adam_clip_apply {what}")
+            ferrs["adam_clip_apply"] = max(ferrs["adam_clip_apply"], float(
+                (x1.float() - x2.float()).abs().max()))
+            if mk is None:
+                ident = FK.adam_clip_apply(sc, a[0], a[1], p,
+                                           torch.full_like(mu, 1e30), **kw)
+                check(torch.equal(ident.float().abs().amax(dim=red), a[3]),
+                      f"recompute invariant {what}")
+            a2 = FK.adam_colstats(sc, g, m, v, p, mk, stat=stat, **kw)
+            x3 = FK.adam_clip_apply(sc, a2[0], a2[1], p, mu, mk, mode=mode,
+                                    **kw)
+            check(all(bits_equal(torch, u, w) for u, w in zip(a, a2))
+                  and bits_equal(torch, x1, x3), f"rerun {what}")
+
+        # times on the main path's configuration: f32, a mask, sum u^2 /
+        # scale (the l12 family; the abs/clip pair moves the same bytes)
+        g, m, v, p, mk = g0, m0 * 0.1, v0, p0, mk0
+        kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.0, transpose=transpose)
+        a = FK.adam_colstats(sc, g, m, v, p, mk, stat="sq", **kw)
+        mu = torch.full_like(a[3], 0.7)
+        n_el = L * R * C
+        p1 = lambda: FK.adam_colstats(sc, g, m, v, p, mk, stat="sq", **kw)
+        p2 = lambda: FK.adam_clip_apply(sc, a[0], a[1], p, mu, mk,
+                                        mode="scale", **kw)
+        t = {"adam_colstats": (
+            time_ms(torch, p1), time_cold_ms(torch, p1, flush),
+            time_ms(torch, lambda: FK.adam_colstats_plain(
+                sc, g, m, v, p, mk, stat="sq", **kw)),
+            max(((7 * n_el * 4 + 2 * L * mcols * 4 + 16) / HBM_BYTES_PER_S
+                 * 1e3, "bytes"),
+                (20 * n_el / F32_OPS_PER_S * 1e3, "operations"))),
+            "adam_clip_apply": (
+            time_ms(torch, p2), time_cold_ms(torch, p2, flush),
+            time_ms(torch, lambda: FK.adam_clip_apply_plain(
+                sc, a[0], a[1], p, mu, mk, mode="scale", **kw)),
+            max(((5 * n_el * 4 + L * mcols * 4 + 16) / HBM_BYTES_PER_S
+                 * 1e3, "bytes"),
+                (14 * n_el / F32_OPS_PER_S * 1e3, "operations")))}
+        ftiming[name] = t
+        emit({"phase": "fused", "shape": name, "stack": list(shape),
+              "transpose": transpose, "variants": len(variants), **worst,
+              "ms": {k: {"kernel_l2_warm": v[0], "kernel_l2_flushed": v[1],
+                         "plain": v[2], "library": None, "bound": v[3][0],
+                         "bound_by": v[3][1]} for k, v in t.items()}})
 
     # -- 3. the projection at those shapes -----------------------------------
     for name, (Y, C) in {"sae_enc1": (enc1[:, :cfg.n_features], 0.2),
@@ -280,8 +442,8 @@ def main():
     Xtr, ytr, Xte, yte = train_test_split(X, y, 0.2, seed=0)
     Xd = torch.from_numpy(Xtr).to(dev)
     yd = torch.from_numpy(ytr).to(dev)
-    spec = ProjectionSpec(pattern=r"enc1/w", norm="l1inf", radius=0.2,
-                          axis=1)
+    spec = ProjectionSpec(pattern=r"enc1/w", norm="l1inf",
+                          radius=RADIUS["l1inf"], axis=1)
     acfg = AdamConfig(lr=1e-3)
     order = np.concatenate([np.random.default_rng(0).permutation(len(Xtr))
                             for _ in range(4)])
@@ -289,7 +451,7 @@ def main():
                for i in range(20)]
     ones = tree_map(torch.ones_like, params0)
 
-    def run(solver):
+    def run(solver, spec=spec):
         engine = ProjectionEngine((spec,), solver=solver)
         params, opt = params0, adam_init(params0, acfg)
         state = engine.init_state(params0)
@@ -331,6 +493,67 @@ def main():
           "step_ms_kernel_mean_rest": float(np.mean(t_kernel[1:])),
           "step_ms_newton_mean_rest": float(np.mean(t_newton[1:]))})
 
+    # -- 4b. this slice's main path: the fused step ---------------------------
+    def compare(p_a, p_b):
+        scale = max(max(float(p.abs().max()) for p in leaves(p_b)), 1.0)
+        err = max(float((a - b).abs().max()) for a, b in zip(
+            leaves(p_a), leaves(p_b)))
+        live_a = (p_a["enc1"]["w"] != 0).any(dim=1)
+        live_b = (p_b["enc1"]["w"] != 0).any(dim=1)
+        return err, scale, int((live_a != live_b).sum())
+
+    def counts():
+        return {**K.launch_counts(), **FK.launch_counts()}
+
+    def reset_counts():
+        K.reset_launch_counts()
+        FK.reset_launch_counts()
+
+    fused_launches = None
+    for norm in ("l12", "bilevel"):
+        radius = RADIUS[norm]
+        fspec = ProjectionSpec(pattern=r"enc1/w", norm=norm, radius=radius,
+                               axis=1)
+        reset_counts()
+        p_fused, t_fused, l_fused = run("fused", fspec)
+        launched = counts()
+        if norm == "l12":
+            fused_launches = dict(launched)
+        check(launched["adam_colstats"] == 20 and
+              launched["adam_clip_apply"] == 20,
+              f"{norm} fused: kernel launches {launched}, want 20 each")
+        check(launched["mu_solve"] == 0, f"{norm} fused launched mu_solve")
+        p_newton, t_newton, l_newton = run("newton", fspec)
+        err, scale, differ = compare(p_fused, p_newton)
+        check(err <= 1e-5 * scale,
+              f"{norm}: 20 fused steps vs newton: max err {err}")
+        check(all(np.isfinite(l_fused)), f"{norm}: non-finite loss")
+        row = {"phase": "fused_train", "norm": norm, "radius": radius,
+               "steps": 20, "launches": launched, "loss_first": l_fused[0],
+               "loss_last": l_fused[-1], "loss_last_newton": l_newton[-1],
+               "colsp_pct": sparsity_report(p_fused, (fspec,))["enc1/w"],
+               "max_abs_err_vs_newton": err, "scale": scale,
+               "support_cols_differing": differ,
+               "step_ms_fused_first": t_fused[0],
+               "step_ms_fused_mean_rest": float(np.mean(t_fused[1:])),
+               "step_ms_newton_mean_rest": float(np.mean(t_newton[1:]))}
+        if norm == "bilevel":
+            reset_counts()
+            p_kern, t_kern, _ = run("kernel", fspec)
+            kl = counts()
+            check(kl["colstats"] > 0 and kl["clip_apply"] > 0 and
+                  kl["mu_solve"] == 0,
+                  f"bilevel kernel solver launches {kl}")
+            err_k, _, differ_k = compare(p_kern, p_newton)
+            check(err_k <= 1e-5 * scale,
+                  f"bilevel: 20 kernel-solver steps vs newton: {err_k}")
+            row.update({"kernel_solver_launches": kl,
+                        "kernel_solver_max_abs_err_vs_newton": err_k,
+                        "kernel_solver_support_cols_differing": differ_k,
+                        "step_ms_kernel_mean_rest": float(np.mean(
+                            t_kern[1:]))})
+        emit(row)
+
     # -- 5. train_sae as the JAX package runs it -----------------------------
     t = time.perf_counter()
     res = train_sae(Xtr, ytr, Xte, yte, cfg,
@@ -349,17 +572,57 @@ def main():
           "column_sparsity_pct": res.column_sparsity, "seconds": sec,
           "history": res.history})
 
+    # -- 5b. train_sae with paper Table 1's l2,1 and masked rows ------------
+    for norm in ("l12", "l1inf_masked"):
+        radius = RADIUS[norm]
+        reset_counts()
+        t = time.perf_counter()
+        res = train_sae(Xtr, ytr, Xte, yte, cfg, SAETrainConfig(
+            epochs=2, lr=2e-3, seed=0, projection=ProjectionSpec(
+                pattern=r"enc1/w", norm=norm, radius=radius, axis=1)),
+            device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        launched = counts()
+        finite = all(bool(torch.isfinite(p).all()) for p in leaves(res.params))
+        check(finite, f"train_sae {norm}: non-finite params")
+        check(0 < len(res.selected) < cfg.n_features,
+              f"train_sae {norm} selected {len(res.selected)} features")
+        if norm == "l12":
+            check(launched["adam_colstats"] > 0 and
+                  launched["adam_clip_apply"] > 0,
+                  f"train_sae l12 never launched the fused kernels")
+        emit({"phase": "train_sae_table1", "norm": norm, "radius": radius,
+              "epochs_per_descent": 2, "lr": 2e-3,
+              "test_accuracy": res.test_accuracy,
+              "selected_features": int(len(res.selected)),
+              "column_sparsity_pct": res.column_sparsity, "seconds": sec,
+              "launches": launched, "history": res.history})
+
     # -- 6. result -------------------------------------------------------------
     if FAILURES:
         print(json.dumps({"failures": FAILURES}), file=sys.stderr)
         return 1
     sae = timing["sae_enc1"]
+    fsae = ftiming["sae_enc1"]
+    # every row at sae_enc1: ms with inputs L2-warm, ms_l2_flushed with L2
+    # flushed before each call (the one to hold against the HBM bound: the
+    # inputs fit in L2); no single PyTorch call computes either fused
+    # pass, so their library_ms is null
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
-         "max_abs_err": errs[k], "ms": sae[k][0], "plain_ms": sae[k][1],
+         "max_abs_err": errs[k], "ms": sae[k][0],
+         "ms_l2_flushed": flushed["sae_enc1"][k], "plain_ms": sae[k][1],
          "bound_ms": sae[k][3], "bound_by": sae[k][4],
-         "library_ms": sae[k][2]} for k in REPLACES]})
+         "library_ms": sae[k][2]} for k in REPLACES] + [
+        {"name": k, "route": "cuda", "source": FUSED_SOURCE,
+         "replaces": FUSED_REPLACES[k], "launches": fused_launches[k],
+         "max_abs_err": ferrs[k], "ms": fsae[k][0],
+         "ms_l2_flushed": fsae[k][1], "plain_ms": fsae[k][2],
+         "bound_ms": fsae[k][3][0], "bound_by": fsae[k][3][1],
+         "library_ms": None}
+        for k in FUSED_REPLACES]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

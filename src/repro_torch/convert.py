@@ -9,6 +9,9 @@ the JAX arrays over as numpy:
 
 Nested dicts keep their keys, so a parameter path (``enc1/w``) names the
 same tensor in both packages, and layouts are unchanged (no transposes).
+bfloat16 arrays (numpy's ``ml_dtypes`` extension type, which torch cannot
+read directly) go through float32, which holds every bfloat16 value
+exactly, and come out as ``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,14 @@ from .optim.adam import AdamState
 __all__ = ["params_from_numpy", "opt_state_from_numpy"]
 
 
+def _tensor(x, dev: torch.device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.tensor(x.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    return torch.tensor(x, device=dev)
+
+
 def params_from_numpy(tree: Any, device: Optional[str] = None) -> Any:
     """Nested dict of numpy arrays -> the same dict of tensors (copies) on
     ``device`` (the card when None; raises if CUDA is missing).
@@ -31,7 +42,7 @@ def params_from_numpy(tree: Any, device: Optional[str] = None) -> Any:
     >>> params = params_from_numpy({"enc1": {"w": np.ones((3, 2))}}, "cpu")
     """
     dev = resolve_device(device)
-    return tree_map(lambda x: torch.tensor(np.asarray(x), device=dev), tree)
+    return tree_map(lambda x: _tensor(x, dev), tree)
 
 
 def opt_state_from_numpy(state: Any,

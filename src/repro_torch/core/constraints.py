@@ -69,14 +69,16 @@ class ProjectionSpec:
     """One structured-sparsity constraint.
 
     pattern:  regex matched against the '/'-joined parameter path.
-    norm:     a registered family norm (``l1inf`` | ``l1inf_sorted``) or
-              the per-leaf ``l1`` ball.
+    norm:     a registered family norm (l1inf | l1inf_sorted |
+              l1inf_weighted | l1inf_masked | bilevel | l12 | hoyer; hoyer's
+              radius is the target sparseness in (0, 1]) or the per-leaf
+              ``l1`` ball.
     radius:   ball radius C (> 0).
     axis:     the *max* axis of the trailing 2-D slice (paper: 0).
     every_k:  apply every k optimizer steps (1 = every step).
-
-    The JAX spec's per-column ``weights`` come with the weighted family
-    (not ported yet).
+    weights:  per-column weights of the l1inf_weighted family (a tuple of
+              floats, one per canonical column of every matching leaf;
+              None = uniform 1.0).
 
     >>> spec = ProjectionSpec(pattern=r"enc1/w", norm="l1inf", radius=0.1, axis=1)
     """
@@ -85,12 +87,22 @@ class ProjectionSpec:
     radius: float = 1.0
     axis: int = 0
     every_k: int = 1
+    weights: Optional[Tuple[float, ...]] = None
 
     def __post_init__(self):
         if self.norm not in _known_norms():
             raise ValueError(f"unknown norm {self.norm!r}")
         if self.radius <= 0:
             raise ValueError("radius must be > 0")
+        if self.weights is not None:
+            fam = family_for_norm(self.norm)
+            if fam is None or not fam.uses_weights:
+                raise ValueError(
+                    f"norm {self.norm!r} does not take per-column weights")
+            w = tuple(float(x) for x in self.weights)
+            if any(x <= 0 for x in w):
+                raise ValueError("weights must be > 0")
+            object.__setattr__(self, "weights", w)
 
 
 def _project_fn(spec: ProjectionSpec) -> Callable:
@@ -101,7 +113,14 @@ def _project_fn(spec: ProjectionSpec) -> Callable:
     if spec.norm == "l1":
         return lambda x, C, axis: project_l1_ball(x, C)
     fam = family_for_norm(spec.norm)
-    return lambda x, C, axis: fam.project_leaf(x, C, axis=axis)
+    w = spec.weights
+
+    def fn(x, C, axis):
+        wj = None if w is None else torch.tensor(w, dtype=torch.float32,
+                                                 device=x.device)
+        return fam.project_leaf(x, C, axis=axis, w=wj)
+
+    return fn
 
 
 def _apply_2d(fn: Callable, x: torch.Tensor, C: float,
@@ -122,6 +141,14 @@ def _first_match(specs: Sequence[ProjectionSpec], name: str, leaf):
     for spec in specs:
         if re.search(spec.pattern, name) and hasattr(leaf, "ndim") \
                 and leaf.ndim >= 2:
+            if spec.weights is not None:
+                # canonical columns = the non-max axis of the trailing slice
+                m = leaf.shape[-2 if spec.axis in (1, -1) else -1]
+                if len(spec.weights) != m:
+                    raise ValueError(
+                        f"spec {spec.pattern!r}: {len(spec.weights)} weights "
+                        f"for a leaf with {m} canonical columns "
+                        f"(shape {tuple(leaf.shape)})")
             return spec
     return None
 
@@ -173,6 +200,7 @@ class _PackedEntry:
     m_pad: int                 # m padded up to the lane multiple
     col_start: int             # first column in the packed buffer
     seg_start: int             # first segment id
+    weights: Optional[Tuple[float, ...]] = None   # per canonical column
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +228,45 @@ class PackedPlan:
         for e in self.entries:
             C[e.seg_start: e.seg_start + e.lead] = e.radius
         return C
+
+    def col_weights(self) -> np.ndarray:
+        """Per-column weights of the packed buffer (1.0 on lane padding and
+        on entries without spec weights); stacked matrices repeat them."""
+        w = np.ones((self.total_cols,), np.float32)
+        for e in self.entries:
+            if e.weights is None:
+                continue
+            for l in range(e.lead):
+                lo = e.col_start + l * e.m_pad
+                w[lo: lo + e.m] = np.asarray(e.weights, np.float32)
+        return w
+
+    # -- virtual packing (the fused step) ------------------------------------
+    # The fused train step never builds the packed buffer: leaves keep their
+    # own layout and only their per-column statistics are concatenated, in
+    # entry order, with NO lane padding. These twins of seg_ids() and
+    # col_weights() describe that dense layout.
+
+    def virtual_num_cols(self) -> int:
+        """Column count of the dense (un-padded) statistics vector."""
+        return sum(e.lead * e.m for e in self.entries)
+
+    def virtual_seg_ids(self) -> np.ndarray:
+        """Segment id per dense statistics column (entry order, stacked
+        matrices contiguous, every column real)."""
+        parts = [np.repeat(np.arange(e.lead, dtype=np.int32) + e.seg_start,
+                           e.m)
+                 for e in self.entries]
+        return (np.concatenate(parts) if parts
+                else np.zeros((0,), np.int32))
+
+    def virtual_col_weights(self) -> np.ndarray:
+        """Per-column weights of the dense statistics layout."""
+        parts = [np.ones((e.lead * e.m,), np.float32) if e.weights is None
+                 else np.tile(np.asarray(e.weights, np.float32), e.lead)
+                 for e in self.entries]
+        return (np.concatenate(parts) if parts
+                else np.zeros((0,), np.float32))
 
 
 def build_packed_plans(params: Any, specs: Sequence[ProjectionSpec]):
@@ -237,7 +304,8 @@ def build_packed_plans(params: Any, specs: Sequence[ProjectionSpec]):
             entries.append(_PackedEntry(
                 index=i, shape=shape, lead=lead, n=n, m=m,
                 transpose=transpose, radius=float(spec.radius),
-                m_pad=m_pad, col_start=col, seg_start=seg))
+                m_pad=m_pad, col_start=col, seg_start=seg,
+                weights=spec.weights))
             col += lead * m_pad
             seg += lead
             n_max = max(n_max, n)

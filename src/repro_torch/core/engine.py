@@ -7,12 +7,12 @@
       - ``kernel`` — the sparsity-adaptive engine on the hand-written CUDA
         kernels (``kernels/l1inf``; the JAX package's ``pallas``). On CPU
         tensors it runs the kernels' plain versions;
-      - ``fused``  — routes plans exactly as the JAX engine does: plans
-        whose family streams its statistics (``from_colstats``) at
-        ``every_k == 1`` take the fused optimizer+projection step, every
-        other plan solves as ``newton``. No ported family has that hook
-        yet, so every plan takes the Newton path; a plan that reached the
-        fused branch would raise NotImplementedError.
+      - ``fused``  — routes plans exactly as the JAX engine does: inside
+        ``projected_update``, plans whose family streams its statistics
+        (``from_colstats``: ``bilevel``, ``l12``) at ``every_k == 1`` take
+        the two-pass fused optimizer+projection step on the
+        ``kernels/fused_step`` kernels (counter ``<plan>/fused``); every
+        other plan, and ``apply``, solves as ``newton``.
     ``sharded`` and ``fused_sharded`` are not ported yet and raise
     NotImplementedError.
   * ``engine.apply(params, step=, state=)`` projects a parameter tree.
@@ -26,11 +26,12 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from .._tree import flatten_with_path, tree_map, unflatten_like
+from .._tree import flatten_with_path, leaves, tree_map, unflatten_like
 from .constraints import (ProjectionSpec, build_packed_plans, engine_count,
                           _apply_2d, _gated, _pack_entry, _project_fn,
                           _unpack_entry)
 from .families import get_family, project_segmented_family
+from .l1inf import _segmented_newton
 
 __all__ = ["ProjectionEngine"]
 
@@ -39,7 +40,10 @@ _NOT_PORTED = {
     "sharded": "ROADMAP.md queue A item 8 (distributed)",
     "fused_sharded": "ROADMAP.md queue A item 8 (distributed)",
 }
-_FUSED_ITEM = "ROADMAP.md queue A item 1 (fused step and families)"
+
+# Identity sentinel of the fused clip pass: a per-column clip level far
+# above any parameter magnitude, so sign(u) * min(|u|, _MU_INF) == u.
+_MU_INF = 1e30
 
 
 class ProjectionEngine:
@@ -90,6 +94,8 @@ class ProjectionEngine:
         dev = Ypk.device
         sids = torch.as_tensor(plan.seg_ids(), device=dev)
         C_seg = torch.as_tensor(plan.radii(), device=dev)
+        w_col = (torch.as_tensor(plan.col_weights(), device=dev)
+                 if fam.uses_weights else None)
         if self.solver == "kernel" and fam.kernel_loader is not None:
             Xpk, theta = fam.kernel_loader()(
                 Ypk, sids, C_seg, num_segments=plan.num_segments,
@@ -98,32 +104,24 @@ class ProjectionEngine:
         else:
             Xpk, theta, iters = project_segmented_family(
                 Ypk, sids, C_seg, num_segments=plan.num_segments,
-                family=plan.family, theta0=theta0)
+                family=plan.family, w_col=w_col, theta0=theta0)
         outs = {}
         for e in plan.entries:
             block = Xpk[:, e.col_start: e.col_start + e.lead * e.m_pad]
             outs[e.index] = _unpack_entry(block, e, leaves[e.index])
         return outs, theta, iters
 
-    def apply(self, params: Any, *, step: Optional[torch.Tensor] = None,
-              state: Optional[Dict[str, torch.Tensor]] = None,
-              with_stats: bool = False):
-        """Project matching leaves of ``params``: ONE solve per (family,
-        every_k) sub-buffer, the per-leaf path for unpackable norms.
-
-        ``state`` threads the per-plan theta vectors between steps;
-        ``step`` gates ``every_k > 1`` specs. Returns (params, new_state),
-        plus {plan.key: Eq.-(19) eval count} when ``with_stats``.
-        """
-        if not self.specs:
-            out = (params, dict(state or {}))
-            return out + ({},) if with_stats else out
-        leaves = [leaf for _, leaf in flatten_with_path(params)]
-        plans, per_leaf = self.plans(params)
+    def _project_leaves(self, leaves, plans, per_leaf, step, state,
+                        skip=frozenset()):
+        """Project the flat ``leaves`` list in place: one solve per plan
+        whose key is not in ``skip``, then the per-leaf specs, each gated
+        on ``step`` by its ``every_k`` (a gated plan keeps its previous
+        theta). Returns (theta state, {plan.key: iters})."""
         new_state: Dict[str, torch.Tensor] = {}
         stats: Dict[str, Any] = {}
-
         for plan in plans:
+            if plan.key in skip:
+                continue
             theta0 = None if state is None else state.get(plan.key)
             projected, theta, iters = self._solve_plan(plan, leaves, theta0)
             for e in plan.entries:
@@ -141,6 +139,25 @@ class ProjectionEngine:
             projected = _apply_2d(_project_fn(spec), leaves[i], spec.radius,
                                   spec.axis)
             leaves[i] = _gated(projected, leaves[i], step, spec.every_k)
+        return new_state, stats
+
+    def apply(self, params: Any, *, step: Optional[torch.Tensor] = None,
+              state: Optional[Dict[str, torch.Tensor]] = None,
+              with_stats: bool = False):
+        """Project matching leaves of ``params``: ONE solve per (family,
+        every_k) sub-buffer, the per-leaf path for unpackable norms.
+
+        ``state`` threads the per-plan theta vectors between steps;
+        ``step`` gates ``every_k > 1`` specs. Returns (params, new_state),
+        plus {plan.key: Eq.-(19) eval count} when ``with_stats``.
+        """
+        if not self.specs:
+            out = (params, dict(state or {}))
+            return out + ({},) if with_stats else out
+        leaves = [leaf for _, leaf in flatten_with_path(params)]
+        plans, per_leaf = self.plans(params)
+        new_state, stats = self._project_leaves(leaves, plans, per_leaf,
+                                                step, state)
 
         params = unflatten_like(params, leaves)
         if with_stats:
@@ -151,7 +168,8 @@ class ProjectionEngine:
 
     def projected_update(self, grads: Any, opt_state, params: Any, acfg, *,
                          lr=None, mask: Any = None,
-                         state: Optional[Dict[str, torch.Tensor]] = None):
+                         state: Optional[Dict[str, torch.Tensor]] = None,
+                         with_stats: bool = False):
         """Optimizer update + projection + gating: the step core of the
         port's train loops.
 
@@ -159,28 +177,152 @@ class ProjectionEngine:
         gradient freeze), projects through ``apply`` gated on the NEW
         optimizer count, re-applies ``mask`` to the params (the
         double-descent support freeze) and threads the theta state.
-        Under ``solver="fused"`` plans are routed as in the JAX engine;
-        a plan whose family streams its statistics would need the fused
-        step kernels, which are not ported yet (NotImplementedError).
 
-        Returns (params, opt_state, proj_state).
+        Under ``solver="fused"``, plans whose family streams its Newton
+        statistics (``from_colstats``) at ``every_k == 1`` take the
+        two-pass fused step instead (``_projected_update_fused``); every
+        other plan and per-leaf spec replays this unfused path.
+
+        Returns (params, opt_state, proj_state), plus {plan.key: Eq.-(19)
+        evaluation count} when ``with_stats``.
         """
         if self.solver == "fused" and self.specs:
-            plans, _ = self.plans(params)
-            fused = [p.key for p in plans if p.every_k == 1 and hasattr(
+            plans, per_leaf = self.plans(params)
+            fused_plans = [p for p in plans if p.every_k == 1 and hasattr(
                 get_family(p.family).seg_ops, "from_colstats")]
-            if fused:
-                raise NotImplementedError(
-                    f"plans {fused} need the fused optimizer+projection "
-                    f"step, which is not ported: {_FUSED_ITEM}")
+            if fused_plans:
+                return self._projected_update_fused(
+                    grads, opt_state, params, acfg, lr=lr, mask=mask,
+                    state=state, plans=plans, per_leaf=per_leaf,
+                    fused_plans=fused_plans, with_stats=with_stats)
         from ..optim.adam import adam_update
         new_params, new_opt = adam_update(grads, opt_state, params, acfg,
                                           lr=lr, mask=mask)
+        stats: Dict[str, Any] = {}
         if self.specs:
-            new_params, state = self.apply(new_params, step=new_opt.count,
-                                           state=state)
+            new_params, state, stats = self.apply(
+                new_params, step=new_opt.count, state=state, with_stats=True)
             if mask is not None:
                 new_params = tree_map(lambda p, m: p * m, new_params, mask)
         else:
             state = dict(state or {})
+        if with_stats:
+            return new_params, new_opt, state, stats
         return new_params, new_opt, state
+
+    def _projected_update_fused(self, grads, opt_state, params: Any, acfg, *,
+                                lr, mask, state, plans, per_leaf,
+                                fused_plans, with_stats):
+        """The two-pass step. ``fused_plans`` take the fused kernels; every
+        other plan and leaf replays the unfused path on the updated leaves,
+        so mixed spec lists stay exact.
+
+        Per fused plan: pass 1 (``fused_adam_colstats``) over each leaf
+        writes the moments and emits per-column statistics; the segmented
+        Newton runs on the O(columns) statistics; pass 2
+        (``fused_adam_clip_apply``) recomputes the update from the stored
+        moments and writes the projected params. The updated, unprojected
+        params are never materialized.
+        """
+        from ..kernels.fused_step import (fused_adam_clip_apply,
+                                          fused_adam_colstats)
+        from ..optim.adam import (AdamState, adam_leaf_update, adam_scalars,
+                                  clip_scale)
+
+        p_leaves, g_leaves = leaves(params), leaves(grads)
+        m_leaves, v_leaves = leaves(opt_state.mu), leaves(opt_state.nu)
+        mk_leaves = (leaves(mask) if mask is not None
+                     else [None] * len(p_leaves))
+
+        count = opt_state.count + 1
+        lr_t, b1c, b2c = adam_scalars(acfg, count, lr)
+        scale = (clip_scale(grads, acfg.clip_norm)
+                 if acfg.clip_norm is not None else None)
+
+        fused_idx = {e.index for plan in fused_plans for e in plan.entries}
+        new_p, new_m, new_v = list(p_leaves), list(m_leaves), list(v_leaves)
+        for i in range(len(p_leaves)):
+            if i not in fused_idx:
+                new_p[i], new_m[i], new_v[i] = adam_leaf_update(
+                    g_leaves[i], m_leaves[i], v_leaves[i], p_leaves[i], acfg,
+                    lr_t, b1c, b2c, mask=mk_leaves[i], scale=scale)
+
+        new_state: Dict[str, torch.Tensor] = {}
+        stats: Dict[str, Any] = {}
+        for plan in fused_plans:
+            engine_count(f"{plan.key}/fused")
+            fam = get_family(plan.family)
+            theta0 = None if state is None else state.get(plan.key)
+            stat = getattr(fam.seg_ops, "colstats_stat", "abs")
+            mode = getattr(fam.seg_ops, "fused_mode", "clip")
+            sums, maxes = [], []
+            # pass 1: moments written, O(m) statistics out per leaf
+            for e in plan.entries:
+                i = e.index
+                new_m[i], new_v[i], cs, cm = fused_adam_colstats(
+                    g_leaves[i], m_leaves[i], v_leaves[i], p_leaves[i],
+                    cfg=acfg, lr_t=lr_t, b1c=b1c, b2c=b2c, scale=scale,
+                    mask=mk_leaves[i], transpose=e.transpose, stat=stat)
+                sums.append(cs.reshape(-1))
+                maxes.append(cm.reshape(-1))
+            colsum = torch.cat(sums) if len(sums) > 1 else sums[0]
+            colmax = torch.cat(maxes) if len(maxes) > 1 else maxes[0]
+            dev = colsum.device
+            sids = torch.as_tensor(plan.virtual_seg_ids(), device=dev)
+            C_seg = torch.as_tensor(plan.radii(), device=dev)
+            w_col = (torch.as_tensor(plan.virtual_col_weights(), device=dev)
+                     if fam.uses_weights else None)
+            aux = fam.seg_ops.from_colstats(colsum, colmax, w_col)
+            mu, theta, iters, inside_seg, zero_seg = _segmented_newton(
+                aux, sids, C_seg, plan.num_segments, theta0, 32,
+                ops=fam.seg_ops)
+            # fold the identity/zero segment gating into the per-column
+            # level, so pass 2 is one min() or multiply: clip families
+            # gate with the 1e30 sentinel, scale families (l1,2) turn mu
+            # into the column multiplier with identity 1.0
+            zero_col, inside_col = zero_seg[sids], inside_seg[sids]
+            if mode == "scale":
+                lvl = fam.seg_ops.fused_scale(aux, mu)
+                ident = torch.ones((), dtype=lvl.dtype, device=dev)
+            else:
+                lvl = mu
+                ident = torch.full((), _MU_INF, dtype=mu.dtype, device=dev)
+            mu_eff = torch.where(zero_col, torch.zeros_like(lvl),
+                                 torch.where(inside_col, ident, lvl))
+            # pass 2: the update recomputed from the stored moments,
+            # clipped or scaled and written: the step's only param write
+            off = 0
+            for e in plan.entries:
+                span = e.lead * e.m
+                i = e.index
+                new_p[i] = fused_adam_clip_apply(
+                    new_m[i], new_v[i], p_leaves[i],
+                    mu_eff[off:off + span].reshape(e.lead, e.m), cfg=acfg,
+                    lr_t=lr_t, b1c=b1c, b2c=b2c, mask=mk_leaves[i],
+                    transpose=e.transpose, mode=mode)
+                off += span
+            new_state[plan.key] = theta
+            stats[plan.key] = iters
+
+        # unfused remainder: every_k-gated plans and families without the
+        # streaming hook (packed Newton), then the per-leaf norms
+        rest_state, rest_stats = self._project_leaves(
+            new_p, plans, per_leaf, count, state,
+            skip={plan.key for plan in fused_plans})
+        new_state.update(rest_state)
+        stats.update(rest_stats)
+
+        if mask is not None:
+            # support freeze on the unfused leaves; the fused pass 2
+            # already multiplies its output by the mask
+            for i in range(len(new_p)):
+                if i not in fused_idx:
+                    new_p[i] = new_p[i] * mk_leaves[i]
+
+        new_params = unflatten_like(params, new_p)
+        new_opt = AdamState(count=count,
+                            mu=unflatten_like(params, new_m),
+                            nu=unflatten_like(params, new_v))
+        if with_stats:
+            return new_params, new_opt, new_state, stats
+        return new_params, new_opt, new_state

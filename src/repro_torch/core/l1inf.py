@@ -344,7 +344,8 @@ class _PlainSegOps:
     """Per-column statistics of the PLAIN l1,inf family for the segmented
     Newton — the ``seg_ops`` contract of ``core.families``:
 
-      prepare(A)          -> aux (per-column sort/prefix state)
+      prepare(A, w)       -> aux (per-column sort/prefix state; ``w`` the
+                             per-column weights of weight-aware families)
       stats(aux, th_col)  -> (a, b, active, mu): Eq.-(19) numerator and
                              denominator contributions, the active flag and
                              the water level at th_col
@@ -353,11 +354,14 @@ class _PlainSegOps:
       death(aux)          -> per-column theta at which the column dies
       finalize(Ydt, A, mu)-> projected output before inside/zero gating
 
-    The plain family has no ``from_colstats`` hook: its aux needs sorted
-    prefix sums, which no streaming sweep can emit.
+    Optional: ``from_colstats(colsum, colmax, w)`` -> aux from streamed
+    per-column statistics, which qualifies a family for the fused
+    optimizer+projection step (``core.engine``). The plain family has no
+    such hook: its aux needs sorted prefix sums, which no streaming sweep
+    can emit.
     """
     @staticmethod
-    def prepare(A):
+    def prepare(A, w=None):
         Z, S, b = _sorted_stats(A)
         return {"S": S, "b": b, "colmax": Z[0], "colsum": S[-1]}
 
@@ -453,9 +457,10 @@ def _segmented_newton(aux, seg_ids: torch.Tensor, C_seg, num_segments: int,
 
 def _segmented_solve(Y: torch.Tensor, seg_ids, C_seg, num_segments: int,
                      theta0: Optional[torch.Tensor], max_iter: int,
-                     ops=None):
+                     ops=None, w_col: Optional[torch.Tensor] = None):
     """Single-buffer segmented Newton solve, family-parametric through
-    ``ops`` (default: plain l1,inf). Returns (X, theta_seg, iters)."""
+    ``ops`` (default: plain l1,inf); ``w_col`` (M,) carries the per-column
+    weights of weight-aware families. Returns (X, theta_seg, iters)."""
     if Y.ndim != 2:
         raise ValueError("packed buffer must be 2-D")
     if ops is None:
@@ -466,8 +471,10 @@ def _segmented_solve(Y: torch.Tensor, seg_ids, C_seg, num_segments: int,
     A = Ydt.abs()
     G = int(num_segments)
     seg_ids = torch.as_tensor(seg_ids, dtype=torch.int32, device=dev)
+    if w_col is not None:
+        w_col = torch.as_tensor(w_col, dtype=dt, device=dev)
 
-    aux = ops.prepare(A)
+    aux = ops.prepare(A, w_col)
     mu, theta_out, iters, inside_seg, zero_seg = _segmented_newton(
         aux, seg_ids, C_seg, G, theta0, max_iter, ops=ops, dt=dt)
 

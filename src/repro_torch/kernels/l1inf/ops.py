@@ -17,7 +17,11 @@ Engine shape (DESIGN.md §3):
     loop and scattered back through the permutation before ``clip_apply``;
   * packed multi-ball (``project_l1inf_kernel_segmented``) — one packed
     (n, M) buffer with a per-column segment id, one ``mu_solve`` launch per
-    Newton step for every segment.
+    Newton step for every segment;
+  * the bi-level family's packed solve
+    (``project_bilevel_kernel_segmented``) — one ``colstats`` sweep, the
+    k = 1 Newton on the (M,) column maxima, one ``clip_apply``: two passes
+    over the buffer and no ``mu_solve``.
 
 The kernels dispatch on the buffer's device (``kernel.py``): on a CPU
 tensor the whole engine runs through their plain versions, which is how
@@ -33,11 +37,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...core.bilevel import _BilevelSegOps
 from ...core.l1inf import (_PAD_THETA, _segment_max, _segment_summer,
-                           active_compaction)
+                           _segmented_newton, active_compaction)
 from .kernel import clip_apply, colstats, mu_solve
 
-__all__ = ["project_l1inf_kernel", "project_l1inf_kernel_segmented"]
+__all__ = ["project_l1inf_kernel", "project_l1inf_kernel_segmented",
+           "project_bilevel_kernel_segmented"]
 
 # Columns per engine block (the nact_blocks granularity). The Pallas engine
 # sized it to fit a VMEM budget; the CUDA mu_solve streams tall columns, so
@@ -216,6 +222,16 @@ def project_l1inf_kernel(Y: torch.Tensor, C, *, theta0=None,
     return X, stats
 
 
+def _gate_segments(Ypad, Xpad, sids, G, inside_seg, zero_seg):
+    """Segments already inside their ball keep Y, segments of radius <= 0
+    go to zero; padding columns (segment id G) keep Y."""
+    col_seg = torch.clamp(sids, max=G)
+    inside_col = torch.cat([inside_seg, inside_seg.new_ones(1)])[col_seg]
+    zero_col = torch.cat([zero_seg, zero_seg.new_zeros(1)])[col_seg]
+    Xpad = torch.where(inside_col[None, :], Ypad, Xpad)
+    return torch.where(zero_col[None, :], torch.zeros_like(Xpad), Xpad)
+
+
 def project_l1inf_kernel_segmented(Y: torch.Tensor, seg_ids, C_seg, *,
                                    num_segments: int, theta0=None,
                                    block_m: int = 0, n_bisect: int = 26,
@@ -247,14 +263,10 @@ def project_l1inf_kernel_segmented(Y: torch.Tensor, seg_ids, C_seg, *,
         Ypad, sids, C_seg, G, th0, bm=bm, n_bisect=n_bisect,
         n_polish=n_polish, max_newton=max_newton, shrink=shrink)
 
-    Xpad = clip_apply(Ypad, mu_full)
     inside_seg = norm_seg <= C_seg
     zero_seg = C_seg <= 0
-    col_seg = torch.clamp(sids, max=G)
-    inside_col = torch.cat([inside_seg, inside_seg.new_ones(1)])[col_seg]
-    zero_col = torch.cat([zero_seg, zero_seg.new_zeros(1)])[col_seg]
-    Xpad = torch.where(inside_col[None, :], Ypad, Xpad)
-    Xpad = torch.where(zero_col[None, :], torch.zeros_like(Xpad), Xpad)
+    Xpad = _gate_segments(Ypad, clip_apply(Ypad, mu_full), sids, G,
+                          inside_seg, zero_seg)
     X = Xpad[:n, :m].to(Y.dtype)
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -265,3 +277,42 @@ def project_l1inf_kernel_segmented(Y: torch.Tensor, seg_ids, C_seg, *,
     if not return_stats:
         return X, theta_out
     return X, theta_out, stats
+
+
+def project_bilevel_kernel_segmented(Y: torch.Tensor, seg_ids, C_seg, *,
+                                     num_segments: int, theta0=None,
+                                     block_m: int = 0, max_newton: int = 32,
+                                     return_stats: bool = False):
+    """Packed multi-ball BI-LEVEL projection (arXiv:2407.16293) on the
+    kernels, with the contract of ``project_l1inf_kernel_segmented``.
+
+    The bi-level Newton state is the (M,) column-max vector of ONE
+    ``colstats`` sweep; each Newton step is an O(M) segment sum on the
+    host loop (one sync), and the only other launch is the final
+    ``clip_apply``. Returns (X, theta_seg) or (X, theta_seg, stats) with
+    ``newton_iters`` and the two-sweep ``work_cols`` / ``full_cols``.
+    """
+    if Y.ndim != 2:
+        raise ValueError("expected a packed 2-D buffer")
+    n, m = Y.shape
+    dev = Y.device
+    G = int(num_segments)
+    f32 = torch.float32
+    C_seg = torch.as_tensor(C_seg, dtype=f32, device=dev)
+    Ypad, _ = _padded(Y, block_m)
+    m_pad = Ypad.shape[1]
+    sids = torch.full((m_pad,), G, dtype=torch.int32, device=dev)
+    sids[:m] = torch.as_tensor(seg_ids, dtype=torch.int32, device=dev)
+    colsum, colmax = colstats(Ypad.to(f32).abs())
+    # the family's own segmented Newton on the streamed maxima, as the
+    # fused step runs it; padding columns carry segment id G
+    mu, theta_out, iters, inside_seg, zero_seg = _segmented_newton(
+        _BilevelSegOps.from_colstats(colsum, colmax), sids, C_seg, G,
+        theta0, max_newton, ops=_BilevelSegOps)
+    Xpad = _gate_segments(Ypad, clip_apply(Ypad, mu), sids, G, inside_seg,
+                          zero_seg)
+    X = Xpad[:n, :m].to(Y.dtype)
+    if not return_stats:
+        return X, theta_out
+    return X, theta_out, {"newton_iters": iters, "work_cols": 2 * m_pad,
+                          "full_cols": m_pad}

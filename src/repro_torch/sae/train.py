@@ -9,11 +9,13 @@ Double descent (Frankle-Carbin style, as adapted by the paper):
              projection kept active.
 
 As in the JAX package, ``train_sae`` builds its engine with
-``solver="fused"``; no ported family streams its statistics, so the plain
-l1,inf constraint runs the packed Newton. ``projected_step`` is the one
-training step (forward, autograd backward, ``projected_update``) and takes
-any engine, e.g. ``solver="kernel"`` to run the projection on the CUDA
-kernels.
+``solver="fused"``: ``norm="l12"`` and ``norm="bilevel"`` specs take the
+fused Adam+projection step on the ``kernels/fused_step`` CUDA kernels,
+the plain and masked l1,inf constraints the packed Newton (the masked
+variant, Eq. 20, trains descent 1 under plain l1,inf and descent 2 on the
+mask alone). ``projected_step`` is the one training step (forward,
+autograd backward, ``projected_update``) and takes any engine, e.g.
+``solver="kernel"`` to run the l1,inf projection on the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -76,8 +78,8 @@ def projected_step(params: Dict[str, Any], opt_state, proj_state, x, y,
 
 def _make_step(cfg: SAEConfig, tcfg: SAETrainConfig, acfg: AdamConfig):
     specs = (tcfg.projection,) if tcfg.projection else ()
-    # "fused" routes every plan as the JAX trainer does (Newton for plain
-    # l1,inf — see the module docstring)
+    # "fused" routes every plan as the JAX trainer does (see the module
+    # docstring)
     engine = ProjectionEngine(specs, solver="fused")
 
     def step(params, opt_state, proj_state, x, y, mask):

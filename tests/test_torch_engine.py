@@ -19,7 +19,6 @@ from repro.core.constraints import leaf_path_str
 from repro.optim import AdamConfig as JAdam, adam_init as jadam_init
 from repro.optim import adam_update as jadam_update
 import repro_torch.core as TC
-from repro_torch.core import l1inf as Tl1inf
 from repro_torch._tree import flatten_with_path
 from repro_torch.convert import opt_state_from_numpy, params_from_numpy
 from repro_torch.optim import AdamConfig as TAdam, adam_init, adam_update
@@ -181,22 +180,43 @@ def test_solver_validation():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TC.ProjectionEngine(_specs(TC), solver=solver)
     with pytest.raises(ValueError):
-        TC.ProjectionSpec(pattern="x", norm="bilevel")    # not ported yet
+        TC.ProjectionSpec(pattern="x", norm="nonsense")   # unregistered
 
 
 def test_fused_branch_is_not_silently_newton(monkeypatch):
-    """A family that streams its statistics would take the fused step;
-    until its kernels are ported the engine says so instead of quietly
-    solving with Newton."""
-    monkeypatch.setattr(Tl1inf._PlainSegOps, "from_colstats",
-                        staticmethod(lambda s, m, w: None), raising=False)
+    """solver="fused" on a family that streams its statistics (bilevel)
+    runs the two fused passes — counted under ``<plan>/fused`` — and never
+    the packed Newton solve."""
+    from repro_torch.kernels.fused_step import ops as fused_ops
+    calls = {"colstats": 0, "clip_apply": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+    monkeypatch.setattr(fused_ops, "fused_adam_colstats",
+                        spy("colstats", fused_ops.fused_adam_colstats))
+    monkeypatch.setattr(fused_ops, "fused_adam_clip_apply",
+                        spy("clip_apply", fused_ops.fused_adam_clip_apply))
+    from repro_torch.core import families as TF
+    monkeypatch.setattr(TF, "_segmented_solve", lambda *a, **kw: (
+        pytest.fail("the fused step ran the packed Newton solve")))
+    import repro_torch.kernels.fused_step as fused_pkg
+    monkeypatch.setattr(fused_pkg, "fused_adam_colstats",
+                        fused_ops.fused_adam_colstats)
+    monkeypatch.setattr(fused_pkg, "fused_adam_clip_apply",
+                        fused_ops.fused_adam_clip_apply)
     P = _np_params(6)
     _, pt = _both(P)
     _, gt = _both(P)
-    et = TC.ProjectionEngine(_specs(TC), solver="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        et.projected_update(gt, adam_init(pt), pt, TAdam(),
-                            state=et.init_state(pt))
+    et = TC.ProjectionEngine(_specs(TC, norm="bilevel"), solver="fused")
+    TC.engine_counters_reset()
+    et.projected_update(gt, adam_init(pt), pt, TAdam(),
+                        state=et.init_state(pt))
+    assert TC.engine_counters() == {"bilevel_packed/k1/fused": 1}
+    assert calls == {"colstats": 2, "clip_apply": 2}      # one per leaf
+    TC.engine_counters_reset()
 
 
 def test_masks_and_reports_match_jax():

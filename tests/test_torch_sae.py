@@ -166,6 +166,50 @@ def test_train_sae_matches_jax_algorithm3():
     assert rt.test_accuracy > 0.75
 
 
+@pytest.mark.parametrize("norm,radius", [("l12", 3.0),
+                                         ("l1inf_masked", 0.35)])
+def test_train_sae_matches_jax_other_norms(norm, radius, monkeypatch):
+    """Paper Table 1's l2,1 and masked rows through ``train_sae`` (the JAX
+    trainer's ``solver="fused"``: the fused step for l12, descent 1 on
+    l1inf and a mask-only descent 2 for l1inf_masked), at the tolerances
+    of the l1inf case above."""
+    X, y, _ = JS.make_classification(
+        n_samples=400, n_features=300, n_informative=12, class_sep=1.5,
+        seed=3)
+    X = (X - X.mean(0)) / (X.std(0) + 1e-6)
+    Xtr, ytr, Xte, yte = JS.train_test_split(X, y, 0.25, seed=0)
+    cfg_j = JS.SAEConfig(n_features=300, n_hidden=32, n_classes=2)
+    cfg_t = TS.SAEConfig(n_features=300, n_hidden=32, n_classes=2)
+    rj = JS.train_sae(Xtr, ytr, Xte, yte, cfg_j, JS.SAETrainConfig(
+        epochs=25, lr=2e-3, seed=0, projection=JC.ProjectionSpec(
+            pattern=r"enc1/w", norm=norm, radius=radius, axis=1)))
+    _, p0 = _carried(cfg_j, seed=0)
+    from repro_torch.kernels.fused_step import kernel as FK
+    masked_calls = []           # per pass-1 call: was a mask handed in?
+    pass1 = FK.adam_colstats
+    monkeypatch.setattr(FK, "adam_colstats", lambda *a, **kw: (
+        masked_calls.append(len(a) > 5 and a[5] is not None), pass1(
+            *a, **kw))[1])
+    TC.engine_counters_reset()
+    rt = TS.train_sae(Xtr, ytr, Xte, yte, cfg_t, TS.SAETrainConfig(
+        epochs=25, lr=2e-3, seed=0, projection=TC.ProjectionSpec(
+            pattern=r"enc1/w", norm=norm, radius=radius, axis=1)),
+        params0=p0, device="cpu")
+    counts = TC.engine_counters()
+    fused = {k for k in counts if k.endswith("/fused")}
+    assert fused == ({"l12_packed/k1/fused"} if norm == "l12" else set())
+    if norm == "l12":    # both descents hand their mask to the kernels
+        assert masked_calls and all(masked_calls)
+    np.testing.assert_array_equal(rt.selected, rj.selected)
+    assert 0 < len(rt.selected) < 300
+    assert abs(rt.test_accuracy - rj.test_accuracy) <= 0.01
+    assert rt.column_sparsity == pytest.approx(rj.column_sparsity)
+    np.testing.assert_allclose(np.asarray(rt.history[1][1]),
+                               np.asarray(rj.history[1][1]), rtol=1e-3)
+    assert rt.compaction_ratio == pytest.approx(rj.compaction_ratio,
+                                                rel=1e-5)
+
+
 def test_train_sae_default_init_and_baseline():
     X, y, _ = TS.make_classification(n_samples=200, n_features=64,
                                       n_informative=8, class_sep=1.5, seed=5)

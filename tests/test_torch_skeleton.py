@@ -49,6 +49,10 @@ def test_every_module_listed():
     names = _modules()
     for want in ("repro_torch._build", "repro_torch.convert",
                  "repro_torch.core.engine", "repro_torch.kernels.l1inf.ops",
+                 "repro_torch.kernels.fused_step.ops",
+                 "repro_torch.core.l12", "repro_torch.core.bilevel",
+                 "repro_torch.core.masked", "repro_torch.core.hoyer",
+                 "repro_torch.core.weighted",
                  "repro_torch.sae.train", "repro_torch.optim.schedule"):
         assert want in names
 
@@ -62,21 +66,27 @@ def _imports(tree):
             yield node.module or ""
 
 
+# the port's own scripts, which must not import JAX or the JAX package
+_SCRIPTS = [os.path.join(os.path.dirname(_SRC), f)
+            for f in ("chip_smoke.py", os.path.join("scripts",
+                                                    "torch_profile.py"))]
+
+
 def test_no_jax_or_repro_import_in_source():
     """AST scan: no absolute import of jax or repro anywhere in the
-    package (relative imports stay inside repro_torch)."""
+    package (relative imports stay inside repro_torch), in chip_smoke.py
+    or in scripts/torch_profile.py."""
+    paths = [os.path.join(d, f) for d, _, files in os.walk(_PKG)
+             for f in files if f.endswith(".py")] + _SCRIPTS
+    assert all(os.path.exists(p) for p in _SCRIPTS), _SCRIPTS
     bad = []
-    for dirpath, _, files in os.walk(_PKG):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(dirpath, f)
-            with open(path) as fh:
-                tree = ast.parse(fh.read(), path)
-            for name in _imports(tree):
-                root = name.split(".")[0]
-                if root in ("jax", "jaxlib", "repro"):
-                    bad.append((path, name))
+    for path in paths:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for name in _imports(tree):
+            root = name.split(".")[0]
+            if root in ("jax", "jaxlib", "repro"):
+                bad.append((path, name))
     assert not bad, bad
 
 
