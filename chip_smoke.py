@@ -54,10 +54,44 @@ and prints no result. Phases:
   5b. train_sae_table1 — ``train_sae`` with ``norm="l12"`` (radius 10) and
                ``norm="l1inf_masked"`` (radius 0.1), paper Table 1's two
                other rows, 2 epochs of each descent at lr 2e-3.
-  6. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+  6. attn_kernels — the flash attention kernel against its plain version
+               (f32 atol = rtol 2e-5, bf16 3e-2: the JAX suite's tolerances)
+               at hymba-1.5b's prefill (B 2, S 2048, 25 heads, 5 KV heads,
+               hd 64, causal, window 1024) in f32 and bf16, and at small
+               shapes: causal, non-causal, tail lengths, hd 80 / 128 / 256
+               with and without a window; a rerun bit-equal. At the hymba
+               shape: device ms (L2 warm and flushed), the plain version's
+               ms, and ``scaled_dot_product_attention`` with the window mask
+               and ``enable_gqa`` as the library yardstick.
+  7. ssd_kernels — the SSD kernel against its plain version (atol = rtol
+               2e-4) and against the naive recurrence ``ssd_ref`` (2e-4 of
+               the output's scale), y and final state, at hymba-1.5b's shape
+               (BH 100, S 2048, P 64, N 16, chunk 64) with dt in [3, 20], as
+               the reference's full-width weights give (ROADMAP C-5), and at
+               mamba2-370m's (BH 64, N 128) with large and small dt; no NaN;
+               a rerun bit-equal; a small bf16 case. Times as in phase 6 (no
+               single PyTorch call computes SSD: library null).
+  8. lm_forward — this slice's main path: ``build(get_config("hymba-1.5b"))``
+               at full width and depth (32 layers, 1.59 B params), params
+               from ``Model.init`` in f32 and then bf16, ``forward`` on a
+               (2, 2048) batch: logits finite, each kernel launched exactly
+               32 times (counts reset just before, read just after), wall ms
+               per forward, peak memory, a one-forward ``torch.profiler``
+               trace (top device ops, device idle share); mamba2-370m at
+               full config (48 SSD launches); hymba at full width and depth
+               2, B 1: the card's forward (kernels) against the same forward
+               on CPU copies (plain versions), max |diff| within the model's
+               noise floor (see PERTURB).
+  9. lm_decode — depth 2, full width: a 1152-token prompt (longer than the
+               1024 window) stepped through ``decode_step`` on the card, its
+               logits against the forward's at every position, within the
+               noise floor; full depth: a 64-token prompt the same way for
+               B 2, then 8 greedy tokens, and one traced decode step.
+ 10. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -68,6 +102,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 SHAPES = {"sae_enc1": (96, 10112), "fig2_wide": (1000, 10112),
           "fig2_tall": (10000, 1024)}
 SOURCE = "src/repro_torch/csrc/l1inf.cu"
@@ -85,6 +120,39 @@ FUSED_SHAPES = {"sae_enc1": ((1, 10000, 96), True),
 # enc1/w radius of each norm the SAE runs here (paper Table 1's eta for
 # l12; scripts/torch_profile.py reads this table too)
 RADIUS = {"l1inf": 0.2, "l12": 10.0, "bilevel": 0.1, "l1inf_masked": 0.1}
+LM_SOURCE = {"flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
+             "ssd_fwd": "src/repro_torch/csrc/ssd.cu"}
+LM_REPLACES = {
+    "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:78",
+    "ssd_fwd": "src/repro/kernels/ssd/kernel.py:75"}
+# (name, B, H, KV, S, head_dim, causal, window); the first is hymba-1.5b's
+# prefill, the one the kernels line reports
+ATTN_SHAPES = [("hymba_prefill", 2, 25, 5, 2048, 64, True, 1024),
+               ("causal", 1, 8, 2, 512, 64, True, 0),
+               ("non_causal", 1, 8, 8, 384, 64, False, 0),
+               ("tail_hd80", 1, 8, 8, 200, 80, True, 0),
+               ("tail_hd128", 1, 8, 2, 300, 128, True, 0),
+               ("window_hd256", 1, 8, 4, 520, 256, True, 128)]
+# (name, B, heads per group, S, P, N, chunk, dt range, dtype); the first is
+# hymba-1.5b's, the one the kernels line reports
+SSD_SHAPES = [("hymba", 2, 50, 2048, 64, 16, 64, (3.0, 20.0), "float32"),
+              ("mamba2", 2, 32, 2048, 64, 128, 64, (3.0, 20.0), "float32"),
+              ("mamba2_small_dt", 2, 32, 2048, 64, 128, 64, (0.05, 0.6),
+               "float32"),
+              ("small_bf16", 2, 4, 256, 64, 32, 64, (0.05, 0.6), "bfloat16")]
+# the LM phases: models, batch and the cuts of the comparison phases
+LM = dict(arch="hymba-1.5b", ssm_arch="mamba2-370m", batch=2, seq=2048,
+          cut_depth=2, decode_prompt=1152, full_prompt=64, greedy=8)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SSD_TOL = 2e-4
+# At the reference's full-width init (ROADMAP C-5) the model amplifies f32
+# rounding about a thousandfold, so the LM comparisons are held to the
+# model's own noise floor, measured in the same run: how far the logits move
+# when every weight is multiplied by (1 + PERTURB * N(0, 1)), about ten f32
+# ulps. A comparison passes within that floor and within 1e-2 of the
+# logits' scale.
+PERTURB = 1e-6
+LM_MAX_REL = 1e-2
 FAILURES = []
 
 
@@ -168,6 +236,381 @@ def wall_ms(torch, fn, reps=5):
 def bits_equal(torch, a, b):
     view = torch.int32 if a.dtype == torch.float32 else torch.int16
     return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def _dtype(torch, name):
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _pairs(S, causal, window):
+    """Unmasked (query, key) pairs of one head."""
+    i = np.arange(S)[:, None]
+    j = np.arange(S)[None, :]
+    mask = np.ones((S, S), bool)
+    if causal:
+        mask &= i >= j
+    if window:
+        mask &= (i - j) < window
+    return int(mask.sum()), mask
+
+
+def _profile(torch, fn):
+    """One traced call: top device ops, device busy ms and idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return float(getattr(e, attr))
+        return 0.0
+
+    rows = sorted(((e.key, e.count, dev_us(e)) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                  key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows) / 1e3
+    return {"wall_ms": wall, "device_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "top_device": [{"name": r[0][:80], "calls": r[1],
+                            "device_ms": r[2] / 1e3} for r in rows[:10]]}
+
+
+def attn_kernel_phase(torch, FA, dev, flush, shapes=ATTN_SHAPES):
+    """Phase 6; returns the kernels-line row of the first shape (f32)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(11)
+    err, row = 0.0, None
+    for name, B, H, KV, S, hd, causal, window in shapes:
+        kw = dict(groups=H // KV, causal=causal, window=window)
+        pairs, mask = _pairs(S, causal, window)
+        line = {"phase": "attn_kernels", "shape": name, "B": B, "H": H,
+                "KV": KV, "S": S, "head_dim": hd, "causal": causal,
+                "window": window}
+        for dname in ("float32", "bfloat16"):
+            dt = _dtype(torch, dname)
+            q = torch.randn((B * H, S, hd), generator=g, device=dev).to(dt)
+            k = torch.randn((B * KV, S, hd), generator=g, device=dev).to(dt)
+            v = torch.randn((B * KV, S, hd), generator=g, device=dev).to(dt)
+            out = FA.flash_attention_fwd(q, k, v, **kw)
+            plain = FA.flash_attention_fwd_plain(q, k, v, **kw)
+            tol = FLASH_TOL[dname]
+            e = float((out.float() - plain.float()).abs().max())
+            check(bool(torch.isfinite(out).all()), f"flash {name} {dname}: "
+                  "non-finite output")
+            check(torch.allclose(out.float(), plain.float(), atol=tol,
+                                 rtol=tol), f"flash {name} {dname}: "
+                  f"kernel vs plain max err {e}")
+            check(bits_equal(torch, out, FA.flash_attention_fwd(q, k, v,
+                                                                **kw)),
+                  f"flash {name} {dname}: rerun not bit-equal")
+            err = max(err, e)
+            line[f"max_abs_err_{dname}"] = e
+            if name != shapes[0][0]:
+                continue
+            size = q.element_size()
+            nbytes = 2 * q.numel() * size + 2 * k.numel() * size
+            ops = 4 * hd * pairs * B * H
+            peak = F32_OPS_PER_S if dname == "float32" else BF16_OPS_PER_S
+            bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (ops / peak * 1e3, "operations"))
+            qs, ks, vs = (t.view(B, -1, S, hd) for t in (q, k, v))
+            mk = torch.from_numpy(mask).to(dev)
+            lib = lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mk, enable_gqa=True)
+            lib_err = float((lib().reshape(B * H, S, hd).float()
+                             - out.float()).abs().max())
+            t = {"ms": time_ms(torch, lambda: FA.flash_attention_fwd(
+                q, k, v, **kw)),
+                 "ms_l2_flushed": time_cold_ms(
+                     torch, lambda: FA.flash_attention_fwd(q, k, v, **kw),
+                     flush),
+                 "plain_ms": time_ms(torch, lambda: FA.flash_attention_fwd_plain(
+                     q, k, v, **kw), budget_ms=300.0),
+                 "bound_ms": bound[0], "bound_by": bound[1],
+                 "library_ms": time_ms(torch, lib),
+                 "library_max_abs_err": lib_err,
+                 "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+            line[dname] = t
+            if dname == "float32":
+                row = dict(t)
+        emit(line)
+    q = torch.ones((2, 8, 32), device=dev)
+    try:
+        FA.flash_attention_fwd(q, q, q)
+        check(False, "flash kernel took head_dim 32")
+    except ValueError:
+        pass
+    row.update(max_abs_err=err)
+    return row
+
+
+def ssd_kernel_phase(torch, SK, Sref, dev, flush, shapes=SSD_SHAPES):
+    """Phase 7; returns the kernels-line row of the first shape."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    err, row = 0.0, None
+    for name, BG, groups, S, P, N, Q, (lo, hi), dname in shapes:
+        BH = BG * groups
+        dt_ = _dtype(torch, dname)
+        x = torch.randn((BH, S, P), generator=g, device=dev).to(dt_)
+        dt = (torch.rand((BH, S), generator=g, device=dev) * (hi - lo)
+              + lo).to(dt_)
+        # a = -exp(A_log): A_log starts at 0 in Model.init, so a = -1
+        a = -torch.exp(torch.rand((BH,), generator=g, device=dev) - 0.5)
+        d = torch.ones((BH,), device=dev)
+        Bm = (torch.randn((BG, S, N), generator=g, device=dev) * 2).to(dt_)
+        Cm = (torch.randn((BG, S, N), generator=g, device=dev) * 2).to(dt_)
+        args = (x, dt, a, d, Bm, Cm)
+        kw = dict(chunk=Q, groups=groups)
+        y, st = SK.ssd_fwd(*args, **kw)
+        yp, stp = SK.ssd_fwd_plain(*args, **kw)
+        yr, str_ = Sref.ssd_ref(*args, groups=groups)
+        tol = SSD_TOL if dname == "float32" else FLASH_TOL[dname]
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+        check(finite, f"ssd {name}: NaN or inf in y or the state")
+        e = max(float((y.float() - yp.float()).abs().max()),
+                float((st - stp).abs().max()))
+        check(torch.allclose(y.float(), yp.float(), atol=tol, rtol=tol)
+              and torch.allclose(st, stp, atol=tol, rtol=tol),
+              f"ssd {name}: kernel vs plain max err {e}")
+        scale = max(1.0, float(yr.float().abs().max()))
+        sscale = max(1.0, float(str_.abs().max()))
+        e_ref = float((y.float() - yr.float()).abs().max())
+        e_sref = float((st - str_).abs().max())
+        check(e_ref <= tol * scale and e_sref <= tol * sscale,
+              f"ssd {name}: kernel vs ssd_ref {e_ref} (scale {scale}), "
+              f"state {e_sref} (scale {sscale})")
+        y2, st2 = SK.ssd_fwd(*args, **kw)
+        check(bits_equal(torch, y, y2) and bits_equal(torch, st, st2),
+              f"ssd {name}: rerun not bit-equal")
+        err = max(err, e)
+        size = x.element_size()
+        nbytes = (2 * x.numel() + dt.numel() + 2 * Bm.numel()) * size \
+            + (2 * BH + BH * P * N) * 4
+        tri = Q * (Q + 1) // 2
+        ops = (S // Q) * BH * (2 * tri * (N + P) + 4 * Q * P * N)
+        bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (ops / F32_OPS_PER_S * 1e3, "operations"))
+        line = {"phase": "ssd_kernels", "shape": name, "BH": BH, "S": S,
+                "P": P, "N": N, "chunk": Q, "dt_range": [lo, hi],
+                "dtype": dname, "finite": finite, "max_abs_err_vs_plain": e,
+                "max_abs_err_vs_ref": e_ref, "ref_scale": scale,
+                "state_max_abs_err_vs_ref": e_sref}
+        if dname == "float32":
+            line.update({
+                "ms": time_ms(torch, lambda: SK.ssd_fwd(*args, **kw)),
+                "ms_l2_flushed": time_cold_ms(
+                    torch, lambda: SK.ssd_fwd(*args, **kw), flush),
+                "plain_ms": time_ms(torch, lambda: SK.ssd_fwd_plain(
+                    *args, **kw), budget_ms=300.0),
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None, "gflop": ops / 1e9,
+                "mbytes": nbytes / 1e6})
+            if row is None:
+                row = {k: line[k] for k in ("ms", "ms_l2_flushed",
+                                            "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}
+        emit(line)
+    row.update(max_abs_err=err)
+    return row
+
+
+def _noise_floor(torch, model, params, batch, logits, V, seed):
+    """max |logits(P * (1 + PERTURB * eps)) - logits(P)| over the true
+    vocab: how far weight changes of about ten f32 ulps move this model."""
+    from repro_torch._tree import tree_map
+    g = torch.Generator(device=logits.device).manual_seed(seed)
+    pert = tree_map(lambda a: a * (1 + PERTURB * torch.randn(
+        a.shape, generator=g, device=a.device)), params)
+    moved, _ = model.forward(pert, batch)
+    return float((moved[..., :V] - logits[..., :V]).abs().max())
+
+
+def _lm_counts(FA, SK):
+    return {**FA.launch_counts(), **SK.launch_counts()}
+
+
+def _lm_reset(FA, SK):
+    FA.reset_launch_counts()
+    SK.reset_launch_counts()
+
+
+def lm_forward_phase(torch, Z, C, FA, SK, dev, lm=LM):
+    """Phase 8, the main path; returns the launches of one hymba forward."""
+    from repro_torch._tree import tree_map
+    cfg = C.get_config(lm["arch"])
+    model = Z.build(cfg)
+    B, S = lm["batch"], lm["seq"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    main_launches = None
+    for dname in ("float32", "bfloat16"):
+        params = model.init(generator=torch.Generator(device=dev).manual_seed(
+            0), dtype=_dtype(torch, dname), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lm_reset(FA, SK)
+        logits, aux = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        launched = _lm_counts(FA, SK)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if dname == "float32":
+            main_launches = dict(launched)
+        check(launched == {"flash_attention_fwd": cfg.n_layers,
+                           "ssd_fwd": cfg.n_layers},
+              f"{cfg.name} {dname} forward launches {launched}, want "
+              f"{cfg.n_layers} of each kernel")
+        valid = logits[..., :cfg.vocab].float()
+        finite = bool(torch.isfinite(valid).all())
+        check(finite and logits.shape == (B, S, cfg.vocab_padded)
+              and logits.dtype == _dtype(torch, dname),
+              f"{cfg.name} {dname} logits: finite {finite}, shape "
+              f"{tuple(logits.shape)}, dtype {logits.dtype}")
+        line = {"phase": "lm_forward", "arch": cfg.name, "dtype": dname,
+                "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                "n_params": model.n_params(), "batch": B, "seq": S,
+                "launches": launched, "logits_finite": finite,
+                "logits_abs_max": float(valid.abs().max()),
+                "peak_memory_gb": peak_gb,
+                "wall_ms_per_forward": wall_ms(
+                    torch, lambda: model.forward(params, {"tokens": tokens}),
+                    reps=3)}
+        line["profile"] = _profile(
+            torch, lambda: model.forward(params, {"tokens": tokens}))
+        emit(line)
+        del params, logits, valid
+        torch.cuda.empty_cache()
+
+    scfg = C.get_config(lm["ssm_arch"])
+    smodel = Z.build(scfg)
+    sparams = smodel.init(generator=torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    stokens = torch.randint(0, scfg.vocab, (B, S), generator=gen, device=dev)
+    _lm_reset(FA, SK)
+    slogits, _ = smodel.forward(sparams, {"tokens": stokens})
+    torch.cuda.synchronize()
+    launched = _lm_counts(FA, SK)
+    check(launched == {"flash_attention_fwd": 0, "ssd_fwd": scfg.n_layers},
+          f"{scfg.name} forward launches {launched}")
+    finite = bool(torch.isfinite(slogits[..., :scfg.vocab]).all())
+    check(finite, f"{scfg.name} logits not finite")
+    emit({"phase": "lm_forward", "arch": scfg.name, "dtype": "float32",
+          "n_layers": scfg.n_layers, "n_params": smodel.n_params(),
+          "batch": B, "seq": S, "launches": launched,
+          "logits_finite": finite,
+          "wall_ms_per_forward": wall_ms(
+              torch, lambda: smodel.forward(sparams, {"tokens": stokens}),
+              reps=3)})
+    del sparams, slogits
+    torch.cuda.empty_cache()
+
+    # full width, depth cut: the card's forward against the CPU's
+    dcfg = dataclasses.replace(cfg, n_layers=lm["cut_depth"])
+    dmodel = Z.build(dcfg)
+    dparams = dmodel.init(generator=torch.Generator(device=dev).manual_seed(
+        1), device=dev)
+    dtok = tokens[:1]
+    _lm_reset(FA, SK)
+    on_card, _ = dmodel.forward(dparams, {"tokens": dtok})
+    torch.cuda.synchronize()
+    launched = _lm_counts(FA, SK)
+    cpu_params = tree_map(lambda t: t.cpu(), dparams)
+    t = time.perf_counter()
+    on_cpu, _ = dmodel.forward(cpu_params, {"tokens": dtok.cpu()})
+    cpu_s = time.perf_counter() - t
+    V = dcfg.vocab
+    ref = on_cpu[..., :V]
+    scale = float(ref.abs().max())
+    diff = float((on_card[..., :V].cpu() - ref).abs().max())
+    noise = _noise_floor(torch, dmodel, dparams, {"tokens": dtok}, on_card,
+                         V, seed=4)
+    check(launched == {"flash_attention_fwd": dcfg.n_layers,
+                       "ssd_fwd": dcfg.n_layers},
+          f"depth-{dcfg.n_layers} forward launches {launched}")
+    check(diff <= noise and diff <= LM_MAX_REL * scale,
+          f"depth-{dcfg.n_layers} forward: card vs CPU max diff {diff}, "
+          f"noise floor {noise}, scale {scale}")
+    emit({"phase": "lm_forward", "arch": cfg.name, "check": "card_vs_cpu",
+          "n_layers": dcfg.n_layers, "batch": 1, "seq": S,
+          "launches": launched, "max_abs_diff": diff, "logits_scale": scale,
+          "rel_diff": diff / max(scale, 1e-30), "noise_floor": noise,
+          "noise_rel": noise / max(scale, 1e-30), "perturb": PERTURB,
+          "cpu_forward_s": cpu_s})
+    return main_launches
+
+
+def _decode_all(torch, model, params, tokens, smax):
+    """Step every prompt position through decode_step; (logits (B, S, V),
+    cache, mean wall ms per step)."""
+    B, S = tokens.shape
+    cache = model.init_cache(B, smax, dtype=torch.float32,
+                             device=tokens.device)
+    outs = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(S):
+        lg, cache = model.decode(params, cache, tokens[:, i:i + 1], i)
+        outs.append(lg)
+    torch.cuda.synchronize()
+    return torch.cat(outs, dim=1), cache, (time.perf_counter() - t) * 1e3 / S
+
+
+def lm_decode_phase(torch, Z, C, FA, SK, dev, lm=LM):
+    """Phase 9: decode_step against forward, then greedy tokens."""
+    cfg = C.get_config(lm["arch"])
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for depth, B, S, greedy in ((lm["cut_depth"], 1, lm["decode_prompt"], 0),
+                                (cfg.n_layers, lm["batch"],
+                                 lm["full_prompt"], lm["greedy"])):
+        dcfg = dataclasses.replace(cfg, n_layers=depth)
+        model = Z.build(dcfg)
+        params = model.init(generator=torch.Generator(device=dev).manual_seed(
+            3), device=dev)
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device=dev)
+        _lm_reset(FA, SK)
+        full, _ = model.forward(params, {"tokens": tokens})
+        launched = _lm_counts(FA, SK)
+        steps, cache, step_ms = _decode_all(torch, model, params, tokens,
+                                            S + greedy + 1)
+        V = cfg.vocab
+        scale = float(full[..., :V].abs().max())
+        diff = float((steps[..., :V] - full[..., :V]).abs().max())
+        noise = _noise_floor(torch, model, params, {"tokens": tokens}, full,
+                             V, seed=5)
+        check(diff <= noise and diff <= LM_MAX_REL * scale,
+              f"decode vs forward, depth {depth}: max diff {diff}, noise "
+              f"floor {noise}, scale {scale}")
+        line = {"phase": "lm_decode", "arch": cfg.name, "n_layers": depth,
+                "batch": B, "prompt": S, "window": cfg.window,
+                "forward_launches": launched, "max_abs_diff": diff,
+                "logits_scale": scale, "rel_diff": diff / max(scale, 1e-30),
+                "noise_floor": noise, "noise_rel": noise / max(scale, 1e-30),
+                "decode_ms_per_step": step_ms}
+        if greedy:
+            nxt = steps[:, -1, :V].argmax(dim=-1, keepdim=True)
+            out = []
+            for i in range(greedy):
+                out.append(nxt)
+                lg, cache = model.decode(params, cache, nxt, S + i)
+                check(bool(torch.isfinite(lg[..., :V]).all()),
+                      f"greedy step {i}: non-finite logits")
+                nxt = lg[:, -1, :V].argmax(dim=-1, keepdim=True)
+            gen_tok = torch.cat(out, dim=1)
+            check(bool(((gen_tok >= 0) & (gen_tok < V)).all()),
+                  "greedy tokens out of range")
+            line["greedy_tokens"] = gen_tok.tolist()
+            line["decode_step_profile"] = _profile(
+                torch, lambda: model.decode(params, cache, nxt, S + greedy))
+        emit(line)
+        del params, cache
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -599,13 +1042,24 @@ def main():
               "column_sparsity_pct": res.column_sparsity, "seconds": sec,
               "launches": launched, "history": res.history})
 
-    # -- 6. result -------------------------------------------------------------
+    # -- 6.-9. this slice: the LM zoo's hybrid path ----------------------------
+    from repro_torch import configs as C
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd import ref as Sref
+    from repro_torch.models import zoo as Z
+    attn_row = attn_kernel_phase(torch, FA, dev, flush)
+    ssd_row = ssd_kernel_phase(torch, SK, Sref, dev, flush)
+    lm_launches = lm_forward_phase(torch, Z, C, FA, SK, dev)
+    lm_decode_phase(torch, Z, C, FA, SK, dev)
+
+    # -- 10. result ------------------------------------------------------------
     if FAILURES:
         print(json.dumps({"failures": FAILURES}), file=sys.stderr)
         return 1
     sae = timing["sae_enc1"]
     fsae = ftiming["sae_enc1"]
-    # every row at sae_enc1: ms with inputs L2-warm, ms_l2_flushed with L2
+    # rows 1-5 at sae_enc1: ms with inputs L2-warm, ms_l2_flushed with L2
     # flushed before each call (the one to hold against the HBM bound: the
     # inputs fit in L2); no single PyTorch call computes either fused
     # pass, so their library_ms is null
@@ -622,7 +1076,13 @@ def main():
          "ms_l2_flushed": fsae[k][1], "plain_ms": fsae[k][2],
          "bound_ms": fsae[k][3][0], "bound_by": fsae[k][3][1],
          "library_ms": None}
-        for k in FUSED_REPLACES]})
+        for k in FUSED_REPLACES] + [
+        # this slice's rows at hymba-1.5b's shapes (f32), launches per
+        # full-depth hymba forward
+        {"name": k, "route": "cuda", "source": LM_SOURCE[k],
+         "replaces": LM_REPLACES[k], "launches": lm_launches[k], **row}
+        for k, row in (("flash_attention_fwd", attn_row),
+                       ("ssd_fwd", ssd_row))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,8 @@
+"""The LM zoo: layers, attention (flash kernel), Mamba2 SSD (SSD kernel),
+pattern-built stacks with ``forward`` and ``decode_step``, and ``build``."""
+from .param import PM, is_pm, materialize, stack_layout, count_params
+from .transformer import (ArchConfig, block_layout, block_apply_full,
+                          model_layout, forward, init_cache, decode_step,
+                          cache_max_len)
+from .zoo import (SHAPES, Model, build, cell_supported, make_batch,
+                  reduce_config)

@@ -1,0 +1,147 @@
+"""Mamba2 SSD (state-space duality) block — full-sequence chunked scan +
+recurrent single-token decode. [arXiv:2405.21060]
+
+Recurrence (per head h, head dim P, state dim N):
+    h_t = exp(a_h dt_t) h_{t-1} + dt_t B_t x_t^T       (h_t in R^{P x N})
+    y_t = h_t C_t + D_h x_t
+The full-sequence form runs the chunked scan through
+``kernels.ssd.ssd_attention``: the hand-written CUDA kernel when the
+tensors are on the card, its plain PyTorch version on the CPU (the JAX
+package's model runs a jnp chunked scan here and keeps the Pallas kernel
+as the TPU drop-in for the same math).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .param import PM
+from .layers import rmsnorm_apply
+from .._device import resolve_device
+from ..kernels.ssd.ops import ssd_attention
+
+__all__ = ["CONV_W", "ssm_layout", "ssd_apply", "ssm_init_cache",
+           "ssd_decode"]
+
+CONV_W = 4  # causal depthwise conv width
+
+
+def ssm_layout(d: int, d_inner: int, n_state: int, headdim: int):
+    H = d_inner // headdim
+    return {
+        "wz": PM((d, d_inner), ("fsdp", "mlp"), init="scaled"),
+        "wx": PM((d, d_inner), ("fsdp", "mlp"), init="scaled"),
+        "wB": PM((d, n_state), ("fsdp", None), init="scaled"),
+        "wC": PM((d, n_state), ("fsdp", None), init="scaled"),
+        "wdt": PM((d, H), ("fsdp", None), init="scaled"),
+        "dt_bias": PM((H,), (None,), init="zeros"),
+        "A_log": PM((H,), (None,), init="zeros"),
+        "D": PM((H,), (None,), init="ones"),
+        "conv_x": PM((CONV_W, d_inner), (None, "mlp"), init="scaled"),
+        "conv_B": PM((CONV_W, n_state), (None, None), init="scaled"),
+        "conv_C": PM((CONV_W, n_state), (None, None), init="scaled"),
+        "norm": PM((d_inner,), (None,), init="ones"),
+        "wo": PM((d_inner, d), ("mlp", "fsdp"), init="scaled"),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, width CONV_W. x: (B, S, D); w: (CONV_W, D)."""
+    pad = F.pad(x, (0, 0, CONV_W - 1, 0))
+    out = sum(pad[:, i:i + x.shape[1]] * w[i] for i in range(CONV_W))
+    return F.silu(out)
+
+
+def _causal_conv_step(x_new, tail, w):
+    """x_new: (B, 1, D); tail: (B, CONV_W-1, D) previous inputs."""
+    window = torch.cat([tail, x_new], dim=1)             # (B, CONV_W, D)
+    out = torch.einsum("bwd,wd->bd", window, w)[:, None]
+    return F.silu(out), window[:, 1:]
+
+
+def _ssd_inputs(params, u):
+    """u: (B, S, d) -> z, x (B,S,d_inner), B/C (B,S,N), dt_raw (B,S,H)."""
+    z = u @ params["wz"]
+    x = u @ params["wx"]
+    Bm = u @ params["wB"]
+    Cm = u @ params["wC"]
+    dt_raw = u @ params["wdt"]
+    return z, x, Bm, Cm, dt_raw
+
+
+def _softplus(v: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: logaddexp(v, 0)."""
+    return torch.logaddexp(v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+def ssd_apply(params, u: torch.Tensor, *, headdim: int, chunk: int = 64,
+              tile_bf16: bool = False) -> torch.Tensor:
+    """Full-sequence SSD block. u: (B, S, d), S a multiple of ``chunk``.
+
+    dt = softplus(dt_raw + dt_bias) in f32; the intra-chunk, inter-chunk
+    and D x terms come from ``ssd_attention`` (kernel on the card) on f32
+    x, dt, B and C; then the gated RMSNorm (eps 1e-6) and ``wo``."""
+    if tile_bf16:
+        raise NotImplementedError(
+            "ssd_bf16 (bf16 SSD tile intermediates) is not ported: no config "
+            "sets it, and the SSD kernel computes its tiles in f32")
+    B_, S, d = u.shape
+    z, x, Bm, Cm, dt_raw = _ssd_inputs(params, u)
+    x = _causal_conv(x, params["conv_x"])
+    Bm = _causal_conv(Bm, params["conv_B"])
+    Cm = _causal_conv(Cm, params["conv_C"])
+
+    H = params["A_log"].shape[0]
+    xh = x.reshape(B_, S, H, headdim).float()
+    dt = _softplus(dt_raw.float() + params["dt_bias"].float())     # (B,S,H)
+    y = ssd_attention(xh, dt, params["A_log"], params["D"], Bm.float(),
+                      Cm.float(), chunk=chunk)
+    y = y.reshape(B_, S, H * headdim).to(u.dtype)
+
+    # gated output norm (mamba2: RMSNorm(y * silu(z)))
+    y = rmsnorm_apply({"scale": params["norm"]}, y * F.silu(z))
+    return y @ params["wo"]
+
+
+def ssm_init_cache(B: int, d_inner: int, n_state: int, headdim: int,
+                   dtype=torch.float32, device=None):
+    """Zeroed decode cache on ``device`` (the card when None)."""
+    dev = resolve_device(device)
+    H = d_inner // headdim
+    return {
+        "state": torch.zeros((B, H, headdim, n_state), dtype=torch.float32,
+                             device=dev),
+        "conv_x": torch.zeros((B, CONV_W - 1, d_inner), dtype=dtype,
+                              device=dev),
+        "conv_B": torch.zeros((B, CONV_W - 1, n_state), dtype=dtype,
+                              device=dev),
+        "conv_C": torch.zeros((B, CONV_W - 1, n_state), dtype=dtype,
+                              device=dev),
+    }
+
+
+def ssd_decode(params, u, cache, *, headdim: int):
+    """Single-token recurrent step. u: (B, 1, d). Returns (y, new_cache)."""
+    B_ = u.shape[0]
+    z, x, Bm, Cm, dt_raw = _ssd_inputs(params, u)
+    x, conv_x = _causal_conv_step(x, cache["conv_x"], params["conv_x"])
+    Bm, conv_B = _causal_conv_step(Bm, cache["conv_B"], params["conv_B"])
+    Cm, conv_C = _causal_conv_step(Cm, cache["conv_C"], params["conv_C"])
+
+    H = params["A_log"].shape[0]
+    xh = x.reshape(B_, H, headdim).float()
+    dt = _softplus(dt_raw[:, 0].float() + params["dt_bias"].float())  # (B,H)
+    a = -torch.exp(params["A_log"].float())
+    decay = torch.exp(dt * a[None, :])                              # (B,H)
+
+    state = cache["state"]                                           # (B,H,P,N)
+    state = (state * decay[:, :, None, None]
+             + torch.einsum("bh,bn,bhp->bhpn", dt, Bm[:, 0].float(), xh))
+    y = torch.einsum("bhpn,bn->bhp", state, Cm[:, 0].float())
+    y = y + params["D"].float()[None, :, None] * xh
+    y = y.reshape(B_, 1, H * headdim).to(u.dtype)
+    y = rmsnorm_apply({"scale": params["norm"]}, y * F.silu(z))
+    y = y @ params["wo"]
+    new_cache = {"state": state, "conv_x": conv_x, "conv_B": conv_B,
+                 "conv_C": conv_C}
+    return y, new_cache

@@ -14,6 +14,8 @@ import torch
 import repro_torch
 from repro_torch.convert import opt_state_from_numpy, params_from_numpy
 from repro_torch.kernels.l1inf import kernel as K
+from repro_torch.configs import get_reduced
+from repro_torch.models import build, make_batch
 from repro_torch.sae import SAEConfig, SAETrainConfig, sae_init, train_sae
 
 _PKG = os.path.dirname(repro_torch.__file__)
@@ -53,7 +55,10 @@ def test_every_module_listed():
                  "repro_torch.core.l12", "repro_torch.core.bilevel",
                  "repro_torch.core.masked", "repro_torch.core.hoyer",
                  "repro_torch.core.weighted",
-                 "repro_torch.sae.train", "repro_torch.optim.schedule"):
+                 "repro_torch.sae.train", "repro_torch.optim.schedule",
+                 "repro_torch.models.zoo", "repro_torch.configs",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.ssd.ops"):
         assert want in names
 
 
@@ -100,8 +105,10 @@ _TREE = {"enc1": {"w": np.ones((3, 2), np.float32)}}
 
 @pytest.mark.parametrize("entry", ["resolve_device", "sae_init",
                                    "params_from_numpy",
-                                   "opt_state_from_numpy", "train_sae"])
+                                   "opt_state_from_numpy", "train_sae",
+                                   "model_init", "init_cache", "make_batch"])
 def test_entry_point_without_device_raises(no_cuda, entry):
+    model = build(get_reduced("hymba_15b"))
     calls = {
         "resolve_device": lambda: repro_torch.resolve_device(),
         "sae_init": lambda: sae_init(SAEConfig(n_features=4, n_hidden=2),
@@ -113,6 +120,9 @@ def test_entry_point_without_device_raises(no_cuda, entry):
             np.ones((4, 3), np.float32), np.zeros(4, np.int64),
             np.ones((2, 3), np.float32), np.zeros(2, np.int64),
             SAEConfig(n_features=3, n_hidden=2), SAETrainConfig(epochs=1)),
+        "model_init": lambda: model.init(torch.Generator()),
+        "init_cache": lambda: model.init_cache(2, 8),
+        "make_batch": lambda: make_batch(model.cfg, 2, 8),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
