@@ -60,25 +60,30 @@ and prints no result. Phases:
                hd 64, causal, window 1024) in f32 and bf16, and at small
                shapes: causal, non-causal, tail lengths, hd 80 / 128 / 256
                with and without a window; a rerun bit-equal. At the hymba
-               shape: device ms (L2 warm and flushed), the plain version's
-               ms, and ``scaled_dot_product_attention`` with the window mask
-               and ``enable_gqa`` as the library yardstick.
+               shape, in f32 (CUDA cores) and bf16 (tensor cores): device
+               ms (L2 warm and flushed), the plain version's ms, and
+               ``scaled_dot_product_attention`` with the window mask and
+               ``enable_gqa`` as the library yardstick.
   7. ssd_kernels — the SSD kernel against its plain version (atol = rtol
                2e-4) and against the naive recurrence ``ssd_ref`` (2e-4 of
                the output's scale), y and final state, at hymba-1.5b's shape
                (BH 100, S 2048, P 64, N 16, chunk 64) with dt in [3, 20], as
                the reference's full-width weights give (ROADMAP C-5), and at
                mamba2-370m's (BH 64, N 128) with large and small dt; no NaN;
-               a rerun bit-equal; a small bf16 case. Times as in phase 6 (no
-               single PyTorch call computes SSD: library null).
+               a rerun bit-equal; y and the state bit-equal to the plain
+               version (checked for f32, reported for all); a small bf16
+               case. Times as in phase 6 (no single PyTorch call computes
+               SSD: library null), and each of the three launches' device
+               ms from a one-call profiler trace.
   8. lm_forward — this slice's main path: ``build(get_config("hymba-1.5b"))``
                at full width and depth (32 layers, 1.59 B params), params
                from ``Model.init`` in f32 and then bf16, ``forward`` on a
                (2, 2048) batch: logits finite, each kernel launched exactly
                32 times (counts reset just before, read just after), wall ms
                per forward, peak memory, a one-forward ``torch.profiler``
-               trace (top device ops, device idle share); mamba2-370m at
-               full config (48 SSD launches); hymba at full width and depth
+               trace (top device ops, device idle share, the two kernels'
+               device ms and share); mamba2-370m at full config (48 SSD
+               launches, the same trace); hymba at full width and depth
                2, B 1: the card's forward (kernels) against the same forward
                on CPU copies (plain versions), max |diff| within the model's
                noise floor (see PERTURB).
@@ -125,6 +130,10 @@ LM_SOURCE = {"flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
 LM_REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:78",
     "ssd_fwd": "src/repro/kernels/ssd/kernel.py:75"}
+# the device kernels of each LM wrapper, by name in a profiler trace
+LM_TRACE_NAMES = ("flash_f32_kernel", "flash_bf16_kernel",
+                  "ssd_chunk_state_kernel", "ssd_state_scan_kernel",
+                  "ssd_chunk_output_kernel")
 # (name, B, H, KV, S, head_dim, causal, window); the first is hymba-1.5b's
 # prefill, the one the kernels line reports
 ATTN_SHAPES = [("hymba_prefill", 2, 25, 5, 2048, 64, True, 1024),
@@ -254,8 +263,10 @@ def _pairs(S, causal, window):
     return int(mask.sum()), mask
 
 
-def _profile(torch, fn):
-    """One traced call: top device ops, device busy ms and idle share."""
+def _profile(torch, fn, kernels=()):
+    """One traced call: top device ops, device busy ms and idle share, and
+    the device ms and share of the ops whose names contain one of
+    ``kernels``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -276,17 +287,23 @@ def _profile(torch, fn):
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   key=lambda r: -r[2])
     busy = sum(r[2] for r in rows) / 1e3
-    return {"wall_ms": wall, "device_ms": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "top_device": [{"name": r[0][:80], "calls": r[1],
-                            "device_ms": r[2] / 1e3} for r in rows[:10]]}
+    out = {"wall_ms": wall, "device_ms": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / wall),
+           "top_device": [{"name": r[0][:80], "calls": r[1],
+                           "device_ms": r[2] / 1e3} for r in rows[:10]]}
+    if kernels:
+        mine = {k: sum(r[2] for r in rows if k in r[0]) / 1e3
+                for k in kernels}
+        out["kernels_device_ms"] = mine
+        out["kernels_share"] = sum(mine.values()) / max(busy, 1e-9)
+    return out
 
 
 def attn_kernel_phase(torch, FA, dev, flush, shapes=ATTN_SHAPES):
     """Phase 6; returns the kernels-line row of the first shape (f32)."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(11)
-    err, row = 0.0, None
+    err, row, bf16 = 0.0, None, None
     for name, B, H, KV, S, hd, causal, window in shapes:
         kw = dict(groups=H // KV, causal=causal, window=window)
         pairs, mask = _pairs(S, causal, window)
@@ -340,6 +357,10 @@ def attn_kernel_phase(torch, FA, dev, flush, shapes=ATTN_SHAPES):
             line[dname] = t
             if dname == "float32":
                 row = dict(t)
+            else:
+                bf16 = {k: t[k] for k in ("ms", "ms_l2_flushed", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}
         emit(line)
     q = torch.ones((2, 8, 32), device=dev)
     try:
@@ -347,7 +368,7 @@ def attn_kernel_phase(torch, FA, dev, flush, shapes=ATTN_SHAPES):
         check(False, "flash kernel took head_dim 32")
     except ValueError:
         pass
-    row.update(max_abs_err=err)
+    row.update(max_abs_err=err, bfloat16=bf16)
     return row
 
 
@@ -389,6 +410,7 @@ def ssd_kernel_phase(torch, SK, Sref, dev, flush, shapes=SSD_SHAPES):
         y2, st2 = SK.ssd_fwd(*args, **kw)
         check(bits_equal(torch, y, y2) and bits_equal(torch, st, st2),
               f"ssd {name}: rerun not bit-equal")
+        same = bits_equal(torch, y, yp) and bits_equal(torch, st, stp)
         err = max(err, e)
         size = x.element_size()
         nbytes = (2 * x.numel() + dt.numel() + 2 * Bm.numel()) * size \
@@ -401,8 +423,15 @@ def ssd_kernel_phase(torch, SK, Sref, dev, flush, shapes=SSD_SHAPES):
                 "P": P, "N": N, "chunk": Q, "dt_range": [lo, hi],
                 "dtype": dname, "finite": finite, "max_abs_err_vs_plain": e,
                 "max_abs_err_vs_ref": e_ref, "ref_scale": scale,
-                "state_max_abs_err_vs_ref": e_sref}
+                "state_max_abs_err_vs_ref": e_sref,
+                "bit_equal_to_plain": same}
         if dname == "float32":
+            check(same, f"ssd {name}: y or the state not bit-equal to the "
+                  "plain version")
+            trace = _profile(torch, lambda: SK.ssd_fwd(*args, **kw))
+            line["passes_device_ms"] = {
+                r["name"]: r["device_ms"] for r in trace["top_device"]
+                if "ssd_" in r["name"]}
             line.update({
                 "ms": time_ms(torch, lambda: SK.ssd_fwd(*args, **kw)),
                 "ms_l2_flushed": time_cold_ms(
@@ -482,7 +511,8 @@ def lm_forward_phase(torch, Z, C, FA, SK, dev, lm=LM):
                     torch, lambda: model.forward(params, {"tokens": tokens}),
                     reps=3)}
         line["profile"] = _profile(
-            torch, lambda: model.forward(params, {"tokens": tokens}))
+            torch, lambda: model.forward(params, {"tokens": tokens}),
+            kernels=LM_TRACE_NAMES)
         emit(line)
         del params, logits, valid
         torch.cuda.empty_cache()
@@ -506,7 +536,10 @@ def lm_forward_phase(torch, Z, C, FA, SK, dev, lm=LM):
           "logits_finite": finite,
           "wall_ms_per_forward": wall_ms(
               torch, lambda: smodel.forward(sparams, {"tokens": stokens}),
-              reps=3)})
+              reps=3),
+          "profile": _profile(
+              torch, lambda: smodel.forward(sparams, {"tokens": stokens}),
+              kernels=LM_TRACE_NAMES)})
     del sparams, slogits
     torch.cuda.empty_cache()
 
@@ -1077,8 +1110,8 @@ def main():
          "bound_ms": fsae[k][3][0], "bound_by": fsae[k][3][1],
          "library_ms": None}
         for k in FUSED_REPLACES] + [
-        # this slice's rows at hymba-1.5b's shapes (f32), launches per
-        # full-depth hymba forward
+        # the LM rows at hymba-1.5b's shapes (f32; flash's bf16 numbers
+        # under "bfloat16"), launches per full-depth hymba forward
         {"name": k, "route": "cuda", "source": LM_SOURCE[k],
          "replaces": LM_REPLACES[k], "launches": lm_launches[k], **row}
         for k, row in (("flash_attention_fwd", attn_row),

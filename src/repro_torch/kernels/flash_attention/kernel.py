@@ -1,29 +1,34 @@
 """Forward flash attention: the CUDA kernel's wrapper and its plain version.
 
-The kernel is hand-written CUDA C++ for ``sm_90a`` in
+The kernels are hand-written CUDA C++ for ``sm_90a`` in
 ``src/repro_torch/csrc/flash_attention.cu`` (its source note gives the
-design). It replaces the Pallas TPU kernel
+design). They replace the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``: forward
 online-softmax attention with GQA (kv head = q head // groups), optional
 causal and sliding-window masks, fully masked tiles skipped, running
 (m, l, acc) in f32 and out = acc / max(l, 1e-30) in q's dtype.
 
 Bound on the card: operations. At hymba-1.5b's prefill (BH 50, S 2048,
-hd 64, causal, window 1024) the unmasked pairs need 20.1 GFLOP, 0.30 ms
-at the f32 CUDA-core peak, against 0.019 ms for the bytes. The first
-kernel computes in f32 on the CUDA cores.
+hd 64, causal, window 1024) the unmasked pairs need 20.1 GFLOP: 0.020 ms
+at the bf16 tensor cores' peak, 0.30 ms at the f32 CUDA cores' peak. bf16
+runs on the tensor cores (wgmma, TMA), with p rounded to bf16 before the
+product with v, as every tensor-core flash kernel does and as the TPU's
+default-precision f32 dot takes its inputs; f32 runs on the CUDA cores in
+full f32.
 
-Beside the wrapper sits a plain PyTorch version that repeats the kernel's
+Beside the wrapper sits a plain PyTorch version that repeats the kernels'
 arithmetic: the same tile test, the same -1e30 masking with p forced to 0
-after the exp, the same online update. ``block_q`` / ``block_kv`` set its
-tiles only (the kernel picks its own, by head_dim), and tails that are not
-a multiple of a tile are bounds-masked in both. Dispatch is by the
+after the exp, the same online update, and p rounded to q's dtype before
+``p @ v`` when that dtype is bf16. ``block_q`` / ``block_kv`` set its
+tiles only (the kernels pick their own, by head_dim), and tails that are
+not a multiple of a tile are bounds-masked in both. Dispatch is by the
 tensor's device alone: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel (building it at first use) or the call raises. The
-wrapper checks device, dtype, shape and contiguity, allocates the output
-with ``torch.empty``, launches on the current stream without
-synchronising, raises if the launch reports an error, and adds one to its
-launch count.
+wrapper checks device, dtype, shape and contiguity, copies an input whose
+address is not 16-byte aligned (the kernels' vector and TMA loads need
+it), allocates the output with ``torch.empty``, launches on the current
+stream without synchronising, raises if the launch reports an error, and
+adds one to its launch count.
 """
 from __future__ import annotations
 
@@ -143,6 +148,8 @@ def flash_attention_fwd_plain(q, k, v, *, groups: int = 1,
             p = torch.where(mask, torch.exp(s - m_new[..., None]), zero)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
+            if q.dtype == torch.bfloat16:   # the tensor cores' P operand
+                p = p.to(torch.bfloat16).float()
             acc = acc * corr[..., None] + p @ vt
             m = m_new
         out[:, i0:i0 + bq] = (acc / l.clamp(min=1e-30)[..., None]).to(
@@ -173,6 +180,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_fwd: BH {BH} > 65535")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_fwd: inputs must be contiguous")
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     rc = _lib().flash_attention_fwd(
         _CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),

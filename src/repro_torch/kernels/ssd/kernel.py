@@ -1,34 +1,43 @@
-"""The Mamba2 SSD forward scan: the CUDA kernel's wrapper and its plain version.
+"""The Mamba2 SSD forward scan: the CUDA kernels' wrapper and its plain version.
 
-The kernel is hand-written CUDA C++ for ``sm_90a`` in
-``src/repro_torch/csrc/ssd.cu`` (its source note gives the design). It
-replaces the Pallas TPU kernel ``repro/kernels/ssd/kernel.py::ssd_fwd``:
-one chunk of Q steps at a time, in order, with the (P, N) f32 state
-carried across chunks; per chunk
+The kernels are hand-written CUDA C++ for ``sm_90a`` in
+``src/repro_torch/csrc/ssd.cu`` (its source note gives the design). They
+replace the Pallas TPU kernel ``repro/kernels/ssd/kernel.py::ssd_fwd``:
+one chunk of Q steps at a time with the (P, N) f32 state carried across
+chunks; per chunk
 
     cum = cumsum(dt * a);  seg = cum[-1];  L = exp(cum_i - cum_j) (i >= j)
     y   = ((C B^T) * L * dt_j) x + (C * exp(cum)) h^T + d x
     h'  = exp(seg) h + x^T (dt * exp(seg - cum) * B)
 
-Bound on the card: bytes at hymba-1.5b's shape (x in and y out, 105 MB,
-0.031 ms, against 1.9 GFLOP of lower-triangle work, 0.028 ms), operations
-at mamba2-370m's N 128 (5.9 GFLOP, 0.089 ms). One CTA per head, f32 on
-the CUDA cores; the kernel takes chunk 64, head dim P 64 and state dim N
-16, 32, 64 or 128 (hymba 16, mamba2 128).
+Only h couples the chunks and its update is affine, so the scan runs in
+three stages, each over every (head, chunk) at once: the chunk-local
+updates upd = x^T (dt * exp(seg - cum) * B), the scan h_c = exp(seg_c)
+h_{c-1} + upd_c over the chunks, and the outputs from the state entering
+each chunk. One wrapper call launches the three kernels and counts one
+launch. Bound on the card: bytes at hymba-1.5b's shape (x in and y out,
+105 MB, 0.031 ms, against 1.9 GFLOP of lower-triangle work, 0.028 ms),
+operations at mamba2-370m's N 128 (5.9 GFLOP, 0.089 ms). f32 on the CUDA
+cores; the kernels take chunk 64, head dim P 64 and state dim N 16, 32,
+64 or 128 (hymba 16, mamba2 128).
 
 ``exp(cum_i - cum_j)`` is taken only where i >= j (``torch.where`` here,
 a branch in the kernel), never multiplied by a 0/1 mask: for i < j the
 exponent is positive and, at the reference's full-width dt, passes 88, so
 the exp is +inf and inf * 0 would be NaN.
 
-Beside the wrapper sits a plain PyTorch version that repeats the kernel's
+Beside the wrapper sits a plain PyTorch version that repeats the kernels'
 arithmetic: the same sequential cumsum (so cum is bit-equal), the same
-chunk loop and the same association order. Dispatch is by the tensor's
-device alone: a CPU tensor takes the plain version, a CUDA tensor launches
-the kernel (building it at first use) or the call raises. The wrapper
-checks device, dtype, shape and contiguity, allocates its outputs with
-``torch.empty``, launches on the current stream without synchronising,
-raises if the launch reports an error, and adds one to its launch count.
+three stages and the same association order. Dispatch is by the tensor's
+device alone: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernels (building them at first use) or the call raises.
+The wrapper checks device, dtype, shape and contiguity, allocates its
+outputs and the f32 scratch with ``torch.empty`` (the chunks' states
+(BH, S / chunk, P, N), their exp(seg) and cum, and C B^T per group and
+chunk), copies x, B or C if its address is not 16-byte aligned (the
+kernels' vector loads need it), launches on the current stream without
+synchronising, raises if a launch reports an error, and adds one to its
+launch count.
 """
 from __future__ import annotations
 
@@ -65,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library("ssd")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_fwd.argtypes = [I] + [P] * 8 + [I] * 6 + [P]
+        lib.ssd_fwd.argtypes = [I] + [P] * 12 + [I] * 6 + [P]
         lib.ssd_fwd.restype = I
         lib.ssd_error_string.argtypes = [I]
         lib.ssd_error_string.restype = ctypes.c_char_p
@@ -127,7 +136,7 @@ def _cumsum_in_order(da: torch.Tensor) -> torch.Tensor:
 def ssd_fwd_plain(x, dt, a, d, B, C, *, chunk: int = 64, groups: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``ssd_fwd`` (same arguments and results): the
-    kernel's chunk loop, batched over heads."""
+    kernels' three stages, batched over heads and chunks."""
     BH, S, P = x.shape
     N = B.shape[-1]
     Q = chunk
@@ -139,24 +148,27 @@ def ssd_fwd_plain(x, dt, a, d, B, C, *, chunk: int = 64, groups: int = 1
     Cf = C.float().repeat_interleave(groups, dim=0).reshape(BH, nc, Q, N)
     cum = _cumsum_in_order(dtf * a.float()[:, None, None])   # (BH, nc, Q)
     seg = cum[..., -1]                                       # (BH, nc)
+    # 1. chunk-local state updates, independent of the carried state
+    coef = dtf * torch.exp(seg[..., None] - cum)
+    upd = xf.transpose(-1, -2) @ (coef[..., None] * Bf)      # (BH, nc, P, N)
+    # 2. the scan: the state entering each chunk, and the final state
+    eseg = torch.exp(seg)
+    h = torch.zeros((BH, P, N), dtype=torch.float32, device=dev)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = eseg[:, c, None, None] * h + upd[:, c]
+    h_in = torch.stack(h_in, dim=1)                          # (BH, nc, P, N)
+    # 3. outputs from the state entering each chunk
     tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()
     # exp(cum_i - cum_j) only where i >= j: where, never a 0/1 product
     L = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
                     torch.zeros((), device=dev))
     M = ((Cf @ Bf.transpose(-1, -2)) * L) * dtf[..., None, :]
     ec = torch.exp(cum)
-    coef = dtf * torch.exp(seg[..., None] - cum)
-    dcol = d.float()[:, None, None]
-    h = torch.zeros((BH, P, N), dtype=torch.float32, device=dev)
-    ys = []
-    for c in range(nc):
-        xc = xf[:, c]
-        y = M[:, c] @ xc + (Cf[:, c] * ec[:, c, :, None]) @ h.transpose(1, 2)
-        ys.append(y + dcol * xc)
-        w = coef[:, c, :, None] * Bf[:, c]
-        h = torch.exp(seg[:, c])[:, None, None] * h + xc.transpose(1, 2) @ w
-    y = torch.stack(ys, dim=1).reshape(BH, S, P).to(x.dtype)
-    return y, h
+    y = M @ xf + (Cf * ec[..., None]) @ h_in.transpose(-1, -2)
+    y = y + d.float()[:, None, None, None] * xf
+    return y.reshape(BH, S, P).to(x.dtype), h
 
 
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -180,13 +192,26 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             or N not in KERNEL_SHAPES["N"]):
         raise ValueError(f"ssd_fwd: chunk {chunk}, P {P}, N {N} not taken by "
                          f"the kernel ({KERNEL_SHAPES})")
+    nc = S // chunk
+    if nc > 65535:
+        raise ValueError(f"ssd_fwd: S / chunk = {nc} > 65535")
+    # the kernels read x, B and C in 16-byte (f32) or 8-byte (bf16) vectors
+    x, B, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, B, C))
     lib = _lib()
     y = torch.empty_like(x)
-    state = torch.empty((BH, P, N), dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    state = torch.empty((BH, P, N), **f32)
+    # scratch: the chunks' state updates, then the state entering each
+    # chunk; exp(seg) per chunk; cum; C B^T per group and chunk
+    hst = torch.empty((BH, nc, P, N), **f32)
+    eseg = torch.empty((BH, nc), **f32)
+    cum = torch.empty((BH, S), **f32)
+    G = torch.empty((BH // groups, nc, chunk, chunk), **f32)
     rc = lib.ssd_fwd(
         _CODE[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
         d.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-        state.data_ptr(), BH, S, P, N, chunk, groups,
+        state.data_ptr(), hst.data_ptr(), eseg.data_ptr(), cum.data_ptr(),
+        G.data_ptr(), BH, S, P, N, chunk, groups,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_fwd kernel launch failed: CUDA error {rc} "

@@ -129,6 +129,57 @@ def test_ops_wrapper_dtypes_vs_pallas(dtype, tol, jax_ref):
                                rtol=tol)
 
 
+def _hand_rolled_bf16_p(q, k, v, *, groups, causal, window):
+    """Dense two-pass softmax attention on bf16 inputs with p rounded to
+    bf16 before the product with v (the tensor cores' P operand) and the
+    row sums taken from the unrounded p."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    kf = kf.repeat_interleave(groups, dim=0)
+    vf = vf.repeat_interleave(groups, dim=0)
+    S, Skv = q.shape[1], k.shape[1]
+    s = (qf @ kf.transpose(1, 2)) * q.shape[-1] ** -0.5
+    i = torch.arange(S)[:, None]
+    j = torch.arange(Skv)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool)
+    if causal:
+        mask &= i >= j
+    if window:
+        mask &= (i - j) < window
+    s = torch.where(mask, s, torch.full((), -1e30))
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)),
+                    torch.zeros(()))
+    out = (p.bfloat16().float() @ vf) / p.sum(dim=-1, keepdim=True)
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0)])
+def test_plain_bf16_rounds_p_like_the_tensor_cores(causal, window,
+                                                   jax_ref):
+    """On bf16 inputs the plain version rounds p to bf16 before p @ v: in
+    one 128-row tile (no online rescaling) it is bit-equal to a hand-rolled
+    dense version that does the same, differs from the f32-p result, and
+    still meets BF16_TOL against the Pallas kernel."""
+    B, S, H, KV, hd = 1, 96, 4, 2, 64
+    qm, km, vm = _mk(B, S, S, H, KV, hd, seed=11)
+    q, k, v = (_torch(_flat(a), torch.bfloat16) for a in (qm, km, vm))
+    kw = dict(groups=H // KV, causal=causal, window=window)
+    out = flash_attention_fwd(q, k, v, block_q=128, block_kv=128, **kw)
+    want = _hand_rolled_bf16_p(q, k, v, **kw)
+    assert torch.equal(out, want)
+    f32_p = flash_attention_fwd(q.float(), k.float(), v.float(), **kw)
+    assert not torch.equal(out, f32_p.bfloat16())
+    pallas = _np(jax_flash(jnp.asarray(qm, jnp.bfloat16),
+                           jnp.asarray(km, jnp.bfloat16),
+                           jnp.asarray(vm, jnp.bfloat16), causal=causal,
+                           window=window, block_q=32, block_kv=32,
+                           interpret=True))
+    pallas = np.ascontiguousarray(pallas.transpose(0, 2, 1, 3).reshape(
+        B * H, S, hd))
+    np.testing.assert_allclose(out.float().numpy(), pallas, atol=BF16_TOL,
+                               rtol=BF16_TOL)
+
+
 @pytest.mark.parametrize("groups,causal,window", [(1, True, 0), (4, False, 0),
                                                   (2, True, 40)])
 def test_attention_ref_vs_jax(groups, causal, window, jax_ref):
@@ -243,3 +294,52 @@ def test_cuda_kernel_refuses_other_head_dims(card):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_fwd(q, q, q)
 
+
+EDGE_MASKS = [(True, 0), (True, 48), (False, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("causal,window", EDGE_MASKS)
+@pytest.mark.parametrize("S", [64, 200, 300, 520])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+def test_cuda_kernel_edges(card, hd, S, causal, window, dtype, tol):
+    """Every head dim, lengths that are and are not a multiple of a tile,
+    GQA groups 1, 4 and 5 (taken in turn), causal with and without the
+    window and non-causal: the kernel against its plain version, a rerun
+    bit-equal, one launch counted per call."""
+    groups = (1, 4, 5)[(hd // 16 + S + window) % 3]
+    BKV = 2
+    g = torch.Generator(device=card).manual_seed(hd * 7 + S)
+    q = torch.randn((BKV * groups, S, hd), generator=g, device=card).to(dtype)
+    k = torch.randn((BKV, S, hd), generator=g, device=card).to(dtype)
+    v = torch.randn((BKV, S, hd), generator=g, device=card).to(dtype)
+    kw = dict(groups=groups, causal=causal, window=window)
+    reset_launch_counts()
+    out = flash_attention_fwd(q, k, v, **kw)
+    assert launch_counts()["flash_attention_fwd"] == 1
+    plain = K.flash_attention_fwd_plain(q, k, v, **kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+    assert torch.equal(out, flash_attention_fwd(q, k, v, **kw))
+    assert launch_counts()["flash_attention_fwd"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_cuda_kernel_takes_unaligned_inputs(card, dtype, tol):
+    """q as a contiguous view that starts two elements into its storage,
+    so not 16-byte aligned: the wrapper hands the kernel an aligned copy."""
+    BH, S, hd = 4, 100, 64
+    g = torch.Generator(device=card).manual_seed(3)
+    buf = torch.randn((BH * S * hd + 2,), generator=g, device=card).to(dtype)
+    q = buf[2:].view(BH, S, hd)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    k = torch.randn((2, S, hd), generator=g, device=card).to(dtype)
+    v = torch.randn((2, S, hd), generator=g, device=card).to(dtype)
+    out = flash_attention_fwd(q, k, v, groups=2, causal=True, window=32)
+    plain = K.flash_attention_fwd_plain(q, k, v, groups=2, causal=True,
+                                        window=32)
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)

@@ -120,6 +120,57 @@ def test_ops_wrapper_vs_pallas(jax_ref):
                                rtol=TOL)
 
 
+def _chunk_loop(x, dt, a, d, B, C, *, chunk, groups):
+    """The scan as the TPU kernel runs it, one chunk after another with the
+    state carried in between; the same sequential cumsum and association
+    order as the plain version."""
+    BH, S, P = x.shape
+    N = B.shape[-1]
+    Q, nc = chunk, S // chunk
+    xf = x.float().reshape(BH, nc, Q, P)
+    dtf = dt.float().reshape(BH, nc, Q)
+    Bf = B.float().repeat_interleave(groups, dim=0).reshape(BH, nc, Q, N)
+    Cf = C.float().repeat_interleave(groups, dim=0).reshape(BH, nc, Q, N)
+    cum = K._cumsum_in_order(dtf * a.float()[:, None, None])
+    seg = cum[..., -1]
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()
+    L = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                    torch.zeros(()))
+    M = ((Cf @ Bf.transpose(-1, -2)) * L) * dtf[..., None, :]
+    ec = torch.exp(cum)
+    coef = dtf * torch.exp(seg[..., None] - cum)
+    dcol = d.float()[:, None, None]
+    h = torch.zeros((BH, P, N), dtype=torch.float32)
+    ys = []
+    for c in range(nc):
+        xc = xf[:, c]
+        y = M[:, c] @ xc + (Cf[:, c] * ec[:, c, :, None]) @ h.transpose(1, 2)
+        ys.append(y + dcol * xc)
+        w = coef[:, c, :, None] * Bf[:, c]
+        h = torch.exp(seg[:, c])[:, None, None] * h + xc.transpose(1, 2) @ w
+    return torch.stack(ys, dim=1).reshape(BH, S, P).to(x.dtype), h
+
+
+@pytest.mark.parametrize("BG,groups,S,P,N,chunk,dt_range", [
+    (2, 1, 64, 64, 16, 64, (0.05, 0.6)),
+    (2, 4, 256, 64, 16, 64, (3.0, 20.0)),
+    (1, 50, 128, 64, 16, 64, (3.0, 20.0)),
+    (2, 3, 192, 64, 128, 64, (0.05, 0.6)),
+    (2, 2, 96, 8, 32, 32, (0.05, 0.6)),
+    (1, 4, 96, 8, 16, 16, (3.0, 20.0))])
+def test_staged_plain_vs_chunk_loop(BG, groups, S, P, N, chunk, dt_range):
+    """The plain version's three stages (chunk-local state updates, the
+    scan over chunks, the outputs from the state entering each chunk) are
+    bit-equal on the CPU to the sequential chunk loop, y and the final
+    state: the split moves no rounding, it only reorders independent
+    work."""
+    arrs = _t(_mk(BG * groups, S, P, N, BG, seed=13, dt_range=dt_range))
+    y, st = K.ssd_fwd_plain(*arrs, chunk=chunk, groups=groups)
+    y0, st0 = _chunk_loop(*arrs, chunk=chunk, groups=groups)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    assert torch.equal(y, y0) and torch.equal(st, st0)
+
+
 def test_plain_cumsum_is_sequential():
     """The plain version's cumsum adds one rounded term at a time from the
     left, the kernel's order (bit-equal to a Python float32 loop)."""
@@ -228,3 +279,48 @@ def test_cuda_kernel_refuses_other_shapes(card, P, N, chunk):
     x, dt, a, d, B, C = (t.to(card) for t in _t(_mk(2, 128, P, N, 2)))
     with pytest.raises(ValueError, match="not taken by the kernel"):
         ssd_fwd(x, dt, a, d, B, C, chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 2])
+@pytest.mark.parametrize("groups", [1, 50])
+@pytest.mark.parametrize("N", [16, 32, 64, 128])
+def test_cuda_kernel_edges_bit_equal(card, nc, groups, N):
+    """One and two chunks, one and fifty heads a group, every N: y and
+    the state bit-equal to the plain version on the card, a rerun
+    bit-equal, one launch counted per call."""
+    BG, P, Q = 2, 64, 64
+    S, BH = nc * Q, BG * groups
+    g = torch.Generator(device=card).manual_seed(nc * 1000 + groups + N)
+    lo, hi = (3.0, 20.0) if groups > 1 else (0.05, 0.6)
+    x = torch.randn((BH, S, P), generator=g, device=card)
+    dt = torch.rand((BH, S), generator=g, device=card) * (hi - lo) + lo
+    a = -torch.rand((BH,), generator=g, device=card) * 1.5 - 0.5
+    d = torch.randn((BH,), generator=g, device=card)
+    B = torch.randn((BG, S, N), generator=g, device=card) * 0.5
+    C = torch.randn((BG, S, N), generator=g, device=card) * 0.5
+    reset_launch_counts()
+    y, st = ssd_fwd(x, dt, a, d, B, C, chunk=Q, groups=groups)
+    assert launch_counts()["ssd_fwd"] == 1
+    yp, stp = K.ssd_fwd_plain(x, dt, a, d, B, C, chunk=Q, groups=groups)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    assert torch.equal(y, yp) and torch.equal(st, stp)
+    y2, st2 = ssd_fwd(x, dt, a, d, B, C, chunk=Q, groups=groups)
+    assert launch_counts()["ssd_fwd"] == 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_unaligned_inputs(card):
+    """x and B as contiguous views that start one element into their
+    storage, so not 16-byte aligned: the wrapper hands the kernels aligned
+    copies, and y and the state stay bit-equal to the plain version."""
+    BG, groups, S, P, N = 2, 2, 128, 64, 16
+    BH = BG * groups
+    x, dt, a, d, B, C = (t.to(card) for t in _t(_mk(BH, S, P, N, BG, seed=8)))
+    xu = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(BH, S, P)
+    Bu = torch.cat([B.new_zeros(1), B.flatten()])[1:].view(BG, S, N)
+    assert xu.data_ptr() % 16 != 0 and Bu.data_ptr() % 16 != 0
+    y, st = ssd_fwd(xu, dt, a, d, Bu, C, chunk=64, groups=groups)
+    yp, stp = K.ssd_fwd_plain(x, dt, a, d, B, C, chunk=64, groups=groups)
+    assert torch.equal(y, yp) and torch.equal(st, stp)

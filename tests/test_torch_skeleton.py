@@ -73,14 +73,15 @@ def _imports(tree):
 
 # the port's own scripts, which must not import JAX or the JAX package
 _SCRIPTS = [os.path.join(os.path.dirname(_SRC), f)
-            for f in ("chip_smoke.py", os.path.join("scripts",
-                                                    "torch_profile.py"))]
+            for f in ("chip_smoke.py",
+                      os.path.join("scripts", "torch_profile.py"),
+                      os.path.join("scripts", "torch_kernel_variants.py"))]
 
 
 def test_no_jax_or_repro_import_in_source():
     """AST scan: no absolute import of jax or repro anywhere in the
     package (relative imports stay inside repro_torch), in chip_smoke.py
-    or in scripts/torch_profile.py."""
+    or in the port's scripts (scripts/torch_*.py)."""
     paths = [os.path.join(d, f) for d, _, files in os.walk(_PKG)
              for f in files if f.endswith(".py")] + _SCRIPTS
     assert all(os.path.exists(p) for p in _SCRIPTS), _SCRIPTS
