@@ -18,7 +18,16 @@ and prints no result. Phases:
                and bf16. Device times (a CUDA graph of back-to-back calls
                between CUDA events, warm L2) of kernel, plain version and,
                for clip_apply, ``torch.clamp`` as a yardstick; at the SAE
-               shape also the kernels' times with L2 flushed, as in 2b.
+               shape also the kernels' times with L2 flushed, as in 2b. Then
+               the Newton loop kernel (newton_loop, one cooperative launch a
+               projection) against its plain version, the host loop over
+               mu_solve_plain, on the engine's state after pass 1 of phase
+               3's projection at each shape: theta to 1e-6, newton_iters
+               equal or one apart on a last fp-rounding step (thetas within
+               4 ulps, work_cols then larger by that step), the alive prefix
+               and mu's support equal, mu within 1e-5 * colmax, a rerun
+               bit-equal; the kernel's device ms (CUDA graph) and the plain
+               loop's wall ms (it syncs once a step).
   2b. fused  — the fused step's two kernels (adam_colstats, adam_clip_apply)
                against their plain versions on the leaves the fused step
                hands them: the SAE's ``enc1/w`` (10000 x 96, max axis 1),
@@ -32,8 +41,13 @@ and prints no result. Phases:
                every call; the flush's own time is subtracted).
   3. project — ``project_l1inf_kernel`` against ``project_l1inf_newton`` at
                those shapes (atol 3e-4 * scale, rtol 3e-3; a rerun must be
-               bit-equal), with launches and wall times per projection, and
-               the Newton against the sort-based oracle on a small input.
+               bit-equal; exactly one launch of each of colstats, mu_solve,
+               newton_loop and clip_apply), with wall times per projection:
+               the kernel engine must beat the Newton's. Reruns of the sort-
+               based paths (fault C-7) must be bit-equal: project_l1inf_newton
+               and project_l1inf_sorted at each shape, the weighted, Hoyer
+               (reference), l1-ball and l2,1-ball projections at fig2_wide.
+               Then the Newton against the sort-based oracle on a small input.
   4. train   — the main path: 20 projected SAE steps at the paper's full
                synthetic width (10000 features, 96 hidden, batch 128; spec
                enc1/w l1inf radius 0.2 axis 1) through
@@ -63,7 +77,8 @@ and prints no result. Phases:
                shape, in f32 (CUDA cores) and bf16 (tensor cores): device
                ms (L2 warm and flushed), the plain version's ms, and
                ``scaled_dot_product_attention`` with the window mask and
-               ``enable_gqa`` as the library yardstick.
+               ``enable_gqa`` as the library yardstick. The kernel refuses an
+               input that requires grad (fault C-6: it is forward-only).
   7. ssd_kernels — the SSD kernel against its plain version (atol = rtol
                2e-4) and against the naive recurrence ``ssd_ref`` (2e-4 of
                the output's scale), y and final state, at hymba-1.5b's shape
@@ -74,7 +89,8 @@ and prints no result. Phases:
                version (checked for f32, reported for all); a small bf16
                case. Times as in phase 6 (no single PyTorch call computes
                SSD: library null), and each of the three launches' device
-               ms from a one-call profiler trace.
+               ms from a one-call profiler trace. The kernel refuses an input
+               that requires grad, as flash does.
   8. lm_forward — this slice's main path: ``build(get_config("hymba-1.5b"))``
                at full width and depth (32 layers, 1.59 B params), params
                from ``Model.init`` in f32 and then bf16, ``forward`` on a
@@ -113,7 +129,10 @@ SHAPES = {"sae_enc1": (96, 10112), "fig2_wide": (1000, 10112),
 SOURCE = "src/repro_torch/csrc/l1inf.cu"
 REPLACES = {"colstats": "src/repro/kernels/l1inf/kernel.py:58",
             "mu_solve": "src/repro/kernels/l1inf/kernel.py:136",
-            "clip_apply": "src/repro/kernels/l1inf/kernel.py:198"}
+            "clip_apply": "src/repro/kernels/l1inf/kernel.py:198",
+            # no pallas_call: the JAX engine's jax.lax.while_loop over
+            # mu_solve, which the loop kernel runs as one launch
+            "newton_loop": "src/repro/kernels/l1inf/ops.py:194"}
 FUSED_SOURCE = "src/repro_torch/csrc/fused_step.cu"
 FUSED_REPLACES = {
     "adam_colstats": "src/repro/kernels/fused_step/kernel.py:154",
@@ -247,6 +266,80 @@ def bits_equal(torch, a, b):
     return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
+def refuses_grad(torch, call, x):
+    """True when ``call(x)`` raises (forward-only kernel, fault C-6) while
+    x requires grad under grad mode, and runs under no_grad."""
+    x = x.clone().requires_grad_(True)
+    try:
+        call(x)
+        return False
+    except RuntimeError as e:
+        if "forward-only" not in str(e):
+            raise
+    with torch.no_grad():
+        call(x)
+    return True
+
+
+def loop_phase(torch, K, O, Y, C):
+    """The Newton loop kernel against its plain version (the host loop over
+    mu_solve_plain) on the engine's state after pass 1 of projecting Y onto
+    the ball of radius C: theta to atol = rtol 1e-6, newton_iters equal or
+    one apart where the last step is fp rounding (thetas within 4 ulps,
+    work_cols then larger by that step's prefix), active_cols_per_step and
+    mu's support equal, mu within 1e-5 * colmax; a rerun bit-equal. Times:
+    the kernel in a CUDA graph (``time_ms``), the plain loop on the host
+    clock (``wall_ms``: it syncs once a step, so it cannot be captured)."""
+    n, m = Y.shape
+    Ypad, bm = O._padded(Y, 0)
+    sids = (torch.arange(Ypad.shape[1], device=Y.device) >= m).to(
+        torch.int32)
+    li = O._loop_inputs(Ypad, sids, torch.full((1,), C, device=Y.device), 1,
+                        None, bm=bm, n_bisect=26, n_polish=8, shrink=True)
+    args = (li["A"], li["sids"], li["colsum"], li["t1"], li["Csafe"],
+            li["num_active"])
+    kw = dict(num_segments=1, block_m=bm)
+    got = K.newton_loop(*args, **kw)
+    want = K.newton_loop_plain(*args, **kw)
+    th, mu, it, work, acps = got
+    thp, mup, itp, workp, acpsp = want
+    extra = int(it) - int(itp)
+    ulp = float(np.spacing(np.float32(float(thp[0]))))
+    dth = float((th - thp).abs().max())
+    colmax = li["A"].amax(dim=0)
+    dmu = float((mu - mup).abs().max())
+    check(dth <= 1e-6 + 1e-6 * float(thp.abs().max()),
+          f"newton_loop theta {float(th[0])} vs plain {float(thp[0])}")
+    check(extra == 0 or (abs(extra) == 1 and dth <= 4 * ulp),
+          f"newton_loop iters {int(it)} vs plain {int(itp)}")
+    check(int(work) == int(workp) + extra * int(acpsp) and
+          int(acps) == int(acpsp), f"newton_loop work {int(work)}/"
+          f"{int(acps)} vs plain {int(workp)}/{int(acpsp)}")
+    check(torch.equal(mu > 0, mup > 0) and
+          bool(((mu - mup).abs() <= 1e-5 * colmax).all()),
+          f"newton_loop mu: max err {dmu}")
+    again = K.newton_loop(*args, **kw)
+    check(all(bits_equal(torch, a, b) if a.is_floating_point()
+              else torch.equal(a, b) for a, b in zip(got, again)),
+          "newton_loop: rerun not bit-equal")
+    # bound: read the first evaluation's prefix once; 2 f32 operations an
+    # element on each of 36 passes over every evaluation's prefix
+    swept = int(work) - Ypad.shape[1]
+    first = min(int(li["num_active"]) + bm - 1, Ypad.shape[1]) // bm * bm
+    bound = max((n * first * 4 / HBM_BYTES_PER_S * 1e3, "bytes"),
+                (36 * 2 * n * swept / F32_OPS_PER_S * 1e3, "operations"))
+    return {"newton_iters": int(it), "newton_iters_plain": int(itp),
+            "work_cols": int(work), "work_cols_plain": int(workp),
+            "active_cols_per_step": int(acps),
+            "num_active": int(li["num_active"]),
+            "theta": float(th[0]), "theta_plain": float(thp[0]),
+            "max_abs_err": dmu,
+            "ms": time_ms(torch, lambda: K.newton_loop(*args, **kw)),
+            "plain_ms": wall_ms(torch, lambda: K.newton_loop_plain(
+                *args, **kw), reps=3),
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
 def _dtype(torch, name):
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
@@ -368,6 +461,9 @@ def attn_kernel_phase(torch, FA, dev, flush, shapes=ATTN_SHAPES):
         check(False, "flash kernel took head_dim 32")
     except ValueError:
         pass
+    check(refuses_grad(torch, lambda t: FA.flash_attention_fwd(t, t, t),
+                       torch.ones((2, 64, 64), device=dev)),
+          "flash kernel ran on an input that requires grad")
     row.update(max_abs_err=err, bfloat16=bf16)
     return row
 
@@ -446,6 +542,11 @@ def ssd_kernel_phase(torch, SK, Sref, dev, flush, shapes=SSD_SHAPES):
                                             "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}
         emit(line)
+    x = torch.ones((2, 128, 64), device=dev)
+    B1 = torch.ones((2, 128, 16), device=dev)
+    dt1, ad = torch.ones((2, 128), device=dev), torch.ones((2,), device=dev)
+    check(refuses_grad(torch, lambda t: SK.ssd_fwd(t, dt1, -ad, ad, B1, B1),
+                       x), "ssd kernel ran on an input that requires grad")
     row.update(max_abs_err=err)
     return row
 
@@ -657,8 +758,14 @@ def main():
     from repro_torch import _build
     from repro_torch.core import (ProjectionEngine, ProjectionSpec,
                                   project_l1inf_newton, sparsity_report)
+    from repro_torch.core.hoyer import project_hoyer_ref
+    from repro_torch.core.l1inf import project_l1inf_sorted
+    from repro_torch.core.norms import project_l12_ball
+    from repro_torch.core.simplex import project_l1_ball
+    from repro_torch.core.weighted import project_l1inf_weighted
     from repro_torch.kernels.l1inf import kernel as K
     from repro_torch.kernels.fused_step import kernel as FK
+    from repro_torch.kernels.l1inf import ops as O
     from repro_torch.kernels.l1inf import ref
     from repro_torch.kernels.l1inf.ops import project_l1inf_kernel
     from repro_torch.optim import AdamConfig, adam_init
@@ -704,9 +811,13 @@ def main():
         Y[:, :m] = rng.uniform(0, 1, size=(n, m))
         inputs[name] = torch.from_numpy(Y).to(dev)
 
+    # the projections of phase 3 and the loop check: (real columns, radius)
+    proj = {"sae_enc1": (cfg.n_features, 0.2), "fig2_wide": (10000, 1.0),
+            "fig2_tall": (1000, 1.0)}
     bm = 128
     errs = {k: 0.0 for k in REPLACES}
     timing = {}
+    loops = {}                          # shape -> newton_loop check and times
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     flush = lambda: flush_buf.fill_(1.0)          # 256 MB through L2
     flushed = {}                        # shape -> kernel times, L2 flushed
@@ -774,6 +885,11 @@ def main():
                     A, theta, block_m=bm, nact_blocks=nact), flush),
                 "clip_apply": time_cold_ms(
                     torch, lambda: K.clip_apply(Y, mu), flush)})
+        ncols, C = proj[name]
+        loops[name] = lp = loop_phase(torch, K, O,
+                                      Y[:, :ncols].contiguous(), C)
+        errs["newton_loop"] = max(errs.get("newton_loop", 0.0),
+                                  lp["max_abs_err"])
         emit({"phase": "kernels", "shape": name, "n": n, "m": m,
               "mu_solve_prefix_cols": P,
               "colstats_sum_rel_err": rel,
@@ -781,7 +897,8 @@ def main():
               "ms": {k: {"kernel": v[0], "kernel_l2_flushed": cold.get(k),
                          "plain": v[1], "library": v[2],
                          "bound": v[3], "bound_by": v[4]}
-                     for k, v in t.items()}})
+                     for k, v in t.items()},
+              "newton_loop": lp})
 
     # -- 2b. the fused step's kernels against their plain versions ----------
     f32, bf16 = torch.float32, torch.bfloat16
@@ -875,14 +992,18 @@ def main():
                          "bound_by": v[3][1]} for k, v in t.items()}})
 
     # -- 3. the projection at those shapes -----------------------------------
-    for name, (Y, C) in {"sae_enc1": (enc1[:, :cfg.n_features], 0.2),
-                         "fig2_wide": (inputs["fig2_wide"][:, :10000], 1.0),
-                         "fig2_tall": (inputs["fig2_tall"][:, :1000], 1.0),
-                         }.items():
-        Y = Y.contiguous()
+    def reruns_equal(fn, reps=3):
+        first = fn()
+        return all(bits_equal(torch, first, fn()) for _ in range(reps))
+
+    for name, (ncols, C) in proj.items():
+        Y = inputs[name][:, :ncols].contiguous()
         K.reset_launch_counts()
         X1, st = project_l1inf_kernel(Y, C, return_stats=True)
         per_projection = K.launch_counts()
+        check(per_projection == {"colstats": 1, "mu_solve": 1,
+                                 "clip_apply": 1, "newton_loop": 1},
+              f"project {name}: launches {per_projection}")
         check(bits_equal(torch, X1, project_l1inf_kernel(Y, C)),
               f"project {name}: kernel engine not the same on a rerun")
         X2 = project_l1inf_newton(Y, C)
@@ -890,17 +1011,48 @@ def main():
         err = float((X1 - X2).abs().max())
         ok = torch.allclose(X1, X2, atol=3e-4 * scale, rtol=3e-3)
         check(ok, f"project {name}: kernel vs newton max err {err}")
+        # fault C-7: the sort-based paths' scans, rerun on the card
+        rerun = {"newton": reruns_equal(lambda: project_l1inf_newton(Y, C)),
+                 "sorted": reruns_equal(lambda: project_l1inf_sorted(Y, C))}
+        for path, same in rerun.items():
+            check(same, f"project {name}: {path} not the same on a rerun")
         colsp = float(((X1 == 0).all(dim=0)).float().mean() * 100)
+        walls = {"kernel_wall_ms": wall_ms(
+                     torch, lambda: project_l1inf_kernel(Y, C)),
+                 "newton_wall_ms": wall_ms(
+                     torch, lambda: project_l1inf_newton(Y, C))}
+        check(walls["kernel_wall_ms"] < walls["newton_wall_ms"],
+              f"project {name}: kernel engine {walls} slower than newton")
+        # reported, not checked: the sorted projection's distance to the
+        # Newton's (ROADMAP fault C-10)
+        sorted_err = float((project_l1inf_sorted(Y, C) - X2).abs().max())
         emit({"phase": "project", "shape": name, "n": Y.shape[0],
               "m": Y.shape[1], "C": C, "max_abs_err": err,
-              "newton_iters": st["newton_iters"],
+              "sorted_vs_newton_max_abs_err": sorted_err,
+              "newton_iters": int(st["newton_iters"]),
               "work_cols": int(st["work_cols"]),
               "full_cols": st["full_cols"], "colsp_pct": colsp,
-              "launches": per_projection,
-              "kernel_wall_ms": wall_ms(
-                  torch, lambda: project_l1inf_kernel(Y, C)),
-              "newton_wall_ms": wall_ms(
-                  torch, lambda: project_l1inf_newton(Y, C))})
+              "launches": per_projection, "reruns_bit_equal": rerun,
+              **walls})
+    Yw = inputs["fig2_wide"][:, :10000].contiguous()
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, size=10000).astype(
+        np.float32)).to(dev)
+    rerun = {"weighted": reruns_equal(lambda: project_l1inf_weighted(
+                 Yw, w, 1.0)),
+             "hoyer_ref": reruns_equal(lambda: project_hoyer_ref(Yw, 0.9)),
+             "l1_ball": reruns_equal(lambda: project_l1_ball(Yw, 100.0)),
+             "l12_ball": reruns_equal(lambda: project_l12_ball(Yw, 10.0))}
+    for path, same in rerun.items():
+        check(same, f"project fig2_wide: {path} not the same on a rerun")
+    # reported, not checked (ROADMAP fault C-10): the sorted projection on
+    # torch's own U(0, 1) draw of the Fig. 2 shape
+    Yr = torch.rand((1000, 10000), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    emit({"phase": "project", "shape": "fig2_wide", "check": "reruns",
+          "reruns_bit_equal": rerun,
+          "sorted_vs_newton_max_abs_err_torch_rand": float(
+              (project_l1inf_sorted(Yr, 1.0)
+               - project_l1inf_newton(Yr, 1.0)).abs().max())})
     Ys = torch.from_numpy(rng.normal(size=(64, 300)).astype(np.float32)).to(
         dev)
     Cs = float(0.2 * Ys.abs().amax(dim=0).sum())
@@ -1096,13 +1248,22 @@ def main():
     # flushed before each call (the one to hold against the HBM bound: the
     # inputs fit in L2); no single PyTorch call computes either fused
     # pass, so their library_ms is null
+    # the loop kernel's row: its time and bound on the projection of the
+    # SAE's enc1/w (phase 2), launches on the main path (phase 4)
+    lsae = loops["sae_enc1"]
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
          "max_abs_err": errs[k], "ms": sae[k][0],
          "ms_l2_flushed": flushed["sae_enc1"][k], "plain_ms": sae[k][1],
          "bound_ms": sae[k][3], "bound_by": sae[k][4],
-         "library_ms": sae[k][2]} for k in REPLACES] + [
+         "library_ms": sae[k][2]} for k in sae] + [
+        {"name": "newton_loop", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES["newton_loop"],
+         "launches": launches["newton_loop"],
+         "max_abs_err": errs["newton_loop"],
+         **{k: lsae[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}] + [
         {"name": k, "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES[k], "launches": fused_launches[k],
          "max_abs_err": ferrs[k], "ms": fsae[k][0],

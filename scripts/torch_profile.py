@@ -33,6 +33,7 @@ import numpy as np
 
 # trace-name fragments of the port's kernels (csrc/*.cu, anonymous namespace)
 KERNELS = {"colstats": "::colstats_kernel", "mu_solve": "::mu_solve_kernel",
+           "newton_loop": "::newton_loop_kernel",
            "clip_apply": "::clip_apply_kernel",
            "adam_colstats": "::adam_colstats_",
            "adam_clip_apply": "::adam_clip_apply_kernel"}

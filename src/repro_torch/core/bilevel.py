@@ -182,7 +182,7 @@ def project_bilevel_ref(Y: torch.Tensor, C, axis: int = 0) -> torch.Tensor:
     u = A.amax(dim=0)
     inside = u.sum() <= C
     Csafe = torch.where(C > 0, C, torch.ones_like(C))
-    tau = torch.clamp(simplex_threshold(u, Csafe, dim=0), min=0.0)
+    tau = torch.clamp(simplex_threshold(u, Csafe, axis=0), min=0.0)
     v = torch.clamp(u - tau, min=0.0)
     X = torch.sign(Yt) * torch.minimum(A, v[None, :])
     return _post(_gate(X, Yt, C, inside), Y, transpose)

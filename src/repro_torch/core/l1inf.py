@@ -38,6 +38,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .simplex import cumsum_in_order
+
 __all__ = [
     "l1inf_norm",
     "project_l1inf",
@@ -154,7 +156,7 @@ def _sorted_stats(A: torch.Tensor):
     """
     n = A.shape[0]
     Z = -torch.sort(-A, dim=0).values
-    S = torch.cumsum(Z, dim=0)
+    S = cumsum_in_order(Z, dim=0)
     k = torch.arange(1, n, dtype=A.dtype, device=A.device)[:, None]
     b_trans = S[: n - 1] - k * Z[1:]
     b_death = S[n - 1: n]
@@ -250,8 +252,8 @@ def project_l1inf_sorted(Y: torch.Tensor, C, axis: int = 0) -> torch.Tensor:
     b_sorted = bf[order]
     A0 = S[0].sum()
     B0 = torch.tensor(float(m), dtype=dt, device=dev)
-    A_state = torch.cat([A0[None], A0 + torch.cumsum(dA[order], dim=0)])
-    B_state = torch.cat([B0[None], B0 + torch.cumsum(dB[order], dim=0)])
+    A_state = torch.cat([A0[None], A0 + cumsum_in_order(dA[order])])
+    B_state = torch.cat([B0[None], B0 + cumsum_in_order(dB[order])])
 
     lo = torch.cat([torch.zeros((1,), dtype=dt, device=dev), b_sorted])
     hi = torch.cat([b_sorted,

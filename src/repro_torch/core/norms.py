@@ -41,7 +41,7 @@ def project_l12_ball(Y: torch.Tensor, C, axis: int = 0) -> torch.Tensor:
     C = torch.as_tensor(C, dtype=dt, device=Y.device)
     nu = torch.sqrt((Yf * Yf).sum(dim=axis))
     inside = nu.sum() <= C
-    tau = simplex_threshold(nu, C, dim=0)
+    tau = simplex_threshold(nu, C, axis=0)
     nu_new = torch.clamp(nu - tau, min=0.0)
     zero = torch.zeros((), dtype=dt, device=Y.device)
     scale = torch.where(nu > 0, nu_new / torch.clamp(

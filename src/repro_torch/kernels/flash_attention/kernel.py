@@ -164,13 +164,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (BH, Sq, hd); k/v: (BKV, Skv, hd) with BH = BKV * groups, all f32
     or all bf16. Returns (BH, Sq, hd) in q's dtype. Sq and Skv need not be
     multiples of a tile. On the card: contiguous inputs, head_dim one of
-    ``KERNEL_HEAD_DIMS``, BH <= 65535 (else ValueError).
+    ``KERNEL_HEAD_DIMS``, BH <= 65535 (else ValueError); the kernel is
+    forward-only, so with grad mode on and an input that requires grad it
+    raises RuntimeError rather than drop the gradient.
     """
     _check(q, k, v, groups)
     if not _on_card(q):
         return flash_attention_fwd_plain(q, k, v, groups=groups,
                                          causal=causal, window=window,
                                          block_q=block_q, block_kv=block_kv)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_fwd: the CUDA kernel is forward-only and its "
+            "output carries no gradient; call it under torch.no_grad() or "
+            "on inputs that do not require grad")
     BH, Sq, hd = q.shape
     Skv = k.shape[1]
     if hd not in KERNEL_HEAD_DIMS:

@@ -5,9 +5,10 @@ Engine shape (DESIGN.md §3):
 
   * outer monotone Newton on theta, warm-startable via ``theta0=`` (any
     value >= 0; an overshooting guess is repaired by the first unclamped
-    Eq.-(19) step). The loop runs on the host with one device sync per
-    step (the ``any(theta > prev)`` test); everything else stays on the
-    device;
+    Eq.-(19) step). On the card the loop from pass 2 on is ONE persistent
+    launch (``kernel.newton_loop``) and the projection never syncs the
+    host; on the CPU it is the host loop over the plain ``mu_solve``, with
+    one ``any(theta > prev)`` test per step;
   * active-column shrinking — after the first full ``mu_solve`` pass the
     surviving columns are compacted into the leading slots, ordered by
     descending death margin, and every later Newton step solves only the
@@ -16,7 +17,7 @@ Engine shape (DESIGN.md §3):
     tensor, which its kernel reads itself. ``mu`` is carried through the
     loop and scattered back through the permutation before ``clip_apply``;
   * packed multi-ball (``project_l1inf_kernel_segmented``) — one packed
-    (n, M) buffer with a per-column segment id, one ``mu_solve`` launch per
+    (n, M) buffer with a per-column segment id, one ``mu_solve`` per
     Newton step for every segment;
   * the bi-level family's packed solve
     (``project_bilevel_kernel_segmented``) — one ``colstats`` sweep, the
@@ -30,7 +31,9 @@ included; on a CUDA tensor every step launches the kernels.
 
 ``return_stats=True`` exposes the counters ``newton_iters``,
 ``num_active``, ``active_cols_per_step``, ``work_cols`` (columns swept
-across all ``mu_solve`` launches) and ``full_cols``.
+across all ``mu_solve`` evaluations) and ``full_cols``; all but
+``full_cols`` are 0-d tensors on the buffer's device, as the JAX engine
+returns arrays (convert them once, after the projection).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import torch.nn.functional as F
 from ...core.bilevel import _BilevelSegOps
 from ...core.l1inf import (_PAD_THETA, _segment_max, _segment_summer,
                            _segmented_newton, active_compaction)
-from .kernel import clip_apply, colstats, mu_solve
+from .kernel import clip_apply, colstats, eq19_step, mu_solve, newton_loop
 
 __all__ = ["project_l1inf_kernel", "project_l1inf_kernel_segmented",
            "project_bilevel_kernel_segmented"]
@@ -59,6 +62,14 @@ def _pad_to(x: torch.Tensor, mult0: int, mult1: int) -> torch.Tensor:
     return x.contiguous()
 
 
+def _f32(x, dev) -> torch.Tensor:
+    """x as f32 on dev; a Python number is filled in on the device, so the
+    card sees no host-to-device copy (and no sync)."""
+    if isinstance(x, (int, float)):
+        return torch.full((), float(x), dtype=torch.float32, device=dev)
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
 def _padded(Y: torch.Tensor, block_m: int):
     Ypad = _pad_to(Y, 8, 128)
     bm = block_m or _DEFAULT_BLOCK_M
@@ -67,19 +78,13 @@ def _padded(Y: torch.Tensor, block_m: int):
     return Ypad, bm
 
 
-def _engine(Ypad, seg_ids, C_seg, num_segments, theta0, *, bm, n_bisect,
-            n_polish, max_newton, shrink):
-    """Shared sparsity-adaptive Newton engine over a padded (n_pad, m_pad)
-    buffer whose columns map to ``num_segments`` balls (plus the dummy
-    padding segment ``num_segments``).
-
-    Returns (mu_full, theta_seg, norm_seg, colsum, stats); mu_full and
-    colsum are in the ORIGINAL column order.
-
-    NOTE: the loop structure (bootstrap, monotone ascent, carried mu,
-    cap-exit re-eval) is the kernel twin of core/l1inf.py's
-    _segmented_newton — keep structural fixes in sync.
-    """
+def _loop_inputs(Ypad, seg_ids, C_seg, num_segments, theta0, *, bm,
+                 n_bisect, n_polish, shrink):
+    """The engine up to its Newton loop: colstats, the cold or warm start,
+    pass 1 (a full ``mu_solve`` sweep) and the active-column compaction.
+    Returns a dict with the loop's inputs (``A``, ``sids``, ``colsum``,
+    ``t1``, ``Csafe``, ``num_active``, compacted) and what the engine
+    needs afterwards (``perm``, ``norm_seg``, ``colsum_full``)."""
     _, m_pad = Ypad.shape
     dev = Ypad.device
     G = int(num_segments)
@@ -106,79 +111,73 @@ def _engine(Ypad, seg_ids, C_seg, num_segments, theta0, *, bm, n_bisect,
         start = torch.maximum(torch.clamp(t0, min=0.0), cold)
 
     pad = torch.full((1,), _PAD_THETA, dtype=f32, device=dev)
+    all_blocks = torch.full((), nblocks, dtype=i32, device=dev)
 
-    def theta_cols(th_seg, sids):
-        return torch.cat([th_seg, pad])[torch.clamp(sids, max=G)]
-
-    def eval_step(th_seg, A, sids, sum_seg, nact_blocks):
-        """One mu_solve launch + the segmented Eq.-(19) update at th_seg."""
-        mu, k, S, act = mu_solve(A, theta_cols(th_seg, sids), block_m=bm,
-                                 n_bisect=n_bisect, n_polish=n_polish,
-                                 nact_blocks=nact_blocks)
-        act = act & (sids < G)
-        Aa = sum_seg(torch.where(act, S / k, zero))[:G]
-        Ba = sum_seg(torch.where(act, 1.0 / k, zero))[:G]
-        return (Aa - Csafe) / torch.clamp(Ba, min=1e-30), mu
-
-    all_blocks = torch.tensor(nblocks, dtype=i32, device=dev)
+    def solve(A, th_cols, nact):
+        return mu_solve(A, th_cols, block_m=bm, n_bisect=n_bisect,
+                        n_polish=n_polish, nact_blocks=nact)
 
     # pass 1: full sweep. The repair clamps to the COLD bound, not 0: cold
     # <= theta* always and cold > 0 outside the ball, which keeps theta off
     # the degenerate theta = 0 level where the payloads carry no slope.
-    t1 = torch.maximum(
-        eval_step(start, Aabs, seg_ids, sum_cols, all_blocks)[0], cold)
+    t1 = torch.maximum(eq19_step(solve, Aabs, start, seg_ids, sum_cols,
+                                 Csafe, G, all_blocks)[0], cold)
 
     # active-column shrinking: theta only rises from t1, so a column with
     # colsum <= theta_cols(t1) is dead for good. Survivors go first, by
     # descending death margin, so deaths peel off the END of the prefix.
     if shrink:
-        tc1 = theta_cols(t1, seg_ids)
+        tc1 = torch.cat([t1, pad])[torch.clamp(seg_ids, max=G)]
         act1 = (colsum > tc1) & valid
         perm, J = active_compaction(act1, key=tc1 - colsum)
         Ap = Aabs.index_select(1, perm)
         sids_p = seg_ids[perm]
-        sum_p = _segment_summer(sids_p, G + 1)
         colsum_p = colsum[perm]
-        iota = torch.arange(m_pad, dtype=i32, device=dev)
-
-        def nact_of(th_seg):
-            alive = (colsum_p > theta_cols(th_seg, sids_p)) & (sids_p < G)
-            last = torch.where(alive, iota, -1).max()
-            return ((last + 1) + bm - 1) // bm
     else:
         perm = torch.arange(m_pad, dtype=torch.int64, device=dev)
-        J = torch.tensor(m_pad, dtype=i32, device=dev)
-        Ap, sids_p, sum_p = Aabs, seg_ids, sum_cols
+        J = all_blocks * bm
+        Ap, sids_p, colsum_p = Aabs, seg_ids, colsum
+    return {"A": Ap, "sids": sids_p, "colsum": colsum_p, "t1": t1,
+            "Csafe": Csafe, "num_active": J.to(i32), "perm": perm,
+            "norm_seg": norm_seg, "colsum_full": colsum}
 
-        def nact_of(th_seg):
-            return all_blocks
 
-    # pass 2 + the monotone loop on the packed prefix, mu carried
-    nact1 = nact_of(t1)
-    t2, mu_p = eval_step(t1, Ap, sids_p, sum_p, nact1)
-    theta, prev = torch.maximum(t2, t1), t1
-    work = nblocks * bm + nact1 * bm
-    iters = 2
-    while iters < max_newton and bool((theta > prev).any()):
-        nact = nact_of(theta)
-        new, mu_p = eval_step(theta, Ap, sids_p, sum_p, nact)
-        iters, theta, prev = iters + 1, torch.maximum(new, theta), theta
-        work = work + nact * bm
-    # max_newton cap exit: mu lags theta by one iterate; re-evaluate
-    if bool((theta > prev).any()):
-        mu_p = eval_step(theta, Ap, sids_p, sum_p, nact_of(theta))[1]
+def _engine(Ypad, seg_ids, C_seg, num_segments, theta0, *, bm, n_bisect,
+            n_polish, max_newton, shrink):
+    """Shared sparsity-adaptive Newton engine over a padded (n_pad, m_pad)
+    buffer whose columns map to ``num_segments`` balls (plus the dummy
+    padding segment ``num_segments``).
+
+    Returns (mu_full, theta_seg, norm_seg, colsum, stats); mu_full and
+    colsum are in the ORIGINAL column order.
+
+    NOTE: the loop structure (bootstrap, monotone ascent, carried mu,
+    cap-exit re-eval) is the kernel twin of core/l1inf.py's
+    _segmented_newton — keep structural fixes in sync.
+    """
+    m_pad = Ypad.shape[1]
+    G = int(num_segments)
+    li = _loop_inputs(Ypad, seg_ids, C_seg, G, theta0, bm=bm,
+                      n_bisect=n_bisect, n_polish=n_polish, shrink=shrink)
+
+    # pass 2 + the monotone loop on the packed prefix, mu carried: one
+    # persistent launch on the card, the host loop on the CPU
+    theta, mu_p, iters, work, active_cols = newton_loop(
+        li["A"], li["sids"], li["colsum"], li["t1"], li["Csafe"],
+        li["num_active"], num_segments=G, block_m=bm, shrink=shrink,
+        n_bisect=n_bisect, n_polish=n_polish, max_newton=max_newton)
 
     # scatter back: perm is a bijection, so this is exact
-    mu_full = torch.zeros((m_pad,), dtype=f32, device=dev)
-    mu_full[perm] = mu_p
+    mu_full = torch.zeros((m_pad,), dtype=torch.float32, device=Ypad.device)
+    mu_full[li["perm"]] = mu_p
     stats = {
         "newton_iters": iters,
-        "num_active": J,
-        "active_cols_per_step": nact_of(theta) * bm,
+        "num_active": li["num_active"],
+        "active_cols_per_step": active_cols,
         "work_cols": work,
         "full_cols": m_pad,
     }
-    return mu_full, theta, norm_seg, colsum, stats
+    return mu_full, theta, li["norm_seg"], li["colsum_full"], stats
 
 
 def project_l1inf_kernel(Y: torch.Tensor, C, *, theta0=None,
@@ -198,12 +197,11 @@ def project_l1inf_kernel(Y: torch.Tensor, C, *, theta0=None,
         raise ValueError("expected 2-D input")
     n, m = Y.shape
     dev = Y.device
-    C = torch.as_tensor(C, dtype=torch.float32, device=dev)
+    C = _f32(C, dev)
     Ypad, bm = _padded(Y, block_m)
     m_pad = Ypad.shape[1]
     seg_ids = (torch.arange(m_pad, device=dev) >= m).to(torch.int32)
-    th0 = None if theta0 is None else torch.as_tensor(
-        theta0, dtype=torch.float32, device=dev).reshape(1)
+    th0 = None if theta0 is None else _f32(theta0, dev).reshape(1)
 
     mu_full, theta, norm_seg, colsum, stats = _engine(
         Ypad, seg_ids, C.reshape(1), 1, th0, bm=bm, n_bisect=n_bisect,

@@ -179,11 +179,19 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     BH = BG * groups; x, dt, B, C share one dtype (f32 or bf16); S a
     multiple of ``chunk``. Returns (y (BH, S, P) in x's dtype, final state
     (BH, P, N) f32). On the card: contiguous inputs, and chunk, P and N
-    among ``KERNEL_SHAPES`` (else ValueError).
+    among ``KERNEL_SHAPES`` (else ValueError); the kernels are forward-only,
+    so with grad mode on and an input that requires grad it raises
+    RuntimeError rather than drop the gradient.
     """
     _check(x, dt, a, d, B, C, chunk, groups)
     if not _on_card(x):
         return ssd_fwd_plain(x, dt, a, d, B, C, chunk=chunk, groups=groups)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, a, d, B, C)):
+        raise RuntimeError(
+            "ssd_fwd: the CUDA kernel is forward-only and its outputs carry "
+            "no gradient; call it under torch.no_grad() or on inputs that "
+            "do not require grad")
     BH, S, P = x.shape
     N = B.shape[-1]
     if not all(t.is_contiguous() for t in (x, dt, a, d, B, C)):

@@ -150,11 +150,15 @@ def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta,
 def attn_apply(params, x, *, n_heads: int, n_kv: int, head_dim: int,
                positions, causal: bool = True, window: int = 0,
                rope_theta: float = 10000.0, rope_frac: float = 1.0,
-               q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
+               q_chunk: int = 512, kv_chunk: int = 512,
+               sliced_window: bool = False) -> torch.Tensor:
     """Full-sequence (train / prefill) GQA. x: (B, S, d).
 
     ``q_chunk`` / ``kv_chunk`` are the plain version's tiles (the CUDA
-    kernel picks its own)."""
+    kernel picks its own). ``sliced_window`` is the reference's lever for
+    how local attention is lowered (O(S * window) slices); it does not
+    change the function, and the flash kernel already skips tiles that the
+    window masks out, so it is accepted and has nothing to select here."""
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions,
                            rope_theta, rope_frac)
     out = flash_attention(q, k, v, causal=causal, window=window,

@@ -176,7 +176,8 @@ def block_apply_full(params, x, kind: str, cfg: ArchConfig, positions):
     common = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                   head_dim=cfg.head_dim, positions=positions,
                   rope_theta=cfg.rope_theta, rope_frac=cfg.rope_frac,
-                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                  sliced_window=cfg.sliced_window)
     if kind in ("global", "local"):
         h = L.norm_apply(params["attn_norm"], x, cfg.norm_kind, cfg.norm_eps)
         x = x + A.attn_apply(params["attn"], h, causal=True,

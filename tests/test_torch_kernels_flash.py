@@ -295,6 +295,23 @@ def test_cuda_kernel_refuses_other_head_dims(card):
         flash_attention_fwd(q, q, q)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_cuda_kernel_refuses_to_drop_gradients(card, needs_grad):
+    """The kernel is forward-only: with grad mode on, an input that
+    requires grad raises instead of giving an output without a grad_fn;
+    under no_grad the same call runs."""
+    g = torch.Generator(device=card).manual_seed(3)
+    qkv = {n: torch.randn((4, 64, 64), generator=g, device=card)
+           for n in "qkv"}
+    qkv[needs_grad].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention_fwd(qkv["q"], qkv["k"], qkv["v"])
+    with torch.no_grad():
+        out = flash_attention_fwd(qkv["q"], qkv["k"], qkv["v"])
+    assert out.shape == (4, 64, 64) and not out.requires_grad
+
+
 EDGE_MASKS = [(True, 0), (True, 48), (False, 0)]
 
 

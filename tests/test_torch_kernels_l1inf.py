@@ -35,6 +35,7 @@ except ImportError:       # the card's machine has PyTorch but no JAX
     jnp = None
 from repro_torch.core.l1inf import project_l1inf_newton
 from repro_torch.kernels.l1inf import kernel as K
+from repro_torch.kernels.l1inf import ops as O
 from repro_torch.kernels.l1inf import ref
 from repro_torch.kernels.l1inf.ops import (project_l1inf_kernel,
                                            project_l1inf_kernel_segmented)
@@ -147,8 +148,9 @@ def test_launch_counts_only_move_on_the_card():
     K.colstats(Y)
     K.mu_solve(Y, 0.5)
     K.clip_apply(Y, torch.rand(128))
+    project_l1inf_kernel(Y, 1.0)               # runs K.newton_loop
     assert K.launch_counts() == {"colstats": 0, "mu_solve": 0,
-                                 "clip_apply": 0}
+                                 "clip_apply": 0, "newton_loop": 0}
 
 
 # ------------------------------ the engines ----------------------------------
@@ -337,8 +339,13 @@ def card():
 
 
 @pytest.mark.cuda
+# every mu_solve plan: 8-lane teams of 4-16 values (n <= 128), warps of
+# 8-32 values, clusters of 3 and 8 CTAs (3000, 10000 rows), and the tile
+# streamed on every pass past 10240 rows
 @pytest.mark.parametrize("shape", [(96, 10112), (1000, 1024), (300, 257),
-                                   (7, 33)])
+                                   (7, 33), (10000, 1024), (3000, 257),
+                                   (200, 300), (700, 130), (50, 129),
+                                   (128, 64), (12000, 130)])
 def test_cuda_kernels_vs_plain(card, shape):
     g = torch.Generator(device=card).manual_seed(0)
     Y = torch.randn(shape, generator=g, device=card)
@@ -372,3 +379,140 @@ def test_cuda_engine_vs_newton(card):
     assert all(v > 0 for v in counts.values()), counts
     torch.testing.assert_close(X, project_l1inf_newton(Y, 1.0),
                                atol=3e-4, rtol=3e-3)
+
+
+# The Newton loop kernel against its plain loop, on the engine's own state
+# after pass 1: SAE enc1's packed (96, 10112), paper Fig. 2's 1000 x 10000
+# and 10000 x 1000 (padded), and a 3-segment buffer with a warm start.
+LOOP_CASES = ["sae_enc1", "fig2_wide", "fig2_tall", "tall_3000",
+              "segmented_warm"]
+
+
+def _loop_case(card, case):
+    g = torch.Generator(device=card).manual_seed(7)
+    if case == "segmented_warm":
+        Y, sids, Cs = (_t(a).to(card) for a in _packed(16))
+        _, th = project_l1inf_kernel_segmented(Y, sids, Cs, num_segments=3)
+        theta0, G = th * 0.9, 3
+        m = sids.shape[0]                     # lane padding: segment id G
+        sids = torch.cat([sids, sids.new_full((-m % 128,), G)])
+    else:
+        n, m, m_pad, scale, frac = {
+            "sae_enc1": (96, 10000, 10112, 0.05, 0.05),
+            "fig2_wide": (1000, 10000, 10112, 1.0, 1e-4),
+            "fig2_tall": (10000, 1000, 1024, 1.0, 1e-3),
+            "tall_3000": (3000, 600, 640, 1.0, 1e-2)}[case]
+        Y = torch.zeros((n, m_pad), device=card)
+        Y[:, :m] = torch.rand((n, m), generator=g, device=card) * scale
+        sids = (torch.arange(m_pad, device=card) >= m).to(torch.int32)
+        Cs = (frac * Y.abs().amax(dim=0).sum()).reshape(1)
+        theta0, G = None, 1
+    Ypad, bm = O._padded(Y, 0)
+    li = O._loop_inputs(Ypad, sids, Cs, G, theta0, bm=bm, n_bisect=26,
+                        n_polish=8, shrink=True)
+    args = (li["A"], li["sids"], li["colsum"], li["t1"], li["Csafe"],
+            li["num_active"])
+    return args, dict(num_segments=G, block_m=bm)
+
+
+def _loop_outputs_agree(got, want, colmax):
+    """theta to the parity tolerances, mu's support equal and mu within
+    1e-5 * colmax; newton_iters equal, or one apart only where the last
+    step is fp rounding (thetas within 4 ulps), work_cols then larger by
+    that step's prefix; active_cols_per_step equal."""
+    th, mu, it, work, acps = got
+    thp, mup, itp, workp, acpsp = want
+    torch.testing.assert_close(th, thp, atol=1e-6, rtol=1e-6)
+    extra = int(it) - int(itp)
+    assert abs(extra) <= 1, (int(it), int(itp))
+    if extra:
+        ulp = torch.from_numpy(np.spacing(thp.cpu().numpy())).to(th.device)
+        assert bool(((th - thp).abs() <= 4 * ulp).all()), (th, thp)
+    assert int(work) == int(workp) + extra * int(acpsp)
+    assert int(acps) == int(acpsp)
+    assert torch.equal(mu > 0, mup > 0)
+    assert bool(((mu - mup).abs() <= 1e-5 * colmax).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LOOP_CASES)
+def test_cuda_newton_loop_vs_plain(card, case):
+    args, kw = _loop_case(card, case)
+    K.reset_launch_counts()
+    got = K.newton_loop(*args, **kw)
+    assert K.launch_counts() == {"colstats": 0, "mu_solve": 0,
+                                 "clip_apply": 0, "newton_loop": 1}
+    want = K.newton_loop_plain(*args, **kw)
+    _loop_outputs_agree(got, want, args[0].amax(dim=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LOOP_CASES)
+def test_cuda_newton_loop_rerun_bit_equal(card, case):
+    args, kw = _loop_case(card, case)
+    first = K.newton_loop(*args, **kw)
+    second = K.newton_loop(*args, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segmented", [False, True])
+def test_cuda_projection_never_syncs(card, segmented):
+    """colstats, mu_solve (pass 1), the loop kernel and clip_apply are
+    enqueued with no host sync: the projection runs under the sync debug
+    mode "error" (torch raises on any synchronising call)."""
+    g = torch.Generator(device=card).manual_seed(2)
+    Y = torch.rand((1000, 1000), generator=g, device=card)
+    sids = (torch.arange(1000, device=card) >= 600).to(torch.int32)
+    Cs = torch.full((2,), 1.0, device=card)
+    run = (lambda: project_l1inf_kernel_segmented(
+        Y, sids, Cs, num_segments=2)[0]) if segmented else (
+        lambda: project_l1inf_kernel(Y, 1.0))
+    run()                                    # builds and loads the kernels
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        X = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert K.launch_counts() == {"colstats": 1, "mu_solve": 1,
+                                 "clip_apply": 1, "newton_loop": 1}
+    if not segmented:
+        torch.testing.assert_close(X, project_l1inf_newton(Y, 1.0),
+                                   atol=3e-4, rtol=3e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_taller_than_the_loop_kernel(card):
+    """Past ``l1inf_newton_loop_max_rows()`` rows the loop runs on the host
+    over the streaming mu_solve kernel: the same projection, no loop
+    launch."""
+    g = torch.Generator(device=card).manual_seed(4)
+    Y = torch.rand((12000, 300), generator=g, device=card)
+    K.reset_launch_counts()
+    X, st = project_l1inf_kernel(Y, 1.0, return_stats=True)
+    counts = K.launch_counts()
+    assert counts["newton_loop"] == 0
+    assert counts["mu_solve"] == int(st["newton_iters"]) >= 2
+    torch.testing.assert_close(X, project_l1inf_newton(Y, 1.0), atol=3e-4,
+                               rtol=3e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_without_shrinking(card):
+    """shrink=False: every Newton step solves all columns; the card's
+    engine (loop kernel) against the same engine on CPU copies (plain
+    versions)."""
+    g = torch.Generator(device=card).manual_seed(6)
+    Y = torch.randn((200, 700), generator=g, device=card)
+    C = 0.1 * float(Y.abs().amax(dim=0).sum())
+    K.reset_launch_counts()
+    X, st = project_l1inf_kernel(Y, C, shrink=False, return_stats=True)
+    assert K.launch_counts()["newton_loop"] == 1
+    Xp, sp = project_l1inf_kernel(Y.cpu(), C, shrink=False,
+                                  return_stats=True)
+    torch.testing.assert_close(X.cpu(), Xp, atol=1e-5, rtol=1e-5)
+    _stats_equal(st, sp)
+    assert int(st["work_cols"]) == int(st["newton_iters"]) * 768

@@ -282,6 +282,21 @@ def test_cuda_kernel_refuses_other_shapes(card, P, N, chunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("needs_grad", [0, 1, 4])     # x, dt, B
+def test_cuda_kernel_refuses_to_drop_gradients(card, needs_grad):
+    """The kernels are forward-only: with grad mode on, an input that
+    requires grad raises instead of giving outputs without a grad_fn;
+    under no_grad the same call runs."""
+    args = [t.to(card) for t in _t(_mk(2, 128, 64, 16, 2))]
+    args[needs_grad].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ssd_fwd(*args, chunk=64)
+    with torch.no_grad():
+        y, st = ssd_fwd(*args, chunk=64)
+    assert not (y.requires_grad or st.requires_grad)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nc", [1, 2])
 @pytest.mark.parametrize("groups", [1, 50])
 @pytest.mark.parametrize("N", [16, 32, 64, 128])

@@ -31,8 +31,9 @@ import torch
 from repro.core import l1inf as J
 from repro.core import project_l1inf_heap
 from repro_torch.core import l1inf as T
-from repro_torch.core.simplex import project_l1_ball
+from repro_torch.core.simplex import project_l1_ball, simplex_threshold
 from repro.core.simplex import project_l1_ball as project_l1_ball_jax
+from repro.core.simplex import simplex_threshold as simplex_threshold_jax
 
 SHAPES = [(7, 5), (100, 100), (33, 257), (1000, 64), (2, 1000), (1, 30),
           (40, 1)]
@@ -222,6 +223,17 @@ def test_l1_ball_matches_jax(radius):
     np.testing.assert_allclose(
         project_l1_ball(torch.from_numpy(y), radius).numpy(),
         np.asarray(project_l1_ball_jax(jnp.asarray(y), radius)),
+        atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+def test_simplex_threshold_axis_keyword_matches_jax(axis):
+    """Both packages take the reference's ``axis=`` keyword."""
+    y = (np.random.default_rng(9).normal(size=(6, 9)) + 2.0).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        simplex_threshold(torch.from_numpy(y), 1.5, axis=axis).numpy(),
+        np.asarray(simplex_threshold_jax(jnp.asarray(y), 1.5, axis=axis)),
         atol=1e-6, rtol=1e-5)
 
 

@@ -232,6 +232,25 @@ def test_attn_apply(causal, window, qkv_bias, rope_frac):
     _close(out, expect, FLASH)
 
 
+@pytest.mark.parametrize("window", [0, 8])
+def test_attn_apply_sliced_window_keyword(window):
+    """Both packages take the reference's ``sliced_window=`` keyword; it
+    changes how the reference lowers local attention, not the function."""
+    jp, tp = _carry(JA.attn_layout(32, 4, 2, 16), seed=13)
+    B, S = 2, 40
+    jx, tx = _pair(_rand(B, S, 32, seed=14))
+    pos = np.tile(np.arange(S), (B, 1))
+    kw = dict(ATTN, causal=True, window=window, q_chunk=8, kv_chunk=8,
+              sliced_window=True)
+    out = TA.attn_apply(tp, tx, positions=torch.from_numpy(pos), **kw)
+    expect = JA.attn_apply(jp, jx, positions=jnp.asarray(pos), **kw)
+    _close(out, expect, FLASH)
+    kw["sliced_window"] = False
+    assert torch.equal(out, TA.attn_apply(tp, tx,
+                                          positions=torch.from_numpy(pos),
+                                          **kw))
+
+
 @pytest.mark.parametrize("window", [0, 5])
 @pytest.mark.parametrize("vector_pos", [False, True])
 def test_attn_decode_steps(window, vector_pos):

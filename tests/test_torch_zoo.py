@@ -120,6 +120,18 @@ def test_forward_vs_jax(arch, over):
     np.testing.assert_allclose(logits.numpy(), np.asarray(want), **FWD)
 
 
+def test_forward_sliced_window_vs_jax():
+    """A local-attention model with ``sliced_window=True``: the full block
+    hands the config's lever to ``attn_apply`` as the reference does, and
+    the logits match the reference's."""
+    jcfg, tcfg, jp, tp, tokens = _setup("gemma3_4b", sliced_window=True)
+    assert tcfg.sliced_window and jcfg.sliced_window
+    logits, _ = TZ.build(tcfg).forward(tp, {"tokens":
+                                            torch.from_numpy(tokens)})
+    want, _ = JT.forward(jp, {"tokens": jnp.asarray(tokens)}, jcfg)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want), **FWD)
+
+
 @pytest.mark.parametrize("arch,over", CASES[:4] + CASES[5:])
 def test_decode_steps_vs_jax(arch, over):
     jcfg, tcfg, jp, tp, tokens = _setup(arch, **over)
