@@ -47,7 +47,12 @@ and prints no result. Phases:
                based paths (fault C-7) must be bit-equal: project_l1inf_newton
                and project_l1inf_sorted at each shape, the weighted, Hoyer
                (reference), l1-ball and l2,1-ball projections at fig2_wide.
-               Then the Newton against the sort-based oracle on a small input.
+               Fault C-10: project_l1inf_sorted, the kernel engine and
+               project_l1inf_newton against project_l1inf_heap (the paper's
+               Algorithm 2, float64 on the host) at fig2_wide and fig2_tall,
+               on the numpy U(0, 1) draw and on torch.rand's, at atol 3e-4
+               * scale, rtol 3e-3. Then the Newton against the sort-based
+               oracle on a small input.
   4. train   — the main path: 20 projected SAE steps at the paper's full
                synthetic width (10000 features, 96 hidden, batch 128; spec
                enc1/w l1inf radius 0.2 axis 1) through
@@ -68,6 +73,16 @@ and prints no result. Phases:
   5b. train_sae_table1 — ``train_sae`` with ``norm="l12"`` (radius 10) and
                ``norm="l1inf_masked"`` (radius 0.1), paper Table 1's two
                other rows, 2 epochs of each descent at lr 2e-3.
+  5c. sae_serve — phase 5's l1,inf result compacted (``compact_sae``) and
+               served through ``make_serve_step`` on the 200 full-width
+               test rows: ``sel`` equal to the support of the structural
+               zeros, z and the selected reconstruction within 1e-5 of
+               dense ``sae_apply`` times the outputs' scale
+               (``tests/test_sae_serve.py``'s atol), a rerun bit-equal;
+               ``refresh_model`` (values x 1.5) and ``recompact_model``
+               (one more dead feature) keep every shape and still match
+               dense. J, J/d and wall ms per served batch, compact and
+               dense.
   6. attn_kernels — the flash attention kernel against its plain version
                (f32 atol = rtol 2e-5, bf16 3e-2: the JAX suite's tolerances)
                at hymba-1.5b's prefill (B 2, S 2048, 25 heads, 5 KV heads,
@@ -108,7 +123,29 @@ and prints no result. Phases:
                logits against the forward's at every position, within the
                noise floor; full depth: a 64-token prompt the same way for
                B 2, then 8 greedy tokens, and one traced decode step.
- 10. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+ 10. lm_compact — the compact-serving path: hymba-1.5b at full size, each
+               hidden unit's w1 column scaled by one U(0, 1) factor shared
+               by all layers (``lm_compact_params``), projected under its
+               own specs (mlp/w1 and ssm/wx, radius 32, axis 0) through
+               ``ProjectionEngine(solver="kernel")`` (every l1,inf kernel
+               launched) and held to ``solver="newton"``'s projection
+               (atol 3e-4 * scale, as phase 4) and to the radius (every
+               slice's norm within 1e-4 of it); then ``compact_model``:
+               ssm/wx skipped, 0 < live < m on mlp/w1. Each of the 32
+               layers' MLP alone, compact against dense on one N(0, 1)
+               input: within SERVE_TOL of the output's scale (f32 1e-5,
+               bf16 5e-2: tests/test_sae_serve.py's). Forward (B 2, S 2048)
+               in f32 and bf16, each kernel launched once a layer, logits
+               finite, a rerun bit-equal, and decode of a 64-token prompt,
+               compact against dense, at full depth and at the first 2
+               layers. At depth 2 the distance is checked: f32 forward and
+               decode within the run's noise floor (PERTURB's weight
+               noise) and LM_MAX_REL of the logits' scale, bf16 within
+               SERVE_TOL's 5e-2 of it. At full depth the model's noise
+               floor is the logits' own scale, so the distance is reported
+               beside the floor, not checked. Compaction ratio, wall ms of
+               compact and dense, peak memory.
+ 11. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
@@ -181,6 +218,9 @@ SSD_TOL = 2e-4
 # logits' scale.
 PERTURB = 1e-6
 LM_MAX_REL = 1e-2
+# compact serving against dense, as a fraction of the dense output's scale:
+# tests/test_sae_serve.py's atol (f32) and its bf16 tolerance
+SERVE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 FAILURES = []
 
 
@@ -557,9 +597,18 @@ def _noise_floor(torch, model, params, batch, logits, V, seed):
     from repro_torch._tree import tree_map
     g = torch.Generator(device=logits.device).manual_seed(seed)
     pert = tree_map(lambda a: a * (1 + PERTURB * torch.randn(
-        a.shape, generator=g, device=a.device)), params)
+        a.shape, generator=g, device=a.device))
+        if a.is_floating_point() else a, params)
     moved, _ = model.forward(pert, batch)
     return float((moved[..., :V] - logits[..., :V]).abs().max())
+
+
+def _cast(torch, params, dtype):
+    """The float leaves of ``params`` in ``dtype``; integer leaves (the
+    ``*_sel`` indices of a compact tree) as they are."""
+    from repro_torch._tree import tree_map
+    return tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a,
+                    params)
 
 
 def _lm_counts(FA, SK):
@@ -747,6 +796,304 @@ def lm_decode_phase(torch, Z, C, FA, SK, dev, lm=LM):
         torch.cuda.empty_cache()
 
 
+def sae_serve_phase(torch, params, spec, X, dev):
+    """Phase 5c: phase 5's l1,inf ``train_sae`` result compacted and served
+    at full width."""
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.sae import compact_sae, make_serve_step, sae_apply
+    from repro_torch.sae.serve import _SAE_RULES
+    from repro_torch.serve import (compact_model, recompact_model,
+                                   refresh_model)
+    x = torch.from_numpy(X).to(dev)
+    d = int(params["enc1"]["w"].shape[0])
+    compact = compact_sae(params, (spec,))
+    J = compact.n_selected
+    alive = np.nonzero((params["enc1"]["w"] != 0).any(dim=1).cpu().numpy())[0]
+    check(np.array_equal(compact.sel, alive),
+          "sae_serve: sel is not the support of the structural zeros")
+    check(0 < J < d, f"sae_serve: {J} of {d} features selected")
+    step = make_serve_step(compact)
+
+    def served(step_params, dense_params, sel):
+        """max |compact - dense| of z and of xhat on sel, and the dense
+        outputs' scale; the served outputs too."""
+        z, xs = step(step_params, x)
+        z_d, xh_d = sae_apply(dense_params, x)
+        xh_sel = xh_d[:, torch.as_tensor(sel, device=dev).long()]
+        scale = max(float(z_d.abs().max()), float(xh_sel.abs().max()), 1.0)
+        err = max(float((z - z_d).abs().max()),
+                  float((xs - xh_sel).abs().max()))
+        return err, scale, (z, xs)
+
+    err, scale, (z, xs) = served(compact.params, params, compact.sel)
+    tol = SERVE_TOL["float32"]
+    check(err <= tol * scale,
+          f"sae_serve: compact vs dense max err {err} (scale {scale})")
+    check(tuple(z.shape) == (x.shape[0], 2) and tuple(xs.shape)
+          == (x.shape[0], J), f"sae_serve: shapes {z.shape}, {xs.shape}")
+    z2, xs2 = step(compact.params, x)
+    rerun = bits_equal(torch, z, z2) and bits_equal(torch, xs, xs2)
+    check(rerun, "sae_serve: a rerun is not bit-equal")
+
+    # the checkpoint lifecycle: a refresh (same support, new values), then
+    # a live re-compaction after one more feature dies
+    cm = compact_model(params, (spec,), rules=_SAE_RULES)
+    enc = "enc1/w"
+    params2 = tree_map(lambda a: a * 1.5, params)
+    cm2 = refresh_model(cm, params2)
+    shapes = lambda t: [tuple(a.shape) for a in leaves(t)]
+    err2, scale2, _ = served(cm2.params, params2, cm2.sels[enc])
+    params3 = tree_map(lambda a: a.clone(), params2)
+    params3["enc1"]["w"][int(cm2.sels[enc][0])] = 0.0
+    cm3 = recompact_model(cm2, params3)
+    err3, scale3, _ = served(cm3.params, params3, cm3.sels[enc])
+    check(shapes(cm2.params) == shapes(cm.params) == shapes(cm3.params),
+          "sae_serve: refresh or recompact changed a shape")
+    check(cm3.live[enc] == J - 1 and cm3.slot_width(enc) == J,
+          f"sae_serve: recompact live {cm3.live[enc]}, slot "
+          f"{cm3.slot_width(enc)}, want {J - 1}, {J}")
+    check(err2 <= tol * scale2 and err3 <= tol * scale3,
+          f"sae_serve: refreshed {err2}, recompacted {err3} vs dense")
+    line = {"phase": "sae_serve", "n_features": d, "selected": J,
+            "ratio": compact.compaction_ratio, "batch": int(x.shape[0]),
+            "max_abs_err": err, "scale": scale, "tol": tol * scale,
+            "rerun_bit_equal": rerun,
+            "refresh_max_abs_err": err2, "recompact_max_abs_err": err3,
+            "recompact_live": cm3.live[enc],
+            "wall_ms_compact": wall_ms(
+                torch, lambda: step(compact.params, x), reps=20),
+            "wall_ms_dense": wall_ms(
+                torch, lambda: sae_apply(params, x), reps=20)}
+    emit(line)
+
+
+def _compact_vs_dense(torch, model, dense, compact, batch, V, FA, SK,
+                      f32_dense=None):
+    """One forward of the compact and the dense params: (line, dense f32
+    logits). The noise floor is the model's own: in f32 how far ~ten f32
+    ulps of weight noise move the dense logits; in bf16 how far the dense
+    bf16 logits lie from the dense f32 ones (``f32_dense``)."""
+    n_layers = model.cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lm_reset(FA, SK)
+    out_c, _ = model.forward(compact, batch)
+    torch.cuda.synchronize()
+    launched = _lm_counts(FA, SK)
+    peak_c = torch.cuda.max_memory_allocated() / 1e9
+    check(launched == {"flash_attention_fwd": n_layers, "ssd_fwd": n_layers},
+          f"lm_compact depth {n_layers}: compact forward launches {launched}")
+    rerun = bits_equal(torch, out_c, model.forward(compact, batch)[0])
+    torch.cuda.reset_peak_memory_stats()
+    out_d, _ = model.forward(dense, batch)
+    torch.cuda.synchronize()
+    peak_d = torch.cuda.max_memory_allocated() / 1e9
+    lc, ld = out_c[..., :V].float(), out_d[..., :V].float()
+    if f32_dense is None:
+        noise = _noise_floor(torch, model, dense, batch, out_d, V, seed=8)
+    else:
+        noise = float((ld - f32_dense).abs().max())
+    scale = float(ld.abs().max())
+    line = {"n_layers": n_layers, "launches": launched,
+            "max_abs_diff": float((lc - ld).abs().max()),
+            "noise_floor": noise, "logits_scale": scale,
+            "logits_finite": bool(torch.isfinite(lc).all()),
+            "rerun_bit_equal": rerun,
+            "peak_memory_gb_compact": peak_c, "peak_memory_gb_dense": peak_d}
+    line["rel_diff"] = line["max_abs_diff"] / max(scale, 1e-30)
+    line["noise_rel"] = noise / max(scale, 1e-30)
+    return line, ld
+
+
+def lm_compact_params(torch, Z, C, dev, lm=LM):
+    """Phase 10's model: hymba-1.5b's config and its full-size params from
+    seed 6, each hidden unit's ``mlp/w1`` column scaled by one U(0, 1)
+    factor shared by every layer. At the plain init every hidden unit's w1
+    column looks alike: the projection kills only the units whose column
+    sums fall lowest, a different few in each layer, and the union over
+    the 32 layers keeps every unit; with the shared factor, as in a
+    checkpoint whose weak units are weak throughout, the layers share most
+    of their dead units. ``scripts/torch_lm_compact_probe.py`` starts from
+    the same params."""
+    cfg = C.get_config(lm["arch"])
+    gen = torch.Generator(device=dev).manual_seed(6)
+    params = Z.build(cfg).init(generator=gen, device=dev)
+    unit = torch.rand((cfg.d_ff,), generator=gen, device=dev)
+    for block in params["blocks"].values():
+        block["mlp"]["w1"] *= unit
+    return cfg, params
+
+
+def _projection_vs_newton(torch, params, dense, specs):
+    """The kernel engine's projection of ``params`` (``dense``) against
+    ``ProjectionEngine(solver="newton")``'s, and the l1,inf norm of every
+    projected slice over its radius (the largest)."""
+    from repro_torch._tree import flatten_with_path
+    from repro_torch.core import ProjectionEngine
+    from repro_torch.core.constraints import _first_match
+    from repro_torch.core.l1inf import l1inf_norm
+    newton, _ = ProjectionEngine(specs, solver="newton").apply(params)
+    flat_k = dict(flatten_with_path(dense))
+    err, scale, norm_ratio = 0.0, 1.0, 0.0
+    for path, leaf in flatten_with_path(newton):
+        err = max(err, float((flat_k[path] - leaf).abs().max()))
+        scale = max(scale, float(leaf.abs().max()))
+        spec = _first_match(specs, path, leaf)
+        if spec is not None:
+            for sl in flat_k[path].reshape((-1,) + leaf.shape[-2:]):
+                norm_ratio = max(norm_ratio, float(
+                    l1inf_norm(sl, axis=spec.axis)) / spec.radius)
+    return err, scale, norm_ratio
+
+
+def _mlp_by_layer(torch, dense, compact, cfg, dev, lm=LM):
+    """Each layer's MLP alone, compact against dense, on one N(0, 1) input
+    of the forward's shape, in f32 and bf16: the worst layer's max |diff|
+    over the dense output's scale. No layer feeds the next, so no rounding
+    is amplified, and a wrong gather or scatter shows at its own layer."""
+    from repro_torch.models.layers import mlp_apply
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((lm["batch"], lm["seq"], cfg.d_model), generator=g,
+                    device=dev)
+    worst = {}
+    for dname in ("float32", "bfloat16"):
+        dt = _dtype(torch, dname)
+        xd, worst[dname] = x.to(dt), 0.0
+        for key, block in dense["blocks"].items():
+            mlp_d, mlp_c = block["mlp"], compact["blocks"][key]["mlp"]
+            for i in range(mlp_d["w1"].shape[0]):
+                layer = lambda t: _cast(torch, {k: v[i] for k, v in
+                                                t.items()}, dt)
+                yd = mlp_apply(layer(mlp_d), xd, cfg.mlp_kind).float()
+                yc = mlp_apply(layer(mlp_c), xd, cfg.mlp_kind).float()
+                worst[dname] = max(worst[dname], float(
+                    (yc - yd).abs().max() / yd.abs().max()))
+    return worst
+
+
+def lm_compact_phase(torch, Z, C, K, FA, SK, dev, lm=LM):
+    """Phase 10: hymba-1.5b at full size projected through the l1,inf
+    kernels under its own specs and held to the Newton's projection,
+    compacted, and served against the dense projected params: each
+    layer's MLP alone at full depth, then forward in f32 and bf16 and
+    decode, at full depth and at the first ``cut_depth`` layers."""
+    from repro_torch._tree import tree_map
+    from repro_torch.core import ProjectionEngine
+    from repro_torch.serve import compact_model
+    cfg, params = lm_compact_params(torch, Z, C, dev, lm)
+    V, B, S = cfg.vocab, lm["batch"], lm["seq"]
+    engine = ProjectionEngine(cfg.projection_specs, solver="kernel")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    dense, _ = engine.apply(params)
+    torch.cuda.synchronize()
+    proj_s = time.perf_counter() - t
+    proj_launches = K.launch_counts()
+    check(all(proj_launches[k] > 0 for k in REPLACES),
+          f"lm_compact: projection launches {proj_launches}")
+    # the projection itself, held as phase 4 holds the train steps
+    proj_err, proj_scale, norm_ratio = _projection_vs_newton(
+        torch, params, dense, cfg.projection_specs)
+    check(proj_err <= 3e-4 * proj_scale,
+          f"lm_compact: kernel projection vs newton max err {proj_err} "
+          f"(scale {proj_scale})")
+    check(norm_ratio <= 1 + 1e-4,
+          f"lm_compact: a projected slice's l1,inf norm is {norm_ratio} "
+          f"of its radius")
+    del params
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cm = compact_model(dense, cfg.projection_specs)
+    compact_s = time.perf_counter() - t
+    w1 = next(p for p in cm.live if p.endswith("mlp/w1"))
+    m = cm.supports[w1].n_cols
+    check(0 < cm.live[w1] < m, f"lm_compact: {cm.live[w1]} of {m} live")
+    check(any(p.endswith("ssm/wx") for p in cm.skipped),
+          f"lm_compact: ssm/wx not skipped ({cm.skipped})")
+    by_layer = _mlp_by_layer(torch, dense, cm.params, cfg, dev, lm)
+    for dname, worst in by_layer.items():
+        check(worst <= SERVE_TOL[dname],
+              f"lm_compact: {dname} MLP compact vs dense {worst} of the "
+              f"output's scale in some layer")
+    line = {"phase": "lm_compact", "arch": cfg.name, "batch": B, "seq": S,
+            "projection_s": proj_s, "projection_launches": proj_launches,
+            "projection_max_abs_err_vs_newton": proj_err,
+            "projection_scale": proj_scale,
+            "l1inf_norm_over_radius_max": norm_ratio,
+            "compact_s": compact_s, "ratios": cm.compaction_ratios(),
+            "live": dict(cm.live),
+            "n_cols": {p: s.n_cols for p, s in cm.supports.items()},
+            "skipped": list(cm.skipped),
+            "mlp_by_layer_rel_diff_max": by_layer}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = {"tokens": torch.randint(0, V, (B, S), generator=gen,
+                                     device=dev)}
+    P = lm["full_prompt"]
+    prompt = batch["tokens"][:, :P]
+    # Projected at this init, the model amplifies f32 rounding past its
+    # first few layers until ~ten ulps of weight noise move the full-depth
+    # logits by about their own scale (scripts/torch_lm_compact_probe.py):
+    # there the logits' distance is reported, not checked, and every layer
+    # was held alone above. The first cut_depth layers of the same params,
+    # where the floor is far below the logits' scale, are checked: f32
+    # forward and decode within the floor and LM_MAX_REL, bf16 (whose
+    # floor, the distance from f32, is still near the scale) within
+    # SERVE_TOL's bf16 fraction.
+    for depth in (cfg.n_layers, lm["cut_depth"]):
+        model = Z.build(dataclasses.replace(cfg, n_layers=depth))
+        cut = lambda p: {**p, "blocks": tree_map(lambda a: a[:depth],
+                                                 p["blocks"])}
+        dp, cp = cut(dense), cut(cm.params)
+        rows, f32_dense = {}, None
+        for dname in ("float32", "bfloat16"):
+            dt = _dtype(torch, dname)
+            dpt, cpt = _cast(torch, dp, dt), _cast(torch, cp, dt)
+            row, ld = _compact_vs_dense(torch, model, dpt, cpt, batch, V,
+                                        FA, SK, f32_dense)
+            if dname == "float32":
+                f32_dense = ld
+            row["wall_ms_compact"] = wall_ms(
+                torch, lambda: model.forward(cpt, batch), reps=3)
+            row["wall_ms_dense"] = wall_ms(
+                torch, lambda: model.forward(dpt, batch), reps=3)
+            rows[dname] = row
+            del dpt, cpt, ld
+            torch.cuda.empty_cache()
+        del f32_dense
+        # decode of a short prompt, compact against dense
+        dec_d, _, ms_d = _decode_all(torch, model, dp, prompt, P + 1)
+        dec_c, _, ms_c = _decode_all(torch, model, cp, prompt, P + 1)
+        full, _ = model.forward(dp, {"tokens": prompt})
+        rows["decode"] = {
+            "batch": B, "prompt": P,
+            "max_abs_diff": float((dec_c[..., :V] - dec_d[..., :V]).abs()
+                                  .max()),
+            "noise_floor": _noise_floor(torch, model, dp, {"tokens": prompt},
+                                        full, V, seed=9),
+            "logits_scale": float(full[..., :V].abs().max()),
+            "decode_ms_per_step_compact": ms_c,
+            "decode_ms_per_step_dense": ms_d}
+        del dec_d, dec_c, full
+        for what, row in rows.items():
+            ok = (row.get("logits_finite", True)
+                  and row.get("rerun_bit_equal", True))
+            row["distance_checked"] = depth < cfg.n_layers
+            if row["distance_checked"]:
+                if what == "bfloat16":
+                    bound = SERVE_TOL["bfloat16"] * row["logits_scale"]
+                else:
+                    bound = min(row["noise_floor"],
+                                LM_MAX_REL * row["logits_scale"])
+                row["bound"] = bound
+                ok = ok and row["max_abs_diff"] <= bound
+            check(ok, f"lm_compact depth {depth} {what}: {row}")
+        line[f"depth_{depth}"] = rows
+    emit(line)
+    del dense, cm
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -759,6 +1106,7 @@ def main():
     from repro_torch.core import (ProjectionEngine, ProjectionSpec,
                                   project_l1inf_newton, sparsity_report)
     from repro_torch.core.hoyer import project_hoyer_ref
+    from repro_torch.core.heap import project_l1inf_heap
     from repro_torch.core.l1inf import project_l1inf_sorted
     from repro_torch.core.norms import project_l12_ball
     from repro_torch.core.simplex import project_l1_ball
@@ -1023,12 +1371,8 @@ def main():
                      torch, lambda: project_l1inf_newton(Y, C))}
         check(walls["kernel_wall_ms"] < walls["newton_wall_ms"],
               f"project {name}: kernel engine {walls} slower than newton")
-        # reported, not checked: the sorted projection's distance to the
-        # Newton's (ROADMAP fault C-10)
-        sorted_err = float((project_l1inf_sorted(Y, C) - X2).abs().max())
         emit({"phase": "project", "shape": name, "n": Y.shape[0],
               "m": Y.shape[1], "C": C, "max_abs_err": err,
-              "sorted_vs_newton_max_abs_err": sorted_err,
               "newton_iters": int(st["newton_iters"]),
               "work_cols": int(st["work_cols"]),
               "full_cols": st["full_cols"], "colsp_pct": colsp,
@@ -1044,15 +1388,39 @@ def main():
              "l12_ball": reruns_equal(lambda: project_l12_ball(Yw, 10.0))}
     for path, same in rerun.items():
         check(same, f"project fig2_wide: {path} not the same on a rerun")
-    # reported, not checked (ROADMAP fault C-10): the sorted projection on
-    # torch's own U(0, 1) draw of the Fig. 2 shape
-    Yr = torch.rand((1000, 10000), device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(0))
     emit({"phase": "project", "shape": "fig2_wide", "check": "reruns",
-          "reruns_bit_equal": rerun,
-          "sorted_vs_newton_max_abs_err_torch_rand": float(
-              (project_l1inf_sorted(Yr, 1.0)
-               - project_l1inf_newton(Yr, 1.0)).abs().max())})
+          "reruns_bit_equal": rerun})
+    # fault C-10: each solver against the paper's Algorithm 2 (the heap
+    # walk, float64 on the host) at paper Fig. 2's shapes, on the numpy
+    # U(0, 1) draw above and on torch's own draw
+    solvers = {"sorted": project_l1inf_sorted,
+               "kernel": project_l1inf_kernel,
+               "newton": project_l1inf_newton}
+    for name in ("fig2_wide", "fig2_tall"):
+        ncols, C = proj[name]
+        n = SHAPES[name][0]
+        draws = {"numpy": inputs[name][:, :ncols].contiguous(),
+                 "torch_rand": torch.rand(
+                     (n, ncols), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))}
+        for draw, Y in draws.items():
+            t = time.perf_counter()
+            Xh = project_l1inf_heap(Y.cpu().double().numpy(), C)
+            heap_s = time.perf_counter() - t
+            want = torch.from_numpy(Xh).float().to(dev)
+            scale = max(float(Y.abs().max()), 1.0)
+            dist = {}
+            for sname, fn in solvers.items():
+                got = fn(Y, C)
+                dist[sname] = float((got - want).abs().max())
+                check(torch.allclose(got, want, atol=3e-4 * scale,
+                                     rtol=3e-3),
+                      f"project {name} ({draw}): {sname} vs heap oracle max "
+                      f"err {dist[sname]}")
+            emit({"phase": "project", "shape": name, "draw": draw,
+                  "check": "vs_heap_oracle", "C": C,
+                  "live_cols": int((want != 0).any(dim=0).sum()),
+                  "max_abs_err_vs_heap": dist, "heap_s": heap_s})
     Ys = torch.from_numpy(rng.normal(size=(64, 300)).astype(np.float32)).to(
         dev)
     Cs = float(0.2 * Ys.abs().amax(dim=0).sum())
@@ -1200,6 +1568,8 @@ def main():
           "column_sparsity_pct": res.column_sparsity, "seconds": sec,
           "history": res.history})
 
+    res_l1inf = res
+
     # -- 5b. train_sae with paper Table 1's l2,1 and masked rows ------------
     for norm in ("l12", "l1inf_masked"):
         radius = RADIUS[norm]
@@ -1227,7 +1597,10 @@ def main():
               "column_sparsity_pct": res.column_sparsity, "seconds": sec,
               "launches": launched, "history": res.history})
 
-    # -- 6.-9. this slice: the LM zoo's hybrid path ----------------------------
+    # -- 5c. phase 5's result compacted and served ------------------------
+    sae_serve_phase(torch, res_l1inf.params, spec, Xte, dev)
+
+    # -- 6.-9. the LM zoo's hybrid path ---------------------------------------
     from repro_torch import configs as C
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.ssd import kernel as SK
@@ -1238,7 +1611,10 @@ def main():
     lm_launches = lm_forward_phase(torch, Z, C, FA, SK, dev)
     lm_decode_phase(torch, Z, C, FA, SK, dev)
 
-    # -- 10. result ------------------------------------------------------------
+    # -- 10. hymba-1.5b projected, compacted and served ---------------------
+    lm_compact_phase(torch, Z, C, K, FA, SK, dev)
+
+    # -- 11. result ------------------------------------------------------------
     if FAILURES:
         print(json.dumps({"failures": FAILURES}), file=sys.stderr)
         return 1

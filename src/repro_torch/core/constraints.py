@@ -30,7 +30,8 @@ from .norms import project_l1_ball
 
 __all__ = ["ProjectionSpec", "apply_constraints", "build_packed_plans",
            "PackedPlan", "column_masks", "apply_masks", "sparsity_report",
-           "engine_count", "engine_counters", "engine_counters_reset"]
+           "engine_count", "engine_counters", "engine_counters_reset",
+           "leaf_path_str"]
 
 # spec norms: every registered family's norms plus the per-leaf l1 ball
 _EXTRA_NORMS = {"l1"}
@@ -103,6 +104,19 @@ class ProjectionSpec:
             if any(x <= 0 for x in w):
                 raise ValueError("weights must be > 0")
             object.__setattr__(self, "weights", w)
+
+
+def leaf_path_str(path) -> str:
+    """'/'-joined name of one leaf path — the string spec patterns match
+    against, as ``_tree.flatten_with_path`` builds it.
+
+    ``path``: the tuple of nested-dict keys leading to the leaf (each key
+    stringified). Returns e.g. ``"enc1/w"`` for ``params["enc1"]["w"]``.
+
+    >>> leaf_path_str(("enc1", "w"))
+    'enc1/w'
+    """
+    return "/".join(str(p) for p in path)
 
 
 def _project_fn(spec: ProjectionSpec) -> Callable:

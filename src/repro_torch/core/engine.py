@@ -19,6 +19,8 @@
   * ``engine.projected_update(grads, opt_state, params, acfg, ...)`` is the
     shared step core: optimizer update, projection gated on the NEW
     optimizer count, optional support-mask freeze, warm-start threading.
+  * ``apply_constraints_packed`` / ``init_projection_state`` are the JAX
+    package's functional shims over the engine.
 """
 from __future__ import annotations
 
@@ -33,13 +35,17 @@ from .constraints import (ProjectionSpec, build_packed_plans, engine_count,
 from .families import get_family, project_segmented_family
 from .l1inf import _segmented_newton
 
-__all__ = ["ProjectionEngine"]
+__all__ = ["ProjectionEngine", "apply_constraints_packed",
+           "init_projection_state"]
 
 _SOLVERS = ("newton", "kernel", "fused")
 _NOT_PORTED = {
     "sharded": "ROADMAP.md queue A item 8 (distributed)",
     "fused_sharded": "ROADMAP.md queue A item 8 (distributed)",
 }
+
+# the JAX package's solver names that the port calls otherwise
+_JAX_SOLVER_NAMES = {"pallas": "kernel"}
 
 # Identity sentinel of the fused clip pass: a per-column clip level far
 # above any parameter magnitude, so sign(u) * min(|u|, _MU_INF) == u.
@@ -326,3 +332,36 @@ class ProjectionEngine:
         if with_stats:
             return new_params, new_opt, new_state, stats
         return new_params, new_opt, new_state
+
+
+def init_projection_state(params: Any, specs: Sequence[ProjectionSpec]
+                          ) -> Dict[str, torch.Tensor]:
+    """Zero theta warm-start vectors, one per packed plan.
+
+    Returns ``{plan key: (num_segments,) f32 zeros}`` on the device of
+    each plan's first leaf — the state threaded through
+    ``apply_constraints_packed`` between steps.
+
+    >>> state = init_projection_state(params, specs)
+    """
+    return ProjectionEngine(specs).init_state(params)
+
+
+def apply_constraints_packed(params: Any, specs: Sequence[ProjectionSpec],
+                             step: Optional[torch.Tensor] = None,
+                             state: Optional[Dict[str, torch.Tensor]] = None,
+                             engine: str = "newton"):
+    """Project matching leaves with packed multi-tensor batching.
+
+    Functional form of ``ProjectionEngine.apply``: ``engine`` names the
+    solver ("newton" | "kernel" | "fused"; the JAX name "pallas" means
+    "kernel", and "sharded" raises NotImplementedError until the
+    distributed layer is ported). ``step``: optional scalar int (every_k
+    gating); ``state``: the dict from ``init_projection_state`` or a
+    previous call. Returns (projected params, new_state).
+
+    >>> params, state = apply_constraints_packed(params, specs, state=state)
+    """
+    solver = _JAX_SOLVER_NAMES.get(engine, engine)
+    return ProjectionEngine(specs, solver=solver).apply(
+        params, step=step, state=state)

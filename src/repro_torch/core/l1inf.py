@@ -16,8 +16,8 @@ Eq. (19) gives theta = (sum_A S_{k_j}/k_j - C) / (sum_A 1/k_j).
 
 Implementations (same names and contracts as the JAX package):
 
-  * ``project_l1inf_sorted`` — global sort of all nm breakpoints + prefix
-    scan of the slope payloads, then a short Newton polish;
+  * ``project_l1inf_sorted`` — global sort of all nm breakpoints + float64
+    prefix scan of the slope payloads, then a short Newton polish;
   * ``project_l1inf_newton`` — per-column sort once, then the monotone
     semismooth Newton on theta (the production path);
   * ``project_l1inf_segmented`` — many balls in one packed (n, M) buffer,
@@ -229,8 +229,19 @@ def project_l1inf_sorted(Y: torch.Tensor, C, axis: int = 0) -> torch.Tensor:
     """Exact projection of Y onto {X : ||X||_{1,inf} <= C}.
 
     Global sort of all breakpoints + prefix scan of the (dA, dB) slope
-    payloads selects the unique segment holding theta; a 4-step Newton
-    polish removes fp boundary wobble. ``axis`` is the max axis.
+    payloads selects the segment holding theta; a 4-step Newton polish
+    from that segment's candidate lands on theta. ``axis`` is the max
+    axis.
+
+    The running sums A and B of Eq. (19) are carried in float64, bases
+    included: near theta* only a few columns live, so B is a few
+    thousandths while A starts near sum_j max_i |y_ij| (about m), and a
+    prefix rounded to f32 (ulp(10^4) ~ 1e-3) can leave no segment, or a
+    wrong one, whose candidate theta lies inside it. The polish starts at
+    the chosen segment's candidate, clamped into the segment: g is convex
+    and decreasing, so the first Newton step from any start lands at or
+    below theta* and the monotone steps after it climb to theta*. When no
+    segment is valid the polish runs to convergence from 0.
     """
     Yt, transpose, dt = _prep(Y, axis)
     dev = Yt.device
@@ -239,36 +250,46 @@ def project_l1inf_sorted(Y: torch.Tensor, C, axis: int = 0) -> torch.Tensor:
     n, m = A.shape
     Z, S, b = _sorted_stats(A)
 
-    k = torch.arange(1, n, dtype=dt, device=dev)[:, None]
-    dA_trans = S[1:] / (k + 1) - S[: n - 1] / k
+    f64 = torch.float64
+    S64 = S.to(f64)
+    k = torch.arange(1, n, dtype=f64, device=dev)[:, None]
+    dA_trans = S64[1:] / (k + 1) - S64[: n - 1] / k
     dB_trans = (1.0 / (k + 1) - 1.0 / k).expand(n - 1, m)
-    dA_death = -(S[n - 1: n] / n)
-    dB_death = torch.full((1, m), -1.0 / n, dtype=dt, device=dev)
+    dA_death = -(S64[n - 1: n] / n)
+    dB_death = torch.full((1, m), -1.0 / n, dtype=f64, device=dev)
     dA = torch.cat([dA_trans, dA_death], dim=0).reshape(-1)
     dB = torch.cat([dB_trans, dB_death], dim=0).reshape(-1)
     bf = b.reshape(-1)
 
     order = torch.argsort(bf, stable=True)
     b_sorted = bf[order]
-    A0 = S[0].sum()
-    B0 = torch.tensor(float(m), dtype=dt, device=dev)
+    A0 = S64[0].sum()
     A_state = torch.cat([A0[None], A0 + cumsum_in_order(dA[order])])
-    B_state = torch.cat([B0[None], B0 + cumsum_in_order(dB[order])])
+    B_state = torch.cat([dB.new_full((1,), float(m)),
+                         float(m) + cumsum_in_order(dB[order])])
 
     lo = torch.cat([torch.zeros((1,), dtype=dt, device=dev), b_sorted])
     hi = torch.cat([b_sorted,
                     torch.full((1,), float("inf"), dtype=dt, device=dev)])
-    safeB = torch.clamp(B_state, min=torch.finfo(dt).tiny)
-    theta_t = (A_state - C) / safeB
+    safeB = torch.clamp(B_state, min=torch.finfo(f64).tiny)
+    theta_t = (A_state - C.to(f64)) / safeB
     big = torch.clamp(b_sorted.abs().max(), min=1.0) if b_sorted.numel() \
         else torch.ones((), dtype=dt, device=dev)
-    eps = torch.finfo(dt).eps * big
-    valid = (B_state > 0) & (theta_t > lo - eps) & (theta_t <= hi + eps)
-    t = torch.argmax(valid.to(torch.int32))            # first valid segment
-    theta = torch.clamp(theta_t[t], min=0.0)
-
+    eps = (torch.finfo(dt).eps * big).to(f64)
+    valid = ((B_state > 0) & (theta_t > lo.to(f64) - eps)
+             & (theta_t <= hi.to(f64) + eps))
+    # the first valid segment, by an explicit index reduction
+    slots = torch.arange(valid.numel(), device=dev)
+    t = torch.where(valid, slots, valid.numel()).min()
     Csafe = torch.where(C > 0, C, torch.ones_like(C))
-    _, mu, _ = _newton_solve(S, b, Csafe, theta, max_iter=4)
+    if bool(t < valid.numel()):
+        theta = torch.minimum(torch.maximum(theta_t[t].to(dt), lo[t]), hi[t])
+        _, mu, _ = _newton_solve(S, b, Csafe, theta, max_iter=4)
+    else:
+        # no segment held its candidate (C outside the path, or rounding):
+        # the polish runs to convergence from 0, as project_l1inf_newton
+        zero = torch.zeros((), dtype=dt, device=dev)
+        _, mu, _ = _newton_solve(S, b, Csafe, zero, max_iter=32)
 
     X = torch.sign(Yt) * torch.minimum(A, mu[None, :])
     inside = Z[0].sum() <= C

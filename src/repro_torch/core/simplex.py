@@ -1,16 +1,24 @@
-"""Projection onto the l1 ball (the per-leaf ``norm="l1"`` spec).
+"""Projections onto the simplex and the l1 ball — port of
+``repro.core.simplex``.
 
-Port of the part of ``repro.core.simplex`` that ``core.constraints`` needs:
-the sort-based simplex water level and the l1-ball projection built on it.
+These are the building blocks of the paper's l1,inf machinery (every column
+sub-problem is a simplex projection) and the l1 comparison method of the SAE
+experiments. The torch functions run on any device; their 1-D scans go
+through ``cumsum_in_order``, so reruns on the card are bit-equal. The
+``*_np`` functions are numpy references (float64, host).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["simplex_threshold", "project_l1_ball", "cumsum_in_order"]
+__all__ = ["project_simplex_sort", "project_l1_ball",
+           "project_weighted_l1_ball", "simplex_threshold",
+           "project_simplex_michelot_np", "project_simplex_condat_np",
+           "cumsum_in_order"]
 
 
 def _blocked_cumsum(v: torch.Tensor) -> torch.Tensor:
@@ -80,3 +88,91 @@ def project_l1_ball(y: torch.Tensor, radius=1.0) -> torch.Tensor:
     tau = simplex_threshold(flat, radius, axis=0)
     proj = torch.sign(y) * torch.clamp(y.abs() - tau, min=0.0)
     return torch.where(inside, y, proj)
+
+
+def project_simplex_sort(y: torch.Tensor, radius=1.0,
+                         axis: int = -1) -> torch.Tensor:
+    """Euclidean projection of y onto the solid simplex
+    {x >= 0 : sum(x) <= radius} along ``axis``.
+
+    If y is already inside (y >= 0 elementwise and sum <= radius) returns y.
+
+    >>> project_simplex_sort(torch.tensor([2.0, 0.0]), 1.0)
+    tensor([1., 0.])
+    """
+    radius = torch.as_tensor(radius, dtype=y.dtype, device=y.device)
+    tau = simplex_threshold(y, radius, axis=axis)
+    proj = torch.clamp(y - tau.unsqueeze(axis), min=0.0)
+    inside = (y >= 0).all(dim=axis) & (y.sum(dim=axis) <= radius)
+    return torch.where(inside.unsqueeze(axis), y, proj)
+
+
+def project_weighted_l1_ball(y: torch.Tensor, w, radius=1.0
+                             ) -> torch.Tensor:
+    """Projection onto {x : sum_i w_i |x_i| <= radius}, w > 0 (Perez et al.
+    2022).
+
+    KKT: x_i = sign(y_i) max(|y_i| - tau w_i, 0) with
+    tau = (sum_{i in A} w_i|y_i| - radius) / sum_{i in A} w_i^2 over the
+    active set, found by sorting |y_i|/w_i descending (a stable sort, as
+    ``jnp.argsort`` is).
+
+    >>> project_weighted_l1_ball(torch.tensor([3.0, -1.0]), torch.ones(2))
+    tensor([ 1., -0.])
+    """
+    w = torch.as_tensor(w, dtype=y.dtype, device=y.device)
+    wb = torch.broadcast_to(w, y.shape)
+    a = y.abs().reshape(-1)
+    ww = wb.reshape(-1)
+    inside = (ww * a).sum() <= radius
+    r = a / ww
+    order = torch.argsort(-r, stable=True)
+    cwa = cumsum_in_order((ww * a)[order])
+    cw2 = cumsum_in_order((ww * ww)[order])
+    taus = (cwa - radius) / cw2
+    valid = r[order] > taus
+    rho = torch.clamp(valid.sum() - 1, 0, a.shape[0] - 1)
+    tau = torch.clamp(taus[rho], min=0.0)
+    proj = torch.sign(y) * torch.clamp(y.abs() - tau * wb, min=0.0)
+    return torch.where(inside, y, proj)
+
+
+# ----------------------------------------------------------------------------
+# Numpy reference algorithms (for benchmarks and cross-checks)
+# ----------------------------------------------------------------------------
+
+def project_simplex_michelot_np(y: np.ndarray, radius: float = 1.0
+                                ) -> np.ndarray:
+    """Michelot's iterative active-set algorithm (numpy, exact)."""
+    y = np.asarray(y, dtype=np.float64)
+    if y.min() >= 0 and y.sum() <= radius:
+        return y.copy()
+    v = y.copy()
+    rho = (v.sum() - radius) / v.size
+    while True:
+        v2 = v[v > rho]
+        if v2.size == v.size:
+            break
+        v = v2
+        if v.size == 0:
+            rho = 0.0
+            break
+        rho = (v.sum() - radius) / v.size
+    return np.maximum(y - rho, 0.0)
+
+
+def project_simplex_condat_np(y: np.ndarray, radius: float = 1.0
+                              ) -> np.ndarray:
+    """Condat (2016) fast projection (numpy, exact). As in the JAX package,
+    it runs the sorted method: Condat's pointer-heavy scan is slow in
+    Python, and the sorted method is exact."""
+    y = np.asarray(y, dtype=np.float64)
+    if y.min() >= 0 and y.sum() <= radius:
+        return y.copy()
+    u = np.sort(y)[::-1]
+    css = np.cumsum(u)
+    k = np.arange(1, y.size + 1)
+    valid = u * k > (css - radius)
+    rho = np.nonzero(valid)[0][-1]
+    tau = (css[rho] - radius) / (rho + 1.0)
+    return np.maximum(y - tau, 0.0)

@@ -17,7 +17,8 @@ from .param import PM
 
 __all__ = ["rmsnorm_layout", "rmsnorm_apply", "layernorm_layout",
            "layernorm_apply", "norm_layout", "norm_apply", "rope_freqs",
-           "apply_rope", "sinusoidal_positions", "mlp_layout", "mlp_apply",
+           "apply_rope", "sinusoidal_positions", "scatter_residual",
+           "mlp_layout", "mlp_apply",
            "embed_layout", "embed_apply", "unembed_apply"]
 
 
@@ -117,6 +118,28 @@ def sinusoidal_positions(S: int, d: int, offset=0, device=None
 
 # ----------------------------- MLP ------------------------------------------
 
+def scatter_residual(y: torch.Tensor, sel: torch.Tensor,
+                     width: int) -> torch.Tensor:
+    """Scatter a compact residual contribution back to full width.
+
+    ``y``: (..., J) — a GEMM output computed only on the J surviving
+    residual-output columns of a compacted ``w2`` (``serve.compact``);
+    ``sel``: int (J,) column indices; ``width``: the full residual width.
+    Returns (..., width) with ``y[..., j]`` placed at column ``sel[j]`` and
+    exact zeros elsewhere — what the dense GEMM produces, because a
+    structurally dead output column contributes exact zero. It ADDS (not
+    sets), so the padded slots a live re-compaction leaves behind —
+    duplicate indices pointing at one dead column — accumulate their
+    exact-zero contributions harmlessly. On the card ``index_add_`` adds
+    with atomics; every output element receives one live value or only
+    exact zeros, so the order of the adds cannot change a bit.
+
+    >>> y_full = scatter_residual(h @ w2_compact, sel, d_model)
+    """
+    out = y.new_zeros(y.shape[:-1] + (width,))
+    return out.index_add_(y.ndim - 1, sel, y)
+
+
 def mlp_layout(d: int, ff: int, kind: str = "swiglu"):
     if kind in ("swiglu", "geglu"):
         return {"w1": PM((d, ff), ("fsdp", "mlp"), init="scaled"),
@@ -131,10 +154,14 @@ def _gelu(x):
 
 
 def mlp_apply(params, x, kind: str = "swiglu"):
-    if "w2_sel" in params or params["w2"].shape[-1] != x.shape[-1]:
-        raise NotImplementedError(
-            "compact serving (a w2 with compiled-out residual columns, "
-            "scatter_residual) is not ported yet: ROADMAP queue A item 4")
+    """The MLP; a compacted tree (``serve.compact``) runs as it stands: a
+    ``w1`` with dead hidden units gathered out has matching ``w3`` columns
+    and ``w2`` rows (its ``w1_sel`` leaf is not read), and a ``w2`` with
+    dead residual-output columns gathered out yields a narrow GEMM that
+    ``scatter_residual`` places back at full width through ``w2_sel``.
+    Every ``w2`` with a ``w2_sel`` leaf scatters, whatever its width: a
+    recompacted ``w2`` whose slot width equals the residual width is still
+    a permutation (live columns first, padded slots after)."""
     if kind in ("swiglu", "geglu"):
         gate = x @ params["w1"]
         up = x @ params["w3"]
@@ -142,7 +169,10 @@ def mlp_apply(params, x, kind: str = "swiglu"):
         h = act * up
     else:
         h = _gelu(x @ params["w1"])
-    return h @ params["w2"]
+    out = h @ params["w2"]
+    if "w2_sel" in params:
+        out = scatter_residual(out, params["w2_sel"], x.shape[-1])
+    return out
 
 
 # ----------------------------- embeddings -----------------------------------

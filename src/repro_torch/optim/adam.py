@@ -21,7 +21,8 @@ import torch
 from .._tree import leaves, tree_map, unflatten_like
 
 __all__ = ["AdamConfig", "AdamState", "adam_init", "adam_update",
-           "adam_scalars", "adam_leaf_update", "global_norm", "clip_scale"]
+           "adam_scalars", "adam_leaf_update", "global_norm",
+           "clip_by_global_norm", "clip_scale"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +55,18 @@ def clip_scale(tree: Any, max_norm: float) -> torch.Tensor:
     """The global-norm clipping multiplier min(1, max_norm / ||g||)."""
     norm = global_norm(tree)
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+def clip_by_global_norm(tree: Any, max_norm: float) -> Any:
+    """``tree`` scaled by ``clip_scale(tree, max_norm)``; each leaf is
+    multiplied in the promoted dtype (f32 for bf16 leaves, as JAX does)
+    and returned in its own.
+
+    >>> grads = clip_by_global_norm(grads, 1.0)
+    """
+    scale = clip_scale(tree, max_norm)
+    return tree_map(lambda g: (g.to(torch.promote_types(g.dtype, scale.dtype))
+                               * scale).to(g.dtype), tree)
 
 
 def adam_init(params: Any, cfg: AdamConfig = AdamConfig()) -> AdamState:

@@ -274,3 +274,72 @@ def test_schedules_match_jax(name, args):
     for step in (0, 1, 4, 5, 6, 20, 39, 40, 100):
         np.testing.assert_allclose(float(ft(torch.tensor(step))),
                                    float(fj(jnp.asarray(step))), rtol=1e-6)
+
+
+# -- the functional shims, clip_by_global_norm and leaf_path_str -------------
+
+SHIM_SOLVERS = [("newton", "newton"), ("kernel", "pallas"),
+                ("pallas", "pallas"), ("fused", "fused")]
+
+
+@pytest.mark.parametrize("engine,jax_engine", SHIM_SOLVERS)
+def test_packed_shims_match_jax(engine, jax_engine):
+    """``init_projection_state`` / ``apply_constraints_packed`` against
+    the JAX shims, two steps with the theta state threaded (the second
+    warm-started), every_k 2 gating on a step counter; the JAX name
+    "pallas" runs the port's kernel solver."""
+    pj, pt = _both(_np_params(11))
+    sj = JC.init_projection_state(pj, _specs(JC, every_k=2))
+    st = TC.init_projection_state(pt, _specs(TC, every_k=2))
+    _assert_state(sj, st, 0)
+    for step in (0, 1, 2):
+        pj, sj = JC.apply_constraints_packed(
+            pj, _specs(JC, every_k=2), step=jnp.asarray(step), state=sj,
+            engine=jax_engine)
+        pt, st = TC.apply_constraints_packed(
+            pt, _specs(TC, every_k=2), step=torch.tensor(step), state=st,
+            engine=engine)
+        _assert_trees(pj, pt, 5e-6)
+        _assert_state(sj, st)
+
+
+def test_packed_shim_solver_names():
+    _, pt = _both(_np_params(12))
+    TC.engine_counters_reset()
+    TC.apply_constraints_packed(pt, _specs(TC), engine="pallas")
+    assert TC.engine_counters() == {"l1inf_packed/k1/kernel": 1}
+    TC.engine_counters_reset()
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        TC.apply_constraints_packed(pt, _specs(TC), engine="sharded")
+    with pytest.raises(ValueError):
+        TC.apply_constraints_packed(pt, _specs(TC), engine="magic")
+
+
+@pytest.mark.parametrize("max_norm", [1e-3, 1.0, 1e6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_clip_by_global_norm_matches_jax(max_norm, dtype):
+    from repro.optim import clip_by_global_norm as jclip
+    from repro_torch.optim import clip_by_global_norm as tclip
+    P = _np_params(13)
+    pj = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, getattr(jnp, dtype)), P)
+    pt = jax.tree_util.tree_map(lambda a: np.asarray(a), pj)
+    pt = params_from_numpy(pt, "cpu")
+    oj, ot = jclip(pj, max_norm), tclip(pt, max_norm)
+    for (k, v), (_, w) in zip(flatten_with_path(ot), flatten_with_path(
+            jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                   oj))):
+        assert v.dtype == getattr(torch, dtype), k
+        np.testing.assert_allclose(v.float().numpy(), w, rtol=1e-6,
+                                   atol=0, err_msg=k)
+
+
+def test_leaf_path_str_names_leaves_as_jax_does():
+    P = _np_params(14)
+    pj, pt = _both(P)
+    names_j = [leaf_path_str(p) for p, _ in
+               jax.tree_util.tree_flatten_with_path(pj)[0]]
+    names_t = [TC.leaf_path_str(tuple(k.split("/")))
+               for k, _ in flatten_with_path(pt)]
+    assert names_t == names_j
+    assert TC.leaf_path_str(("blocks", 0, "w")) == "blocks/0/w"

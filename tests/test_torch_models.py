@@ -176,11 +176,20 @@ def test_mlp_kinds(kind):
 
 
 def test_mlp_compact_w2_is_not_ported():
+    """Since compact serving was ported (the name is kept from when this
+    path raised): a ``w2`` with its dead residual-output columns gathered
+    out, and its ``w2_sel``, give the dense MLP's output bit for bit; a
+    ``w1_sel`` leaf beside ``w1`` is not read."""
     _, tp = _carry(JL.mlp_layout(32, 64, "swiglu"))
-    tp["w2"] = tp["w2"][:, :8]
-    tp["w2_sel"] = torch.arange(8)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        TL.mlp_apply(tp, torch.ones(1, 2, 32), "swiglu")
+    sel = torch.arange(0, 32, 4, dtype=torch.int32)
+    dead = torch.ones(32, dtype=torch.bool)
+    dead[sel.long()] = False
+    tp["w2"][:, dead] = 0.0
+    x = torch.from_numpy(_rand(1, 2, 32, seed=9))
+    dense = TL.mlp_apply(tp, x, "swiglu")
+    compact = dict(tp, w2=tp["w2"][:, sel.long()].contiguous(), w2_sel=sel,
+                   w1_sel=torch.arange(64, dtype=torch.int32))
+    assert torch.equal(TL.mlp_apply(compact, x, "swiglu"), dense)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

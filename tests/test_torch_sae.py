@@ -221,3 +221,172 @@ def test_train_sae_default_init_and_baseline():
                        device="cpu")
     assert res.column_sparsity == 0.0
     assert res.test_accuracy > 0.6
+
+
+# -- compacted SAE serving against repro.sae.serve ---------------------------
+# The cases of tests/test_sae_serve.py, on the same numpy params carried to
+# the port with params_from_numpy; its tolerances: atol 1e-5 in f32, 5e-2
+# in bf16 (the two GEMM widths accumulate in other orders).
+
+SERVE = dict(rtol=0, atol=1e-5)
+SERVE_BF16 = dict(rtol=0, atol=5e-2)
+
+
+def _projected_np(d=256, h=24, radius=0.25, seed=0, dtype=jnp.float32):
+    """JAX-projected SAE params as numpy, and the spec, in both packages."""
+    cfg = JS.SAEConfig(n_features=d, n_hidden=h, n_classes=2)
+    pj = jax.tree_util.tree_map(lambda p: p.astype(dtype),
+                                JS.sae_init(jax.random.PRNGKey(seed), cfg))
+    spec_j = JC.ProjectionSpec(pattern=r"enc1/w", norm="l1inf",
+                               radius=radius, axis=1)
+    spec_t = TC.ProjectionSpec(pattern=r"enc1/w", norm="l1inf",
+                               radius=radius, axis=1)
+    pj = JC.apply_constraints(pj, (spec_j,))
+    return jax.tree_util.tree_map(np.asarray, pj), spec_j, spec_t
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+def test_serve_support_matches_jax_and_structural_zeros():
+    P, spec_j, spec_t = _projected_np()
+    sup = TS.support_selection(params_from_numpy(P, "cpu"),
+                               (spec_t,))["enc1/w"]
+    sup_j = JS.support_selection(P, (spec_j,))["enc1/w"]
+    alive = np.any(np.asarray(P["enc1"]["w"]) != 0, axis=1)
+    np.testing.assert_array_equal(sup.sel, np.nonzero(alive)[0])
+    np.testing.assert_array_equal(sup.sel, sup_j.sel)
+    assert (sup.col_axis, sup.n_cols) == (sup_j.col_axis, sup_j.n_cols) \
+        == (0, 256)
+    assert 0 < sup.n_selected < sup.n_cols
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compact_sae_matches_dense_and_jax(dtype):
+    P, spec_j, spec_t = _projected_np(dtype=getattr(jnp, dtype))
+    tol = SERVE if dtype == "float32" else SERVE_BF16
+    pt = params_from_numpy(P, "cpu")
+    compact = TS.compact_sae(pt, (spec_t,))
+    cj = JS.compact_sae(jax.tree_util.tree_map(jnp.asarray, P), (spec_j,))
+    np.testing.assert_array_equal(compact.sel, cj.sel)
+    assert compact.params["sel"].dtype == torch.int32
+    assert compact.params["enc1"]["w"].dtype == getattr(torch, dtype)
+    assert compact.params["enc1"]["w"].shape == (compact.n_selected, 24)
+    assert compact.params["dec2"]["w"].shape == (24, compact.n_selected)
+    x = np.random.default_rng(1).normal(size=(32, 256)).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    z_d, xh_d = TS.sae_apply(pt, xt)
+    z_c, xh_c = compact.apply(compact.select(xt))
+    np.testing.assert_allclose(_np(z_c), _np(z_d), **tol)
+    np.testing.assert_allclose(_np(xh_c), _np(xh_d)[:, compact.sel], **tol)
+    assert xh_c.shape == (32, compact.n_selected)
+    z_j, xh_j = cj.apply(cj.select(jnp.asarray(x, getattr(jnp, dtype))))
+    np.testing.assert_allclose(_np(z_c), np.asarray(z_j, np.float32), **tol)
+    np.testing.assert_allclose(_np(xh_c), np.asarray(xh_j, np.float32),
+                               **tol)
+
+
+def test_serve_step_matches_dense_and_jax():
+    P, spec_j, spec_t = _projected_np()
+    pt = params_from_numpy(P, "cpu")
+    compact = TS.compact_sae(pt, (spec_t,))
+    step = TS.make_serve_step(compact)         # a plain function
+    x = np.random.default_rng(2).normal(size=(8, 256)).astype(np.float32)
+    z_c, xh_c = step(compact.params, torch.from_numpy(x))
+    z_d, xh_d = TS.sae_apply(pt, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(z_c), _np(z_d), **SERVE)
+    np.testing.assert_allclose(_np(xh_c), _np(xh_d)[:, compact.sel], **SERVE)
+    cj = JS.compact_sae(jax.tree_util.tree_map(jnp.asarray, P), (spec_j,))
+    z_j, xh_j = JS.make_serve_step(cj)(cj.params, jnp.asarray(x))
+    np.testing.assert_allclose(_np(z_c), np.asarray(z_j), **SERVE)
+    np.testing.assert_allclose(_np(xh_c), np.asarray(xh_j), **SERVE)
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        TS.make_serve_step(compact, mesh=object())
+
+
+def test_serve_step_follows_refreshed_support():
+    """The support rides in the param tree: a step built for one
+    checkpoint serves a second with the same J but another surviving set."""
+    P, _, spec_t = _projected_np()
+    P2 = {"enc1": {"w": np.roll(P["enc1"]["w"], 1, axis=0),
+                   "b": P["enc1"]["b"]},
+          "enc2": P["enc2"], "dec1": P["dec1"],
+          "dec2": {"w": np.roll(P["dec2"]["w"], 1, axis=1),
+                   "b": np.roll(P["dec2"]["b"], 1)}}
+    p1, p2 = params_from_numpy(P, "cpu"), params_from_numpy(P2, "cpu")
+    c1, c2 = TS.compact_sae(p1, (spec_t,)), TS.compact_sae(p2, (spec_t,))
+    assert c1.n_selected == c2.n_selected
+    assert not np.array_equal(c1.sel, c2.sel)
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(8, 256)).astype(np.float32))
+    step = TS.make_serve_step(c1)
+    z_c, xh_c = step(c2.params, x)
+    z_d, xh_d = TS.sae_apply(p2, x)
+    np.testing.assert_allclose(_np(z_c), _np(z_d), **SERVE)
+    np.testing.assert_allclose(_np(xh_c), _np(xh_d)[:, c2.sel], **SERVE)
+
+
+@pytest.mark.parametrize("case", ["all_dead", "none_dead"])
+def test_compact_sae_edge_supports(case):
+    P, spec_j, spec_t = _projected_np(radius=1e9 if case == "none_dead"
+                                      else 0.25)
+    if case == "all_dead":
+        P["enc1"]["w"] = np.zeros_like(P["enc1"]["w"])
+    pt = params_from_numpy(P, "cpu")
+    compact = TS.compact_sae(pt, (spec_t,))
+    if case == "none_dead":
+        assert compact.n_selected == compact.n_features == 256
+        np.testing.assert_array_equal(compact.sel, np.arange(256))
+        assert torch.equal(compact.params["enc1"]["w"], pt["enc1"]["w"])
+        assert torch.equal(compact.params["dec2"]["w"], pt["dec2"]["w"])
+        return
+    assert compact.n_selected == 0 and compact.compaction_ratio == 0.0
+    assert compact.params["enc1"]["w"].shape == (0, 24)
+    x = torch.ones((4, 256))
+    z_c, xh_c = TS.make_serve_step(compact)(compact.params, x)
+    z_d, _ = TS.sae_apply(pt, x)
+    np.testing.assert_allclose(_np(z_c), _np(z_d), rtol=0, atol=1e-6)
+    assert xh_c.shape == (4, 0)
+
+
+@pytest.mark.parametrize("bad", ["hidden_axis", "no_match"])
+def test_compact_sae_refusals(bad):
+    P, _, _ = _projected_np()
+    spec = TC.ProjectionSpec(
+        pattern=r"enc1/w" if bad == "hidden_axis" else "nonexistent",
+        norm="l1inf", radius=0.25, axis=0 if bad == "hidden_axis" else 1)
+    with pytest.raises(ValueError, match="hidden" if bad == "hidden_axis"
+                       else "enc1/w"):
+        TS.compact_sae(params_from_numpy(P, "cpu"), (spec,))
+
+
+def test_compact_leaf_on_stacked_leaf():
+    w = np.random.default_rng(4).normal(size=(3, 16, 8)).astype(np.float32)
+    w[:, 2, :] = 0.0
+    w[0, 5, :] = 0.0
+    spec = TC.ProjectionSpec(pattern=r"enc1/w", norm="l1inf", radius=1e9,
+                             axis=1)
+    wt = params_from_numpy({"enc1": {"w": w}}, "cpu")
+    sup = TS.support_selection(wt, (spec,))["enc1/w"]
+    wc = TS.compact_leaf(wt["enc1"]["w"], sup)
+    assert 2 not in sup.sel and 5 in sup.sel and wc.shape == (3, 15, 8)
+    np.testing.assert_array_equal(wc.numpy(), w[:, sup.sel, :])
+
+
+def test_train_reports_compaction_ratio():
+    """train_sae's reported ratio is the width compact_sae keeps."""
+    X, y, _ = TS.make_classification(n_samples=200, n_features=128,
+                                     n_informative=8, class_sep=1.5, seed=7)
+    X = (X - X.mean(0)) / (X.std(0) + 1e-6)
+    Xtr, ytr, Xte, yte = TS.train_test_split(X, y, 0.25, seed=0)
+    spec = TC.ProjectionSpec(pattern=r"enc1/w", norm="l1inf", radius=0.3,
+                             axis=1)
+    res = TS.train_sae(Xtr, ytr, Xte, yte,
+                       TS.SAEConfig(n_features=128, n_hidden=16,
+                                    n_classes=2),
+                       TS.SAETrainConfig(epochs=6, lr=2e-3, projection=spec,
+                                         seed=0), device="cpu")
+    compact = TS.compact_sae(res.params, (spec,))
+    assert 0 < compact.n_selected < 128
+    assert res.compaction_ratio == pytest.approx(compact.compaction_ratio)

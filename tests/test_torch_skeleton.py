@@ -16,7 +16,9 @@ from repro_torch.convert import opt_state_from_numpy, params_from_numpy
 from repro_torch.kernels.l1inf import kernel as K
 from repro_torch.configs import get_reduced
 from repro_torch.models import build, make_batch
-from repro_torch.sae import SAEConfig, SAETrainConfig, sae_init, train_sae
+from repro_torch.core import ProjectionSpec
+from repro_torch.sae import (SAEConfig, SAETrainConfig, compact_sae,
+                             make_serve_step, sae_init, train_sae)
 
 _PKG = os.path.dirname(repro_torch.__file__)
 _SRC = os.path.dirname(_PKG)
@@ -58,7 +60,10 @@ def test_every_module_listed():
                  "repro_torch.sae.train", "repro_torch.optim.schedule",
                  "repro_torch.models.zoo", "repro_torch.configs",
                  "repro_torch.kernels.flash_attention.ops",
-                 "repro_torch.kernels.ssd.ops"):
+                 "repro_torch.kernels.ssd.ops",
+                 "repro_torch.core.heap", "repro_torch.core.baselines",
+                 "repro_torch.serve", "repro_torch.serve.compact",
+                 "repro_torch.serve.refresh", "repro_torch.sae.serve"):
         assert want in names
 
 
@@ -75,7 +80,9 @@ def _imports(tree):
 _SCRIPTS = [os.path.join(os.path.dirname(_SRC), f)
             for f in ("chip_smoke.py",
                       os.path.join("scripts", "torch_profile.py"),
-                      os.path.join("scripts", "torch_kernel_variants.py"))]
+                      os.path.join("scripts", "torch_kernel_variants.py"),
+                      os.path.join("scripts", "torch_sorted_time.py"),
+                      os.path.join("scripts", "torch_lm_compact_probe.py"))]
 
 
 def test_no_jax_or_repro_import_in_source():
@@ -134,6 +141,25 @@ def test_explicit_cpu_device_runs(no_cuda):
                  generator=torch.Generator().manual_seed(0), device="cpu")
     assert p["enc1"]["w"].shape == (4, 2) and p["enc1"]["w"].device.type \
         == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["compact_sae", "make_serve_step"])
+def test_serving_entry_points_stay_on_the_params_device(no_cuda, entry):
+    """The serving entry points take no ``device=``: they put the ``sel``
+    leaf and every output on the device of the params they are given, and
+    with CPU params they run with CUDA missing."""
+    p = sae_init(SAEConfig(n_features=6, n_hidden=3),
+                 generator=torch.Generator().manual_seed(0), device="cpu")
+    p["enc1"]["w"][1] = 0.0
+    spec = ProjectionSpec(pattern=r"enc1/w", norm="l1inf", radius=1e9,
+                          axis=1)
+    compact = compact_sae(p, (spec,))
+    outs = {"compact_sae": [compact.params["sel"]]
+            + list(compact.apply(compact.select(torch.ones(2, 6)))),
+            "make_serve_step": list(make_serve_step(compact)(
+                compact.params, torch.ones(2, 6)))}[entry]
+    assert compact.n_selected == 5
+    assert all(t.device.type == "cpu" for t in outs)
 
 
 @pytest.mark.parametrize("call", ["colstats", "mu_solve", "clip_apply"])
