@@ -92,8 +92,22 @@ and prints no result. Phases:
                shape, in f32 (CUDA cores) and bf16 (tensor cores): device
                ms (L2 warm and flushed), the plain version's ms, and
                ``scaled_dot_product_attention`` with the window mask and
-               ``enable_gqa`` as the library yardstick. The kernel refuses an
-               input that requires grad (fault C-6: it is forward-only).
+               ``enable_gqa`` as the library yardstick. Fault C-6: an f32
+               input that requires grad gets its gradient through the
+               forward and backward kernels (one launch of each, equal to
+               autograd through the plain forward within 2e-5 of its
+               scale); bf16, which has no backward, still refuses.
+  6b. attn_bwd — the flash backward kernel against its plain version, f32,
+               on the forward kernel's out and lse (out within 2e-5 of
+               its scale and lse against the plain forward's), at
+               stablelm-3b's training attention
+               (BH 32, S 2048, hd 80, causal) and hymba-1.5b's prefill (BH
+               50, hd 64, window 1024, GQA 5): dq, dk, dv within 2e-5 of
+               each gradient's scale, a rerun bit-equal; device ms warm and
+               flushed, the plain version's ms, the bound (five products
+               over the unmasked pairs) and the backward of
+               ``scaled_dot_product_attention`` in f32 (forward + backward
+               minus forward, CUDA events around eager calls).
   7. ssd_kernels — the SSD kernel against its plain version (atol = rtol
                2e-4) and against the naive recurrence ``ssd_ref`` (2e-4 of
                the output's scale), y and final state, at hymba-1.5b's shape
@@ -145,7 +159,47 @@ and prints no result. Phases:
                floor is the logits' own scale, so the distance is reported
                beside the floor, not checked. Compaction ratio, wall ms of
                compact and dense, peak memory.
- 11. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+ 11. lm_train — this slice's main path: ``train`` (``train/loop.py``) of
+               stablelm-3b at full width and depth (32 layers, 2.80 B
+               params), f32, B 1 x S 2048 from ``LMBatcher(SyntheticLM(
+               vocab, seed=1), 1, 2049)``, ten steps with
+               ``proj_solver="kernel"``; the config's every_k 10 fires the
+               projection at the tenth. Every loss finite; the flash
+               forward launched twice a layer a step (remat recomputes
+               it) and the backward once, the l1,inf kernels once in the
+               run; every projected w1 slice's l1,inf norm within 1e-4 of
+               the radius 48. Step ms, the median of steps 2-9, peak
+               memory, and one traced step more (device idle share, top
+               device ops, the flash kernels' share). Then one step more
+               through ``build_accum_step`` with an engine whose specs
+               take every_k 1 and which keeps the weights it projects: the
+               l1,inf kernels launched once each, the slices within the
+               radius, and the kernel projection held to
+               ``solver="newton"``'s on those weights (atol 3e-4 * scale,
+               as phase 4).
+ 11b. lm_train_cpu — one ``build_accum_step`` step of stablelm-3b at full
+               width, depth 2, B 1 x S 2048, f32, from the same params and
+               batch on the card (flash kernels, remat, the in-place Adam)
+               and on CPU copies (plain versions). The loss within twice
+               the logits' noise floor (the mean cross-entropy moves at
+               most twice as far as the logits' max-norm); each leaf's
+               Adam moments (the step's gradients: mu = (1 - b1) g at the
+               first step; no global-norm clip, whose one scale would
+               tie every leaf to the worst-conditioned ones) within the
+               floor of a card step from the PERTURB-perturbed params;
+               every param within lr |u_card - u_cpu| plus f32 rounding of
+               the CPU's, u Adam's update direction from each run's
+               moments (float64). Flash launched twice a layer forward
+               and once backward.
+ 12. lm_resume — stablelm-3b at full width, depth 1, B 1 x S 512, every_k
+               2: six steps uninterrupted, three steps and a checkpoint,
+               a resume to six; params, Adam moments and theta bit-equal
+               to the uninterrupted run's, losses equal. One checkpoint's
+               size, save and restore seconds. The checkpoints live in a
+               temporary directory under build/, removed at the end.
+ 13. train_refusal — ``train`` of hymba-1.5b (SSD has no backward on the
+               card) raises before any step, allocating nothing.
+ 14. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
@@ -182,10 +236,15 @@ FUSED_SHAPES = {"sae_enc1": ((1, 10000, 96), True),
 # l12; scripts/torch_profile.py reads this table too)
 RADIUS = {"l1inf": 0.2, "l12": 10.0, "bilevel": 0.1, "l1inf_masked": 0.1}
 LM_SOURCE = {"flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
-             "ssd_fwd": "src/repro_torch/csrc/ssd.cu"}
+             "ssd_fwd": "src/repro_torch/csrc/ssd.cu",
+             "flash_attention_bwd":
+                 "src/repro_torch/csrc/flash_attention_bwd.cu"}
 LM_REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:78",
-    "ssd_fwd": "src/repro/kernels/ssd/kernel.py:75"}
+    "ssd_fwd": "src/repro/kernels/ssd/kernel.py:75",
+    # no pallas_call: the jnp autodiff of chunked_attention, which the
+    # reference runs in place of a TPU backward
+    "flash_attention_bwd": "src/repro/models/attention.py:97"}
 # the device kernels of each LM wrapper, by name in a profiler trace
 LM_TRACE_NAMES = ("flash_f32_kernel", "flash_bf16_kernel",
                   "ssd_chunk_state_kernel", "ssd_state_scan_kernel",
@@ -198,6 +257,14 @@ ATTN_SHAPES = [("hymba_prefill", 2, 25, 5, 2048, 64, True, 1024),
                ("tail_hd80", 1, 8, 8, 200, 80, True, 0),
                ("tail_hd128", 1, 8, 2, 300, 128, True, 0),
                ("window_hd256", 1, 8, 4, 520, 256, True, 128)]
+# the backward's shapes (name, B, H, KV, S, head_dim, causal, window): the
+# first is stablelm-3b's training attention (the lm_train phase's, the one
+# the kernels line reports), the second hymba-1.5b's prefill
+BWD_SHAPES = [("stablelm_train", 1, 32, 32, 2048, 80, True, 0),
+              ("hymba_prefill", 2, 25, 5, 2048, 64, True, 1024)]
+# dq, dk, dv against the plain version, as a fraction of each gradient's
+# largest entry: the forward's f32 tolerance
+BWD_TOL = 2e-5
 # (name, B, heads per group, S, P, N, chunk, dt range, dtype); the first is
 # hymba-1.5b's, the one the kernels line reports
 SSD_SHAPES = [("hymba", 2, 50, 2048, 64, 16, 64, (3.0, 20.0), "float32"),
@@ -208,6 +275,12 @@ SSD_SHAPES = [("hymba", 2, 50, 2048, 64, 16, 64, (3.0, 20.0), "float32"),
 # the LM phases: models, batch and the cuts of the comparison phases
 LM = dict(arch="hymba-1.5b", ssm_arch="mamba2-370m", batch=2, seq=2048,
           cut_depth=2, decode_prompt=1152, full_prompt=64, greedy=8)
+# the training phases: stablelm-3b at full width and depth, B 1, S 2048,
+# ten steps (the config's every_k 10 fires the projection at the tenth);
+# the resume check at depth 1, S 512, every_k 2 (the projection fires in
+# both halves, so theta rides in the checkpoint)
+TRAIN = dict(arch="stablelm-3b", seq=2048, steps=10, resume_seq=512,
+             resume_steps=6, resume_every_k=2, refuse_arch="hymba-1.5b")
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SSD_TOL = 2e-4
 # At the reference's full-width init (ROADMAP C-5) the model amplifies f32
@@ -501,10 +574,132 @@ def attn_kernel_phase(torch, FA, dev, flush, shapes=ATTN_SHAPES):
         check(False, "flash kernel took head_dim 32")
     except ValueError:
         pass
+    # C-6: an f32 input that requires grad gets its gradient through the
+    # kernels; bf16, which has no backward, still refuses
+    x = torch.randn((2, 64, 64), generator=g, device=dev)
+    xg = x.clone().requires_grad_(True)
+    FA.reset_launch_counts()
+    (grad,) = torch.autograd.grad(FA.flash_attention_fwd(xg, xg, xg).sum(),
+                                  xg)
+    xp = x.clone().requires_grad_(True)
+    with torch.enable_grad():
+        FA.flash_attention_fwd_plain(xp, xp, xp).sum().backward()
+    gerr = float((grad - xp.grad).abs().max())
+    check(FA.launch_counts() == {"flash_attention_fwd": 1,
+                                 "flash_attention_bwd": 1}
+          and gerr <= BWD_TOL * float(xp.grad.abs().max()),
+          f"flash f32 under grad: launches {FA.launch_counts()}, gradient "
+          f"vs autograd of the plain forward max err {gerr}")
     check(refuses_grad(torch, lambda t: FA.flash_attention_fwd(t, t, t),
-                       torch.ones((2, 64, 64), device=dev)),
-          "flash kernel ran on an input that requires grad")
+                       torch.ones((2, 64, 64), device=dev,
+                                  dtype=torch.bfloat16)),
+          "flash kernel ran a bf16 input that requires grad")
     row.update(max_abs_err=err, bfloat16=bf16)
+    return row
+
+
+def eager_ms(torch, fn, reps=10):
+    """Mean device time of fn() in ms between two CUDA events around
+    ``reps`` eager calls after two warm-up calls: for calls that run
+    autograd, which the CUDA-graph timer does not capture."""
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES):
+    """Phase 6b: the flash backward kernel against its plain version on the
+    forward kernel's out and lse, at stablelm-3b's training shape and
+    hymba-1.5b's prefill, f32: dq, dk, dv within BWD_TOL of each
+    gradient's scale, a rerun bit-equal; device ms warm and flushed, the
+    plain version's ms and the backward of
+    ``scaled_dot_product_attention`` (forward + backward minus forward).
+    Returns the kernels-line row of the first shape."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(13)
+    row = None
+    for name, B, H, KV, S, hd, causal, window in shapes:
+        kw = dict(groups=H // KV, causal=causal, window=window)
+        pairs, mask = _pairs(S, causal, window)
+        q = torch.randn((B * H, S, hd), generator=g, device=dev)
+        k = torch.randn((B * KV, S, hd), generator=g, device=dev)
+        v = torch.randn((B * KV, S, hd), generator=g, device=dev)
+        dout = torch.randn((B * H, S, hd), generator=g, device=dev)
+        out, lse = FA._fwd_kernel(q, k, v, H // KV, causal, window, True)
+        plain_out, plain_lse = FA.flash_attention_fwd_plain(
+            q, k, v, return_lse=True, **kw)
+        # the forward that feeds the backward, held as phase 6 holds it
+        out_err = float((out - plain_out).abs().max())
+        out_scale = float(plain_out.abs().max())
+        check(bool(torch.isfinite(out).all())
+              and out_err <= FLASH_TOL["float32"] * out_scale,
+              f"flash fwd out {name}: max err {out_err}, scale {out_scale}")
+        lse_err = float((lse - plain_lse).abs().max())
+        check(lse_err <= 2e-5 * float(plain_lse.abs().max()),
+              f"flash fwd lse {name}: max err {lse_err}")
+        del plain_out
+        args = (q, k, v, out, dout, lse)
+        got = FA.flash_attention_bwd(*args, **kw)
+        want = FA.flash_attention_bwd_plain(*args, **kw)
+        errs = {}
+        for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+            scale = float(b.abs().max())
+            errs[gname] = float((a - b).abs().max())
+            check(bool(torch.isfinite(a).all())
+                  and errs[gname] <= BWD_TOL * scale,
+                  f"flash bwd {name} {gname}: max err {errs[gname]}, scale "
+                  f"{scale}")
+        again = FA.flash_attention_bwd(*args, **kw)
+        check(all(bits_equal(torch, a, b) for a, b in zip(got, again)),
+              f"flash bwd {name}: rerun not bit-equal")
+        # bound: five products over the unmasked pairs; q, k, v, out, dout
+        # and lse read once, dq, dk, dv written once
+        ops = 5 * 2 * hd * pairs * B * H
+        nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                      + lse.numel())
+        bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (ops / F32_OPS_PER_S * 1e3, "operations"))
+        # the library yardstick: SDPA's backward in f32 (its efficient or
+        # math kernel), forward + backward minus forward
+        qs, ks, vs = (t.view(B, -1, S, hd).clone().requires_grad_(True)
+                      for t in (q, k, v))
+        ds = dout.view(B, H, S, hd)
+        mk = torch.from_numpy(mask).to(dev) if window else None
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mk, is_causal=mk is None, enable_gqa=True)
+        lib_grads = torch.autograd.grad(sdpa(), (qs, ks, vs), ds)
+        lib_err = max(float((a.reshape(b.shape) - b).abs().max())
+                      for a, b in zip(lib_grads, got))
+        with torch.no_grad():
+            lib_fwd = eager_ms(torch, sdpa)
+        lib_both = eager_ms(torch, lambda: torch.autograd.grad(
+            sdpa(), (qs, ks, vs), ds))
+        t = {"ms": time_ms(torch, lambda: FA.flash_attention_bwd(*args,
+                                                                 **kw)),
+             "ms_l2_flushed": time_cold_ms(
+                 torch, lambda: FA.flash_attention_bwd(*args, **kw), flush),
+             "plain_ms": time_ms(torch, lambda: FA.flash_attention_bwd_plain(
+                 *args, **kw), budget_ms=300.0),
+             "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": lib_both - lib_fwd,
+             "library_fwd_bwd_ms": lib_both, "library_fwd_ms": lib_fwd,
+             "library_max_abs_err": lib_err,
+             "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+        emit({"phase": "attn_bwd", "shape": name, "B": B, "H": H, "KV": KV,
+              "S": S, "head_dim": hd, "causal": causal, "window": window,
+              "max_abs_err": errs, "out_max_abs_err": out_err,
+              "out_scale": out_scale, "lse_max_abs_err": lse_err, **t})
+        if row is None:
+            row = dict(t, max_abs_err=max(errs.values()))
+        del qs, ks, vs, lib_grads, got, want, again
+        torch.cuda.empty_cache()
     return row
 
 
@@ -615,6 +810,12 @@ def _lm_counts(FA, SK):
     return {**FA.launch_counts(), **SK.launch_counts()}
 
 
+def _fwd_counts(flash, ssd):
+    """The LM counts of a forward with no gradient: no backward launch."""
+    return {"flash_attention_fwd": flash, "flash_attention_bwd": 0,
+            "ssd_fwd": ssd}
+
+
 def _lm_reset(FA, SK):
     FA.reset_launch_counts()
     SK.reset_launch_counts()
@@ -641,8 +842,7 @@ def lm_forward_phase(torch, Z, C, FA, SK, dev, lm=LM):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if dname == "float32":
             main_launches = dict(launched)
-        check(launched == {"flash_attention_fwd": cfg.n_layers,
-                           "ssd_fwd": cfg.n_layers},
+        check(launched == _fwd_counts(cfg.n_layers, cfg.n_layers),
               f"{cfg.name} {dname} forward launches {launched}, want "
               f"{cfg.n_layers} of each kernel")
         valid = logits[..., :cfg.vocab].float()
@@ -676,7 +876,7 @@ def lm_forward_phase(torch, Z, C, FA, SK, dev, lm=LM):
     slogits, _ = smodel.forward(sparams, {"tokens": stokens})
     torch.cuda.synchronize()
     launched = _lm_counts(FA, SK)
-    check(launched == {"flash_attention_fwd": 0, "ssd_fwd": scfg.n_layers},
+    check(launched == _fwd_counts(0, scfg.n_layers),
           f"{scfg.name} forward launches {launched}")
     finite = bool(torch.isfinite(slogits[..., :scfg.vocab]).all())
     check(finite, f"{scfg.name} logits not finite")
@@ -713,8 +913,7 @@ def lm_forward_phase(torch, Z, C, FA, SK, dev, lm=LM):
     diff = float((on_card[..., :V].cpu() - ref).abs().max())
     noise = _noise_floor(torch, dmodel, dparams, {"tokens": dtok}, on_card,
                          V, seed=4)
-    check(launched == {"flash_attention_fwd": dcfg.n_layers,
-                       "ssd_fwd": dcfg.n_layers},
+    check(launched == _fwd_counts(dcfg.n_layers, dcfg.n_layers),
           f"depth-{dcfg.n_layers} forward launches {launched}")
     check(diff <= noise and diff <= LM_MAX_REL * scale,
           f"depth-{dcfg.n_layers} forward: card vs CPU max diff {diff}, "
@@ -881,7 +1080,7 @@ def _compact_vs_dense(torch, model, dense, compact, batch, V, FA, SK,
     torch.cuda.synchronize()
     launched = _lm_counts(FA, SK)
     peak_c = torch.cuda.max_memory_allocated() / 1e9
-    check(launched == {"flash_attention_fwd": n_layers, "ssd_fwd": n_layers},
+    check(launched == _fwd_counts(n_layers, n_layers),
           f"lm_compact depth {n_layers}: compact forward launches {launched}")
     rerun = bits_equal(torch, out_c, model.forward(compact, batch)[0])
     torch.cuda.reset_peak_memory_stats()
@@ -924,26 +1123,35 @@ def lm_compact_params(torch, Z, C, dev, lm=LM):
     return cfg, params
 
 
+def _norm_over_radius(params, specs):
+    """The largest l1,inf norm over its radius of any slice that ``specs``
+    constrain in ``params``."""
+    from repro_torch._tree import flatten_with_path
+    from repro_torch.core.constraints import _first_match
+    from repro_torch.core.l1inf import l1inf_norm
+    ratio = 0.0
+    for path, leaf in flatten_with_path(params):
+        spec = _first_match(specs, path, leaf)
+        if spec is not None:
+            for sl in leaf.reshape((-1,) + leaf.shape[-2:]):
+                ratio = max(ratio, float(l1inf_norm(sl, axis=spec.axis))
+                            / spec.radius)
+    return ratio
+
+
 def _projection_vs_newton(torch, params, dense, specs):
     """The kernel engine's projection of ``params`` (``dense``) against
     ``ProjectionEngine(solver="newton")``'s, and the l1,inf norm of every
     projected slice over its radius (the largest)."""
     from repro_torch._tree import flatten_with_path
     from repro_torch.core import ProjectionEngine
-    from repro_torch.core.constraints import _first_match
-    from repro_torch.core.l1inf import l1inf_norm
     newton, _ = ProjectionEngine(specs, solver="newton").apply(params)
     flat_k = dict(flatten_with_path(dense))
-    err, scale, norm_ratio = 0.0, 1.0, 0.0
+    err, scale = 0.0, 1.0
     for path, leaf in flatten_with_path(newton):
         err = max(err, float((flat_k[path] - leaf).abs().max()))
         scale = max(scale, float(leaf.abs().max()))
-        spec = _first_match(specs, path, leaf)
-        if spec is not None:
-            for sl in flat_k[path].reshape((-1,) + leaf.shape[-2:]):
-                norm_ratio = max(norm_ratio, float(
-                    l1inf_norm(sl, axis=spec.axis)) / spec.radius)
-    return err, scale, norm_ratio
+    return err, scale, _norm_over_radius(dense, specs)
 
 
 def _mlp_by_layer(torch, dense, compact, cfg, dev, lm=LM):
@@ -1092,6 +1300,352 @@ def lm_compact_phase(torch, Z, C, K, FA, SK, dev, lm=LM):
     emit(line)
     del dense, cm
     torch.cuda.empty_cache()
+
+
+def _every_k(cfg, k):
+    return dataclasses.replace(cfg, projection_specs=tuple(
+        dataclasses.replace(spec, every_k=k) for spec in cfg.projection_specs))
+
+
+def _recording_engine(ProjectionEngine, specs, pre):
+    """A ``ProjectionEngine(specs, solver="kernel")`` that keeps a copy of
+    the params it is asked to project in ``pre``."""
+    from repro_torch._tree import tree_map
+
+    class Recording(ProjectionEngine):
+        def apply(self, params, *, step=None, state=None, with_stats=False):
+            pre.append(tree_map(lambda a: a.clone(), params))
+            return super().apply(params, step=step, state=state,
+                                 with_stats=with_stats)
+    return Recording(specs, solver="kernel")
+
+
+def _w1(params):
+    return {"blocks": {"p0_global": {"mlp": {
+        "w1": params["blocks"]["p0_global"]["mlp"]["w1"]}}}}
+
+
+def lm_train_phase(torch, Z, C, FA, K, dev, tr=TRAIN):
+    """Phase 11, this slice's main path: ``train`` of stablelm-3b at full
+    width and depth, f32, B 1 x S 2048, ten steps with
+    ``proj_solver="kernel"``; the config's every_k 10 fires the projection
+    at the tenth step. Then a traced step, and a step whose engine
+    projects (every_k 1) and keeps what it projects, for the check against
+    the Newton. Returns the launches of the run."""
+    from repro_torch.core import ProjectionEngine
+    from repro_torch.data import LMBatcher, SyntheticLM
+    from repro_torch.optim import AdamConfig
+    from repro_torch.train import loop as TL
+    cfg = C.get_config(tr["arch"])
+    model = Z.build(cfg)
+    batcher = LMBatcher(SyntheticLM(cfg.vocab, seed=1), 1, tr["seq"] + 1)
+    tcfg = TL.TrainConfig(steps=tr["steps"], proj_solver="kernel",
+                          log_every=1, ckpt_dir=None)
+    every_k = {spec.every_k for spec in cfg.projection_specs}
+    layers, steps = cfg.n_layers, tr["steps"]
+    # per step and layer: the forward, its recompute under remat, and
+    # the backward; the projection once, at the step every_k divides
+    want_flash = {"flash_attention_fwd": (2 if cfg.remat else 1) * layers
+                  * steps, "flash_attention_bwd": layers * steps}
+    want_l1inf = {k: steps // max(every_k) for k in REPLACES}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    out = TL.train(model, batcher, tcfg)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    flash, l1inf = FA.launch_counts(), K.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"lm_train losses {losses}")
+    check(flash == want_flash, f"lm_train flash launches {flash}, want "
+          f"{want_flash}")
+    check(l1inf == want_l1inf, f"lm_train l1,inf launches {l1inf}, want "
+          f"{want_l1inf}")
+    # the last step projected: every slice within the radius
+    params = out["params"]
+    norm_ratio = _norm_over_radius(_w1(params), cfg.projection_specs)
+    check(norm_ratio <= 1 + 1e-4, f"lm_train: l1,inf norm {norm_ratio} of "
+          f"the radius")
+    step_ms = [m["step_time_s"] * 1e3 for m in out["step_metrics"]]
+    # one traced step more on the trained state
+    acfg = AdamConfig(lr=tcfg.lr)
+    step_fn = TL.build_accum_step(model, acfg, tcfg, engine=ProjectionEngine(
+        cfg.projection_specs, solver="kernel"))
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64)
+             for k, v in batcher.get(steps).items()}
+    state = [params, out["opt_state"], out["proj_state"]]
+    del out, params
+
+    def one_step():
+        state[:3] = step_fn(*state, batch, TL.lr_at(tcfg, steps),
+                            count=steps + 1)[:3]
+
+    profile = _profile(torch, one_step, kernels=(
+        "flash_f32_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
+        "bwd_delta_kernel"))
+    # one step more through an engine that projects at every step and
+    # keeps the weights it projects: the kernel projection against the
+    # Newton's on those weights
+    specs1 = _every_k(cfg, 1).projection_specs
+    pre = []
+    rec_fn = TL.build_accum_step(model, acfg, tcfg, engine=_recording_engine(
+        ProjectionEngine, specs1, pre))
+    K.reset_launch_counts()
+    state[:3] = rec_fn(*state, batch, TL.lr_at(tcfg, steps + 1),
+                       count=steps + 2)[:3]
+    torch.cuda.synchronize()
+    rec_l1inf = K.launch_counts()
+    check(len(pre) == 1 and rec_l1inf == {k: 1 for k in REPLACES},
+          f"lm_train projecting step: {len(pre)} projections, l1,inf "
+          f"launches {rec_l1inf}")
+    err, scale, rec_ratio = _projection_vs_newton(
+        torch, _w1(pre[0]), _w1(state[0]), specs1)
+    del pre
+    check(rec_ratio <= 1 + 1e-4, f"lm_train projecting step: l1,inf norm "
+          f"{rec_ratio} of the radius")
+    check(err <= 3e-4 * scale, f"lm_train: kernel projection vs newton max "
+          f"err {err} (scale {scale})")
+    emit({"phase": "lm_train", "arch": cfg.name, "n_layers": layers,
+          "d_model": cfg.d_model, "n_params": model.n_params(), "batch": 1,
+          "seq": tr["seq"], "steps": steps, "remat": cfg.remat,
+          "every_k": sorted(every_k), "losses": losses,
+          "launches": {**flash, **l1inf},
+          "launches_per_step": {k: v / steps for k, v in flash.items()},
+          "expected_launches": {**want_flash, **want_l1inf},
+          "step_ms": step_ms,
+          "median_step_ms_2_to_9": float(np.median(step_ms[1:9])),
+          "wall_s": wall_s, "peak_memory_gb": peak_gb,
+          "norm_over_radius": norm_ratio,
+          "projecting_step": {"launches": rec_l1inf,
+                              "projection_vs_newton_max_err": err,
+                              "projection_scale": scale,
+                              "norm_over_radius": rec_ratio},
+          "profile": profile})
+    del state, batch
+    torch.cuda.empty_cache()
+    return {**flash, **l1inf}
+
+
+def _adam_direction(torch, acfg, mu, nu, p):
+    """Adam's update direction at the first step from the stored moments,
+    float64: mhat / (sqrt(vhat) + eps) (+ weight decay * p)."""
+    f32 = lambda x: float(np.float32(x))
+    b1c, b2c = 1 - f32(acfg.b1), 1 - f32(acfg.b2)
+    u = (mu.double() / b1c) / (torch.sqrt(nu.double() / b2c) + acfg.eps)
+    return u + acfg.weight_decay * p.double() if acfg.weight_decay else u
+
+
+def lm_train_cpu_phase(torch, Z, C, FA, dev, tr=TRAIN, lm=LM):
+    """Phase 11b: one ``build_accum_step`` step of stablelm-3b at full
+    width, depth ``cut_depth``, B 1 x S 2048, on the card and on CPU
+    copies of the same params and batch; a third step on the card from
+    the PERTURB-perturbed params gives the noise floor of each moment."""
+    from repro_torch._tree import flatten_with_path, tree_map
+    from repro_torch.core import ProjectionEngine
+    from repro_torch.data import LMBatcher, SyntheticLM
+    from repro_torch.optim import AdamConfig, adam_init
+    from repro_torch.train import loop as TL
+    cfg = dataclasses.replace(C.get_config(tr["arch"]),
+                              n_layers=lm["cut_depth"])
+    model = Z.build(cfg)
+    tcfg = TL.TrainConfig(proj_solver="kernel")
+    # no global-norm clip here: its one scale couples every leaf to the
+    # worst-conditioned gradients (attn wq/wk, the embedding, which a
+    # 1e-6 weight noise moves by half their scale at this init), so the
+    # moments would compare that scale and not each leaf's gradient
+    acfg = AdamConfig(lr=tcfg.lr, clip_norm=None)
+    lr = TL.lr_at(tcfg, 0)
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in
+             LMBatcher(SyntheticLM(cfg.vocab, seed=1), 1,
+                       tr["seq"] + 1).get(0).items()}
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    pert = tree_map(lambda a: a * (1 + PERTURB * torch.randn(
+        a.shape, generator=g, device=dev)), params)
+    cpu = tree_map(lambda a: a.to("cpu", copy=True), params)
+    old = tree_map(lambda a: a.clone(), params)
+    # the logits' floor, before the in-place steps move the params
+    V = cfg.vocab
+    with torch.no_grad():
+        logits, _ = model.forward(params, {"tokens": batch["tokens"]})
+        moved, _ = model.forward(pert, {"tokens": batch["tokens"]})
+        logit_floor = float((moved[..., :V] - logits[..., :V]).abs().max())
+        logit_scale = float(logits[..., :V].abs().max())
+    del logits, moved
+
+    def run(p, b):
+        engine = ProjectionEngine(cfg.projection_specs, solver="kernel")
+        step_fn = TL.build_accum_step(model, acfg, tcfg, engine=engine)
+        return step_fn(p, adam_init(p, acfg), engine.init_state(p), b, lr,
+                       count=1)
+
+    FA.reset_launch_counts()
+    card = run(params, batch)
+    torch.cuda.synchronize()
+    launched = FA.launch_counts()
+    floor = run(pert, batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    host = run(cpu, {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t
+    want = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    check(launched == want, f"lm_train_cpu launches {launched}, want {want}")
+    loss_diff = abs(float(card[3]) - float(host[3]))
+    check(np.isfinite(float(card[3])) and loss_diff <= 2 * logit_floor,
+          f"lm_train_cpu: loss card {float(card[3])} vs CPU "
+          f"{float(host[3])}, logits' floor {logit_floor}")
+    eps32 = float(np.finfo(np.float32).eps)
+    rows = {}
+    flat = lambda tree: dict(flatten_with_path(tree))
+    moments = {}
+    for mname, pick in (("mu", lambda o: o.mu), ("nu", lambda o: o.nu)):
+        fc, ff, fh = (flat(pick(r[1])) for r in (card, floor, host))
+        for path, a in fc.items():
+            h = fh[path].to(dev)
+            diff = float((a - h).abs().max())
+            noise = float((ff[path] - a).abs().max())
+            scale = float(h.abs().max())
+            moments.setdefault(path, {})[mname] = {
+                "max_abs_diff": diff, "noise_floor": noise, "scale": scale,
+                "rel_fro": float(torch.linalg.vector_norm(a - h)
+                                 / torch.linalg.vector_norm(h))}
+            check(diff <= noise, f"lm_train_cpu {mname} {path}: card vs "
+                  f"CPU max diff {diff}, noise floor {noise}, scale {scale}")
+    fp_c, fp_h, fp_o = flat(card[0]), flat(host[0]), flat(old)
+    fmu_c, fnu_c = flat(card[1].mu), flat(card[1].nu)
+    fmu_h, fnu_h = flat(host[1].mu), flat(host[1].nu)
+    for path, pc in fp_c.items():
+        ph = fp_h[path].to(dev)
+        u_c = _adam_direction(torch, acfg, fmu_c[path], fnu_c[path],
+                              fp_o[path])
+        u_h = _adam_direction(torch, acfg, fmu_h[path].to(dev),
+                              fnu_h[path].to(dev), fp_o[path])
+        d = (pc.double() - ph.double()).abs()
+        tol = lr * (u_c - u_h).abs() + 16 * eps32 * lr + eps32 * (
+            pc.double().abs() + ph.double().abs())
+        over = int((d > tol).sum())
+        moved = float((pc.double() - fp_o[path].double()).abs().max())
+        rows[path] = {"max_abs_diff": float(d.max()), "over_tol": over,
+                      "entries_apart": int((d > eps32 * (
+                          pc.double().abs() + ph.double().abs())).sum()),
+                      "max_update": moved, **moments[path]}
+        check(over == 0 and moved > 0, f"lm_train_cpu params {path}: "
+              f"{over} entries beyond lr |u_card - u_cpu| + rounding, "
+              f"largest update {moved}")
+        del d, tol, u_c, u_h
+    emit({"phase": "lm_train_cpu", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "n_params": model.n_params(),
+          "batch": 1, "seq": tr["seq"], "remat": cfg.remat, "lr": lr,
+          "launches": launched, "loss": {"card": float(card[3]),
+                                         "cpu": float(host[3])},
+          "loss_diff": loss_diff, "logit_noise_floor": logit_floor,
+          "logits_scale": logit_scale, "perturb": PERTURB,
+          "cpu_step_s": cpu_s, "leaves": rows})
+    del card, floor, host, params, pert, cpu, old
+    torch.cuda.empty_cache()
+
+
+def lm_resume_phase(torch, Z, C, root, tr=TRAIN):
+    """Phase 12: stablelm-3b at full width, depth 1, B 1 x S 512, every_k
+    2: six steps uninterrupted, then three steps and a checkpoint, then a
+    resume to six; final params, Adam state and theta bit-equal to the
+    uninterrupted run's. The checkpoints go to a temporary directory under
+    build/, removed at the end; the save and restore seconds of one
+    checkpoint are timed alone."""
+    import shutil
+    import tempfile
+    from repro_torch._tree import leaves
+    from repro_torch.checkpoint import restore_tree, save
+    from repro_torch.data import LMBatcher, SyntheticLM
+    from repro_torch.train import TrainConfig, train
+    cfg = _every_k(dataclasses.replace(C.get_config(tr["arch"]), n_layers=1),
+                   tr["resume_every_k"])
+    model = Z.build(cfg)
+    batcher = LMBatcher(SyntheticLM(cfg.vocab, seed=1), 1,
+                        tr["resume_seq"] + 1)
+    n = tr["resume_steps"]
+    kw = dict(proj_solver="kernel", log_every=100, ckpt_every=100)
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lm_resume-", dir=os.path.join(root,
+                                                                 "build"))
+    try:
+        full = train(model, batcher, TrainConfig(steps=n, **kw),
+                     resume=False)
+        ckpt = os.path.join(tmp, "ckpt")
+        train(model, batcher, TrainConfig(steps=n // 2, ckpt_dir=ckpt, **kw),
+              resume=False)
+        resumed = train(model, batcher, TrainConfig(steps=n, ckpt_dir=ckpt,
+                                                    **kw), resume=True)
+        state = lambda o: {"params": o["params"], "opt": o["opt_state"],
+                           "proj": o["proj_state"]}
+        a, b = leaves(full["params"]), leaves(resumed["params"])
+        same = all(bits_equal(torch, x, y) for x, y in zip(a, b))
+        same_opt = all(bits_equal(torch, x, y) for x, y in zip(
+            leaves(full["opt_state"].mu) + leaves(full["opt_state"].nu),
+            leaves(resumed["opt_state"].mu) + leaves(resumed["opt_state"].nu)))
+        same_theta = sorted(full["proj_state"]) == \
+            sorted(resumed["proj_state"]) and all(
+                bits_equal(torch, full["proj_state"][k],
+                           resumed["proj_state"][k])
+                for k in full["proj_state"])
+        theta_live = any(float(v.max()) > 0
+                         for v in resumed["proj_state"].values())
+        check(same and same_opt and same_theta and theta_live
+              and resumed["losses"] == full["losses"][n // 2:],
+              f"lm_resume: params bit-equal {same}, moments {same_opt}, "
+              f"theta {same_theta} (nonzero {theta_live}), losses "
+              f"{resumed['losses']} vs {full['losses'][n // 2:]}")
+        # one checkpoint's save and restore alone (what train does at a
+        # checkpoint, minus the host copy of the async checkpointer)
+        probe = os.path.join(tmp, "probe")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save(state(full), probe, n)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back, _ = restore_tree(state(full), probe)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        check(all(bits_equal(torch, x, y) for x, y in zip(
+            leaves(back["params"]), a)), "lm_resume: restore not bit-equal")
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(probe) for f in fs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "lm_resume", "arch": cfg.name, "n_layers": 1,
+          "n_params": model.n_params(), "seq": tr["resume_seq"],
+          "steps": n, "resumed_at": n // 2, "every_k": tr["resume_every_k"],
+          "bit_equal": {"params": same, "moments": same_opt,
+                        "theta": same_theta},
+          "losses": full["losses"], "checkpoint_gb": nbytes / 1e9,
+          "save_s": save_s, "restore_s": restore_s})
+
+
+def train_refusal_phase(torch, Z, C, tr=TRAIN):
+    """Phase 13: ``train`` of hymba-1.5b (hybrid: SSD, which has no
+    backward on the card) raises before any step, allocating nothing."""
+    from repro_torch.data import LMBatcher, SyntheticLM
+    from repro_torch.train import TrainConfig, train
+    cfg = C.get_config(tr["refuse_arch"])
+    before = torch.cuda.memory_allocated()
+    msg = ""
+    try:
+        train(Z.build(cfg), LMBatcher(SyntheticLM(cfg.vocab), 1, 65),
+              TrainConfig(steps=1))
+    except NotImplementedError as e:
+        msg = str(e)
+    check("queue A item 6" in msg
+          and torch.cuda.memory_allocated() == before,
+          f"train {cfg.name} on the card did not refuse before a step: "
+          f"{msg!r}")
+    emit({"phase": "train_refusal", "arch": cfg.name, "message": msg})
 
 
 def main():
@@ -1607,6 +2161,7 @@ def main():
     from repro_torch.kernels.ssd import ref as Sref
     from repro_torch.models import zoo as Z
     attn_row = attn_kernel_phase(torch, FA, dev, flush)
+    bwd_row = attn_bwd_phase(torch, FA, dev, flush)
     ssd_row = ssd_kernel_phase(torch, SK, Sref, dev, flush)
     lm_launches = lm_forward_phase(torch, Z, C, FA, SK, dev)
     lm_decode_phase(torch, Z, C, FA, SK, dev)
@@ -1614,7 +2169,13 @@ def main():
     # -- 10. hymba-1.5b projected, compacted and served ---------------------
     lm_compact_phase(torch, Z, C, K, FA, SK, dev)
 
-    # -- 11. result ------------------------------------------------------------
+    # -- 11.-13. this slice: stablelm-3b trained on the card ----------------
+    train_launches = lm_train_phase(torch, Z, C, FA, K, dev)
+    lm_train_cpu_phase(torch, Z, C, FA, dev)
+    lm_resume_phase(torch, Z, C, root)
+    train_refusal_phase(torch, Z, C)
+
+    # -- 14. result ------------------------------------------------------------
     if FAILURES:
         print(json.dumps({"failures": FAILURES}), file=sys.stderr)
         return 1
@@ -1652,7 +2213,13 @@ def main():
         {"name": k, "route": "cuda", "source": LM_SOURCE[k],
          "replaces": LM_REPLACES[k], "launches": lm_launches[k], **row}
         for k, row in (("flash_attention_fwd", attn_row),
-                       ("ssd_fwd", ssd_row))]})
+                       ("ssd_fwd", ssd_row))] + [
+        # the backward at stablelm-3b's training shape, launches in the
+        # ten-step lm_train run
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": LM_SOURCE["flash_attention_bwd"],
+         "replaces": LM_REPLACES["flash_attention_bwd"],
+         "launches": train_launches["flash_attention_bwd"], **bwd_row}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

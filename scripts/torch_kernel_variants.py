@@ -145,7 +145,7 @@ def build(names, nvcc, flags):
 def flash_runs(torch, CS, FA, lib, dev):
     """(dtype name, max |err| vs plain, ms) at hymba-1.5b's prefill."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [I, I, P, P, P, P] + [I] * 6 + [
+    lib.flash_attention_fwd.argtypes = [I, I, P, P, P, P, P] + [I] * 6 + [
         ctypes.c_float, P]
     name, B, H, KV, S, hd, causal, window = CS.ATTN_SHAPES[0]
     g = torch.Generator(device=dev).manual_seed(11)
@@ -158,8 +158,8 @@ def flash_runs(torch, CS, FA, lib, dev):
         # the stream is read at each call: timing captures on a side stream
         fn = lambda: lib.flash_attention_fwd(
             code, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B * H, S, S, H // KV, int(causal), window,
-            hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), None, B * H, S, S, H // KV, int(causal),
+            window, hd ** -0.5, torch.cuda.current_stream().cuda_stream)
         if fn() != 0:
             raise SystemExit("flash variant: launch failed")
         plain = FA.flash_attention_fwd_plain(q, k, v, groups=H // KV,

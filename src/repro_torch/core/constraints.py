@@ -169,10 +169,13 @@ def _first_match(specs: Sequence[ProjectionSpec], name: str, leaf):
 
 def _gated(projected, original, step, every_k):
     """``projected`` on steps where ``step % every_k == 0``, else
-    ``original`` (no gate for every_k == 1 or step None)."""
-    if step is not None and every_k > 1:
-        return torch.where((step % every_k) == 0, projected, original)
-    return projected
+    ``original`` (no gate for every_k == 1 or step None); ``step`` is a
+    0-d tensor or a host int."""
+    if step is None or every_k == 1:
+        return projected
+    if isinstance(step, int):
+        return projected if step % every_k == 0 else original
+    return torch.where((step % every_k) == 0, projected, original)
 
 
 def apply_constraints(params: Any, specs: Sequence[ProjectionSpec],

@@ -122,18 +122,26 @@ class ProjectionEngine:
         """Project the flat ``leaves`` list in place: one solve per plan
         whose key is not in ``skip``, then the per-leaf specs, each gated
         on ``step`` by its ``every_k`` (a gated plan keeps its previous
-        theta). Returns (theta state, {plan.key: iters})."""
+        theta). A host int ``step`` gates on the host: a plan or spec off
+        its step is not solved at all. Returns (theta state, {plan.key:
+        iters})."""
         new_state: Dict[str, torch.Tensor] = {}
         stats: Dict[str, Any] = {}
+        off = lambda every_k: isinstance(step, int) and step % every_k != 0
         for plan in plans:
             if plan.key in skip:
                 continue
             theta0 = None if state is None else state.get(plan.key)
+            if off(plan.every_k):
+                new_state[plan.key] = theta0 if theta0 is not None else \
+                    torch.zeros((plan.num_segments,), dtype=torch.float32,
+                                device=leaves[plan.entries[0].index].device)
+                continue
             projected, theta, iters = self._solve_plan(plan, leaves, theta0)
             for e in plan.entries:
                 leaves[e.index] = _gated(projected[e.index], leaves[e.index],
                                          step, plan.every_k)
-            if step is not None and plan.every_k > 1:
+            if isinstance(step, torch.Tensor) and plan.every_k > 1:
                 prev = (theta0 if theta0 is not None
                         else torch.zeros_like(theta))
                 theta = torch.where((step % plan.every_k) == 0, theta, prev)
@@ -141,6 +149,8 @@ class ProjectionEngine:
             stats[plan.key] = iters
 
         for i, spec in per_leaf:
+            if off(spec.every_k):
+                continue
             engine_count("per_leaf")
             projected = _apply_2d(_project_fn(spec), leaves[i], spec.radius,
                                   spec.axis)
@@ -154,8 +164,10 @@ class ProjectionEngine:
         every_k) sub-buffer, the per-leaf path for unpackable norms.
 
         ``state`` threads the per-plan theta vectors between steps;
-        ``step`` gates ``every_k > 1`` specs. Returns (params, new_state),
-        plus {plan.key: Eq.-(19) eval count} when ``with_stats``.
+        ``step`` (a 0-d tensor, or a host int that skips the solves off
+        their step) gates ``every_k > 1`` specs. Returns (params,
+        new_state), plus {plan.key: Eq.-(19) eval count} when
+        ``with_stats``.
         """
         if not self.specs:
             out = (params, dict(state or {}))
@@ -175,7 +187,9 @@ class ProjectionEngine:
     def projected_update(self, grads: Any, opt_state, params: Any, acfg, *,
                          lr=None, mask: Any = None,
                          state: Optional[Dict[str, torch.Tensor]] = None,
-                         with_stats: bool = False):
+                         with_stats: bool = False,
+                         count: Optional[int] = None,
+                         inplace: bool = False):
         """Optimizer update + projection + gating: the step core of the
         port's train loops.
 
@@ -189,6 +203,14 @@ class ProjectionEngine:
         two-pass fused step instead (``_projected_update_fused``); every
         other plan and per-leaf spec replays this unfused path.
 
+        ``count`` is the NEW optimizer count as a host int, when the
+        caller tracks it: the ``every_k`` gates then run on the host and a
+        plan off its step is not solved (no launch). ``inplace`` has the
+        unfused Adam update write into the tensors of ``params`` and
+        ``opt_state`` (``adam_update``), so a full-size train step holds
+        no second copy of its state; projected leaves, and every leaf of
+        the fused step, come back as new tensors.
+
         Returns (params, opt_state, proj_state), plus {plan.key: Eq.-(19)
         evaluation count} when ``with_stats``.
         """
@@ -200,14 +222,16 @@ class ProjectionEngine:
                 return self._projected_update_fused(
                     grads, opt_state, params, acfg, lr=lr, mask=mask,
                     state=state, plans=plans, per_leaf=per_leaf,
-                    fused_plans=fused_plans, with_stats=with_stats)
+                    fused_plans=fused_plans, with_stats=with_stats,
+                    host_count=count)
         from ..optim.adam import adam_update
         new_params, new_opt = adam_update(grads, opt_state, params, acfg,
-                                          lr=lr, mask=mask)
+                                          lr=lr, mask=mask, inplace=inplace)
         stats: Dict[str, Any] = {}
         if self.specs:
             new_params, state, stats = self.apply(
-                new_params, step=new_opt.count, state=state, with_stats=True)
+                new_params, step=new_opt.count if count is None else count,
+                state=state, with_stats=True)
             if mask is not None:
                 new_params = tree_map(lambda p, m: p * m, new_params, mask)
         else:
@@ -218,7 +242,7 @@ class ProjectionEngine:
 
     def _projected_update_fused(self, grads, opt_state, params: Any, acfg, *,
                                 lr, mask, state, plans, per_leaf,
-                                fused_plans, with_stats):
+                                fused_plans, with_stats, host_count=None):
         """The two-pass step. ``fused_plans`` take the fused kernels; every
         other plan and leaf replays the unfused path on the updated leaves,
         so mixed spec lists stay exact.
@@ -313,8 +337,8 @@ class ProjectionEngine:
         # unfused remainder: every_k-gated plans and families without the
         # streaming hook (packed Newton), then the per-leaf norms
         rest_state, rest_stats = self._project_leaves(
-            new_p, plans, per_leaf, count, state,
-            skip={plan.key for plan in fused_plans})
+            new_p, plans, per_leaf, count if host_count is None
+            else host_count, state, skip={plan.key for plan in fused_plans})
         new_state.update(rest_state)
         stats.update(rest_stats)
 

@@ -14,7 +14,10 @@
 //   test. Query rows past Sq are not stored and keys past Skv are masked,
 //   so Sq and Skv need not be multiples of a tile. Nothing is carried
 //   across blocks and nothing accumulates with atomics: a rerun is
-//   bit-equal.
+//   bit-equal. Given a non-null lse pointer, the f32 kernel also writes
+//   each row's log-sum-exp of the scaled logits, lse = m + log max(l,
+//   1e-30), f32 (BH, Sq): the row statistics that the backward
+//   (flash_attention_bwd.cu) recomputes P from.
 //
 // Bound on the card: operations. At hymba-1.5b's prefill (BH 50, S 2048,
 // hd 64, causal, window 1024) the unmasked (q, k) pairs need 20.1 GFLOP:
@@ -74,7 +77,8 @@
 //
 // Plain C interface (loaded with ctypes): pointers, sizes, flags, the
 // scale and the stream; dtype code 0 = f32, 1 = bf16; head_dim 64, 80, 128
-// or 256; the bf16 path needs q, k, v 16-byte aligned. Returns
+// or 256; lse is null or (f32 only) a (BH, Sq) f32 output; the bf16 path
+// needs q, k, v 16-byte aligned. Returns
 // cudaGetLastError() right after the launch, or the error that stopped
 // it.
 
@@ -157,8 +161,8 @@ template <int HD, int RQ, int BKV>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int Sq, int Skv, int groups, int causal, int window,
-                 float scale) {
+                 float* __restrict__ lse, int Sq, int Skv, int groups,
+                 int causal, int window, float scale) {
   using F = F32Tile<HD, RQ, BKV>;
   constexpr int TX = F::TX, TY = F::TY, BQ = F::BQ, CK = F::CK;
   constexpr int HD4 = F::HD4, C4 = F::C4;
@@ -313,6 +317,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qp = q0 + ty + TY * i;
     if (qp >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * Sq + qp] = m[i] + logf(den);
 #pragma unroll
     for (int c = 0; c < C4; ++c) {
       const int col = 4 * (tx + TX * c);
@@ -326,8 +332,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD, int RQ, int BKV>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int BH, int Sq, int Skv, int groups, int causal, int window,
-               float scale, cudaStream_t stream) {
+               void* lse, int BH, int Sq, int Skv, int groups, int causal,
+               int window, float scale, cudaStream_t stream) {
   auto kern = flash_f32_kernel<HD, RQ, BKV>;
   constexpr size_t smem = F32Tile<HD, RQ, BKV>::smem;
   constexpr int BQ = F32Tile<HD, RQ, BKV>::BQ;
@@ -338,8 +344,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((Sq + BQ - 1) / BQ, BH);
   kern<<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq,
-      Skv, groups, causal, window, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, Sq, Skv, groups, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -776,26 +782,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 int flash_attention_fwd(int dtype, int hd, const void* q, const void* k,
-                        const void* v, void* out, int BH, int Sq, int Skv,
-                        int groups, int causal, int window, float scale,
-                        void* stream) {
+                        const void* v, void* out, void* lse, int BH, int Sq,
+                        int Skv, int groups, int causal, int window,
+                        float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     switch (hd) {
       case 64:
-        return launch_f32<64, 4, 64>(q, k, v, out, BH, Sq, Skv, groups,
+        return launch_f32<64, 4, 64>(q, k, v, out, lse, BH, Sq, Skv, groups,
                                      causal, window, scale, s);
       case 80:
-        return launch_f32<80, 4, 64>(q, k, v, out, BH, Sq, Skv, groups,
+        return launch_f32<80, 4, 64>(q, k, v, out, lse, BH, Sq, Skv, groups,
                                      causal, window, scale, s);
       case 128:
-        return launch_f32<128, 8, 32>(q, k, v, out, BH, Sq, Skv, groups,
+        return launch_f32<128, 8, 32>(q, k, v, out, lse, BH, Sq, Skv, groups,
                                       causal, window, scale, s);
       case 256:
-        return launch_f32<256, 4, 32>(q, k, v, out, BH, Sq, Skv, groups,
+        return launch_f32<256, 4, 32>(q, k, v, out, lse, BH, Sq, Skv, groups,
                                       causal, window, scale, s);
     }
-  } else if (dtype == 1) {
+  } else if (dtype == 1 && lse == nullptr) {   // no lse in bf16
     switch (hd) {
       case 64:
         return launch_bf16<64, 64>(q, k, v, out, BH, Sq, Skv, groups, causal,

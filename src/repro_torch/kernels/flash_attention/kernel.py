@@ -1,34 +1,53 @@
-"""Forward flash attention: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions and
+the autograd function that pairs the forward with its backward.
 
-The kernels are hand-written CUDA C++ for ``sm_90a`` in
+Forward: hand-written CUDA C++ for ``sm_90a`` in
 ``src/repro_torch/csrc/flash_attention.cu`` (its source note gives the
-design). They replace the Pallas TPU kernel
+design). It replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``: forward
 online-softmax attention with GQA (kv head = q head // groups), optional
 causal and sliding-window masks, fully masked tiles skipped, running
-(m, l, acc) in f32 and out = acc / max(l, 1e-30) in q's dtype.
+(m, l, acc) in f32 and out = acc / max(l, 1e-30) in q's dtype. In f32 it
+can also write each row's log-sum-exp, lse = m + log max(l, 1e-30), the
+statistics the backward needs (the Pallas kernel returns m and l).
 
-Bound on the card: operations. At hymba-1.5b's prefill (BH 50, S 2048,
-hd 64, causal, window 1024) the unmasked pairs need 20.1 GFLOP: 0.020 ms
-at the bf16 tensor cores' peak, 0.30 ms at the f32 CUDA cores' peak. bf16
-runs on the tensor cores (wgmma, TMA), with p rounded to bf16 before the
-product with v, as every tensor-core flash kernel does and as the TPU's
-default-precision f32 dot takes its inputs; f32 runs on the CUDA cores in
-full f32.
+Backward: ``csrc/flash_attention_bwd.cu`` (its source note gives the
+design), f32 on the CUDA cores: delta = rowsum(dout * out), then dk and dv
+per (kv head, kv tile) over the group's query heads, then dq per (query
+head, query tile), with P recomputed from the saved lse. It replaces the
+jnp autodiff of ``repro.models.attention.chunked_attention`` that the JAX
+reference runs in place of a TPU backward (the Pallas kernel is
+forward-only and names "the standard flash backward" as its pair).
 
-Beside the wrapper sits a plain PyTorch version that repeats the kernels'
-arithmetic: the same tile test, the same -1e30 masking with p forced to 0
-after the exp, the same online update, and p rounded to q's dtype before
-``p @ v`` when that dtype is bf16. ``block_q`` / ``block_kv`` set its
-tiles only (the kernels pick their own, by head_dim), and tails that are
-not a multiple of a tile are bounds-masked in both. Dispatch is by the
-tensor's device alone: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel (building it at first use) or the call raises. The
-wrapper checks device, dtype, shape and contiguity, copies an input whose
-address is not 16-byte aligned (the kernels' vector and TMA loads need
-it), allocates the output with ``torch.empty``, launches on the current
-stream without synchronising, raises if the launch reports an error, and
-adds one to its launch count.
+Bound on the card: operations. The forward at hymba-1.5b's prefill (BH 50,
+S 2048, hd 64, causal, window 1024): 20.1 GFLOP of unmasked pairs, 0.020
+ms at the bf16 tensor cores' peak, 0.30 ms at the f32 CUDA cores'. The
+backward at stablelm-3b's training shape (BH 32, S 2048, hd 80, causal):
+five products over 67.1 M pairs, 53.7 GFLOP, 0.80 ms in f32. bf16 runs the
+forward on the tensor cores (wgmma, TMA), with p rounded to bf16 before
+the product with v; f32 runs both directions on the CUDA cores in full f32.
+
+``flash_attention_fwd`` with grad mode on and an input that requires grad
+goes through ``FlashAttentionFunction``: its forward launches the forward
+kernel with lse, its backward launches ``flash_attention_bwd``. No ported
+path trains in bf16, and there is no bf16 backward: on the card a bf16
+input that requires grad raises (ROADMAP.md queue A item 6).
+
+Beside each wrapper sits a plain PyTorch version that repeats the kernels'
+tile arithmetic: the same tile test, the same -1e30 masking with p forced
+to 0 after the exp, the same online update (forward), P recomputed from lse
+with masked entries 0 and dS = P (dP - delta) (backward), and p rounded to
+q's dtype before ``p @ v`` when that dtype is bf16. ``block_q`` /
+``block_kv`` set its tiles only (the kernels pick their own, by
+head_dim), and tails that are not a multiple of a tile are bounds-masked
+in both. Dispatch is by the tensor's device alone: a CPU tensor takes the
+plain version, a CUDA tensor launches the kernel (building it at first
+use) or the call raises. The wrappers check device, dtype, shape and
+contiguity, copy an input whose address is not 16-byte aligned (the
+kernels' vector and TMA loads need it), allocate outputs and scratch with
+``torch.empty``, launch on the current stream without synchronising, raise
+if the launch reports an error, and add one to their launch count
+(``flash_attention_fwd``, ``flash_attention_bwd``: one call of each).
 """
 from __future__ import annotations
 
@@ -40,14 +59,21 @@ import torch
 from ... import _build
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
-           "KERNEL_HEAD_DIMS", "launch_counts", "reset_launch_counts"]
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "FlashAttentionFunction", "KERNEL_HEAD_DIMS", "launch_counts",
+           "reset_launch_counts"]
 
-_LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
-_LIB: Optional[ctypes.CDLL] = None
+_LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
+                             "flash_attention_bwd": 0}
+_LIBS: Dict[str, ctypes.CDLL] = {}
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 80, 128, 256)
 _NEG = -1e30
+_NO_BF16_BWD = ("the flash-attention kernel is forward-only in bf16: there "
+                "is no bf16 backward, and no ported path trains in bf16 "
+                "(ROADMAP.md queue A item 6); train in f32 or call under "
+                "torch.no_grad()")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -61,18 +87,30 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.library("flash_attention")
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = (
-            [I, I, P, P, P, P] + [I] * 6 + [ctypes.c_float, P])
-        lib.flash_attention_fwd.restype = I
-        lib.flash_attention_error_string.argtypes = [I]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _build.library(name)
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "flash_attention":
+            lib.flash_attention_fwd.argtypes = (
+                [I, I, P, P, P, P, P] + [I] * 6 + [F, P])
+            lib.flash_attention_fwd.restype = I
+        else:
+            lib.flash_attention_bwd.argtypes = (
+                [I] + [P] * 10 + [I] * 6 + [F, P])
+            lib.flash_attention_bwd.restype = I
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes, err.restype = [I], ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def _raise_on(rc: int, name: str, what: str):
+    if rc != 0:
+        msg = getattr(_lib(name), f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
 
 
 def _check(q, k, v, groups: int):
@@ -96,22 +134,43 @@ def _check(q, k, v, groups: int):
         raise ValueError("flash_attention_fwd: q, k, v on different devices")
 
 
-def _on_card(x: torch.Tensor) -> bool:
+def _on_card(x: torch.Tensor, what: str = "flash_attention_fwd") -> bool:
     """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if x.device.type == "cuda":
         return True
     if x.device.type == "cpu":
         return False
-    raise ValueError(f"flash_attention_fwd: no kernel or plain version for "
-                     f"device {x.device}")
+    raise ValueError(f"{what}: no kernel or plain version for device "
+                     f"{x.device}")
+
+
+def _card_shape(q, k, what: str):
+    hd = q.shape[2]
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {hd} not supported by the "
+                         f"kernel (one of {KERNEL_HEAD_DIMS})")
+    if q.shape[0] > 65535:
+        raise ValueError(f"{what}: BH {q.shape[0]} > 65535")
+
+
+def _aligned(*ts):
+    """Contiguous, 16-byte aligned copies where needed (the kernels' vector
+    and TMA loads)."""
+    out = []
+    for t in ts:
+        t = t.contiguous()
+        out.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    return out
 
 
 def flash_attention_fwd_plain(q, k, v, *, groups: int = 1,
                               causal: bool = True, window: int = 0,
-                              block_q: int = 128,
-                              block_kv: int = 128) -> torch.Tensor:
+                              block_q: int = 128, block_kv: int = 128,
+                              return_lse: bool = False):
     """Plain version of ``flash_attention_fwd`` (same arguments and result):
-    the kernel's tile loop over (block_q, block_kv) tiles."""
+    the kernel's tile loop over (block_q, block_kv) tiles. With
+    ``return_lse`` it returns (out, lse), lse = m + log max(l, 1e-30) in
+    f32 (BH, Sq), as the f32 kernel writes it."""
     BH, Sq, hd = q.shape
     Skv = k.shape[1]
     bq, bkv = min(block_q, Sq), min(block_kv, Skv)
@@ -123,6 +182,7 @@ def flash_attention_fwd_plain(q, k, v, *, groups: int = 1,
     neg = torch.full((), _NEG, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
+    lse = torch.empty((BH, Sq), dtype=torch.float32, device=dev)
     for i0 in range(0, Sq, bq):
         qt = qf[:, i0:i0 + bq]
         q_pos = torch.arange(i0, i0 + qt.shape[1], device=dev)[:, None]
@@ -137,12 +197,7 @@ def flash_attention_fwd_plain(q, k, v, *, groups: int = 1,
             kt, vt = kf[:, j0:j0 + bkv], vf[:, j0:j0 + bkv]
             kv_pos = torch.arange(j0, j0 + kt.shape[1], device=dev)[None, :]
             s = (qt @ kt.transpose(1, 2)) * scale
-            mask = torch.ones((qt.shape[1], kt.shape[1]), dtype=torch.bool,
-                              device=dev)
-            if causal:
-                mask &= q_pos >= kv_pos
-            if window:
-                mask &= (q_pos - kv_pos) < window
+            mask = _mask(q_pos, kv_pos, causal, window)
             s = torch.where(mask, s, neg)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.where(mask, torch.exp(s - m_new[..., None]), zero)
@@ -152,9 +207,40 @@ def flash_attention_fwd_plain(q, k, v, *, groups: int = 1,
                 p = p.to(torch.bfloat16).float()
             acc = acc * corr[..., None] + p @ vt
             m = m_new
-        out[:, i0:i0 + bq] = (acc / l.clamp(min=1e-30)[..., None]).to(
-            q.dtype)
-    return out
+        den = l.clamp(min=1e-30)
+        out[:, i0:i0 + bq] = (acc / den[..., None]).to(q.dtype)
+        lse[:, i0:i0 + bq] = m + torch.log(den)
+    return (out, lse) if return_lse else out
+
+
+def _mask(q_pos, kv_pos, causal: bool, window: int) -> torch.Tensor:
+    mask = torch.ones((q_pos.shape[0], kv_pos.shape[1]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos >= kv_pos
+    if window:
+        mask &= (q_pos - kv_pos) < window
+    return mask
+
+
+def _fwd_kernel(q, k, v, groups, causal, window, want_lse: bool):
+    """Launch the forward kernel; returns (out, lse or None)."""
+    _card_shape(q, k, "flash_attention_fwd")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_fwd: inputs must be contiguous")
+    BH, Sq, hd = q.shape
+    q, k, v = _aligned(q, k, v)
+    out = torch.empty_like(q)
+    lse = (torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    rc = _lib("flash_attention").flash_attention_fwd(
+        _CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), BH, Sq,
+        k.shape[1], groups, int(bool(causal)), int(window), hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "flash_attention", "flash_attention_fwd")
+    _LAUNCHES["flash_attention_fwd"] += 1
+    return out, lse
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,38 +250,140 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (BH, Sq, hd); k/v: (BKV, Skv, hd) with BH = BKV * groups, all f32
     or all bf16. Returns (BH, Sq, hd) in q's dtype. Sq and Skv need not be
     multiples of a tile. On the card: contiguous inputs, head_dim one of
-    ``KERNEL_HEAD_DIMS``, BH <= 65535 (else ValueError); the kernel is
-    forward-only, so with grad mode on and an input that requires grad it
-    raises RuntimeError rather than drop the gradient.
+    ``KERNEL_HEAD_DIMS``, BH <= 65535 (else ValueError).
+
+    With grad mode on and an input that requires grad, the call goes
+    through ``FlashAttentionFunction``, whose backward is
+    ``flash_attention_bwd``; on the card that needs f32 (a bf16 input
+    raises RuntimeError: there is no bf16 backward).
     """
     _check(q, k, v, groups)
-    if not _on_card(q):
+    card = _on_card(q)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if card and q.dtype != torch.float32:
+            raise RuntimeError(f"flash_attention_fwd: {_NO_BF16_BWD}")
+        return FlashAttentionFunction.apply(q, k, v, groups, causal, window,
+                                            block_q, block_kv)
+    if not card:
         return flash_attention_fwd_plain(q, k, v, groups=groups,
                                          causal=causal, window=window,
                                          block_q=block_q, block_kv=block_kv)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention_fwd: the CUDA kernel is forward-only and its "
-            "output carries no gradient; call it under torch.no_grad() or "
-            "on inputs that do not require grad")
+    return _fwd_kernel(q, k, v, groups, causal, window, False)[0]
+
+
+# ------------------------------- backward ------------------------------------
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, groups: int = 1,
+                              causal: bool = True, window: int = 0,
+                              block_q: int = 64, block_kv: int = 64):
+    """Plain version of ``flash_attention_bwd`` (same arguments and
+    results): delta = rowsum(dout * out), then over the (block_q,
+    block_kv) tiles that the forward's tile test keeps, in order: P =
+    exp(s * scale - lse) with masked entries 0, dP = dout v^T, dS = P (dP
+    - delta), dv += P^T dout, dk += dS^T q, dq += dS k (the GQA group
+    summed inside each tile pair); dk and dq are scaled at the end. f32
+    throughout; results in the inputs' dtypes. It agrees with the kernel
+    up to summation order."""
     BH, Sq, hd = q.shape
-    Skv = k.shape[1]
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head_dim {hd} not supported "
-                         f"by the kernel (one of {KERNEL_HEAD_DIMS})")
-    if BH > 65535:
-        raise ValueError(f"flash_attention_fwd: BH {BH} > 65535")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd: inputs must be contiguous")
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    out = torch.empty_like(q)
-    rc = _lib().flash_attention_fwd(
-        _CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), BH, Sq, Skv, groups, int(bool(causal)), int(window),
-        hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        msg = _lib().flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA "
-                           f"error {rc} ({msg})")
-    _LAUNCHES["flash_attention_fwd"] += 1
-    return out
+    BKV, Skv, _ = k.shape
+    bq, bkv = min(block_q, Sq), min(block_kv, Skv)
+    scale = hd ** -0.5
+    dev = q.device
+    G = BH // BKV
+    qf = q.float().reshape(BKV, G, Sq, hd)
+    dof = dout.float().reshape(BKV, G, Sq, hd)
+    lsef = lse.float().reshape(BKV, G, Sq, 1)
+    delta = (dof * out.float().reshape(BKV, G, Sq, hd)).sum(-1, keepdim=True)
+    kf, vf = k.float()[:, None], v.float()[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((BKV, Skv, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for i0 in range(0, Sq, bq):
+        i1 = min(i0 + bq, Sq)
+        qt, dot = qf[:, :, i0:i1], dof[:, :, i0:i1]
+        lt, et = lsef[:, :, i0:i1], delta[:, :, i0:i1]
+        q_pos = torch.arange(i0, i1, device=dev)[:, None]
+        for j0 in range(0, Skv, bkv):
+            if causal and j0 > i0 + bq - 1:
+                break
+            if window and i0 - (j0 + bkv - 1) >= window:
+                continue
+            j1 = min(j0 + bkv, Skv)
+            kt, vt = kf[:, :, j0:j1], vf[:, :, j0:j1]
+            kv_pos = torch.arange(j0, j1, device=dev)[None, :]
+            s = (qt @ kt.transpose(-1, -2)) * scale
+            p = torch.where(_mask(q_pos, kv_pos, causal, window),
+                            torch.exp(s - lt), zero)
+            ds = p * (dot @ vt.transpose(-1, -2) - et)
+            dv[:, j0:j1] += (p.transpose(-1, -2) @ dot).sum(1)
+            dk[:, j0:j1] += (ds.transpose(-1, -2) @ qt).sum(1)
+            dq[:, :, i0:i1] += ds @ kt
+    return ((dq * scale).reshape(BH, Sq, hd).to(q.dtype),
+            (dk * scale).to(k.dtype), dv.to(v.dtype))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, groups: int = 1,
+                        causal: bool = True, window: int = 0,
+                        block_q: int = 64, block_kv: int = 64):
+    """Gradients (dq, dk, dv) of ``flash_attention_fwd`` given its out, the
+    incoming dout (BH, Sq, hd) and its lse (BH, Sq). On the card: f32 only
+    (TypeError otherwise), head_dim one of ``KERNEL_HEAD_DIMS``; the
+    kernel's three launches (delta, dkdv, dq) count as one call.
+    ``block_q`` / ``block_kv`` set the plain version's tiles only."""
+    _check(q, k, v, groups)
+    BH, Sq, hd = q.shape
+    if tuple(out.shape) != (BH, Sq, hd) or tuple(dout.shape) != (BH, Sq, hd) \
+            or tuple(lse.shape) != (BH, Sq):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if not _on_card(q, "flash_attention_bwd"):
+        return flash_attention_bwd_plain(
+            q, k, v, out, dout, lse, groups=groups, causal=causal,
+            window=window, block_q=block_q, block_kv=block_kv)
+    if any(t.dtype != torch.float32 for t in (q, out, dout, lse)):
+        raise TypeError(f"flash_attention_bwd: {_NO_BF16_BWD}")
+    if any(t.device != q.device for t in (out, dout, lse)):
+        raise ValueError("flash_attention_bwd: inputs on different devices")
+    _card_shape(q, k, "flash_attention_bwd")
+    q, k, v, out, dout, lse = _aligned(q, k, v, out, dout, lse)
+    delta = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rc = _lib("flash_attention_bwd").flash_attention_bwd(
+        hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), BH, Sq, k.shape[1], groups,
+        int(bool(causal)), int(window), hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "flash_attention_bwd", "flash_attention_bwd")
+    _LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention_fwd`` with its gradient: the forward kernel with
+    lse, saved with q, k, v and out, and ``flash_attention_bwd`` (the plain
+    versions of both for CPU tensors). Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, groups, causal, window, block_q, block_kv):
+        if _on_card(q):
+            out, lse = _fwd_kernel(q, k, v, groups, causal, window, True)
+        else:
+            out, lse = flash_attention_fwd_plain(
+                q, k, v, groups=groups, causal=causal, window=window,
+                block_q=block_q, block_kv=block_kv, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(groups=groups, causal=causal, window=window,
+                      block_q=block_q, block_kv=block_kv)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

@@ -190,8 +190,8 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                                        for t in (x, dt, a, d, B, C)):
         raise RuntimeError(
             "ssd_fwd: the CUDA kernel is forward-only and its outputs carry "
-            "no gradient; call it under torch.no_grad() or on inputs that "
-            "do not require grad")
+            "no gradient (its backward is ROADMAP.md queue A item 6); call "
+            "it under torch.no_grad() or on inputs that do not require grad")
     BH, S, P = x.shape
     N = B.shape[-1]
     if not all(t.is_contiguous() for t in (x, dt, a, d, B, C)):

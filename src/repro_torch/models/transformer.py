@@ -18,8 +18,13 @@ layouts (layer-stacked leaves under ``blocks/p{i}_{kind}``), so
 JAX package scans over the stacked layers, this module loops in Python and
 indexes the stacked leaves.
 
-Entry points: ``forward`` (prefill / scoring logits), ``init_cache`` /
-``decode_step`` (serving).
+Entry points: ``forward`` (prefill / scoring logits), ``train_loss``
+(the next-token CE that ``Model.loss`` and the train loop differentiate),
+``init_cache`` / ``decode_step`` (serving). With ``cfg.remat`` and grad
+mode on, ``forward`` runs each layer cycle under
+``torch.utils.checkpoint`` (non-reentrant), which keeps only the cycle's
+input and recomputes the rest in the backward, as ``jax.checkpoint`` does
+in the reference.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .param import stack_layout
 from . import layers as L
@@ -37,8 +43,8 @@ from .._device import resolve_device
 from .._tree import tree_map
 
 __all__ = ["ArchConfig", "block_layout", "block_apply_full", "model_layout",
-           "forward", "init_cache", "decode_step", "cache_max_len",
-           "PORTED_KINDS"]
+           "forward", "train_loss", "init_cache", "decode_step",
+           "cache_max_len", "PORTED_KINDS"]
 
 PORTED_KINDS = ("global", "local", "ssm", "hybrid")
 
@@ -228,20 +234,22 @@ def model_layout(cfg: ArchConfig):
 
 
 def _layer(tree, i: int):
-    """Layer i of a layer-stacked tree (views, no copies)."""
+    """Layer i of a layer-stacked tree (views, no copies). A leaf may also
+    be a sequence of per-layer tensors, as the train step splits each
+    stacked leaf (``train.loop``)."""
     return tree_map(lambda a: a[i], tree)
 
 
-def _blocks(params, cfg: ArchConfig):
-    """(key, kind, layer params) for every layer, in depth order."""
-    cycles, rem = _split_pattern(cfg)
-    for c in range(cycles):
-        for i, kind in enumerate(cfg.pattern):
-            key = f"p{i}_{kind}"
-            yield key, kind, _layer(params["blocks"][key], c)
-    for r in range(rem):
-        kind = cfg.pattern[r]
-        yield f"rem{r}_{kind}", kind, params[f"rem{r}_{kind}"]
+def _remat(cfg: ArchConfig):
+    """Whether ``forward`` checkpoints each layer cycle."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return False
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported to repro_torch "
+            f"yet (ROADMAP.md queue A item 6); \"full\" stores nothing "
+            f"inside a layer cycle")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -260,11 +268,42 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
         x = x + L.sinusoidal_positions(S, cfg.d_model,
                                        device=x.device).to(x.dtype)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    for _, kind, blk in _blocks(params, cfg):
-        x = block_apply_full(blk, x, kind, cfg, positions)
+    cycles, rem = _split_pattern(cfg)
+    remat = _remat(cfg)
+    for c in range(cycles):
+        cyc = {f"p{i}_{kind}": _layer(params["blocks"][f"p{i}_{kind}"], c)
+               for i, kind in enumerate(cfg.pattern)}
+
+        def cycle(x, cyc=cyc):
+            for i, kind in enumerate(cfg.pattern):
+                x = block_apply_full(cyc[f"p{i}_{kind}"], x, kind, cfg,
+                                     positions)
+            return x
+
+        x = checkpoint(cycle, x, use_reentrant=False) if remat else cycle(x)
+    for r in range(rem):
+        kind = cfg.pattern[r]
+        x = block_apply_full(params[f"rem{r}_{kind}"], x, kind, cfg,
+                             positions)
     x = L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return L.unembed_apply(table, x, true_vocab=cfg.vocab), {}
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
+    """Mean next-token CE in f32: logsumexp of the logits minus the label
+    logit, labels (B, S) of -1 ignored. Returns (loss, {"ce": ce}). The
+    label logit is a gather where the reference takes a one-hot product
+    (the same function). MoE auxiliaries would add here; the MoE MLP is
+    not ported (ROADMAP.md queue A item 6)."""
+    logits, _ = forward(params, batch, cfg)
+    labels = batch["labels"]
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    take = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = ((lse - take) * mask).sum() / mask.sum().clamp(min=1.0)
+    return ce, {"ce": ce}
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .._device import resolve_device
-from .transformer import (ArchConfig, model_layout, forward, init_cache,
-                          decode_step)
+from .transformer import (ArchConfig, model_layout, forward, train_loss,
+                          init_cache, decode_step)
 from .param import materialize, count_params
 
 __all__ = ["SHAPES", "cell_supported", "make_batch", "Model", "build",
@@ -74,6 +74,10 @@ class Model:
         return count_params(self.layout)
 
     # functional entry points
+    def loss(self, params, batch):
+        """(mean next-token CE, {"ce": ce}); batch: tokens, labels."""
+        return train_loss(params, batch, self.cfg)
+
     def forward(self, params, batch):
         return forward(params, batch, self.cfg)
 

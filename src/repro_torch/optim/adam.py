@@ -119,9 +119,19 @@ def adam_leaf_update(g, m, v, p, cfg: AdamConfig, lr_t, b1c, b2c, *,
 
 
 def adam_update(grads: Any, state: AdamState, params: Any,
-                cfg: AdamConfig = AdamConfig(), lr=None, mask: Any = None):
+                cfg: AdamConfig = AdamConfig(), lr=None, mask: Any = None,
+                inplace: bool = False):
     """Returns (new_params, new_state). ``lr`` overrides ``cfg.lr``;
-    ``mask`` (same tree, {0,1}) freezes masked-out entries."""
+    ``mask`` (same tree, {0,1}) freezes masked-out entries.
+
+    ``inplace`` writes the new params and moments into the tensors of
+    ``params`` and ``state`` (returned, with a new count), one slice of a
+    stacked leaf's leading dim at a time: the step then holds one layer's
+    temporaries beside the state, where the functional update holds a
+    second copy of the params and moments. The train loop donates its
+    state so (JAX's ``donate_argnums``); the values are bit-equal to the
+    functional update's.
+    """
     count = state.count + 1
     lr_t, b1c, b2c = adam_scalars(cfg, count, lr)
     scale = (clip_scale(grads, cfg.clip_norm)
@@ -129,6 +139,15 @@ def adam_update(grads: Any, state: AdamState, params: Any,
     p_l, g_l = leaves(params), leaves(grads)
     m_l, v_l = leaves(state.mu), leaves(state.nu)
     mk_l = leaves(mask) if mask is not None else [None] * len(p_l)
+    if inplace:
+        for p, g, m, v, mk in zip(p_l, g_l, m_l, v_l, mk_l):
+            for i in (range(p.shape[0]) if p.ndim > 2 else (...,)):
+                out = adam_leaf_update(g[i], m[i], v[i], p[i], cfg, lr_t, b1c,
+                                       b2c, mask=None if mk is None else mk[i],
+                                       scale=scale)
+                for dst, src in zip((p[i], m[i], v[i]), out):
+                    dst.copy_(src)
+        return params, AdamState(count=count, mu=state.mu, nu=state.nu)
     out = [adam_leaf_update(g, m, v, p, cfg, lr_t, b1c, b2c, mask=mk,
                             scale=scale)
            for p, g, m, v, mk in zip(p_l, g_l, m_l, v_l, mk_l)]

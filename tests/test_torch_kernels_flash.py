@@ -11,9 +11,22 @@ multiple of the tile (S = 200: the plain version bounds-masks its last
 tile; the Pallas kernel, which needs whole tiles, runs there with 40-row
 tiles).
 
-Tests marked ``cuda`` compare the CUDA kernel with its plain version on
-the card; they skip here, with the reason, when no card is present
-(``python3 chip_smoke.py`` makes the same comparisons at full size).
+The backward: ``flash_attention_bwd_plain`` (through
+``FlashAttentionFunction``, which the wrapper takes under grad) against
+autograd through ``flash_attention_fwd_plain`` and against ``jax.grad`` of
+``repro.models.attention.chunked_attention`` (the reference's training
+attention), over head_dim 16, 64 and 80, causal / non-causal / window,
+GQA groups 1, 2 and 4, and lengths that are not a tile multiple; dq, dk
+and dv at the forward's f32 tolerance, 2e-5 (measured: 4e-6). The
+forward plain version's lse equals the dense logsumexp of the scaled,
+masked logits.
+
+Tests marked ``cuda`` compare the CUDA kernels with their plain versions
+on the card (the backward at f32 2e-5 of each gradient's scale, reruns
+bit-equal), check that an f32 input that requires grad now gets its
+gradient through the kernels and that bf16 still refuses; they skip here,
+with the reason, when no card is present (``python3 chip_smoke.py`` makes
+the same comparisons at full size).
 """
 import numpy as np
 import pytest
@@ -23,6 +36,8 @@ try:
     import jax.numpy as jnp
     from repro.kernels.flash_attention import flash_attention as jax_flash
     from repro.kernels.flash_attention import ref as Jref
+    from repro.models.attention import chunked_attention
+    import jax
 except ImportError:       # the card's machine has PyTorch but no JAX
     jnp = None
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -222,7 +237,10 @@ def test_cpu_run_launches_nothing():
     reset_launch_counts()
     q, k, v = (_torch(_flat(a)) for a in _mk(1, 16, 16, 2, 2, 16))
     flash_attention_fwd(q, k, v)
-    assert launch_counts() == {"flash_attention_fwd": 0}
+    q.requires_grad_(True)
+    flash_attention_fwd(q, k, v).sum().backward()
+    assert launch_counts() == {"flash_attention_fwd": 0,
+                               "flash_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("bad", ["groups", "dtype", "mixed", "hd", "device"])
@@ -254,6 +272,100 @@ def test_ops_hands_the_kernel_contiguous_inputs(monkeypatch):
     flash_attention(torch.randn(1, 24, 4, 16), torch.randn(1, 24, 2, 16),
                     torch.randn(1, 24, 2, 16))
     assert seen and all(seen)
+
+
+# ------------------------------ the backward ---------------------------------
+
+BWD_CASES = [  # (B, S, H, KV, hd, causal, window)
+    (1, 200, 4, 4, 16, True, 0), (2, 130, 4, 2, 64, True, 48),
+    (1, 200, 8, 2, 80, False, 0), (1, 96, 4, 1, 16, False, 24),
+    (2, 77, 8, 2, 80, True, 0), (1, 150, 8, 4, 64, True, 0),
+    (1, 100, 2, 1, 80, True, 1)]
+
+
+def _grads(B, S, H, KV, hd, causal, window, seed=0):
+    qm, km, vm = _mk(B, S, S, H, KV, hd, seed=seed)
+    dout = np.random.default_rng(seed + 1).normal(size=qm.shape).astype(
+        np.float32)
+    ts = [_torch(x).requires_grad_(True) for x in (qm, km, vm)]
+    out = flash_attention(*ts, causal=causal, window=window, block_q=64,
+                          block_kv=64)
+    out.backward(_torch(dout))
+    return (qm, km, vm, dout), [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_bwd_plain_vs_jax_grad_of_chunked_attention(case, jax_ref):
+    B, S, H, KV, hd, causal, window = case
+    (qm, km, vm, dout), got = _grads(*case)
+    R = H // KV
+
+    def f(q, k, v):
+        o = chunked_attention(q.reshape(B, S, KV, R, hd), k, v,
+                              causal=causal, window=window, q_chunk=64,
+                              kv_chunk=64)
+        return jnp.sum(o.reshape(B, S, H, hd) * dout)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(qm, km, vm)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, _np(w), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_bwd_plain_vs_autograd_of_fwd_plain(case):
+    """The Function's backward (the plain version) against autograd
+    differentiating the forward's plain version op by op."""
+    B, S, H, KV, hd, causal, window = case
+    (qm, km, vm, dout), got = _grads(*case, seed=4)
+    ts = [_torch(_flat(x)).requires_grad_(True) for x in (qm, km, vm)]
+    with torch.enable_grad():
+        out = K.flash_attention_fwd_plain(*ts, groups=H // KV, causal=causal,
+                                          window=window, block_q=64,
+                                          block_kv=64)
+    out.backward(_torch(_flat(dout)))
+    for g, t, heads in zip(got, ts, (H, KV, KV)):
+        want = t.grad.numpy().reshape(B, heads, S, hd).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(g, want, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("blocks", [(16, 16), (64, 32), (40, 24)])
+def test_bwd_plain_tiles_change_only_rounding(blocks):
+    B, S, H, KV, hd = 1, 90, 4, 2, 16
+    q, k, v = (_torch(_flat(a)) for a in _mk(B, S, S, H, KV, hd, seed=6))
+    kw = dict(groups=2, causal=True, window=40)
+    out, lse = K.flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    ref_g = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    got = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw,
+                                      block_q=blocks[0], block_kv=blocks[1])
+    for a, b in zip(got, ref_g):
+        torch.testing.assert_close(a, b, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_fwd_plain_lse_is_the_row_logsumexp(causal, window):
+    B, S, H, KV, hd = 1, 70, 4, 2, 16
+    q, k, v = (_torch(_flat(a)) for a in _mk(B, S, S, H, KV, hd, seed=8))
+    _, lse = K.flash_attention_fwd_plain(q, k, v, groups=2, causal=causal,
+                                         window=window, block_q=32,
+                                         block_kv=32, return_lse=True)
+    s = q @ k.repeat_interleave(2, 0).transpose(1, 2) * hd ** -0.5
+    i, j = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    mask = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        mask &= i >= j
+    if window:
+        mask &= (i - j) < window
+    want = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    assert lse.dtype == torch.float32 and lse.shape == (H, S)
+    torch.testing.assert_close(lse, want, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_bwd_wrapper_checks_shapes():
+    q = torch.ones((4, 8, 16))
+    k = torch.ones((2, 8, 16))
+    with pytest.raises(ValueError, match="lse"):
+        K.flash_attention_bwd(q, k, k, q, q, torch.ones(4, 7), groups=2)
 
 
 # ------------------------------ on the card -----------------------------------
@@ -298,18 +410,76 @@ def test_cuda_kernel_refuses_other_head_dims(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
 def test_cuda_kernel_refuses_to_drop_gradients(card, needs_grad):
-    """The kernel is forward-only: with grad mode on, an input that
-    requires grad raises instead of giving an output without a grad_fn;
-    under no_grad the same call runs."""
+    """f32: an input that requires grad gets its gradient through the
+    kernels (one forward and one backward launch), equal to the plain
+    versions' within 2e-5 of the gradient's scale; under no_grad the same
+    call runs the forward alone. bf16 (no backward) still raises."""
     g = torch.Generator(device=card).manual_seed(3)
     qkv = {n: torch.randn((4, 64, 64), generator=g, device=card)
            for n in "qkv"}
     qkv[needs_grad].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        flash_attention_fwd(qkv["q"], qkv["k"], qkv["v"])
+    reset_launch_counts()
+    out = flash_attention_fwd(qkv["q"], qkv["k"], qkv["v"])
+    dout = torch.randn(out.shape, generator=g, device=card)
+    (grad,) = torch.autograd.grad(out, qkv[needs_grad], dout)
+    assert launch_counts() == {"flash_attention_fwd": 1,
+                               "flash_attention_bwd": 1}
+    plain_out, lse = K.flash_attention_fwd_plain(
+        *(t.detach() for t in qkv.values()), return_lse=True)
+    want = dict(zip("qkv", K.flash_attention_bwd_plain(
+        *(t.detach() for t in qkv.values()), plain_out, dout, lse)))
+    torch.testing.assert_close(grad, want[needs_grad],
+                               atol=2e-5 * float(want[needs_grad].abs().max()),
+                               rtol=0)
     with torch.no_grad():
         out = flash_attention_fwd(qkv["q"], qkv["k"], qkv["v"])
     assert out.shape == (4, 64, 64) and not out.requires_grad
+    bf = {n: t.detach().bfloat16().requires_grad_(n == needs_grad)
+          for n, t in qkv.items()}
+    with pytest.raises(RuntimeError, match="forward-only in bf16"):
+        flash_attention_fwd(bf["q"], bf["k"], bf["v"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0)])
+@pytest.mark.parametrize("S", [64, 200, 300])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+def test_cuda_bwd_kernel_vs_plain(card, hd, S, causal, window):
+    """The backward kernel against its plain version on the forward
+    kernel's out and lse (the forward's lse against the plain one's),
+    every head dim, tails, GQA groups 1, 2 and 5 in turn; dq, dk, dv
+    within 2e-5 of each gradient's scale, a rerun bit-equal."""
+    groups = (1, 2, 5)[(hd // 16 + S + window) % 3]
+    BKV = 2
+    g = torch.Generator(device=card).manual_seed(hd * 5 + S)
+    q = torch.randn((BKV * groups, S, hd), generator=g, device=card)
+    k = torch.randn((BKV, S, hd), generator=g, device=card)
+    v = torch.randn((BKV, S, hd), generator=g, device=card)
+    kw = dict(groups=groups, causal=causal, window=window)
+    out, lse = K._fwd_kernel(q, k, v, groups, causal, window, True)
+    _, plain_lse = K.flash_attention_fwd_plain(q, k, v, return_lse=True,
+                                               **kw)
+    torch.testing.assert_close(lse, plain_lse, atol=2e-5, rtol=2e-5)
+    dout = torch.randn(q.shape, generator=g, device=card)
+    reset_launch_counts()
+    got = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert launch_counts()["flash_attention_bwd"] == 1
+    want = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=2e-5 * float(b.abs().max()),
+                                   rtol=0)
+    again = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_refuses_bf16(card):
+    x = torch.ones((2, 64, 64), device=card, dtype=torch.bfloat16)
+    lse = torch.zeros((2, 64), device=card)
+    with pytest.raises(TypeError, match="forward-only in bf16"):
+        K.flash_attention_bwd(x, x, x, x, x, lse)
 
 
 EDGE_MASKS = [(True, 0), (True, 48), (False, 0)]

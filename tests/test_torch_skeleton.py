@@ -17,6 +17,8 @@ from repro_torch.kernels.l1inf import kernel as K
 from repro_torch.configs import get_reduced
 from repro_torch.models import build, make_batch
 from repro_torch.core import ProjectionSpec
+from repro_torch.data import LMBatcher, SyntheticLM
+from repro_torch.train import TrainConfig, train
 from repro_torch.sae import (SAEConfig, SAETrainConfig, compact_sae,
                              make_serve_step, sae_init, train_sae)
 
@@ -63,7 +65,11 @@ def test_every_module_listed():
                  "repro_torch.kernels.ssd.ops",
                  "repro_torch.core.heap", "repro_torch.core.baselines",
                  "repro_torch.serve", "repro_torch.serve.compact",
-                 "repro_torch.serve.refresh", "repro_torch.sae.serve"):
+                 "repro_torch.serve.refresh", "repro_torch.sae.serve",
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.dist", "repro_torch.dist.watchdog",
+                 "repro_torch.train", "repro_torch.train.loop"):
         assert want in names
 
 
@@ -114,7 +120,8 @@ _TREE = {"enc1": {"w": np.ones((3, 2), np.float32)}}
 @pytest.mark.parametrize("entry", ["resolve_device", "sae_init",
                                    "params_from_numpy",
                                    "opt_state_from_numpy", "train_sae",
-                                   "model_init", "init_cache", "make_batch"])
+                                   "model_init", "init_cache", "make_batch",
+                                   "train"])
 def test_entry_point_without_device_raises(no_cuda, entry):
     model = build(get_reduced("hymba_15b"))
     calls = {
@@ -131,6 +138,9 @@ def test_entry_point_without_device_raises(no_cuda, entry):
         "model_init": lambda: model.init(torch.Generator()),
         "init_cache": lambda: model.init_cache(2, 8),
         "make_batch": lambda: make_batch(model.cfg, 2, 8),
+        "train": lambda: train(build(get_reduced("stablelm_3b")),
+                               LMBatcher(SyntheticLM(128), 2, 8),
+                               TrainConfig(steps=1)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
