@@ -96,7 +96,9 @@ and prints no result. Phases:
                input that requires grad gets its gradient through the
                forward and backward kernels (one launch of each, equal to
                autograd through the plain forward within 2e-5 of its
-               scale); bf16, which has no backward, still refuses.
+               scale); bf16, which has no backward, still refuses. Fault
+               C-9: head_dim 32 runs zero-padded on the hd-64 kernel
+               (against the plain version), head_dim 264 raises.
   6b. attn_bwd — the flash backward kernel against its plain version, f32,
                on the forward kernel's out and lse (out within 2e-5 of
                its scale and lse against the plain forward's), at
@@ -107,7 +109,13 @@ and prints no result. Phases:
                flushed, the plain version's ms, the bound (five products
                over the unmasked pairs) and the backward of
                ``scaled_dot_product_attention`` in f32 (forward + backward
-               minus forward, CUDA events around eager calls).
+               minus forward, CUDA events around eager calls); from one
+               traced call the device ms of the backward's two launches
+               (delta, main), and the main kernel's CTAs an SM. At
+               stablelm's shape also the f32 forward with lse, as training
+               calls it: device ms warm and flushed, plain ms, bound, SDPA's
+               forward (the kernels line's second flash_attention_fwd
+               row).
   7. ssd_kernels — the SSD kernel against its plain version (atol = rtol
                2e-4) and against the naive recurrence ``ssd_ref`` (2e-4 of
                the output's scale), y and final state, at hymba-1.5b's shape
@@ -568,10 +576,16 @@ def attn_kernel_phase(torch, FA, dev, flush, shapes=ATTN_SHAPES):
                                           "bound_ms", "bound_by",
                                           "library_ms")}
         emit(line)
-    q = torch.ones((2, 8, 32), device=dev)
+    # C-9: a head_dim that is not a kernel's runs zero-padded to the next
+    # one (here 32 on the hd-64 kernels); above 256 the call raises
+    x = torch.randn((2, 96, 32), generator=g, device=dev)
+    want = FA.flash_attention_fwd_plain(x, x, x)
+    perr = float((FA.flash_attention_fwd(x, x, x) - want).abs().max())
+    check(perr <= FLASH_TOL["float32"] * float(want.abs().max()),
+          f"flash head_dim 32 (padded): kernel vs plain max err {perr}")
     try:
-        FA.flash_attention_fwd(q, q, q)
-        check(False, "flash kernel took head_dim 32")
+        FA.flash_attention_fwd(*(torch.ones((2, 8, 264), device=dev),) * 3)
+        check(False, "flash kernel took head_dim 264")
     except ValueError:
         pass
     # C-6: an f32 input that requires grad gets its gradient through the
@@ -620,11 +634,14 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES):
     hymba-1.5b's prefill, f32: dq, dk, dv within BWD_TOL of each
     gradient's scale, a rerun bit-equal; device ms warm and flushed, the
     plain version's ms and the backward of
-    ``scaled_dot_product_attention`` (forward + backward minus forward).
-    Returns the kernels-line row of the first shape."""
+    ``scaled_dot_product_attention`` (forward + backward minus forward);
+    the device ms of the delta and main launches from one traced call and
+    the main kernel's CTAs an SM. Returns the kernels-line rows of the
+    first shape: the backward's and the f32 forward's (with lse, as
+    training runs it)."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(13)
-    row = None
+    row = fwd_row = None
     for name, B, H, KV, S, hd, causal, window in shapes:
         kw = dict(groups=H // KV, causal=causal, window=window)
         pairs, mask = _pairs(S, causal, window)
@@ -681,6 +698,8 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES):
             lib_fwd = eager_ms(torch, sdpa)
         lib_both = eager_ms(torch, lambda: torch.autograd.grad(
             sdpa(), (qs, ks, vs), ds))
+        trace = _profile(torch, lambda: FA.flash_attention_bwd(*args, **kw),
+                         ("bwd_delta_kernel", "bwd_main_kernel"))
         t = {"ms": time_ms(torch, lambda: FA.flash_attention_bwd(*args,
                                                                  **kw)),
              "ms_l2_flushed": time_cold_ms(
@@ -691,16 +710,40 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES):
              "library_ms": lib_both - lib_fwd,
              "library_fwd_bwd_ms": lib_both, "library_fwd_ms": lib_fwd,
              "library_max_abs_err": lib_err,
-             "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
-        emit({"phase": "attn_bwd", "shape": name, "B": B, "H": H, "KV": KV,
-              "S": S, "head_dim": hd, "causal": causal, "window": window,
-              "max_abs_err": errs, "out_max_abs_err": out_err,
-              "out_scale": out_scale, "lse_max_abs_err": lse_err, **t})
+             "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+             "launch_device_ms": {
+                 k.split("_kernel")[0]: v
+                 for k, v in trace["kernels_device_ms"].items()},
+             "ctas_per_sm": FA.bwd_ctas_per_sm(hd)}
+        line = {"phase": "attn_bwd", "shape": name, "B": B, "H": H,
+                "KV": KV, "S": S, "head_dim": hd, "causal": causal,
+                "window": window, "max_abs_err": errs,
+                "out_max_abs_err": out_err, "out_scale": out_scale,
+                "lse_max_abs_err": lse_err, **t}
         if row is None:
             row = dict(t, max_abs_err=max(errs.values()))
+            # the forward as training calls it (with lse) at this shape;
+            # bound: two products over the unmasked pairs, q, k, v read
+            # and out, lse written once
+            fwd = lambda: FA._fwd_kernel(q, k, v, H // KV, causal, window,
+                                         True)
+            fops = 4 * hd * pairs * B * H
+            fbytes = 4 * (2 * q.numel() + 2 * k.numel() + lse.numel())
+            fbound = max((fbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                         (fops / F32_OPS_PER_S * 1e3, "operations"))
+            fwd_row = {
+                "shape": name, "ms": time_ms(torch, fwd),
+                "ms_l2_flushed": time_cold_ms(torch, fwd, flush),
+                "plain_ms": time_ms(torch, lambda: FA.flash_attention_fwd_plain(
+                    q, k, v, return_lse=True, **kw), budget_ms=300.0),
+                "bound_ms": fbound[0], "bound_by": fbound[1],
+                "library_ms": lib_fwd, "max_abs_err": out_err,
+                "gflop": fops / 1e9, "mbytes": fbytes / 1e6}
+            line["fwd_f32"] = fwd_row
+        emit(line)
         del qs, ks, vs, lib_grads, got, want, again
         torch.cuda.empty_cache()
-    return row
+    return row, fwd_row
 
 
 def ssd_kernel_phase(torch, SK, Sref, dev, flush, shapes=SSD_SHAPES):
@@ -1386,8 +1429,7 @@ def lm_train_phase(torch, Z, C, FA, K, dev, tr=TRAIN):
                             count=steps + 1)[:3]
 
     profile = _profile(torch, one_step, kernels=(
-        "flash_f32_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
-        "bwd_delta_kernel"))
+        "flash_f32_kernel", "bwd_main_kernel", "bwd_delta_kernel"))
     # one step more through an engine that projects at every step and
     # keeps the weights it projects: the kernel projection against the
     # Newton's on those weights
@@ -2161,7 +2203,7 @@ def main():
     from repro_torch.kernels.ssd import ref as Sref
     from repro_torch.models import zoo as Z
     attn_row = attn_kernel_phase(torch, FA, dev, flush)
-    bwd_row = attn_bwd_phase(torch, FA, dev, flush)
+    bwd_row, fwd_train_row = attn_bwd_phase(torch, FA, dev, flush)
     ssd_row = ssd_kernel_phase(torch, SK, Sref, dev, flush)
     lm_launches = lm_forward_phase(torch, Z, C, FA, SK, dev)
     lm_decode_phase(torch, Z, C, FA, SK, dev)
@@ -2211,15 +2253,17 @@ def main():
         # the LM rows at hymba-1.5b's shapes (f32; flash's bf16 numbers
         # under "bfloat16"), launches per full-depth hymba forward
         {"name": k, "route": "cuda", "source": LM_SOURCE[k],
-         "replaces": LM_REPLACES[k], "launches": lm_launches[k], **row}
+         "replaces": LM_REPLACES[k], "launches": lm_launches[k],
+         "shape": "hymba_prefill", **row}
         for k, row in (("flash_attention_fwd", attn_row),
                        ("ssd_fwd", ssd_row))] + [
-        # the backward at stablelm-3b's training shape, launches in the
-        # ten-step lm_train run
-        {"name": "flash_attention_bwd", "route": "cuda",
-         "source": LM_SOURCE["flash_attention_bwd"],
-         "replaces": LM_REPLACES["flash_attention_bwd"],
-         "launches": train_launches["flash_attention_bwd"], **bwd_row}]})
+        # the forward (with lse) and the backward at stablelm-3b's
+        # training shape, launches in the ten-step lm_train run
+        {"name": k, "route": "cuda", "source": LM_SOURCE[k],
+         "replaces": LM_REPLACES[k], "launches": train_launches[k], **row}
+        for k, row in (("flash_attention_fwd", fwd_train_row),
+                       ("flash_attention_bwd",
+                        dict(bwd_row, shape=BWD_SHAPES[0][0])))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

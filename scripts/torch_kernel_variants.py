@@ -3,15 +3,19 @@
 
     python3 scripts/torch_kernel_variants.py [--only NAME ...]
 
-Each variant is the committed ``csrc/flash_attention.cu``, ``csrc/ssd.cu``
-or ``csrc/l1inf.cu`` with a few exact text substitutions: another tiling
+Each variant is the committed ``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``, ``csrc/ssd.cu`` or ``csrc/l1inf.cu``
+with a few exact text substitutions: another tiling
 or launch bound, or one
 part of the work cut out to see what it costs (a "diagnostic" variant,
 whose output is wrong by design and whose error is reported, not checked).
 Every variant is compiled with the port's ``nvcc`` flags into
 ``build/variants/`` (all at once, in parallel), loaded with ``ctypes``
 through the same C interface as the wrappers, run at the main path's
-shapes (hymba-1.5b's prefill for flash in f32 and bf16; hymba-1.5b's and
+shapes (hymba-1.5b's prefill for flash in f32 and bf16; the backward at
+``chip_smoke.BWD_SHAPES``, stablelm-3b's training attention and hymba-1.5b's
+prefill, with the device ms of its two launches from one traced call;
+hymba-1.5b's and
 mamba2-370m's shapes for SSD; for the l1,inf engine, colstats and mu_solve
 on ``chip_smoke.py`` phase 2's inputs and the Newton loop on the engine's
 state after pass 1, at ``sae_enc1``, ``fig2_wide`` and ``fig2_tall``),
@@ -50,6 +54,74 @@ _COMBINE = ("  if (lane == 0) *slot = make_float2(a, b);\n"
 _LOOP_BOUNDS = "constexpr int min_loop_ctas() { return VPL <= 32 ? 2 : 3; }"
 _STAT_S = ("const int S = n <= 1024 ? 1 : std::min(kMaxCluster, "
            "(n + 1023) / 1024);")
+# the backward's phase A product loop, phase B's (all three products) and
+# the point where the next tile's copy is issued
+_BWD_A = ("        for (int d = 0; d < HD; d += 4) {\n"
+          "          float4 kv[AK], vv[AK], qv[AQ], ov[AQ];")
+_BWD_B = "  for (int t = 0; t < T; t += 2) {"
+_BWD_NEXT = "      if (n + 1 < ntiles) load_tile(n + 1);\n      cp_async_commit();\n"
+_DQ_PARTIALS = [
+    ("constexpr bool kDqAdds = true;", "constexpr bool kDqAdds = false;"),
+    ("                int n_kv_heads, int groups, float scale) {",
+     "                int n_kv_heads, int groups, float scale,\n"
+     "                float* __restrict__ part) {"),
+    ("        if (p != 2 || !kDqAdds) continue;",
+     "        if (p == 2) {\n"
+     "          float* pb = part + (((size_t)h * nq + i) * tl.nkv\n"
+     "                              + (j - tl.j_lo(i))) * (BQ * HD) + r0 * HD;\n"
+     "          for (int r = 0; r < 8; ++r)\n"
+     "            __stcg(reinterpret_cast<float4*>(pb + r * HD + c0),\n"
+     "                   make_float4(acc[u][r][0], acc[u][r][1], acc[u][r][2],\n"
+     "                               acc[u][r][3]));\n"
+     "        }\n"
+     "        if (p != 2 || !kDqAdds) continue;"),
+    ("template <int HD, int BQ, int BKV>\nstruct Launcher {",
+     "template <int HD, int BQ>\n"
+     "__global__ void bwd_reduce_kernel(const float* __restrict__ part,\n"
+     "                                  float* __restrict__ dq, Tiles t, int BH,\n"
+     "                                  float scale) {\n"
+     "  const long long g = (long long)blockIdx.x * 256 + threadIdx.x;\n"
+     "  if (g >= (long long)BH * t.Sq * (HD / 4)) return;\n"
+     "  const int c4 = g % (HD / 4);\n"
+     "  const long long row = g / (HD / 4);\n"
+     "  const int q = row % t.Sq, h = row / t.Sq, i = q / BQ;\n"
+     "  const int n = t.j_hi(i) - t.j_lo(i) + 1;\n"
+     "  const float* pb = part + ((size_t)h * t.nq + i) * t.nkv * (BQ * HD)\n"
+     "                    + (q % BQ) * HD + 4 * c4;\n"
+     "  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);\n"
+     "  for (int sl = 0; sl < n; ++sl) {\n"
+     "    const float4 v = __ldcs(reinterpret_cast<const float4*>(\n"
+     "        pb + (size_t)sl * BQ * HD));\n"
+     "    a = sl == 0 ? v : make_float4(a.x + v.x, a.y + v.y, a.z + v.z,\n"
+     "                                  a.w + v.w);\n"
+     "  }\n"
+     "  reinterpret_cast<float4*>(dq)[g] =\n"
+     "      make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);\n"
+     "}\n\n"
+     "template <int HD, int BQ, int BKV>\nstruct Launcher {\n"
+     "  static float* partbuf(size_t need) {\n"
+     "    static float* p = nullptr;\n"
+     "    static size_t have = 0;\n"
+     "    if (need > have) {\n"
+     "      if (p) cudaFree(p);\n"
+     "      if (cudaMalloc(&p, need * sizeof(float)) != cudaSuccess) return nullptr;\n"
+     "      have = need;\n"
+     "    }\n"
+     "    return p;\n"
+     "  }"),
+    ("        kv_heads, groups, scale);\n    return (int)cudaGetLastError();",
+     "        kv_heads, groups, scale, part);\n"
+     "    err = cudaGetLastError();\n"
+     "    if (err != cudaSuccess) return (int)err;\n"
+     "    const long long tot = (long long)BH * Sq * (HD / 4);\n"
+     "    bwd_reduce_kernel<HD, BQ><<<(unsigned)((tot + 255) / 256), 256, 0,\n"
+     "                                stream>>>(part, dq, t, BH, scale);\n"
+     "    return (int)cudaGetLastError();"),
+    ("    const int kv_heads = BH / groups;",
+     "    float* part = partbuf((size_t)BH * t.nq * t.nkv * BQ * HD);\n"
+     "    if (!part) return (int)cudaErrorMemoryAllocation;\n"
+     "    const int kv_heads = BH / groups;"),
+]
 # name -> (source, diagnostic, [(old, new), ...])
 VARIANTS = {
     "l1inf": ("l1inf.cu", False, []),
@@ -86,6 +158,40 @@ VARIANTS = {
          "            if (0) wgmma_rs(o[sl], pa[kk],")]),
     "flash_bf16_no_exp": ("flash_attention.cu", True, [
         ("float p = ex2(fmaf(", "float p = (fmaf(")]),
+    "flash_bwd": ("flash_attention_bwd.cu", False, []),
+    # a diagnostic: no dq read-add-writes and no turn waits (dq wrong)
+    "flash_bwd_no_dq_adds": ("flash_attention_bwd.cu", True, [
+        ("constexpr bool kDqAdds = true;", "constexpr bool kDqAdds = false;")]),
+    "flash_bwd_no_exp": ("flash_attention_bwd.cu", True, [
+        ("ok ? exp2f(fmaf(s[a][c], scale * kLog2e, -Ls[qq] * kLog2e))",
+         "ok ? (fmaf(s[a][c], scale * kLog2e, -Ls[qq] * kLog2e))")]),
+    # each tile's copy waited for before its arithmetic, as one buffer would
+    "flash_bwd_single_buffered": ("flash_attention_bwd.cu", False, [
+        (_BWD_NEXT, _BWD_NEXT + "      cp_async_wait_all();\n")]),
+    "flash_bwd_no_phase_a": ("flash_attention_bwd.cu", True, [
+        (_BWD_A, _BWD_A.replace("d = 0", "d = HD"))]),
+    "flash_bwd_no_phase_b": ("flash_attention_bwd.cu", True, [
+        (_BWD_B, _BWD_B.replace("t = 0", "t = T"))]),
+    "flash_bwd_a_unroll_4": ("flash_attention_bwd.cu", False, [
+        ("#pragma unroll 2\n" + _BWD_A, "#pragma unroll 4\n" + _BWD_A)]),
+    "flash_bwd_mac_unroll_2": ("flash_attention_bwd.cu", False, [
+        ("#pragma unroll 4\n" + _BWD_B, "#pragma unroll 2\n" + _BWD_B)]),
+    # the old dq read straight from L2 after the dq part, not staged
+    "flash_bwd_no_dq_staging": ("flash_attention_bwd.cu", False, [
+        ("static constexpr bool STAGE =",
+         "static constexpr bool STAGE = false &&")]),
+    # diagnostics of the dq turns: no waits (a turn not yet come is not
+    # waited for), no fence before the bump (both can give a wrong dq)
+    "flash_bwd_no_turn_waits": ("flash_attention_bwd.cu", True, [
+        ("        for (int spins = 0; !ready; ++spins) {",
+         "        for (int spins = 0; false; ++spins) {")]),
+    "flash_bwd_no_fence": ("flash_attention_bwd.cu", True, [
+        ("      if (kDqAdds && tid == 0 && pending) {\n        __threadfence();",
+         "      if (kDqAdds && tid == 0 && pending) {")]),
+    # the other dq route: each kv tile's dq part stored to its own slot of
+    # a scratch buffer (allocated by the launcher here), no turns, and a
+    # second pass that sums the slots in ascending kv tile and scales
+    "flash_bwd_dq_partials": ("flash_attention_bwd.cu", False, _DQ_PARTIALS),
     "ssd": ("ssd.cu", False, []),
     "ssd_output_2_ctas": ("ssd.cu", False, [
         (_SSD_OB, _SSD_OB.replace("N <= 32 ? 3 : 2", "2"))]),
@@ -166,6 +272,47 @@ def flash_runs(torch, CS, FA, lib, dev):
                                              causal=causal, window=window)
         err = float((out.float() - plain.float()).abs().max())
         rows.append((str(dt).split(".")[-1], err, CS.time_ms(torch, fn)))
+    return rows
+
+
+def bwd_runs(torch, CS, FA, lib, dev):
+    """{shape: row} at chip_smoke.BWD_SHAPES: max |err| / scale of dq, dk,
+    dv against the plain version, ms, and the device ms of each launch."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd.argtypes = [I] + [P] * 10 + [I] * 6 + [
+        ctypes.c_float, P]
+    g = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+    for name, B, H, KV, S, hd, causal, window in CS.BWD_SHAPES:
+        kw = dict(groups=H // KV, causal=causal, window=window)
+        q = torch.randn((B * H, S, hd), generator=g, device=dev)
+        k = torch.randn((B * KV, S, hd), generator=g, device=dev)
+        v = torch.randn((B * KV, S, hd), generator=g, device=dev)
+        dout = torch.randn((B * H, S, hd), generator=g, device=dev)
+        out, lse = FA.flash_attention_fwd_plain(q, k, v, return_lse=True,
+                                                **kw)
+        scratch = torch.empty((B * H * S + B * H * (-(-S // 32)) + 1,),
+                              device=dev)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        fn = lambda: lib.flash_attention_bwd(
+            hd, *(t.data_ptr() for t in (q, k, v, out, dout, lse, scratch,
+                                         *grads)),
+            B * H, S, S, H // KV, int(causal), window, hd ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        if fn() != 0:
+            raise SystemExit("flash_bwd variant: launch failed")
+        want = FA.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+        err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(grads, want))
+        trace = CS._profile(torch, fn)
+        launches = {r["name"].split("::")[-1].split("<")[0].split("(")[0]:
+                    r["device_ms"] for r in trace["top_device"]
+                    if "bwd_" in r["name"]}
+        rows[name] = {"ms": CS.time_ms(torch, fn),
+                      "max_err_over_scale_vs_plain": err,
+                      "launch_device_ms": launches}
+        del q, k, v, dout, out, lse, scratch, grads, want
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -311,6 +458,8 @@ def main():
         if src == "flash_attention.cu":
             for dname, err, ms in flash_runs(torch, CS, FA, lib, dev):
                 line[dname] = {"ms": ms, "max_abs_err_vs_plain": err}
+        elif src == "flash_attention_bwd.cu":
+            line.update(bwd_runs(torch, CS, FA, lib, dev))
         elif src == "l1inf.cu":
             line.update(l1inf_runs(torch, CS, K, O, lib, dev))
         else:

@@ -12,12 +12,14 @@ can also write each row's log-sum-exp, lse = m + log max(l, 1e-30), the
 statistics the backward needs (the Pallas kernel returns m and l).
 
 Backward: ``csrc/flash_attention_bwd.cu`` (its source note gives the
-design), f32 on the CUDA cores: delta = rowsum(dout * out), then dk and dv
-per (kv head, kv tile) over the group's query heads, then dq per (query
-head, query tile), with P recomputed from the saved lse. It replaces the
-jnp autodiff of ``repro.models.attention.chunked_attention`` that the JAX
-reference runs in place of a TPU backward (the Pallas kernel is
-forward-only and names "the standard flash backward" as its pair).
+design), f32 on the CUDA cores: delta = rowsum(dout * out), then one
+persistent kernel whose CTAs take (kv head, kv tile) items, recompute P
+from the saved lse once per tile pair, keep dk and dv in registers over
+the group's query tiles and add each tile's dq part to dq in a fixed turn
+order (ascending kv tile): five products, and a rerun is bit-equal. It
+replaces the jnp autodiff of ``repro.models.attention.chunked_attention``
+that the JAX reference runs in place of a TPU backward (the Pallas kernel
+is forward-only and names "the standard flash backward" as its pair).
 
 Bound on the card: operations. The forward at hymba-1.5b's prefill (BH 50,
 S 2048, hd 64, causal, window 1024): 20.1 GFLOP of unmasked pairs, 0.020
@@ -26,6 +28,12 @@ backward at stablelm-3b's training shape (BH 32, S 2048, hd 80, causal):
 five products over 67.1 M pairs, 53.7 GFLOP, 0.80 ms in f32. bf16 runs the
 forward on the tensor cores (wgmma, TMA), with p rounded to bf16 before
 the product with v; f32 runs both directions on the CUDA cores in full f32.
+
+Head dims: the kernels are built for ``KERNEL_HEAD_DIMS``; on the card a
+head_dim up to 256 is zero-padded to the next of them (q, k, v, and out
+and dout for the backward) and the true ``head_dim ** -0.5`` passed as the
+scale, so the padded columns add exact zeros to every logit and every
+output, which is sliced back. A head_dim above 256 raises.
 
 ``flash_attention_fwd`` with grad mode on and an input that requires grad
 goes through ``FlashAttentionFunction``: its forward launches the forward
@@ -40,9 +48,13 @@ with masked entries 0 and dS = P (dP - delta) (backward), and p rounded to
 q's dtype before ``p @ v`` when that dtype is bf16. ``block_q`` /
 ``block_kv`` set its tiles only (the kernels pick their own, by
 head_dim), and tails that are not a multiple of a tile are bounds-masked
-in both. Dispatch is by the tensor's device alone: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel (building it at first
-use) or the call raises. The wrappers check device, dtype, shape and
+in both. The backward's plain version takes the kernel's dq order: each
+query tile's parts are summed from its first kv tile up to its last, then
+scaled. ``scale`` (default ``head_dim ** -0.5``) lets a test run the
+plain versions on zero-padded inputs as the card runs the kernels.
+Dispatch is by the tensor's device alone: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel (building it at first use) or
+the call raises. The wrappers check device, dtype, shape and
 contiguity, copy an input whose address is not 16-byte aligned (the
 kernels' vector and TMA loads need it), allocate outputs and scratch with
 ``torch.empty``, launch on the current stream without synchronising, raise
@@ -60,7 +72,8 @@ from ... import _build
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
-           "FlashAttentionFunction", "KERNEL_HEAD_DIMS", "launch_counts",
+           "FlashAttentionFunction", "KERNEL_HEAD_DIMS", "MAX_HEAD_DIM",
+           "bwd_ctas_per_sm", "kernel_head_dim", "launch_counts",
            "reset_launch_counts"]
 
 _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
@@ -69,6 +82,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 80, 128, 256)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 _NEG = -1e30
 _NO_BF16_BWD = ("the flash-attention kernel is forward-only in bf16: there "
                 "is no bf16 backward, and no ported path trains in bf16 "
@@ -100,6 +114,8 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.flash_attention_bwd.argtypes = (
                 [I] + [P] * 10 + [I] * 6 + [F, P])
             lib.flash_attention_bwd.restype = I
+            lib.flash_attention_bwd_ctas_per_sm.argtypes = [I]
+            lib.flash_attention_bwd_ctas_per_sm.restype = I
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = [I], ctypes.c_char_p
         _LIBS[name] = lib
@@ -144,13 +160,29 @@ def _on_card(x: torch.Tensor, what: str = "flash_attention_fwd") -> bool:
                      f"{x.device}")
 
 
-def _card_shape(q, k, what: str):
-    hd = q.shape[2]
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {hd} not supported by the "
-                         f"kernel (one of {KERNEL_HEAD_DIMS})")
+def kernel_head_dim(hd: int, what: str = "flash_attention_fwd") -> int:
+    """The head dim of the kernel that runs ``hd``: the next of
+    ``KERNEL_HEAD_DIMS`` (ValueError above ``MAX_HEAD_DIM``)."""
+    for kd in KERNEL_HEAD_DIMS:
+        if hd <= kd:
+            return kd
+    raise ValueError(f"{what}: head_dim {hd} > {MAX_HEAD_DIM}, the widest "
+                     f"kernel (head dims {KERNEL_HEAD_DIMS})")
+
+
+def _pad_hd(x: torch.Tensor, hdp: int) -> torch.Tensor:
+    """x with its last dim zero-padded to hdp (x itself when it fits)."""
+    if x.shape[-1] == hdp:
+        return x
+    return torch.nn.functional.pad(x, (0, hdp - x.shape[-1]))
+
+
+def _card_shape(q, k, what: str) -> int:
+    """Check what the kernels take; return the kernel's head dim."""
+    hdp = kernel_head_dim(q.shape[2], what)
     if q.shape[0] > 65535:
         raise ValueError(f"{what}: BH {q.shape[0]} > 65535")
+    return hdp
 
 
 def _aligned(*ts):
@@ -166,15 +198,17 @@ def _aligned(*ts):
 def flash_attention_fwd_plain(q, k, v, *, groups: int = 1,
                               causal: bool = True, window: int = 0,
                               block_q: int = 128, block_kv: int = 128,
-                              return_lse: bool = False):
+                              return_lse: bool = False,
+                              scale: Optional[float] = None):
     """Plain version of ``flash_attention_fwd`` (same arguments and result):
     the kernel's tile loop over (block_q, block_kv) tiles. With
     ``return_lse`` it returns (out, lse), lse = m + log max(l, 1e-30) in
-    f32 (BH, Sq), as the f32 kernel writes it."""
+    f32 (BH, Sq), as the f32 kernel writes it. ``scale`` defaults to
+    head_dim ** -0.5."""
     BH, Sq, hd = q.shape
     Skv = k.shape[1]
     bq, bkv = min(block_q, Sq), min(block_kv, Skv)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     dev = q.device
     qf = q.float()
     kf = k.float().repeat_interleave(groups, dim=0)
@@ -225,21 +259,23 @@ def _mask(q_pos, kv_pos, causal: bool, window: int) -> torch.Tensor:
 
 def _fwd_kernel(q, k, v, groups, causal, window, want_lse: bool):
     """Launch the forward kernel; returns (out, lse or None)."""
-    _card_shape(q, k, "flash_attention_fwd")
+    hdp = _card_shape(q, k, "flash_attention_fwd")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_fwd: inputs must be contiguous")
     BH, Sq, hd = q.shape
-    q, k, v = _aligned(q, k, v)
+    q, k, v = _aligned(*(_pad_hd(t, hdp) for t in (q, k, v)))
     out = torch.empty_like(q)
     lse = (torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
     rc = _lib("flash_attention").flash_attention_fwd(
-        _CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _CODE[q.dtype], hdp, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(), BH, Sq,
         k.shape[1], groups, int(bool(causal)), int(window), hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_attention", "flash_attention_fwd")
     _LAUNCHES["flash_attention_fwd"] += 1
+    if hdp != hd:
+        out = out[..., :hd].contiguous()
     return out, lse
 
 
@@ -249,8 +285,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block_kv: int = 128) -> torch.Tensor:
     """q: (BH, Sq, hd); k/v: (BKV, Skv, hd) with BH = BKV * groups, all f32
     or all bf16. Returns (BH, Sq, hd) in q's dtype. Sq and Skv need not be
-    multiples of a tile. On the card: contiguous inputs, head_dim one of
-    ``KERNEL_HEAD_DIMS``, BH <= 65535 (else ValueError).
+    multiples of a tile. On the card: contiguous inputs, head_dim <=
+    ``MAX_HEAD_DIM`` (zero-padded to the next of ``KERNEL_HEAD_DIMS``), BH
+    <= 65535 (else ValueError).
 
     With grad mode on and an input that requires grad, the call goes
     through ``FlashAttentionFunction``, whose backward is
@@ -273,21 +310,37 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ------------------------------- backward ------------------------------------
 
+def _kv_tiles(i0: int, bq: int, bkv: int, nkv: int, causal: bool,
+              window: int):
+    """(j_lo, j_hi): the kv tiles that the forward's tile test pairs with
+    the query tile at row i0, as the backward kernel's turn counters count
+    them (``Tiles::j_lo`` / ``j_hi`` in ``csrc/flash_attention_bwd.cu``);
+    j_lo > j_hi when there is none."""
+    j_hi = min(nkv - 1, (i0 + bq - 1) // bkv) if causal else nkv - 1
+    lo = i0 - window + 1
+    return (lo // bkv if window and lo > 0 else 0), j_hi
+
+
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, groups: int = 1,
                               causal: bool = True, window: int = 0,
-                              block_q: int = 64, block_kv: int = 64):
+                              block_q: int = 64, block_kv: int = 64,
+                              scale: Optional[float] = None):
     """Plain version of ``flash_attention_bwd`` (same arguments and
-    results): delta = rowsum(dout * out), then over the (block_q,
-    block_kv) tiles that the forward's tile test keeps, in order: P =
-    exp(s * scale - lse) with masked entries 0, dP = dout v^T, dS = P (dP
-    - delta), dv += P^T dout, dk += dS^T q, dq += dS k (the GQA group
-    summed inside each tile pair); dk and dq are scaled at the end. f32
-    throughout; results in the inputs' dtypes. It agrees with the kernel
-    up to summation order."""
+    results), in the kernel's order: delta = rowsum(dout * out); then for
+    each query tile, from the last down to the first (the order in which a
+    kernel CTA walks them), the kv tiles that the forward's tile test pairs
+    with it, ascending (the kernel's dq turn order): P = exp(s * scale -
+    lse) with masked entries 0, dP = dout v^T, dS = P (dP - delta), dv +=
+    P^T dout and dk += dS^T q for that kv tile (the GQA group summed inside
+    each tile pair), and the tile's dq part dS k stored by the first kv
+    tile and added by the others; dq is scaled once its last part is in,
+    dk at the end. f32 throughout; results in the inputs' dtypes. It
+    agrees with the kernel up to the order inside each product and over
+    the group."""
     BH, Sq, hd = q.shape
     BKV, Skv, _ = k.shape
     bq, bkv = min(block_q, Sq), min(block_kv, Skv)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     dev = q.device
     G = BH // BKV
     qf = q.float().reshape(BKV, G, Sq, hd)
@@ -299,17 +352,16 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, groups: int = 1,
     dq = torch.zeros_like(qf)
     dk = torch.zeros((BKV, Skv, hd), dtype=torch.float32, device=dev)
     dv = torch.zeros_like(dk)
-    for i0 in range(0, Sq, bq):
+    nkv = -(-Skv // bkv)
+    for i0 in reversed(range(0, Sq, bq)):
         i1 = min(i0 + bq, Sq)
         qt, dot = qf[:, :, i0:i1], dof[:, :, i0:i1]
         lt, et = lsef[:, :, i0:i1], delta[:, :, i0:i1]
         q_pos = torch.arange(i0, i1, device=dev)[:, None]
-        for j0 in range(0, Skv, bkv):
-            if causal and j0 > i0 + bq - 1:
-                break
-            if window and i0 - (j0 + bkv - 1) >= window:
-                continue
-            j1 = min(j0 + bkv, Skv)
+        j_lo, j_hi = _kv_tiles(i0, bq, bkv, nkv, causal, window)
+        part = None
+        for j in range(j_lo, j_hi + 1):
+            j0, j1 = j * bkv, min(j * bkv + bkv, Skv)
             kt, vt = kf[:, :, j0:j1], vf[:, :, j0:j1]
             kv_pos = torch.arange(j0, j1, device=dev)[None, :]
             s = (qt @ kt.transpose(-1, -2)) * scale
@@ -318,9 +370,19 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, groups: int = 1,
             ds = p * (dot @ vt.transpose(-1, -2) - et)
             dv[:, j0:j1] += (p.transpose(-1, -2) @ dot).sum(1)
             dk[:, j0:j1] += (ds.transpose(-1, -2) @ qt).sum(1)
-            dq[:, :, i0:i1] += ds @ kt
-    return ((dq * scale).reshape(BH, Sq, hd).to(q.dtype),
-            (dk * scale).to(k.dtype), dv.to(v.dtype))
+            part = ds @ kt if part is None else part + ds @ kt
+        if part is not None:
+            dq[:, :, i0:i1] = part * scale
+    return (dq.reshape(BH, Sq, hd).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
+
+
+def bwd_ctas_per_sm(hd: int) -> int:
+    """CTAs of the backward's main kernel that fit on one SM at the kernel
+    head dim that takes ``hd`` (builds the kernel; needs the card)."""
+    hdp = kernel_head_dim(hd, "flash_attention_bwd")
+    return int(_lib("flash_attention_bwd").flash_attention_bwd_ctas_per_sm(
+        hdp))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -330,9 +392,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block_q: int = 64, block_kv: int = 64):
     """Gradients (dq, dk, dv) of ``flash_attention_fwd`` given its out, the
     incoming dout (BH, Sq, hd) and its lse (BH, Sq). On the card: f32 only
-    (TypeError otherwise), head_dim one of ``KERNEL_HEAD_DIMS``; the
-    kernel's three launches (delta, dkdv, dq) count as one call.
-    ``block_q`` / ``block_kv`` set the plain version's tiles only."""
+    (TypeError otherwise), head_dim <= ``MAX_HEAD_DIM`` (zero-padded as
+    the forward pads it); the kernel's two launches (delta, main) count as
+    one call. ``block_q`` / ``block_kv`` set the plain version's tiles
+    only."""
     _check(q, k, v, groups)
     BH, Sq, hd = q.shape
     if tuple(out.shape) != (BH, Sq, hd) or tuple(dout.shape) != (BH, Sq, hd) \
@@ -348,18 +411,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"flash_attention_bwd: {_NO_BF16_BWD}")
     if any(t.device != q.device for t in (out, dout, lse)):
         raise ValueError("flash_attention_bwd: inputs on different devices")
-    _card_shape(q, k, "flash_attention_bwd")
+    hdp = _card_shape(q, k, "flash_attention_bwd")
+    q, k, v, out, dout = (_pad_hd(t, hdp) for t in (q, k, v, out, dout))
     q, k, v, out, dout, lse = _aligned(q, k, v, out, dout, lse)
-    delta = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+    # delta (BH * Sq), then a turn counter per (query head, query tile) of
+    # at least 32 rows and the work counter
+    scratch = torch.empty((BH * Sq + BH * (-(-Sq // 32)) + 1,),
+                          dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rc = _lib("flash_attention_bwd").flash_attention_bwd(
-        hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        hdp, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), BH, Sq, k.shape[1], groups,
         int(bool(causal)), int(window), hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_attention_bwd", "flash_attention_bwd")
     _LAUNCHES["flash_attention_bwd"] += 1
+    if hdp != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -16,17 +16,26 @@ The backward: ``flash_attention_bwd_plain`` (through
 autograd through ``flash_attention_fwd_plain`` and against ``jax.grad`` of
 ``repro.models.attention.chunked_attention`` (the reference's training
 attention), over head_dim 16, 64 and 80, causal / non-causal / window,
-GQA groups 1, 2 and 4, and lengths that are not a tile multiple; dq, dk
-and dv at the forward's f32 tolerance, 2e-5 (measured: 4e-6). The
+GQA groups 1, 2, 4 and 5, and lengths that are not a tile multiple; dq,
+dk and dv at the forward's f32 tolerance, 2e-5 (measured: 4e-6). The
 forward plain version's lse equals the dense logsumexp of the scaled,
-masked logits.
+masked logits. The backward's plain version sums each query tile's dq
+parts in the kernel's turn order (its first kv tile first), over the kv
+tiles that the forward's tile test keeps; on zero-padded head dims (how
+the card runs a head_dim that is not a kernel's) both plain versions give
+the unpadded result and exact zeros in the padded columns.
 
 Tests marked ``cuda`` compare the CUDA kernels with their plain versions
-on the card (the backward at f32 2e-5 of each gradient's scale, reruns
-bit-equal), check that an f32 input that requires grad now gets its
-gradient through the kernels and that bf16 still refuses; they skip here,
-with the reason, when no card is present (``python3 chip_smoke.py`` makes
-the same comparisons at full size).
+on the card (the backward at f32 2e-5 of each gradient's scale over
+every kernel head dim and a padded one, GQA 1 and 5, every mask and tail
+lengths; ten reruns bit-equal, one on a second stream beside another
+kernel), check that head dims up to 256 run zero-padded and larger ones
+raise, that an f32 input that requires grad gets its gradient through the
+kernels and that bf16 still refuses, and run reduced stablelm-3b's
+``Model.loss`` and gradients on the card against the CPU's (reduced
+hymba-1.5b's SSD refuses grad there); they skip here, with the reason,
+when no card is present (``python3 chip_smoke.py`` makes the same
+comparisons at full size).
 """
 import numpy as np
 import pytest
@@ -280,7 +289,8 @@ BWD_CASES = [  # (B, S, H, KV, hd, causal, window)
     (1, 200, 4, 4, 16, True, 0), (2, 130, 4, 2, 64, True, 48),
     (1, 200, 8, 2, 80, False, 0), (1, 96, 4, 1, 16, False, 24),
     (2, 77, 8, 2, 80, True, 0), (1, 150, 8, 4, 64, True, 0),
-    (1, 100, 2, 1, 80, True, 1)]
+    (1, 100, 2, 1, 80, True, 1), (1, 170, 10, 2, 16, True, 40),
+    (2, 90, 10, 2, 64, False, 30)]
 
 
 def _grads(B, S, H, KV, hd, causal, window, seed=0):
@@ -368,6 +378,95 @@ def test_bwd_wrapper_checks_shapes():
         K.flash_attention_bwd(q, k, k, q, q, torch.ones(4, 7), groups=2)
 
 
+@pytest.mark.parametrize("S,bq,bkv", [(200, 64, 64), (130, 32, 64),
+                                      (77, 32, 32), (300, 64, 64)])
+@pytest.mark.parametrize("causal,window", MASKS + [(True, 1), (True, 130)])
+def test_kv_tile_range_is_the_forward_tile_test(S, bq, bkv, causal, window):
+    """The backward's turn range (j_lo .. j_hi) for every query tile is
+    exactly the set of kv tiles that the forward's tile test keeps."""
+    nkv = -(-S // bkv)
+    for i0 in range(0, S, bq):
+        kept = [j for j in range(nkv)
+                if not (causal and j * bkv > i0 + bq - 1)
+                and not (window and i0 - (j * bkv + bkv - 1) >= window)]
+        j_lo, j_hi = K._kv_tiles(i0, bq, bkv, nkv, causal, window)
+        assert kept == list(range(j_lo, j_hi + 1)), (i0, kept, j_lo, j_hi)
+
+
+def test_bwd_plain_sums_dq_in_turn_order():
+    """dq of each query tile = (part of its first kv tile + ... + part of
+    its last) * scale, the kernel's turn order, bit for bit."""
+    B, S, H, KV, hd = 1, 150, 4, 2, 16
+    bq = bkv = 32
+    q, k, v = (_torch(_flat(a)) for a in _mk(B, S, S, H, KV, hd, seed=9))
+    kw = dict(groups=2, causal=True, window=70)
+    out, lse = K.flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(2))
+    dq = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw,
+                                     block_q=bq, block_kv=bkv)[0]
+    scale = hd ** -0.5
+    kr = k.repeat_interleave(2, 0)
+    vr = v.repeat_interleave(2, 0)
+    delta = (dout * out).sum(-1, keepdim=True)
+    for i0 in range(0, S, bq):
+        i1 = min(i0 + bq, S)
+        j_lo, j_hi = K._kv_tiles(i0, bq, bkv, -(-S // bkv), True, 70)
+        part = None
+        for j in range(j_lo, j_hi + 1):
+            j0, j1 = j * bkv, min(j * bkv + bkv, S)
+            s = (q[:, i0:i1] @ kr[:, j0:j1].transpose(1, 2)) * scale
+            mask = K._mask(torch.arange(i0, i1)[:, None],
+                           torch.arange(j0, j1)[None, :], True, 70)
+            p = torch.where(mask, torch.exp(s - lse[:, i0:i1, None]),
+                            torch.zeros(()))
+            ds = p * (dout[:, i0:i1] @ vr[:, j0:j1].transpose(1, 2)
+                      - delta[:, i0:i1])
+            part = ds @ kr[:, j0:j1] if part is None else \
+                part + ds @ kr[:, j0:j1]
+        assert torch.equal(dq[:, i0:i1], part * scale), i0
+
+
+def test_kernel_head_dim_pads_to_the_next_kernel():
+    got = {hd: K.kernel_head_dim(hd) for hd in (1, 16, 64, 65, 80, 81, 96,
+                                                 128, 129, 192, 256)}
+    assert got == {1: 64, 16: 64, 64: 64, 65: 80, 80: 80, 81: 128, 96: 128,
+                   128: 128, 129: 256, 192: 256, 256: 256}
+    with pytest.raises(ValueError, match="head_dim 257"):
+        K.kernel_head_dim(257)
+
+
+@pytest.mark.parametrize("hd", [16, 48, 96])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
+                                           (False, 0)])
+def test_plain_on_zero_padded_head_dims(hd, causal, window):
+    """What the card runs for a head_dim that is not a kernel's: q, k, v,
+    out and dout zero-padded to the next kernel head dim, scale
+    head_dim ** -0.5. The padded columns of out, dq, dk, dv are exact
+    zeros; the rest equals the unpadded plain versions' within f32
+    rounding."""
+    B, S, H, KV = 1, 90, 4, 2
+    hdp = K.kernel_head_dim(hd)
+    q, k, v = (_torch(_flat(a)) for a in _mk(B, S, S, H, KV, hd, seed=3))
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(4))
+    kw = dict(groups=H // KV, causal=causal, window=window, block_q=32,
+              block_kv=32)
+    pad = lambda t: torch.nn.functional.pad(t, (0, hdp - hd))
+    out, lse = K.flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+    outp, lsep = K.flash_attention_fwd_plain(
+        pad(q), pad(k), pad(v), return_lse=True, scale=hd ** -0.5, **kw)
+    assert torch.equal(outp[..., hd:], torch.zeros_like(outp[..., hd:]))
+    torch.testing.assert_close(outp[..., :hd], out, atol=F32_TOL,
+                               rtol=F32_TOL)
+    torch.testing.assert_close(lsep, lse, atol=F32_TOL, rtol=F32_TOL)
+    want = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    got = K.flash_attention_bwd_plain(pad(q), pad(k), pad(v), pad(out),
+                                      pad(dout), lse, scale=hd ** -0.5, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g[..., hd:], torch.zeros_like(g[..., hd:]))
+        torch.testing.assert_close(g[..., :hd], w, atol=F32_TOL,
+                                   rtol=F32_TOL)
+
+
 # ------------------------------ on the card -----------------------------------
 
 @pytest.fixture
@@ -401,10 +500,43 @@ def test_cuda_kernel_vs_plain(card, shape, dtype, tol):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_other_head_dims(card):
-    q = torch.ones((2, 8, 32), device=card)
-    with pytest.raises(ValueError, match="head_dim"):
+@pytest.mark.parametrize("hd", [16, 48, 96])
+def test_cuda_kernel_pads_other_head_dims(card, hd):
+    """Fault C-9: a head_dim that is not a kernel's runs zero-padded to the
+    next one, with the true scale: the forward in f32 and bf16 and the
+    backward against their plain versions, one launch each."""
+    g = torch.Generator(device=card).manual_seed(hd)
+    S, groups = 130, 5
+    q = torch.randn((2 * groups, S, hd), generator=g, device=card)
+    k = torch.randn((2, S, hd), generator=g, device=card)
+    v = torch.randn((2, S, hd), generator=g, device=card)
+    kw = dict(groups=groups, causal=True, window=48)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+        args = [t.to(dtype) for t in (q, k, v)]
+        out = flash_attention_fwd(*args, **kw)
+        assert out.shape == args[0].shape and out.is_contiguous()
+        plain = K.flash_attention_fwd_plain(*args, **kw)
+        torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                                   rtol=tol)
+    out, lse = K._fwd_kernel(q, k, v, groups, True, 48, True)
+    dout = torch.randn(q.shape, generator=g, device=card)
+    reset_launch_counts()
+    got = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert launch_counts()["flash_attention_bwd"] == 1
+    want = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=2e-5 * float(b.abs().max()),
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_head_dims_above_256(card):
+    q = torch.ones((2, 8, 264), device=card)
+    with pytest.raises(ValueError, match="head_dim 264"):
         flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="head_dim 264"):
+        K.flash_attention_bwd(q, q, q, q, q, torch.zeros((2, 8), device=card))
 
 
 @pytest.mark.cuda
@@ -441,16 +573,17 @@ def test_cuda_kernel_refuses_to_drop_gradients(card, needs_grad):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 5])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
                                            (False, 0)])
 @pytest.mark.parametrize("S", [64, 200, 300])
-@pytest.mark.parametrize("hd", [64, 80, 128, 256])
-def test_cuda_bwd_kernel_vs_plain(card, hd, S, causal, window):
+@pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
+def test_cuda_bwd_kernel_vs_plain(card, hd, S, causal, window, groups):
     """The backward kernel against its plain version on the forward
     kernel's out and lse (the forward's lse against the plain one's),
-    every head dim, tails, GQA groups 1, 2 and 5 in turn; dq, dk, dv
-    within 2e-5 of each gradient's scale, a rerun bit-equal."""
-    groups = (1, 2, 5)[(hd // 16 + S + window) % 3]
+    every kernel head dim and hd 16 (zero-padded to 64), tails that are not
+    a tile multiple, GQA groups 1 and 5; dq, dk, dv within 2e-5 of each
+    gradient's scale, a rerun bit-equal."""
     BKV = 2
     g = torch.Generator(device=card).manual_seed(hd * 5 + S)
     q = torch.randn((BKV * groups, S, hd), generator=g, device=card)
@@ -472,6 +605,106 @@ def test_cuda_bwd_kernel_vs_plain(card, hd, S, causal, window):
                                    rtol=0)
     again = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,groups,window", [(80, 1, 0), (64, 5, 256)])
+def test_cuda_bwd_ten_reruns_bit_equal(card, hd, groups, window):
+    """The dq adds run in the turn counters' order, not the scheduler's:
+    ten reruns at a size that fills the card are bit-equal, one of them on
+    a second stream while matrix products run on the first."""
+    S, BKV = 1024, 8
+    g = torch.Generator(device=card).manual_seed(hd)
+    q = torch.randn((BKV * groups, S, hd), generator=g, device=card)
+    k = torch.randn((BKV, S, hd), generator=g, device=card)
+    v = torch.randn((BKV, S, hd), generator=g, device=card)
+    dout = torch.randn(q.shape, generator=g, device=card)
+    kw = dict(groups=groups, causal=True, window=window)
+    out, lse = K._fwd_kernel(q, k, v, groups, True, window, True)
+    args = (q, k, v, out, dout, lse)
+    first = K.flash_attention_bwd(*args, **kw)
+    runs = [K.flash_attention_bwd(*args, **kw) for _ in range(9)]
+    big = torch.randn((4096, 4096), generator=g, device=card)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    busy = [big @ big for _ in range(4)]       # queued on the first stream
+    with torch.cuda.stream(side):
+        beside = K.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    del busy
+    runs.append(beside)
+    want = K.flash_attention_bwd_plain(*args, **kw)
+    for a, b in zip(first, want):
+        torch.testing.assert_close(a, b, atol=2e-5 * float(b.abs().max()),
+                                   rtol=0)
+    for run in runs:
+        assert all(torch.equal(a, b) for a, b in zip(first, run))
+
+
+def _reduced(arch):
+    from repro_torch import configs as TC
+    from repro_torch.models import zoo as TZ
+    cfg = TC.get_reduced(arch)
+    model = TZ.build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tok = np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 49))
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]),
+             "labels": torch.from_numpy(tok[:, 1:])}
+    return cfg, model, params, batch
+
+
+def _on(params, batch, dev):
+    from repro_torch._tree import tree_map
+    return (tree_map(lambda a: a.detach().to(dev, copy=True)
+                     .requires_grad_(), params),
+            {k: t.to(dev) for k, t in batch.items()})
+
+
+def _leaf_grads(params):
+    from repro_torch._tree import tree_map
+    return tree_map(lambda a: a.grad, params)
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_stablelm_loss_and_grads_match_cpu(card):
+    """Fault C-9: reduced stablelm-3b (head_dim 16, zero-padded to the
+    kernels' 64) trains on the card: its loss and every gradient leaf
+    against the same step on the CPU (plain versions), at
+    tests/test_torch_train.py's tolerances (loss 2e-5, each leaf 5e-4 of
+    its largest entry)."""
+    from repro_torch._tree import flatten_with_path
+    cfg, model, params, batch = _reduced("stablelm_3b")
+    assert cfg.head_dim == 16
+    got = {}
+    for dev in (card, "cpu"):
+        p, b = _on(params, batch, dev)
+        reset_launch_counts()
+        loss, _ = model.loss(p, b)
+        loss.backward()
+        if dev == card:
+            layers = cfg.n_layers
+            assert launch_counts() == {
+                "flash_attention_fwd": (2 if cfg.remat else 1) * layers,
+                "flash_attention_bwd": layers}
+        got[str(dev)] = (float(loss), dict(flatten_with_path(_leaf_grads(p))))
+    (lc, gc), (lh, gh) = got[str(card)], got["cpu"]
+    assert abs(lc - lh) <= 2e-5
+    assert sorted(gc) == sorted(gh)
+    for key, want in gh.items():
+        tol = 5e-4 * max(float(want.abs().max()), 1e-30)
+        assert float((gc[key].cpu() - want).abs().max()) <= tol, key
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_hymba_loss_refuses_grad_through_ssd(card):
+    """Reduced hymba-1.5b's attention runs padded on the card, but its SSD
+    has no backward yet (C-6, ROADMAP queue A item 6): Model.loss under
+    grad raises, naming the SSD kernel."""
+    cfg, model, params, batch = _reduced("hymba_15b")
+    p, b = _on(params, batch, card)
+    with pytest.raises(RuntimeError, match="ssd_fwd: the CUDA kernel is "
+                                           "forward-only"):
+        model.loss(p, b)
 
 
 @pytest.mark.cuda
