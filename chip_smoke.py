@@ -126,8 +126,22 @@ and prints no result. Phases:
                version (checked for f32, reported for all); a small bf16
                case. Times as in phase 6 (no single PyTorch call computes
                SSD: library null), and each of the three launches' device
-               ms from a one-call profiler trace. The kernel refuses an input
-               that requires grad, as flash does.
+               ms from a one-call profiler trace; the forward at a reduced
+               shape (chunk 8, P 8, N 8: zero-padded to the kernels' P 64
+               and N 16, C-9) bit-equal to plain. Fault C-6: an f32 input
+               that requires grad gets its gradient through SSDFunction
+               (one forward and one backward launch), equal to the plain
+               backward within 2e-4 of its scale; bf16 refuses.
+  7b. ssd_bwd — the SSD backward kernel against its plain version and
+               against float64 autograd through ``ssd_ref`` at
+               hymba-1.5b's (BH 50, S 2048, P 64, N 16, chunk 64) and
+               mamba2-370m's (BH 32, N 128) training shapes, B 1, each with
+               dt in [3, 20] (the reference's full-width init, where its
+               gradient is NaN: C-11) and in [0.05, 0.6]: every gradient
+               finite and within 2e-4 of its scale of both, a rerun
+               bit-equal; device ms warm and flushed, the plain version's
+               ms, the bound (the kernel's products, or its bytes), each
+               of the four launches' device ms from one traced call.
   8. lm_forward — this slice's main path: ``build(get_config("hymba-1.5b"))``
                at full width and depth (32 layers, 1.59 B params), params
                from ``Model.init`` in f32 and then bf16, ``forward`` on a
@@ -205,13 +219,24 @@ and prints no result. Phases:
                to the uninterrupted run's, losses equal. One checkpoint's
                size, save and restore seconds. The checkpoints live in a
                temporary directory under build/, removed at the end.
- 13. train_refusal — ``train`` of hymba-1.5b (SSD has no backward on the
-               card) raises before any step, allocating nothing.
+ 13. lm_train_ssm — this slice's main path: ``train`` of hymba-1.5b at
+               full width and depth (32 layers, 1.59 B params), f32, remat,
+               B 1 x S 2048, ten steps with ``proj_solver="kernel"`` (every_k
+               10: the projection of mlp/w1 and ssm/wx fires at the tenth),
+               then mamba2-370m at full size (48 layers, N 128) the same
+               way. Every loss finite; each step launches the SSD and flash
+               forwards twice a layer (remat), their backwards once, the
+               l1,inf kernels once in the run; every projected slice within
+               1e-4 of its radius; step ms, peak memory, one traced step
+               more (idle share, top device ops, the SSD and flash
+               kernels' share). Then one ``build_accum_step`` step of
+               hymba-1.5b at depth 2 on the card against the CPU, as 11b.
  14. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -246,17 +271,22 @@ RADIUS = {"l1inf": 0.2, "l12": 10.0, "bilevel": 0.1, "l1inf_masked": 0.1}
 LM_SOURCE = {"flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
              "ssd_fwd": "src/repro_torch/csrc/ssd.cu",
              "flash_attention_bwd":
-                 "src/repro_torch/csrc/flash_attention_bwd.cu"}
+                 "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "ssd_bwd": "src/repro_torch/csrc/ssd_bwd.cu"}
 LM_REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:78",
     "ssd_fwd": "src/repro/kernels/ssd/kernel.py:75",
     # no pallas_call: the jnp autodiff of chunked_attention, which the
     # reference runs in place of a TPU backward
-    "flash_attention_bwd": "src/repro/models/attention.py:97"}
+    "flash_attention_bwd": "src/repro/models/attention.py:97",
+    # no pallas_call: the jnp autodiff of the chunked SSD scan
+    "ssd_bwd": "src/repro/models/ssm.py:67"}
 # the device kernels of each LM wrapper, by name in a profiler trace
 LM_TRACE_NAMES = ("flash_f32_kernel", "flash_bf16_kernel",
                   "ssd_chunk_state_kernel", "ssd_state_scan_kernel",
                   "ssd_chunk_output_kernel")
+SSD_BWD_TRACE_NAMES = ("ssd_bwd_state_kernel", "ssd_bwd_scan_kernel",
+                       "ssd_bwd_chunk_kernel", "ssd_bwd_sum_kernel")
 # (name, B, H, KV, S, head_dim, causal, window); the first is hymba-1.5b's
 # prefill, the one the kernels line reports
 ATTN_SHAPES = [("hymba_prefill", 2, 25, 5, 2048, 64, True, 1024),
@@ -279,7 +309,17 @@ SSD_SHAPES = [("hymba", 2, 50, 2048, 64, 16, 64, (3.0, 20.0), "float32"),
               ("mamba2", 2, 32, 2048, 64, 128, 64, (3.0, 20.0), "float32"),
               ("mamba2_small_dt", 2, 32, 2048, 64, 128, 64, (0.05, 0.6),
                "float32"),
-              ("small_bf16", 2, 4, 256, 64, 32, 64, (0.05, 0.6), "bfloat16")]
+              ("small_bf16", 2, 4, 256, 64, 32, 64, (0.05, 0.6), "bfloat16"),
+              ("reduced", 2, 4, 256, 8, 8, 8, (0.05, 0.6), "float32")]
+# the backward's shapes (name, B, heads per group, S, P, N, chunk, dt
+# range): hymba-1.5b's and mamba2-370m's training SSD (the lm_train_ssm
+# phase's, B 1), each with the reference's full-width dt (C-5, C-11) and a
+# small one; the first is the one the kernels line reports
+SSD_BWD_SHAPES = [
+    ("hymba_train", 1, 50, 2048, 64, 16, 64, (3.0, 20.0)),
+    ("hymba_train_small_dt", 1, 50, 2048, 64, 16, 64, (0.05, 0.6)),
+    ("mamba2_train", 1, 32, 2048, 64, 128, 64, (3.0, 20.0)),
+    ("mamba2_train_small_dt", 1, 32, 2048, 64, 128, 64, (0.05, 0.6))]
 # the LM phases: models, batch and the cuts of the comparison phases
 LM = dict(arch="hymba-1.5b", ssm_arch="mamba2-370m", batch=2, seq=2048,
           cut_depth=2, decode_prompt=1152, full_prompt=64, greedy=8)
@@ -288,9 +328,14 @@ LM = dict(arch="hymba-1.5b", ssm_arch="mamba2-370m", batch=2, seq=2048,
 # the resume check at depth 1, S 512, every_k 2 (the projection fires in
 # both halves, so theta rides in the checkpoint)
 TRAIN = dict(arch="stablelm-3b", seq=2048, steps=10, resume_seq=512,
-             resume_steps=6, resume_every_k=2, refuse_arch="hymba-1.5b")
+             resume_steps=6, resume_every_k=2,
+             ssm_archs=("hymba-1.5b", "mamba2-370m"))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SSD_TOL = 2e-4
+# the SSD backward against its plain version and against float64 autograd
+# through ssd_ref, as a fraction of each gradient's largest entry: the JAX
+# suite's SSD tolerance
+SSD_BWD_TOL = 2e-4
 # At the reference's full-width init (ROADMAP C-5) the model amplifies f32
 # rounding about a thousandfold, so the LM comparisons are held to the
 # model's own noise floor, measured in the same run: how far the logits move
@@ -486,6 +531,10 @@ def _profile(torch, fn, kernels=()):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # one small op first: a single-call trace otherwise misses the
+        # first launches of its call now and then
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -820,12 +869,116 @@ def ssd_kernel_phase(torch, SK, Sref, dev, flush, shapes=SSD_SHAPES):
                                             "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}
         emit(line)
-    x = torch.ones((2, 128, 64), device=dev)
-    B1 = torch.ones((2, 128, 16), device=dev)
-    dt1, ad = torch.ones((2, 128), device=dev), torch.ones((2,), device=dev)
-    check(refuses_grad(torch, lambda t: SK.ssd_fwd(t, dt1, -ad, ad, B1, B1),
-                       x), "ssd kernel ran on an input that requires grad")
+    # fault C-6: an f32 input that requires grad gets its gradient through
+    # SSDFunction (one launch of each kernel); bf16, which has no backward,
+    # refuses
+    x = torch.randn((2, 128, 64), generator=g, device=dev)
+    B1 = torch.randn((2, 128, 16), generator=g, device=dev)
+    dt1 = torch.rand((2, 128), generator=g, device=dev) + 0.1
+    ad = torch.ones((2,), device=dev)
+    SK.reset_launch_counts()
+    xg = x.clone().requires_grad_(True)
+    SK.ssd_fwd(xg, dt1, -ad, ad, B1, B1)[0].sum().backward()
+    launched = SK.launch_counts()
+    _, _, saved = SK.ssd_fwd_plain(x, dt1, -ad, ad, B1, B1, return_saved=True)
+    want = SK.ssd_bwd_plain(x, dt1, -ad, ad, B1, B1, torch.ones_like(x), None,
+                            saved)[0]
+    grad_err = float((xg.grad - want).abs().max())
+    check(launched == {"ssd_fwd": 1, "ssd_bwd": 1}
+          and grad_err <= SSD_BWD_TOL * float(want.abs().max()),
+          f"ssd f32 gradient: launches {launched}, max err {grad_err}")
+    bf = lambda t: t.to(torch.bfloat16)
+    check(refuses_grad(torch, lambda t: SK.ssd_fwd(t, bf(dt1), -ad, ad,
+                                                   bf(B1), bf(B1)), bf(x)),
+          "ssd kernel ran a bf16 input that requires grad")
+    emit({"phase": "ssd_kernels", "check": "grad", "launches": launched,
+          "dx_max_abs_err": grad_err})
     row.update(max_abs_err=err)
+    return row
+
+
+def ssd_bwd_phase(torch, SK, Sref, dev, flush, shapes=SSD_BWD_SHAPES):
+    """Phase 7b: the SSD backward kernel against its plain version and
+    against float64 autograd through ``ssd_ref`` (dy given, no state
+    gradient, as ``ssd_attention`` runs it), on the forward kernels' saved
+    state; times, the bound and the four launches' device ms. Returns the
+    kernels-line row of the first shape."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    names = ("dx", "ddt", "da", "dd", "dB", "dC")
+    row, worst = None, 0.0
+    for name, BG, groups, S, P, N, Q, (lo, hi) in shapes:
+        BH = BG * groups
+        x = torch.randn((BH, S, P), generator=g, device=dev)
+        dt = torch.rand((BH, S), generator=g, device=dev) * (hi - lo) + lo
+        # a = -exp(A_log): A_log starts at 0 in Model.init, so a = -1
+        a = -torch.exp(torch.rand((BH,), generator=g, device=dev) - 0.5)
+        d = torch.ones((BH,), device=dev)
+        Bm = torch.randn((BG, S, N), generator=g, device=dev) * 2
+        Cm = torch.randn((BG, S, N), generator=g, device=dev) * 2
+        dy = torch.randn((BH, S, P), generator=g, device=dev)
+        args = (x, dt, a, d, Bm, Cm)
+        kw = dict(chunk=Q, groups=groups)
+        _, _, saved = SK._fwd_kernel(*args, Q, groups)
+        bargs = (*args, dy, None, saved)
+        got = SK.ssd_bwd(*bargs, **kw)
+        _, _, psaved = SK.ssd_fwd_plain(*args, return_saved=True, **kw)
+        want = SK.ssd_bwd_plain(*args, dy, None, psaved, **kw)
+        ref64 = [t.double().requires_grad_() for t in args]
+        yr, _ = Sref.ssd_ref(*ref64, groups=groups)
+        exact = torch.autograd.grad((yr * dy.double()).sum(), ref64)
+        del yr, ref64, psaved
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        err, rel, rel64 = {}, {}, {}
+        for gname, k, p, r in zip(names, got, want, exact):
+            err[gname] = float((k - p).abs().max())
+            rel[gname] = err[gname] / max(float(p.abs().max()), 1e-30)
+            rel64[gname] = float((k.double() - r).abs().max()) / max(
+                float(r.abs().max()), 1e-30)
+        del want, exact
+        worst = max(worst, max(err.values()))
+        check(finite, f"ssd_bwd {name}: NaN or inf in a gradient")
+        check(max(rel.values()) <= SSD_BWD_TOL,
+              f"ssd_bwd {name}: kernel vs plain, relative to each "
+              f"gradient's scale {rel}")
+        check(max(rel64.values()) <= SSD_BWD_TOL,
+              f"ssd_bwd {name}: kernel vs float64 autograd through ssd_ref, "
+              f"relative {rel64}")
+        again = SK.ssd_bwd(*bargs, **kw)
+        check(all(bits_equal(torch, u, v) for u, v in zip(got, again)),
+              f"ssd_bwd {name}: rerun not bit-equal")
+        del again
+        # bound: the products over the lower triangle (dy x^T, M^T dy,
+        # dG^T C, dG B) and the four full (Q, P, N) products of a chunk;
+        # x, dy, dt, cum, B, C, the saved states and G read once, dx,
+        # ddt, dB, dC, da, dd written once
+        nc, tri = S // Q, Q * (Q + 1) // 2
+        ops = nc * BH * (2 * tri * (2 * P + 2 * N) + 8 * Q * P * N)
+        hst, cum, G = saved
+        nbytes = 4 * (3 * x.numel() + 3 * dt.numel() + 4 * Bm.numel()
+                      + hst.numel() + G.numel() + 4 * BH)
+        bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (ops / F32_OPS_PER_S * 1e3, "operations"))
+        trace = _profile(torch, lambda: SK.ssd_bwd(*bargs, **kw),
+                         SSD_BWD_TRACE_NAMES)
+        t = {"ms": time_ms(torch, lambda: SK.ssd_bwd(*bargs, **kw)),
+             "ms_l2_flushed": time_cold_ms(
+                 torch, lambda: SK.ssd_bwd(*bargs, **kw), flush),
+             "plain_ms": time_ms(torch, lambda: SK.ssd_bwd_plain(
+                 *args, dy, None, saved, **kw), budget_ms=300.0),
+             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+             "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+             "launch_device_ms": {k.split("_kernel")[0]: v for k, v in
+                                  trace["kernels_device_ms"].items()}}
+        emit({"phase": "ssd_bwd", "shape": name, "BH": BH, "S": S, "P": P,
+              "N": N, "chunk": Q, "dt_range": [lo, hi], "finite": finite,
+              "max_abs_err_vs_plain": err, "rel_err_vs_plain": rel,
+              "rel_err_vs_float64": rel64, **t})
+        if row is None:
+            row = dict(t, shape=name)
+        del got, saved, bargs, args
+        torch.cuda.empty_cache()
+    row.update(max_abs_err=worst)
+    row.pop("launch_device_ms")
     return row
 
 
@@ -856,7 +1009,33 @@ def _lm_counts(FA, SK):
 def _fwd_counts(flash, ssd):
     """The LM counts of a forward with no gradient: no backward launch."""
     return {"flash_attention_fwd": flash, "flash_attention_bwd": 0,
-            "ssd_fwd": ssd}
+            "ssd_fwd": ssd, "ssd_bwd": 0}
+
+
+def _has_ssd(cfg):
+    return any(k in ("ssm", "hybrid") for k in cfg.pattern)
+
+
+def _lm_batcher(cfg, tr=TRAIN):
+    """B 1 batches of ``SyntheticLM(vocab, seed=1)``. ``LMBatcher(source,
+    1, n)`` yields n input positions: stablelm-3b's phases take
+    ``tr["seq"] + 1`` (2049), the SSD models ``tr["seq"]`` (2048), since
+    the scan needs a multiple of its chunk."""
+    from repro_torch.data import LMBatcher, SyntheticLM
+    return LMBatcher(SyntheticLM(cfg.vocab, seed=1), 1,
+                     tr["seq"] + (0 if _has_ssd(cfg) else 1))
+
+
+def _step_counts(cfg):
+    """The LM counts of one training step of ``cfg``: per layer, each
+    forward and its recompute under remat, and each backward once."""
+    fwd = (2 if cfg.remat else 1) * cfg.n_layers
+    attn = any(k in ("global", "local", "hybrid") for k in cfg.pattern)
+    ssd = _has_ssd(cfg)
+    return {"flash_attention_fwd": fwd if attn else 0,
+            "flash_attention_bwd": cfg.n_layers if attn else 0,
+            "ssd_fwd": fwd if ssd else 0,
+            "ssd_bwd": cfg.n_layers if ssd else 0}
 
 
 def _lm_reset(FA, SK):
@@ -1482,18 +1661,19 @@ def _adam_direction(torch, acfg, mu, nu, p):
     return u + acfg.weight_decay * p.double() if acfg.weight_decay else u
 
 
-def lm_train_cpu_phase(torch, Z, C, FA, dev, tr=TRAIN, lm=LM):
-    """Phase 11b: one ``build_accum_step`` step of stablelm-3b at full
-    width, depth ``cut_depth``, B 1 x S 2048, on the card and on CPU
-    copies of the same params and batch; a third step on the card from
-    the PERTURB-perturbed params gives the noise floor of each moment."""
+def lm_train_cpu_phase(torch, Z, C, FA, SK, dev, arch=TRAIN["arch"],
+                       tr=TRAIN, lm=LM):
+    """Phases 11b and 13's last check: one ``build_accum_step`` step of
+    ``arch`` (stablelm-3b, hymba-1.5b) at full width, depth ``cut_depth``,
+    B 1 x S 2048, on the card and on CPU copies of the same params and
+    batch; a third step on the card from the PERTURB-perturbed params
+    gives the noise floor of each moment."""
     from repro_torch._tree import flatten_with_path, tree_map
     from repro_torch.core import ProjectionEngine
     from repro_torch.data import LMBatcher, SyntheticLM
     from repro_torch.optim import AdamConfig, adam_init
     from repro_torch.train import loop as TL
-    cfg = dataclasses.replace(C.get_config(tr["arch"]),
-                              n_layers=lm["cut_depth"])
+    cfg = dataclasses.replace(C.get_config(arch), n_layers=lm["cut_depth"])
     model = Z.build(cfg)
     tcfg = TL.TrainConfig(proj_solver="kernel")
     # no global-norm clip here: its one scale couples every leaf to the
@@ -1502,9 +1682,8 @@ def lm_train_cpu_phase(torch, Z, C, FA, dev, tr=TRAIN, lm=LM):
     # moments would compare that scale and not each leaf's gradient
     acfg = AdamConfig(lr=tcfg.lr, clip_norm=None)
     lr = TL.lr_at(tcfg, 0)
-    batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in
-             LMBatcher(SyntheticLM(cfg.vocab, seed=1), 1,
-                       tr["seq"] + 1).get(0).items()}
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64)
+             for k, v in _lm_batcher(cfg, tr).get(0).items()}
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     g = torch.Generator(device=dev).manual_seed(5)
@@ -1527,21 +1706,21 @@ def lm_train_cpu_phase(torch, Z, C, FA, dev, tr=TRAIN, lm=LM):
         return step_fn(p, adam_init(p, acfg), engine.init_state(p), b, lr,
                        count=1)
 
-    FA.reset_launch_counts()
+    _lm_reset(FA, SK)
     card = run(params, batch)
     torch.cuda.synchronize()
-    launched = FA.launch_counts()
+    launched = _lm_counts(FA, SK)
     floor = run(pert, batch)
     torch.cuda.synchronize()
     t = time.perf_counter()
     host = run(cpu, {k: v.cpu() for k, v in batch.items()})
     cpu_s = time.perf_counter() - t
-    want = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
-    check(launched == want, f"lm_train_cpu launches {launched}, want {want}")
+    want = _step_counts(cfg)
+    check(launched == want, f"lm_train_cpu {cfg.name} launches {launched}, "
+          f"want {want}")
     loss_diff = abs(float(card[3]) - float(host[3]))
     check(np.isfinite(float(card[3])) and loss_diff <= 2 * logit_floor,
-          f"lm_train_cpu: loss card {float(card[3])} vs CPU "
+          f"lm_train_cpu {cfg.name}: loss card {float(card[3])} vs CPU "
           f"{float(host[3])}, logits' floor {logit_floor}")
     eps32 = float(np.finfo(np.float32).eps)
     rows = {}
@@ -1558,7 +1737,8 @@ def lm_train_cpu_phase(torch, Z, C, FA, dev, tr=TRAIN, lm=LM):
                 "max_abs_diff": diff, "noise_floor": noise, "scale": scale,
                 "rel_fro": float(torch.linalg.vector_norm(a - h)
                                  / torch.linalg.vector_norm(h))}
-            check(diff <= noise, f"lm_train_cpu {mname} {path}: card vs "
+            check(diff <= noise, f"lm_train_cpu {cfg.name} {mname} {path}: "
+                  f"card vs "
                   f"CPU max diff {diff}, noise floor {noise}, scale {scale}")
     fp_c, fp_h, fp_o = flat(card[0]), flat(host[0]), flat(old)
     fmu_c, fnu_c = flat(card[1].mu), flat(card[1].nu)
@@ -1578,7 +1758,8 @@ def lm_train_cpu_phase(torch, Z, C, FA, dev, tr=TRAIN, lm=LM):
                       "entries_apart": int((d > eps32 * (
                           pc.double().abs() + ph.double().abs())).sum()),
                       "max_update": moved, **moments[path]}
-        check(over == 0 and moved > 0, f"lm_train_cpu params {path}: "
+        check(over == 0 and moved > 0, f"lm_train_cpu {cfg.name} params "
+              f"{path}: "
               f"{over} entries beyond lr |u_card - u_cpu| + rounding, "
               f"largest update {moved}")
         del d, tol, u_c, u_h
@@ -1670,24 +1851,93 @@ def lm_resume_phase(torch, Z, C, root, tr=TRAIN):
           "save_s": save_s, "restore_s": restore_s})
 
 
-def train_refusal_phase(torch, Z, C, tr=TRAIN):
-    """Phase 13: ``train`` of hymba-1.5b (hybrid: SSD, which has no
-    backward on the card) raises before any step, allocating nothing."""
+def lm_train_ssm_phase(torch, Z, C, FA, SK, K, dev, tr=TRAIN):
+    """Phase 13, this slice's main path: ``train`` of hymba-1.5b and then
+    mamba2-370m at full width and depth, f32, B 1 x S 2048, ten steps with
+    ``proj_solver="kernel"`` (every_k 10: the projection fires at the
+    tenth); then a traced step more of each. Returns hymba-1.5b's launches
+    in its run."""
+    from repro_torch.core import ProjectionEngine
     from repro_torch.data import LMBatcher, SyntheticLM
-    from repro_torch.train import TrainConfig, train
-    cfg = C.get_config(tr["refuse_arch"])
-    before = torch.cuda.memory_allocated()
-    msg = ""
-    try:
-        train(Z.build(cfg), LMBatcher(SyntheticLM(cfg.vocab), 1, 65),
-              TrainConfig(steps=1))
-    except NotImplementedError as e:
-        msg = str(e)
-    check("queue A item 6" in msg
-          and torch.cuda.memory_allocated() == before,
-          f"train {cfg.name} on the card did not refuse before a step: "
-          f"{msg!r}")
-    emit({"phase": "train_refusal", "arch": cfg.name, "message": msg})
+    from repro_torch.optim import AdamConfig
+    from repro_torch.train import loop as TL
+    first = None
+    for arch in tr["ssm_archs"]:
+        cfg = C.get_config(arch)
+        model = Z.build(cfg)
+        batcher = _lm_batcher(cfg, tr)
+        steps = tr["steps"]
+        tcfg = TL.TrainConfig(steps=steps, proj_solver="kernel",
+                              log_every=1, ckpt_dir=None)
+        every_k = {spec.every_k for spec in cfg.projection_specs}
+        want = {k: v * steps for k, v in _step_counts(cfg).items()}
+        want_l1inf = {k: steps // max(every_k) for k in REPLACES}
+        # earlier phases' tensors that only a collection frees would count
+        # in this run's peak
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        _lm_reset(FA, SK)
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        out = TL.train(model, batcher, tcfg)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        launched, l1inf = _lm_counts(FA, SK), K.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = out["losses"]
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"lm_train_ssm {arch} losses {losses}")
+        check(launched == want, f"lm_train_ssm {arch} launches {launched}, "
+              f"want {want}")
+        check(l1inf == want_l1inf, f"lm_train_ssm {arch} l1,inf launches "
+              f"{l1inf}, want {want_l1inf}")
+        # the last step projected: every slice within its radius
+        norm_ratio = _norm_over_radius(out["params"], cfg.projection_specs)
+        check(norm_ratio <= 1 + 1e-4, f"lm_train_ssm {arch}: l1,inf norm "
+              f"{norm_ratio} of the radius")
+        step_ms = [m["step_time_s"] * 1e3 for m in out["step_metrics"]]
+        median = float(np.median(step_ms[1:9]))
+        # one traced step more on the trained state
+        step_fn = TL.build_accum_step(
+            model, AdamConfig(lr=tcfg.lr), tcfg,
+            engine=ProjectionEngine(cfg.projection_specs, solver="kernel"))
+        batch = {k: torch.from_numpy(v).to(dev, torch.int64)
+                 for k, v in batcher.get(steps).items()}
+        state = [out["params"], out["opt_state"], out["proj_state"]]
+        del out
+
+        def one_step():
+            state[:3] = step_fn(*state, batch, TL.lr_at(tcfg, steps),
+                                count=steps + 1)[:3]
+
+        profile = _profile(torch, one_step, kernels=(
+            "flash_f32_kernel", "bwd_main_kernel", "bwd_delta_kernel",
+            *LM_TRACE_NAMES[2:], *SSD_BWD_TRACE_NAMES))
+        emit({"phase": "lm_train_ssm", "arch": cfg.name,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "n_params": model.n_params(), "ssm_state": cfg.ssm_state,
+              "batch": 1, "seq": tr["seq"], "steps": steps,
+              "remat": cfg.remat, "every_k": sorted(every_k),
+              "losses": losses, "launches": {**launched, **l1inf},
+              "launches_per_step": {k: v / steps
+                                    for k, v in launched.items()},
+              "expected_launches": {**want, **want_l1inf},
+              "step_ms": step_ms, "median_step_ms_2_to_9": median,
+              # the traced wall carries the profiler's own host cost: the
+              # device's share of the untraced median step reads the idle
+              # share without it
+              "device_ms_over_median_step": profile["device_ms"] / median,
+              "wall_s": wall_s, "peak_memory_gb": peak_gb,
+              "memory_at_start_gb": base_gb,
+              "norm_over_radius": norm_ratio, "profile": profile})
+        if first is None:
+            first = launched
+        del state, batch
+        torch.cuda.empty_cache()
+    return first
 
 
 def main():
@@ -2205,17 +2455,21 @@ def main():
     attn_row = attn_kernel_phase(torch, FA, dev, flush)
     bwd_row, fwd_train_row = attn_bwd_phase(torch, FA, dev, flush)
     ssd_row = ssd_kernel_phase(torch, SK, Sref, dev, flush)
+    ssd_bwd_row = ssd_bwd_phase(torch, SK, Sref, dev, flush)
     lm_launches = lm_forward_phase(torch, Z, C, FA, SK, dev)
     lm_decode_phase(torch, Z, C, FA, SK, dev)
 
     # -- 10. hymba-1.5b projected, compacted and served ---------------------
     lm_compact_phase(torch, Z, C, K, FA, SK, dev)
 
-    # -- 11.-13. this slice: stablelm-3b trained on the card ----------------
+    # -- 11.-12. stablelm-3b trained on the card ---------------------------
     train_launches = lm_train_phase(torch, Z, C, FA, K, dev)
-    lm_train_cpu_phase(torch, Z, C, FA, dev)
+    lm_train_cpu_phase(torch, Z, C, FA, SK, dev)
     lm_resume_phase(torch, Z, C, root)
-    train_refusal_phase(torch, Z, C)
+
+    # -- 13. this slice: hymba-1.5b and mamba2-370m trained on the card -----
+    ssm_launches = lm_train_ssm_phase(torch, Z, C, FA, SK, K, dev)
+    lm_train_cpu_phase(torch, Z, C, FA, SK, dev, arch=TRAIN["ssm_archs"][0])
 
     # -- 14. result ------------------------------------------------------------
     if FAILURES:
@@ -2263,7 +2517,12 @@ def main():
          "replaces": LM_REPLACES[k], "launches": train_launches[k], **row}
         for k, row in (("flash_attention_fwd", fwd_train_row),
                        ("flash_attention_bwd",
-                        dict(bwd_row, shape=BWD_SHAPES[0][0])))]})
+                        dict(bwd_row, shape=BWD_SHAPES[0][0])))] + [
+        # the SSD backward at hymba-1.5b's training shape, launches in the
+        # ten-step lm_train_ssm run of hymba-1.5b
+        {"name": "ssd_bwd", "route": "cuda", "source": LM_SOURCE["ssd_bwd"],
+         "replaces": LM_REPLACES["ssd_bwd"],
+         "launches": ssm_launches["ssd_bwd"], **ssd_bwd_row}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

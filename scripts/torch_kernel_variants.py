@@ -200,11 +200,11 @@ VARIANTS = {
     "ssd_output_no_x": ("ssd.cu", True, [
         (_SSD_X, "  load_rows<Q, N>(Cm")]),
     "ssd_output_no_intra": ("ssd.cu", True, [
-        ("  int j = 0;\n  for (; j < 2 * ty + 2; j += 4) {",
-         "  int j = Q;\n  for (; j < 2 * ty + 2; j += 4) {")]),
+        ("    int j = 0;\n    for (; j < 2 * ty + 2; j += 4) {",
+         "    int j = Q;\n    for (; j < 2 * ty + 2; j += 4) {")]),
     "ssd_output_no_inter": ("ssd.cu", True, [
-        ("  for (int n = 0; n < N; n += 4) {\n    float4 cv[RQ], hv[CP];",
-         "  for (int n = N; n < N; n += 4) {\n    float4 cv[RQ], hv[CP];")]),
+        ("    for (int n = 0; n < N; n += 4) {\n      float4 cv[RQ], hv[CP];",
+         "    for (int n = N; n < N; n += 4) {\n      float4 cv[RQ], hv[CP];")]),
     "ssd_output_no_g": ("ssd.cu", True, [
         ("        g[r][c] = gb[row(r) * Q + tx + 16 * c];",
          "        g[r][c] = 0.f;")]),

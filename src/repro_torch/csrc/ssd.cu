@@ -53,8 +53,15 @@
 // banks. In launch 3 a thread owns rows 2 ty, 2 ty + 1, 62 - 2 ty and
 // 63 - 2 ty, and each row's sum over the lower triangle of M stops after
 // its own index: half the work of full rows, the same for every warp.
-// Shapes are template parameters: Q = 64, P = 64 and N one of 16, 32, 64,
-// 128; the wrapper refuses others.
+// Shapes are template parameters: P = 64, N one of 16, 32, 64, 128 and the
+// chunk Q one of 8, 16, 32, 64 (hymba-1.5b and mamba2-370m take Q 64; the
+// zoo's reduced configs Q 8). The wrapper zero-pads a smaller P or N to
+// the next of those: zero columns of x, or of B and C, add exact zeros at
+// the end of every fmaf chain, so y and the state keep every bit. The chunk
+// cannot be padded (it changes which steps share a cumsum), so every Q has
+// its own instantiation. At Q 64 the products run on 4 x 4 register tiles
+// as described above; below 64 (reduced configs only) G and y are formed
+// one output a thread at a time, with the same sums in the same order.
 //
 // Plain C interface (loaded with ctypes): pointers, sizes and the stream;
 // dtype code 0 = f32, 1 = bf16 for x, dt, B and C (a and d are f32); the
@@ -68,7 +75,7 @@
 namespace {
 
 constexpr int kThreads = 256;      // 16 x 16
-constexpr int kQ = 64, kP = 64;    // chunk and head dim the kernels take
+constexpr int kP = 64;             // the head dim the kernels take
 constexpr int kScanThreads = 256;
 
 __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
@@ -151,7 +158,7 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                        const T* __restrict__ Cm, float* __restrict__ upd,
                        float* __restrict__ eseg, float* __restrict__ cum_out,
                        float* __restrict__ G, int S, int groups) {
-  static_assert(Q % 16 == 0 && P % 16 == 0 && N % 16 == 0, "tile sizes");
+  static_assert(Q % 4 == 0 && P % 16 == 0 && N % 16 == 0, "tile sizes");
   constexpr int RP = P / 16;        // state rows p = ty + 16 r per thread
   constexpr int CN = N / 16;        // state columns n = tx + 16 c
   constexpr int XS = Q + 4;         // row stride of xT and wT
@@ -221,29 +228,39 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   load_rows<Q, N>(Bb, Bs);
   load_rows<Q, N>(Cm + ((size_t)(bh / groups) * S + t0) * N, Cs);
   __syncthreads();
-  // G[i][j] = C_i . B_j: rows i = 4 ty + r, columns j = tx + 16 c
-  constexpr int RQ = Q / 16, CQ = Q / 16;
-  float g[RQ][CQ] = {};
-  for (int n = 0; n < N; n += 4) {
-    float4 cv[RQ], bv[CQ];
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) cv[r] = ld4(Cs + (4 * ty + r) * NS + n);
-#pragma unroll
-    for (int c = 0; c < CQ; ++c) bv[c] = ld4(Bs + (tx + 16 * c) * NS + n);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int r = 0; r < RQ; ++r)
-#pragma unroll
-        for (int c = 0; c < CQ; ++c)
-          g[r][c] = fmaf(comp(cv[r], k), comp(bv[c], k), g[r][c]);
-  }
   float* gb = G + ((size_t)(bh / groups) * nc + ch) * Q * Q;
+  if constexpr (Q == 64) {
+    // G[i][j] = C_i . B_j: rows i = 4 ty + r, columns j = tx + 16 c
+    constexpr int RQ = Q / 16, CQ = Q / 16;
+    float g[RQ][CQ] = {};
+    for (int n = 0; n < N; n += 4) {
+      float4 cv[RQ], bv[CQ];
 #pragma unroll
-  for (int r = 0; r < RQ; ++r)
+      for (int r = 0; r < RQ; ++r) cv[r] = ld4(Cs + (4 * ty + r) * NS + n);
 #pragma unroll
-    for (int c = 0; c < CQ; ++c)
-      gb[(4 * ty + r) * Q + tx + 16 * c] = g[r][c];
+      for (int c = 0; c < CQ; ++c) bv[c] = ld4(Bs + (tx + 16 * c) * NS + n);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int r = 0; r < RQ; ++r)
+#pragma unroll
+          for (int c = 0; c < CQ; ++c)
+            g[r][c] = fmaf(comp(cv[r], k), comp(bv[c], k), g[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < RQ; ++r)
+#pragma unroll
+      for (int c = 0; c < CQ; ++c)
+        gb[(4 * ty + r) * Q + tx + 16 * c] = g[r][c];
+  } else {
+    // one output a thread: the same sum over n, ascending from 0
+    for (int e = tid; e < Q * Q; e += kThreads) {
+      const int i = e / Q, j = e % Q;
+      float g = 0.f;
+      for (int n = 0; n < N; ++n) g = fmaf(Cs[i * NS + n], Bs[j * NS + n], g);
+      gb[e] = g;
+    }
+  }
 }
 
 // ---- launch 2: per (bh, 4 state entries), the scan over chunks -----------
@@ -303,11 +320,7 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                         const float* __restrict__ G,
                         const float* __restrict__ hin, T* __restrict__ y,
                         int S, int groups) {
-  static_assert(Q % 16 == 0 && P % 16 == 0 && N % 16 == 0, "tile sizes");
-  static_assert(Q == 64, "the row split below assumes 16 rows of threads");
-  constexpr int RQ = 4;             // chunk rows row(r) per thread
-  constexpr int CQ = Q / 16;        // M columns j = tx + 16 c
-  constexpr int CP = P / 16;        // y columns p = tx + 16 c
+  static_assert(Q % 4 == 0 && P % 16 == 0 && N % 16 == 0, "tile sizes");
   constexpr int XS = Q + 4, NS = N + 4, MS = Q + 4;
   extern __shared__ __align__(16) float smem[];
   float* xT = smem;                 // (P, Q+4): x transposed
@@ -323,20 +336,9 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   const int bh = blockIdx.x, ch = blockIdx.y, nc = gridDim.y;
   const size_t t0 = (size_t)ch * Q;
   const float dv = d[bh];
-  // rows 2 ty, 2 ty + 1 and 62 - 2 ty, 63 - 2 ty: every thread's share of
-  // the lower triangle of M is the same
-  auto row = [&](int r) { return r < 2 ? 2 * ty + r : Q - 4 - 2 * ty + r; };
+  const float* gb = G + ((size_t)(bh / groups) * nc + ch) * Q * Q;
+  T* yb = y + ((size_t)bh * S + t0) * P;
 
-  // G of this (group, chunk) straight into registers
-  float g[RQ][CQ];
-  {
-    const float* gb = G + ((size_t)(bh / groups) * nc + ch) * Q * Q;
-#pragma unroll
-    for (int r = 0; r < RQ; ++r)
-#pragma unroll
-      for (int c = 0; c < CQ; ++c)
-        g[r][c] = gb[row(r) * Q + tx + 16 * c];
-  }
   load_transposed<Q, P>(x + ((size_t)bh * S + t0) * P, xT);
   load_rows<Q, N>(Cm + ((size_t)(bh / groups) * S + t0) * N, Cs);
   load_rows<P, N>(hin + ((size_t)bh * nc + ch) * P * N, hs);
@@ -344,90 +346,128 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     dts[e] = ld(dt, (size_t)bh * S + t0 + e);
     cum[e] = cum_in[(size_t)bh * S + t0 + e];
   }
-  __syncthreads();
-  for (int e = tid; e < Q; e += kThreads) ec[e] = expf(cum[e]);
 
-  // M[i][j] = G[i][j] * exp(cum_i - cum_j) * dt_j for i >= j, else 0
+  if constexpr (Q == 64) {
+    constexpr int RQ = 4;             // chunk rows row(r) per thread
+    constexpr int CQ = Q / 16;        // M columns j = tx + 16 c
+    constexpr int CP = P / 16;        // y columns p = tx + 16 c
+    // rows 2 ty, 2 ty + 1 and 62 - 2 ty, 63 - 2 ty: every thread's share
+    // of the lower triangle of M is the same
+    auto row = [&](int r) { return r < 2 ? 2 * ty + r : Q - 4 - 2 * ty + r; };
+    // G of this (group, chunk) straight into registers
+    float g[RQ][CQ];
 #pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-    const int i = row(r);
+    for (int r = 0; r < RQ; ++r)
 #pragma unroll
-    for (int c = 0; c < CQ; ++c) {
-      const int j = tx + 16 * c;
-      // exp only where i >= j: for i < j the exponent is positive and
-      // may be +inf, which a 0/1 product would turn into NaN
+      for (int c = 0; c < CQ; ++c)
+        g[r][c] = gb[row(r) * Q + tx + 16 * c];
+    __syncthreads();
+    for (int e = tid; e < Q; e += kThreads) ec[e] = expf(cum[e]);
+
+    // M[i][j] = G[i][j] * exp(cum_i - cum_j) * dt_j for i >= j, else 0
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      const int i = row(r);
+#pragma unroll
+      for (int c = 0; c < CQ; ++c) {
+        const int j = tx + 16 * c;
+        // exp only where i >= j: for i < j the exponent is positive and
+        // may be +inf, which a 0/1 product would turn into NaN
+        Ms[i * MS + j] = i >= j
+            ? __fmul_rn(__fmul_rn(g[r][c], expf(__fsub_rn(cum[i], cum[j]))),
+                        dts[j])
+            : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // y = (M x + (C * exp(cum)) h^T) + d * x: rows row(r), columns
+    // p = tx + 16 c. M is 0 above the diagonal, so a row's sum stops after
+    // its own index (a zero term adds nothing): the two low rows stop at
+    // 2 ty + 1, the two high rows run on to 63 - 2 ty, each in order.
+    float intra[RQ][CP] = {}, inter[RQ][CP] = {};
+    int j = 0;
+    for (; j < 2 * ty + 2; j += 4) {
+      float4 mv[RQ], xv[CP];
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) mv[r] = ld4(Ms + row(r) * MS + j);
+#pragma unroll
+      for (int c = 0; c < CP; ++c) xv[c] = ld4(xT + (tx + 16 * c) * XS + j);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int r = 0; r < RQ; ++r)
+#pragma unroll
+          for (int c = 0; c < CP; ++c)
+            intra[r][c] = fmaf(comp(mv[r], k), comp(xv[c], k), intra[r][c]);
+    }
+    for (; j < Q - 2 * ty; j += 4) {
+      float4 mv[2], xv[CP];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) mv[r] = ld4(Ms + row(r + 2) * MS + j);
+#pragma unroll
+      for (int c = 0; c < CP; ++c) xv[c] = ld4(xT + (tx + 16 * c) * XS + j);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < CP; ++c)
+            intra[r + 2][c] =
+                fmaf(comp(mv[r], k), comp(xv[c], k), intra[r + 2][c]);
+    }
+    float eci[RQ];
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) eci[r] = ec[row(r)];
+    for (int n = 0; n < N; n += 4) {
+      float4 cv[RQ], hv[CP];
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) cv[r] = ld4(Cs + row(r) * NS + n);
+#pragma unroll
+      for (int c = 0; c < CP; ++c) hv[c] = ld4(hs + (tx + 16 * c) * NS + n);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int r = 0; r < RQ; ++r) {
+          const float cs = __fmul_rn(comp(cv[r], k), eci[r]);
+#pragma unroll
+          for (int c = 0; c < CP; ++c)
+            inter[r][c] = fmaf(cs, comp(hv[c], k), inter[r][c]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      const int i = row(r);
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        const int p = tx + 16 * c;
+        st(yb, (size_t)i * P + p,
+           __fadd_rn(__fadd_rn(intra[r][c], inter[r][c]),
+                     __fmul_rn(dv, xT[p * XS + i])));
+      }
+    }
+  } else {
+    // reduced chunks: one output a thread, the same sums in the same order
+    __syncthreads();
+    for (int e = tid; e < Q; e += kThreads) ec[e] = expf(cum[e]);
+    for (int e = tid; e < Q * Q; e += kThreads) {
+      const int i = e / Q, j = e % Q;
+      // exp only where i >= j (see above)
       Ms[i * MS + j] = i >= j
-          ? __fmul_rn(__fmul_rn(g[r][c], expf(__fsub_rn(cum[i], cum[j]))),
+          ? __fmul_rn(__fmul_rn(gb[e], expf(__fsub_rn(cum[i], cum[j]))),
                       dts[j])
           : 0.f;
     }
-  }
-  __syncthreads();
-
-  // y = (M x + (C * exp(cum)) h^T) + d * x: rows row(r), columns
-  // p = tx + 16 c. M is 0 above the diagonal, so a row's sum stops after
-  // its own index (a zero term adds nothing): the two low rows stop at
-  // 2 ty + 1, the two high rows run on to 63 - 2 ty, each in order.
-  float intra[RQ][CP] = {}, inter[RQ][CP] = {};
-  int j = 0;
-  for (; j < 2 * ty + 2; j += 4) {
-    float4 mv[RQ], xv[CP];
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) mv[r] = ld4(Ms + row(r) * MS + j);
-#pragma unroll
-    for (int c = 0; c < CP; ++c) xv[c] = ld4(xT + (tx + 16 * c) * XS + j);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int r = 0; r < RQ; ++r)
-#pragma unroll
-        for (int c = 0; c < CP; ++c)
-          intra[r][c] = fmaf(comp(mv[r], k), comp(xv[c], k), intra[r][c]);
-  }
-  for (; j < Q - 2 * ty; j += 4) {
-    float4 mv[2], xv[CP];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) mv[r] = ld4(Ms + row(r + 2) * MS + j);
-#pragma unroll
-    for (int c = 0; c < CP; ++c) xv[c] = ld4(xT + (tx + 16 * c) * XS + j);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < CP; ++c)
-          intra[r + 2][c] =
-              fmaf(comp(mv[r], k), comp(xv[c], k), intra[r + 2][c]);
-  }
-  float eci[RQ];
-#pragma unroll
-  for (int r = 0; r < RQ; ++r) eci[r] = ec[row(r)];
-  for (int n = 0; n < N; n += 4) {
-    float4 cv[RQ], hv[CP];
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) cv[r] = ld4(Cs + row(r) * NS + n);
-#pragma unroll
-    for (int c = 0; c < CP; ++c) hv[c] = ld4(hs + (tx + 16 * c) * NS + n);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) {
-        const float cs = __fmul_rn(comp(cv[r], k), eci[r]);
-#pragma unroll
-        for (int c = 0; c < CP; ++c)
-          inter[r][c] = fmaf(cs, comp(hv[c], k), inter[r][c]);
-      }
-  }
-  T* yb = y + ((size_t)bh * S + t0) * P;
-#pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-    const int i = row(r);
-#pragma unroll
-    for (int c = 0; c < CP; ++c) {
-      const int p = tx + 16 * c;
+    __syncthreads();
+    for (int e = tid; e < Q * P; e += kThreads) {
+      const int i = e / P, p = e % P;
+      float intra = 0.f, inter = 0.f;
+      for (int j = 0; j < Q; ++j)
+        intra = fmaf(Ms[i * MS + j], xT[p * XS + j], intra);
+      for (int n = 0; n < N; ++n)
+        inter = fmaf(__fmul_rn(Cs[i * NS + n], ec[i]), hs[p * NS + n], inter);
       st(yb, (size_t)i * P + p,
-         __fadd_rn(__fadd_rn(intra[r][c], inter[r][c]),
-                   __fmul_rn(dv, xT[p * XS + i])));
+         __fadd_rn(__fadd_rn(intra, inter), __fmul_rn(dv, xT[p * XS + i])));
     }
   }
 }
@@ -445,22 +485,22 @@ struct Scratch {
   float* G;      // (BG, nc, Q, Q): C B^T per group and chunk
 };
 
-template <typename T, int N>
+template <typename T, int Q, int N>
 int launch(const void* x, const void* dt, const float* a, const float* d,
            const void* B, const void* C, void* y, float* state,
            const Scratch& w, int BH, int S, int groups,
            cudaStream_t stream) {
-  auto k1 = ssd_chunk_state_kernel<T, kQ, kP, N>;
-  auto k3 = ssd_chunk_output_kernel<T, kQ, kP, N>;
-  constexpr size_t smem1 = state_smem_bytes<kQ, kP, N>();
-  constexpr size_t smem3 = output_smem_bytes<kQ, kP, N>();
+  auto k1 = ssd_chunk_state_kernel<T, Q, kP, N>;
+  auto k3 = ssd_chunk_output_kernel<T, Q, kP, N>;
+  constexpr size_t smem1 = state_smem_bytes<Q, kP, N>();
+  constexpr size_t smem3 = output_smem_bytes<Q, kP, N>();
   // opt in once per instantiation (thread-safe static init), so a launch
   // inside CUDA graph capture makes no attribute call
   static const cudaError_t attr1 = opt_in(k1, smem1);
   static const cudaError_t attr3 = opt_in(k3, smem3);
   if (attr1 != cudaSuccess) return (int)attr1;
   if (attr3 != cudaSuccess) return (int)attr3;
-  const int nc = S / kQ, PN = kP * N;
+  const int nc = S / Q, PN = kP * N;
   const dim3 grid(BH, nc);
   k1<<<grid, kThreads, smem1, stream>>>(
       (const T*)x, (const T*)dt, a, (const T*)B, (const T*)C, w.hst, w.eseg,
@@ -478,23 +518,40 @@ int launch(const void* x, const void* dt, const float* a, const float* d,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_n(int N, const void* x, const void* dt, const float* a,
-               const float* d, const void* B, const void* C, void* y,
-               float* state, const Scratch& w, int BH, int S, int groups,
-               cudaStream_t s) {
+struct Args {
+  const void *x, *dt;
+  const float *a, *d;
+  const void *B, *C;
+  void* y;
+  float* state;
+  Scratch w;
+  int BH, S, groups;
+  cudaStream_t s;
+};
+
+template <typename T, int Q>
+int dispatch_n(int N, const Args& r) {
+#define SSD_LAUNCH(NN)                                                      \
+  launch<T, Q, NN>(r.x, r.dt, r.a, r.d, r.B, r.C, r.y, r.state, r.w, r.BH, \
+                   r.S, r.groups, r.s)
   switch (N) {
-    case 16:
-      return launch<T, 16>(x, dt, a, d, B, C, y, state, w, BH, S, groups, s);
-    case 32:
-      return launch<T, 32>(x, dt, a, d, B, C, y, state, w, BH, S, groups, s);
-    case 64:
-      return launch<T, 64>(x, dt, a, d, B, C, y, state, w, BH, S, groups, s);
-    case 128:
-      return launch<T, 128>(x, dt, a, d, B, C, y, state, w, BH, S, groups,
-                            s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return SSD_LAUNCH(16);
+    case 32: return SSD_LAUNCH(32);
+    case 64: return SSD_LAUNCH(64);
+    case 128: return SSD_LAUNCH(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SSD_LAUNCH
+}
+
+template <typename T>
+int dispatch_q(int Q, int N, const Args& r) {
+  switch (Q) {
+    case 8: return dispatch_n<T, 8>(N, r);
+    case 16: return dispatch_n<T, 16>(N, r);
+    case 32: return dispatch_n<T, 32>(N, r);
+    case 64: return dispatch_n<T, 64>(N, r);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -508,16 +565,12 @@ int ssd_fwd(int dtype, const void* x, const void* dt, const float* a,
             const float* d, const void* B, const void* C, void* y,
             float* state, float* hst, float* eseg, float* cum, float* G,
             int BH, int S, int P, int N, int Q, int groups, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (Q != kQ || P != kP || S % kQ != 0 || S / kQ > 65535)
+  if (P != kP || Q < 1 || S % Q != 0 || S / Q > 65535)
     return (int)cudaErrorInvalidValue;
-  const Scratch w{hst, eseg, cum, G};
-  if (dtype == 0)
-    return dispatch_n<float>(N, x, dt, a, d, B, C, y, state, w, BH, S,
-                             groups, s);
-  if (dtype == 1)
-    return dispatch_n<__nv_bfloat16>(N, x, dt, a, d, B, C, y, state, w, BH,
-                                     S, groups, s);
+  const Args r{x, dt, a, d, B, C, y, state, Scratch{hst, eseg, cum, G},
+               BH, S, groups, (cudaStream_t)stream};
+  if (dtype == 0) return dispatch_q<float>(Q, N, r);
+  if (dtype == 1) return dispatch_q<__nv_bfloat16>(Q, N, r);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,9 @@
-"""The Mamba2 SSD forward scan: the CUDA kernels' wrapper and its plain version.
+"""The Mamba2 SSD scan: the CUDA kernels' wrappers, their plain versions and
+the autograd function that pairs the forward with its backward.
 
-The kernels are hand-written CUDA C++ for ``sm_90a`` in
-``src/repro_torch/csrc/ssd.cu`` (its source note gives the design). They
-replace the Pallas TPU kernel ``repro/kernels/ssd/kernel.py::ssd_fwd``:
+Forward: hand-written CUDA C++ for ``sm_90a`` in
+``src/repro_torch/csrc/ssd.cu`` (its source note gives the design). It
+replaces the Pallas TPU kernel ``repro/kernels/ssd/kernel.py::ssd_fwd``:
 one chunk of Q steps at a time with the (P, N) f32 state carried across
 chunks; per chunk
 
@@ -17,27 +18,55 @@ h_{c-1} + upd_c over the chunks, and the outputs from the state entering
 each chunk. One wrapper call launches the three kernels and counts one
 launch. Bound on the card: bytes at hymba-1.5b's shape (x in and y out,
 105 MB, 0.031 ms, against 1.9 GFLOP of lower-triangle work, 0.028 ms),
-operations at mamba2-370m's N 128 (5.9 GFLOP, 0.089 ms). f32 on the CUDA
-cores; the kernels take chunk 64, head dim P 64 and state dim N 16, 32,
-64 or 128 (hymba 16, mamba2 128).
+operations at mamba2-370m's N 128 (5.9 GFLOP, 0.089 ms).
 
-``exp(cum_i - cum_j)`` is taken only where i >= j (``torch.where`` here,
-a branch in the kernel), never multiplied by a 0/1 mask: for i < j the
-exponent is positive and, at the reference's full-width dt, passes 88, so
-the exp is +inf and inf * 0 would be NaN.
+Backward: ``csrc/ssd_bwd.cu`` (its source note gives the design and the
+formulas), f32: the chunk-local state gradients dy^T (C exp(cum)), their
+scan in reverse over the chunks, the per-chunk gradients of x, dt, a, d,
+B and C from the forward's saved state entering each chunk, its cum and
+G = C B^T, and a pass that sums dB and dC over the heads of a group and
+da and dd over the chunks in order. One wrapper call (four launches)
+counts one launch. It replaces the jnp autodiff of
+``repro.models.ssm.ssd_apply`` that the JAX reference trains through (the
+Pallas kernel is forward-only). Bound: operations, 1.9 GFLOP (0.028 ms)
+at hymba-1.5b's training shape, 5.9 GFLOP (0.088 ms) at mamba2-370m's.
 
-Beside the wrapper sits a plain PyTorch version that repeats the kernels'
-arithmetic: the same sequential cumsum (so cum is bit-equal), the same
-three stages and the same association order. Dispatch is by the tensor's
-device alone: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernels (building them at first use) or the call raises.
-The wrapper checks device, dtype, shape and contiguity, allocates its
-outputs and the f32 scratch with ``torch.empty`` (the chunks' states
-(BH, S / chunk, P, N), their exp(seg) and cum, and C B^T per group and
-chunk), copies x, B or C if its address is not 16-byte aligned (the
-kernels' vector loads need it), launches on the current stream without
-synchronising, raises if a launch reports an error, and adds one to its
-launch count.
+``exp(cum_i - cum_j)`` is taken only where i >= j, in both directions:
+the plain versions mask the exponent to -inf before the exp, the kernels
+branch. For i < j the exponent is positive and, at the reference's
+full-width dt, passes 88: the exp is +inf, inf * 0 would be NaN, and the
+autodiff of a where over it is NaN (ROADMAP C-11: the reference's
+gradient at hymba-1.5b's init). No exp here has a positive argument for
+a < 0 and dt > 0.
+
+Shapes on the card: the kernels are built for chunk 8, 16, 32 and 64, head
+dim P 64 and state dim N 16, 32, 64 and 128 (``KERNEL_SHAPES``). A P up
+to 64 and an N up to 128 are zero-padded to the next of those (x, dy,
+B, C and the state's gradient); zero columns add exact zeros at the end
+of every sum, so the padded results keep every bit, and are sliced back.
+Another chunk, or a larger P or N, raises ValueError.
+
+``ssd_fwd`` with grad mode on and an input that requires grad goes
+through ``SSDFunction``: its forward launches the forward kernels and
+keeps their scratch (the state entering each chunk, cum and G: 33.5 MB a
+layer at mamba2-370m's B 1 x S 2048, 6.6 MB at hymba-1.5b's; under remat
+only the layer being recomputed holds it), its backward launches
+``ssd_bwd``. No ported path runs SSD in bf16, and there is no bf16
+backward: on the card a bf16 input that requires grad raises.
+
+Beside each wrapper sits a plain PyTorch version that repeats the
+kernels' arithmetic: the forward's sequential cumsum (so cum is bit-equal)
+and its three stages in its association order; the backward's stages and
+formulas with the sequential reverse cumsum, batched over heads and
+chunks (it is held to the kernel within a tolerance, not bit for bit).
+Dispatch is by the tensor's device alone: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernels (building them at first use)
+or the call raises. The wrappers check device, dtype, shape and
+contiguity, allocate outputs and f32 scratch with ``torch.empty``, copy an
+input whose address is not 16-byte aligned (the kernels' vector loads
+need it), launch on the current stream without synchronising, raise if a
+launch reports an error, and add one to their launch count (``ssd_fwd``,
+``ssd_bwd``).
 """
 from __future__ import annotations
 
@@ -45,17 +74,22 @@ import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ... import _build
 
-__all__ = ["ssd_fwd", "ssd_fwd_plain", "KERNEL_SHAPES", "launch_counts",
+__all__ = ["ssd_fwd", "ssd_fwd_plain", "ssd_bwd", "ssd_bwd_plain",
+           "SSDFunction", "KERNEL_SHAPES", "kernel_shape", "launch_counts",
            "reset_launch_counts"]
 
-_LAUNCHES: Dict[str, int] = {"ssd_fwd": 0}
-_LIB: Optional[ctypes.CDLL] = None
+_LAUNCHES: Dict[str, int] = {"ssd_fwd": 0, "ssd_bwd": 0}
+_LIBS: Dict[str, ctypes.CDLL] = {}
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_SHAPES = dict(chunk=(64,), P=(64,), N=(16, 32, 64, 128))
+KERNEL_SHAPES = dict(chunk=(8, 16, 32, 64), P=(64,), N=(16, 32, 64, 128))
+_NO_BF16_BWD = ("the SSD kernels are forward-only in bf16: there is no bf16 "
+                "backward, and no ported path runs SSD in bf16; train in f32 "
+                "or call under torch.no_grad()")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -69,56 +103,100 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.library("ssd")
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _build.library(name)
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_fwd.argtypes = [I] + [P] * 12 + [I] * 6 + [P]
-        lib.ssd_fwd.restype = I
-        lib.ssd_error_string.argtypes = [I]
-        lib.ssd_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        if name == "ssd":
+            lib.ssd_fwd.argtypes = [I] + [P] * 12 + [I] * 6 + [P]
+            lib.ssd_fwd.restype = I
+        else:
+            lib.ssd_bwd.argtypes = [P] * 21 + [I] * 6 + [P]
+            lib.ssd_bwd.restype = I
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [I]
+        err.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
 
 
-def _check(x, dt, a, d, B, C, chunk: int, groups: int):
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        msg = getattr(_lib(name), f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
+
+
+def _check(x, dt, a, d, B, C, chunk: int, groups: int, what: str = "ssd_fwd"):
     if x.ndim != 3 or dt.ndim != 2 or a.ndim != 1 or d.ndim != 1 \
             or B.ndim != 3 or C.ndim != 3:
-        raise ValueError("ssd_fwd: expected x (BH, S, P), dt (BH, S), a/d "
+        raise ValueError(f"{what}: expected x (BH, S, P), dt (BH, S), a/d "
                          "(BH,), B/C (BG, S, N)")
     BH, S, P = x.shape
     BG, SB, N = B.shape
     if (tuple(dt.shape) != (BH, S) or tuple(a.shape) != (BH,)
             or tuple(d.shape) != (BH,) or tuple(C.shape) != (BG, S, N)
             or SB != S):
-        raise ValueError(f"ssd_fwd: shapes x {tuple(x.shape)}, dt "
+        raise ValueError(f"{what}: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, a {tuple(a.shape)}, d "
                          f"{tuple(d.shape)}, B {tuple(B.shape)}, C "
                          f"{tuple(C.shape)} do not match")
     if groups < 1 or BH != BG * groups:
-        raise ValueError(f"ssd_fwd: BH {BH} != BG {BG} * groups {groups}")
+        raise ValueError(f"{what}: BH {BH} != BG {BG} * groups {groups}")
     if min(BH, S, P, N) == 0 or chunk < 1 or S % chunk:
-        raise ValueError(f"ssd_fwd: S {S} must be a positive multiple of "
+        raise ValueError(f"{what}: S {S} must be a positive multiple of "
                          f"chunk {chunk}")
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, B, C)):
-        raise TypeError(f"ssd_fwd: x, dt, B, C must share one dtype of "
+        raise TypeError(f"{what}: x, dt, B, C must share one dtype of "
                         f"{_DTYPES}, got {x.dtype}, {dt.dtype}, {B.dtype}, "
                         f"{C.dtype}")
     if a.dtype != torch.float32 or d.dtype != torch.float32:
-        raise TypeError("ssd_fwd: a and d must be float32")
+        raise TypeError(f"{what}: a and d must be float32")
     if any(t.device != x.device for t in (dt, a, d, B, C)):
-        raise ValueError("ssd_fwd: inputs on different devices")
+        raise ValueError(f"{what}: inputs on different devices")
 
 
-def _on_card(x: torch.Tensor) -> bool:
+def _on_card(x: torch.Tensor, what: str = "ssd_fwd") -> bool:
     """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if x.device.type == "cuda":
         return True
     if x.device.type == "cpu":
         return False
-    raise ValueError(f"ssd_fwd: no kernel or plain version for device "
+    raise ValueError(f"{what}: no kernel or plain version for device "
                      f"{x.device}")
+
+
+def kernel_shape(P: int, N: int, chunk: int, what: str = "ssd_fwd"
+                 ) -> Tuple[int, int]:
+    """(P, N) as the kernels take them: each zero-padded to the next of
+    ``KERNEL_SHAPES``; ValueError for a chunk the kernels are not built for,
+    or a P or N above the largest."""
+    if (chunk not in KERNEL_SHAPES["chunk"] or P > max(KERNEL_SHAPES["P"])
+            or N > max(KERNEL_SHAPES["N"])):
+        raise ValueError(f"{what}: chunk {chunk}, P {P}, N {N} not taken by "
+                         f"the kernel ({KERNEL_SHAPES}; P and N are padded "
+                         f"up to the next)")
+    return (min(k for k in KERNEL_SHAPES["P"] if k >= P),
+            min(k for k in KERNEL_SHAPES["N"] if k >= N))
+
+
+def _pad(t: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """t zero-padded at the end of its last len(sizes) dims to ``sizes``."""
+    pads = []
+    for have, want in zip(reversed(t.shape[-len(sizes):]), reversed(sizes)):
+        pads += [0, want - have]
+    return F.pad(t, pads) if any(pads) else t
+
+
+def _aligned(*ts):
+    """Contiguous, 16-byte aligned copies where needed (the kernels' vector
+    loads)."""
+    out = []
+    for t in ts:
+        t = t.contiguous()
+        out.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    return out
 
 
 def _cumsum_in_order(da: torch.Tensor) -> torch.Tensor:
@@ -133,10 +211,25 @@ def _cumsum_in_order(da: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def ssd_fwd_plain(x, dt, a, d, B, C, *, chunk: int = 64, groups: int = 1
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _decay(cum: torch.Tensor) -> torch.Tensor:
+    """L[..., i, j] = exp(cum_i - cum_j) for i >= j, else 0; the exponent
+    is masked to -inf before the exp, so no exp of a positive difference
+    is ever evaluated."""
+    Q = cum.shape[-1]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=cum.device).tril()
+    diff = cum[..., :, None] - cum[..., None, :]
+    return torch.exp(diff.masked_fill(~tri, float("-inf")))
+
+
+# ------------------------------- forward -------------------------------------
+
+def ssd_fwd_plain(x, dt, a, d, B, C, *, chunk: int = 64, groups: int = 1,
+                  return_saved: bool = False):
     """Plain version of ``ssd_fwd`` (same arguments and results): the
-    kernels' three stages, batched over heads and chunks."""
+    kernels' three stages, batched over heads and chunks. With
+    ``return_saved`` also the forward's saved state for ``ssd_bwd``: (the
+    state entering each chunk (BH, nc, P, N), cum (BH, S), G = C B^T
+    (BG, nc, Q, Q)), all f32."""
     BH, S, P = x.shape
     N = B.shape[-1]
     Q = chunk
@@ -160,15 +253,53 @@ def ssd_fwd_plain(x, dt, a, d, B, C, *, chunk: int = 64, groups: int = 1
         h = eseg[:, c, None, None] * h + upd[:, c]
     h_in = torch.stack(h_in, dim=1)                          # (BH, nc, P, N)
     # 3. outputs from the state entering each chunk
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()
-    # exp(cum_i - cum_j) only where i >= j: where, never a 0/1 product
-    L = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
-                    torch.zeros((), device=dev))
-    M = ((Cf @ Bf.transpose(-1, -2)) * L) * dtf[..., None, :]
+    G = Cf @ Bf.transpose(-1, -2)
+    M = (G * _decay(cum)) * dtf[..., None, :]
     ec = torch.exp(cum)
     y = M @ xf + (Cf * ec[..., None]) @ h_in.transpose(-1, -2)
     y = y + d.float()[:, None, None, None] * xf
-    return y.reshape(BH, S, P).to(x.dtype), h
+    y = y.reshape(BH, S, P).to(x.dtype)
+    if not return_saved:
+        return y, h
+    return y, h, (h_in, cum.reshape(BH, S), G[::groups].contiguous())
+
+
+def _fwd_kernel(x, dt, a, d, B, C, chunk: int, groups: int):
+    """Launch the forward kernels on contiguous CUDA inputs; returns (y,
+    final state, saved) with saved at the kernels' padded P and N."""
+    if not all(t.is_contiguous() for t in (x, dt, a, d, B, C)):
+        raise ValueError("ssd_fwd: inputs must be contiguous")
+    BH, S, P = x.shape
+    BG, _, N = B.shape
+    Pk, Nk = kernel_shape(P, N, chunk)
+    nc = S // chunk
+    if nc > 65535:
+        raise ValueError(f"ssd_fwd: S / chunk = {nc} > 65535")
+    x = _pad(x, Pk)
+    B, C = _pad(B, Nk), _pad(C, Nk)
+    # the kernels read x, B and C in 16-byte (f32) or 8-byte (bf16) vectors
+    x, B, C = _aligned(x, B, C)
+    y = torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    state = torch.empty((BH, Pk, Nk), **f32)
+    # scratch: the chunks' state updates, then the state entering each
+    # chunk; exp(seg) per chunk; cum; C B^T per group and chunk
+    hst = torch.empty((BH, nc, Pk, Nk), **f32)
+    eseg = torch.empty((BH, nc), **f32)
+    cum = torch.empty((BH, S), **f32)
+    G = torch.empty((BG, nc, chunk, chunk), **f32)
+    rc = _lib("ssd").ssd_fwd(
+        _CODE[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+        d.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+        state.data_ptr(), hst.data_ptr(), eseg.data_ptr(), cum.data_ptr(),
+        G.data_ptr(), BH, S, Pk, Nk, chunk, groups,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "ssd")
+    _LAUNCHES["ssd_fwd"] += 1
+    if (Pk, Nk) != (P, N):
+        y = y[..., :P].contiguous()
+        state = state[:, :P, :N].contiguous()
+    return y, state, (hst, cum, G)
 
 
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -178,51 +309,205 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """x: (BH, S, P); dt: (BH, S); a/d: (BH,) f32; B/C: (BG, S, N) with
     BH = BG * groups; x, dt, B, C share one dtype (f32 or bf16); S a
     multiple of ``chunk``. Returns (y (BH, S, P) in x's dtype, final state
-    (BH, P, N) f32). On the card: contiguous inputs, and chunk, P and N
-    among ``KERNEL_SHAPES`` (else ValueError); the kernels are forward-only,
-    so with grad mode on and an input that requires grad it raises
-    RuntimeError rather than drop the gradient.
-    """
+    (BH, P, N) f32). On the card: contiguous inputs, chunk among
+    ``KERNEL_SHAPES``, P <= 64 and N <= 128 (zero-padded; else
+    ValueError).
+
+    With grad mode on and an input that requires grad, the call goes
+    through ``SSDFunction``, whose backward is ``ssd_bwd``; on the card
+    that needs f32 (a bf16 input raises RuntimeError: there is no bf16
+    backward)."""
     _check(x, dt, a, d, B, C, chunk, groups)
-    if not _on_card(x):
-        return ssd_fwd_plain(x, dt, a, d, B, C, chunk=chunk, groups=groups)
+    card = _on_card(x)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, a, d, B, C)):
-        raise RuntimeError(
-            "ssd_fwd: the CUDA kernel is forward-only and its outputs carry "
-            "no gradient (its backward is ROADMAP.md queue A item 6); call "
-            "it under torch.no_grad() or on inputs that do not require grad")
+        if card and x.dtype != torch.float32:
+            raise RuntimeError(f"ssd_fwd: {_NO_BF16_BWD}")
+        return SSDFunction.apply(x, dt, a, d, B, C, chunk, groups)
+    if not card:
+        return ssd_fwd_plain(x, dt, a, d, B, C, chunk=chunk, groups=groups)
+    return _fwd_kernel(x, dt, a, d, B, C, chunk, groups)[:2]
+
+
+# ------------------------------- backward ------------------------------------
+
+def _check_bwd(x, dy, dstate, saved, chunk: int, groups: int):
+    BH, S, P = x.shape
+    if tuple(dy.shape) != (BH, S, P):
+        raise ValueError(f"ssd_bwd: dy {tuple(dy.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if dstate is not None and (dstate.ndim != 3 or dstate.shape[0] != BH
+                               or dstate.shape[1] != P):
+        raise ValueError(f"ssd_bwd: dstate {tuple(dstate.shape)} is not "
+                         f"(BH, P, N)")
+    hst, cum, G = saved
+    nc = S // chunk
+    if (hst.ndim != 4 or tuple(hst.shape[:2]) != (BH, nc)
+            or hst.shape[2] < P or tuple(cum.shape) != (BH, S)
+            or tuple(G.shape) != (BH // groups, nc, chunk, chunk)):
+        raise ValueError(f"ssd_bwd: saved state {tuple(hst.shape)}, cum "
+                         f"{tuple(cum.shape)}, G {tuple(G.shape)} is not the "
+                         f"forward's")
+    if any(t.device != x.device for t in (dy, hst, cum, G)) or (
+            dstate is not None and dstate.device != x.device):
+        raise ValueError("ssd_bwd: inputs on different devices")
+
+
+def ssd_bwd_plain(x, dt, a, d, B, C, dy, dstate, saved, *, chunk: int = 64,
+                  groups: int = 1):
+    """Plain version of ``ssd_bwd`` (same arguments and results): the
+    kernels' stages and formulas, batched over heads and chunks, written
+    out (no autograd), never an exp of a positive cum difference."""
     BH, S, P = x.shape
     N = B.shape[-1]
-    if not all(t.is_contiguous() for t in (x, dt, a, d, B, C)):
-        raise ValueError("ssd_fwd: inputs must be contiguous")
-    if (chunk not in KERNEL_SHAPES["chunk"] or P not in KERNEL_SHAPES["P"]
-            or N not in KERNEL_SHAPES["N"]):
-        raise ValueError(f"ssd_fwd: chunk {chunk}, P {P}, N {N} not taken by "
-                         f"the kernel ({KERNEL_SHAPES})")
+    Q = chunk
+    nc = S // Q
+    dev = x.device
+    hst, cum, G = saved
+    h_in = hst[:, :, :P, :N].float()                         # (BH, nc, P, N)
+    xf = x.float().reshape(BH, nc, Q, P)
+    dyf = dy.float().reshape(BH, nc, Q, P)
+    dtf = dt.float().reshape(BH, nc, Q)
+    Bf = B.float().repeat_interleave(groups, dim=0).reshape(BH, nc, Q, N)
+    Cf = C.float().repeat_interleave(groups, dim=0).reshape(BH, nc, Q, N)
+    G = G.float().repeat_interleave(groups, dim=0)           # (BH, nc, Q, Q)
+    cum = cum.float().reshape(BH, nc, Q)
+    seg = cum[..., -1]
+    ec = torch.exp(cum)
+    ecoef = torch.exp(seg[..., None] - cum)
+    coef = dtf * ecoef
+    # 1. chunk-local state gradients, 2. their scan in reverse: dhn[:, c]
+    # is the gradient of the state leaving chunk c
+    dupd = dyf.transpose(-1, -2) @ (ec[..., None] * Cf)      # (BH, nc, P, N)
+    eseg = torch.exp(seg)
+    dh = (torch.zeros((BH, P, N), dtype=torch.float32, device=dev)
+          if dstate is None else dstate.float())
+    dhn = [None] * nc
+    for c in reversed(range(nc)):
+        dhn[c] = dh
+        dh = eseg[:, c, None, None] * dh + dupd[:, c]
+    dhn = torch.stack(dhn, dim=1)                            # (BH, nc, P, N)
+    # 3. per chunk
+    L = _decay(cum)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()
+    dM = (dyf @ xf.transpose(-1, -2)).masked_fill(~tri, 0.0)
+    dtj = dtf[..., None, :]
+    M = (G * L) * dtj
+    W = dM * L
+    dG = W * dtj
+    Z = W * G
+    # Z's column suffix sums ZS[t][j] = sum_{i>=t} Z[i][j] (t >= j)
+    ZS = _cumsum_in_order(Z.transpose(-1, -2).flip(-1)).flip(-1) \
+        .transpose(-1, -2).masked_fill(~tri, 0.0)
+    ddtM = ZS.diagonal(dim1=-2, dim2=-1)
+    ddaL = (ZS.masked_fill(~tri.tril(-1), 0.0) * dtj).sum(-1)
+    V = Bf @ dhn.transpose(-1, -2)                           # (Q, P)
+    dcoef = (xf * V).sum(-1)
+    dx = M.transpose(-1, -2) @ dyf + coef[..., None] * V \
+        + d.float()[:, None, None, None] * dyf
+    dBh = dG.transpose(-1, -2) @ Cf + coef[..., None] * (xf @ dhn)
+    U = dyf @ h_in                                           # (Q, N)
+    dCh = dG @ Bf + ec[..., None] * U
+    dcumE = ec * (Cf * U).sum(-1)
+    # the gradient of da_t: the L entries that span t, exp(cum_i) for
+    # i >= t, coef_j for j < t, exp(seg); each a sum without cancellation
+    kc = dcoef * coef
+    kc_before = torch.cat([torch.zeros_like(kc[..., :1]),
+                           _cumsum_in_order(kc[..., :-1])], -1)
+    dda = (ddaL + _cumsum_in_order(dcumE.flip(-1)).flip(-1) + kc_before
+           + (eseg * (dhn * h_in).sum((-1, -2)))[..., None])
+    ddt = ddtM + dcoef * ecoef + a.float()[:, None, None] * dda
+    da = (dtf * dda).sum(-1).sum(-1)
+    dd = (dyf * xf).sum((-1, -2)).sum(-1)
+    dB = dBh.reshape(BH // groups, groups, S, N).sum(1)
+    dC = dCh.reshape(BH // groups, groups, S, N).sum(1)
+    return (dx.reshape(BH, S, P).to(x.dtype), ddt.reshape(BH, S).to(dt.dtype),
+            da, dd, dB.to(B.dtype), dC.to(C.dtype))
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            d: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+            dy: torch.Tensor, dstate: Optional[torch.Tensor], saved, *,
+            chunk: int = 64, groups: int = 1):
+    """Gradients (dx, ddt, da, dd, dB, dC) of ``ssd_fwd``'s (y, final
+    state) given dy (BH, S, P), the final state's gradient dstate (BH, P,
+    N) or None for zero, and the forward's saved state (the state entering
+    each chunk, cum, G; from ``ssd_fwd_plain(..., return_saved=True)`` or
+    the forward kernels, whose P and N may be padded). On the card: f32
+    only (TypeError otherwise), the shapes ``ssd_fwd`` takes; the four
+    launches count as one call."""
+    _check(x, dt, a, d, B, C, chunk, groups, "ssd_bwd")
+    _check_bwd(x, dy, dstate, saved, chunk, groups)
+    if not _on_card(x, "ssd_bwd"):
+        return ssd_bwd_plain(x, dt, a, d, B, C, dy, dstate, saved,
+                             chunk=chunk, groups=groups)
+    if any(t.dtype != torch.float32 for t in (x, dy)) or (
+            dstate is not None and dstate.dtype != torch.float32):
+        raise TypeError(f"ssd_bwd: {_NO_BF16_BWD}")
+    BH, S, P = x.shape
+    BG, _, N = B.shape
+    Pk, Nk = kernel_shape(P, N, chunk, "ssd_bwd")
     nc = S // chunk
     if nc > 65535:
-        raise ValueError(f"ssd_fwd: S / chunk = {nc} > 65535")
-    # the kernels read x, B and C in 16-byte (f32) or 8-byte (bf16) vectors
-    x, B, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, B, C))
-    lib = _lib()
-    y = torch.empty_like(x)
+        raise ValueError(f"ssd_bwd: S / chunk = {nc} > 65535")
+    hst, cum, G = saved
+    x, dy = _pad(x, Pk), _pad(dy, Pk)
+    B, C = _pad(B, Nk), _pad(C, Nk)
+    hst = _pad(hst[:, :, :P, :N], Pk, Nk) if tuple(hst.shape[2:]) != (
+        Pk, Nk) else hst
+    if dstate is not None:
+        dstate, = _aligned(_pad(dstate, Pk, Nk))
+    x, dt, a, d, B, C, dy, cum, G, hst = _aligned(x, dt, a, d, B, C, dy,
+                                                  cum, G, hst)
     f32 = dict(dtype=torch.float32, device=x.device)
-    state = torch.empty((BH, P, N), **f32)
-    # scratch: the chunks' state updates, then the state entering each
-    # chunk; exp(seg) per chunk; cum; C B^T per group and chunk
-    hst = torch.empty((BH, nc, P, N), **f32)
-    eseg = torch.empty((BH, nc), **f32)
-    cum = torch.empty((BH, S), **f32)
-    G = torch.empty((BH // groups, nc, chunk, chunk), **f32)
-    rc = lib.ssd_fwd(
-        _CODE[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-        d.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-        state.data_ptr(), hst.data_ptr(), eseg.data_ptr(), cum.data_ptr(),
-        G.data_ptr(), BH, S, P, N, chunk, groups,
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    da, dd = torch.empty((BH,), **f32), torch.empty((BH,), **f32)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    # scratch: the state gradients by chunk; dB and dC by head; da and dd
+    # by chunk
+    dH = torch.empty((BH, nc, Pk, Nk), **f32)
+    dBp, dCp = (torch.empty((BH, S, Nk), **f32) for _ in range(2))
+    dad = torch.empty((BH, nc, 2), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _lib("ssd_bwd").ssd_bwd(
+        *(ptr(t) for t in (x, dt, a, d, B, C, dy, dstate, cum, G, hst, dx,
+                           ddt, da, dd, dB, dC, dH, dBp, dCp, dad)),
+        BH, S, Pk, Nk, chunk, groups,
         torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_fwd kernel launch failed: CUDA error {rc} "
-                           f"({lib.ssd_error_string(rc).decode()})")
-    _LAUNCHES["ssd_fwd"] += 1
-    return y, state
+    _raise_on(rc, "ssd_bwd")
+    _LAUNCHES["ssd_bwd"] += 1
+    if Pk != P:
+        dx = dx[..., :P].contiguous()
+    if Nk != N:
+        dB, dC = dB[..., :N].contiguous(), dC[..., :N].contiguous()
+    return dx, ddt, da, dd, dB, dC
+
+
+class SSDFunction(torch.autograd.Function):
+    """``ssd_fwd`` with its gradient: the forward kernels, whose saved state
+    (the state entering each chunk, cum, G) is kept with the inputs, and
+    ``ssd_bwd`` (the plain versions of both for CPU tensors). A None
+    gradient of the final state (``ssd_attention`` discards it) counts as
+    zero. Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, d, B, C, chunk, groups):
+        if _on_card(x):
+            y, state, saved = _fwd_kernel(x, dt, a, d, B, C, chunk, groups)
+        else:
+            y, state, saved = ssd_fwd_plain(x, dt, a, d, B, C, chunk=chunk,
+                                            groups=groups, return_saved=True)
+        ctx.save_for_backward(x, dt, a, d, B, C, *saved)
+        ctx.kw = dict(chunk=chunk, groups=groups)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dstate):
+        x, dt, a, d, B, C, *saved = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_bwd(x, dt, a, d, B, C, dy.contiguous(), dstate,
+                        tuple(saved), **ctx.kw)
+        return (*grads, None, None)

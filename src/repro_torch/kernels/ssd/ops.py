@@ -2,8 +2,11 @@
 
 Accepts the ``models/ssm.py`` tensor layout: x (B, S, H, P), dt (B, S, H),
 A_log/D (H,), B/C (B, S, N) (one group per batch row), folds batch x heads
-into the kernel's leading dim and calls ``ssd_fwd``: the CUDA kernel for
-tensors on the card, its plain version on the CPU.
+into the kernel's leading dim and calls ``ssd_fwd``: the CUDA kernels for
+tensors on the card, their plain versions on the CPU. Under grad the call
+goes through ``SSDFunction``, so the gradient reaches x, dt, B and C, and
+A_log and D through the torch ops that form a and d; the final state is
+discarded, and its gradient counts as zero.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""The LM zoo: layers, attention (flash kernel), Mamba2 SSD (SSD kernel),
+"""The LM zoo: layers, attention (flash kernels), Mamba2 SSD (SSD kernels),
 pattern-built stacks with ``forward`` and ``decode_step``, and ``build``."""
 from .param import PM, is_pm, materialize, stack_layout, count_params
 from .transformer import (ArchConfig, block_layout, block_apply_full,

@@ -5,10 +5,14 @@ Recurrence (per head h, head dim P, state dim N):
     h_t = exp(a_h dt_t) h_{t-1} + dt_t B_t x_t^T       (h_t in R^{P x N})
     y_t = h_t C_t + D_h x_t
 The full-sequence form runs the chunked scan through
-``kernels.ssd.ssd_attention``: the hand-written CUDA kernel when the
-tensors are on the card, its plain PyTorch version on the CPU (the JAX
-package's model runs a jnp chunked scan here and keeps the Pallas kernel
-as the TPU drop-in for the same math).
+``kernels.ssd.ssd_attention``: the hand-written CUDA kernels when the
+tensors are on the card, their plain PyTorch versions on the CPU, forward
+and, under grad, backward (``SSDFunction``: ``csrc/ssd_bwd.cu`` on the
+card). The JAX package's model runs a jnp chunked scan here, keeps the
+Pallas kernel as the TPU drop-in for the same forward, and trains through
+jax's autodiff of the scan, whose gradient is NaN where the reference's
+full-width dt makes exp(cum_i - cum_j) for i < j overflow (ROADMAP C-11);
+the port's backward never forms that exp.
 """
 from __future__ import annotations
 
@@ -79,12 +83,14 @@ def ssd_apply(params, u: torch.Tensor, *, headdim: int, chunk: int = 64,
     """Full-sequence SSD block. u: (B, S, d), S a multiple of ``chunk``.
 
     dt = softplus(dt_raw + dt_bias) in f32; the intra-chunk, inter-chunk
-    and D x terms come from ``ssd_attention`` (kernel on the card) on f32
-    x, dt, B and C; then the gated RMSNorm (eps 1e-6) and ``wo``."""
+    and D x terms come from ``ssd_attention`` (kernels on the card, forward
+    and backward) on f32 x, dt, B and C; then the gated RMSNorm (eps 1e-6)
+    and ``wo``."""
     if tile_bf16:
         raise NotImplementedError(
-            "ssd_bf16 (bf16 SSD tile intermediates) is not ported: no config "
-            "sets it, and the SSD kernel computes its tiles in f32")
+            "ssd_bf16 (bf16 SSD tile intermediates) is not ported (ROADMAP.md "
+            "queue A item 6): no config sets it, and the SSD kernels compute "
+            "their tiles in f32")
     B_, S, d = u.shape
     z, x, Bm, Cm, dt_raw = _ssd_inputs(params, u)
     x = _causal_conv(x, params["conv_x"])

@@ -7,10 +7,9 @@ accumulation).
 "cpu"). On the card every full-sequence attention of the step goes through
 the flash-attention kernels, forward and backward, and the projection
 through the engine's solver (``proj_solver="kernel"``: the l1,inf
-kernels). The SSD kernel has no backward yet, so on the card a config
-whose block kinds run it (``ssm``, ``hybrid``) raises before the first
-step (ROADMAP.md queue A item 6); on the CPU they train through the plain
-versions.
+kernels), and every SSD scan of an ``ssm`` or ``hybrid`` block through
+the SSD kernels, forward and backward (``SSDFunction``). On the CPU the
+same step runs the kernels' plain versions.
 
 The step owns its state as the reference's jitted step owns its donated
 buffers: the backward accumulates into one f32 gradient tree in place, and
@@ -38,9 +37,6 @@ from ..models.zoo import Model
 from ..optim import AdamConfig, adam_init
 
 __all__ = ["TrainConfig", "build_accum_step", "lr_at", "train"]
-
-# block kinds whose forward runs the SSD kernel, which has no backward
-_NO_CARD_BACKWARD = ("ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -151,12 +147,6 @@ def train(model: Model, batcher: LMBatcher, tcfg: TrainConfig,
     """
     _no_mesh(mesh, rules)
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        kinds = sorted(set(model.cfg.pattern) & set(_NO_CARD_BACKWARD))
-        if kinds:
-            raise NotImplementedError(
-                f"train on the card: block kinds {kinds} run the SSD kernel, "
-                f"which has no backward yet (ROADMAP.md queue A item 6)")
     acfg = AdamConfig(lr=tcfg.lr)
     params = model.init(torch.Generator(device=dev).manual_seed(tcfg.seed),
                         device=dev)

@@ -32,8 +32,9 @@ lengths; ten reruns bit-equal, one on a second stream beside another
 kernel), check that head dims up to 256 run zero-padded and larger ones
 raise, that an f32 input that requires grad gets its gradient through the
 kernels and that bf16 still refuses, and run reduced stablelm-3b's
-``Model.loss`` and gradients on the card against the CPU's (reduced
-hymba-1.5b's SSD refuses grad there); they skip here, with the reason,
+``Model.loss`` and gradients on the card against the CPU's, and so
+reduced hymba-1.5b's and mamba2-370m's (their SSD through the SSD
+kernels, forward and backward); they skip here, with the reason,
 when no card is present (``python3 chip_smoke.py`` makes the same
 comparisons at full size).
 """
@@ -665,46 +666,62 @@ def _leaf_grads(params):
     return tree_map(lambda a: a.grad, params)
 
 
-@pytest.mark.cuda
-def test_cuda_reduced_stablelm_loss_and_grads_match_cpu(card):
-    """Fault C-9: reduced stablelm-3b (head_dim 16, zero-padded to the
-    kernels' 64) trains on the card: its loss and every gradient leaf
-    against the same step on the CPU (plain versions), at
-    tests/test_torch_train.py's tolerances (loss 2e-5, each leaf 5e-4 of
-    its largest entry)."""
+def _loss_and_grads_card_vs_cpu(card, model, params, batch, want):
+    """Model.loss and every gradient leaf on the card (kernels) against
+    the same step on the CPU (plain versions), at tests/test_torch_train.py's
+    tolerances (loss 2e-5, each leaf 5e-4 of its largest entry), and the
+    launch counts of the card's step against ``want``."""
     from repro_torch._tree import flatten_with_path
-    cfg, model, params, batch = _reduced("stablelm_3b")
-    assert cfg.head_dim == 16
+    from repro_torch.kernels.ssd import kernel as SK
     got = {}
     for dev in (card, "cpu"):
         p, b = _on(params, batch, dev)
         reset_launch_counts()
+        SK.reset_launch_counts()
         loss, _ = model.loss(p, b)
         loss.backward()
         if dev == card:
-            layers = cfg.n_layers
-            assert launch_counts() == {
-                "flash_attention_fwd": (2 if cfg.remat else 1) * layers,
-                "flash_attention_bwd": layers}
+            assert {**launch_counts(), **SK.launch_counts()} == want
         got[str(dev)] = (float(loss), dict(flatten_with_path(_leaf_grads(p))))
     (lc, gc), (lh, gh) = got[str(card)], got["cpu"]
     assert abs(lc - lh) <= 2e-5
     assert sorted(gc) == sorted(gh)
-    for key, want in gh.items():
-        tol = 5e-4 * max(float(want.abs().max()), 1e-30)
-        assert float((gc[key].cpu() - want).abs().max()) <= tol, key
+    for key, w in gh.items():
+        assert torch.isfinite(gc[key]).all(), key
+        tol = 5e-4 * max(float(w.abs().max()), 1e-30)
+        assert float((gc[key].cpu() - w).abs().max()) <= tol, key
 
 
 @pytest.mark.cuda
-def test_cuda_reduced_hymba_loss_refuses_grad_through_ssd(card):
-    """Reduced hymba-1.5b's attention runs padded on the card, but its SSD
-    has no backward yet (C-6, ROADMAP queue A item 6): Model.loss under
-    grad raises, naming the SSD kernel."""
-    cfg, model, params, batch = _reduced("hymba_15b")
-    p, b = _on(params, batch, card)
-    with pytest.raises(RuntimeError, match="ssd_fwd: the CUDA kernel is "
-                                           "forward-only"):
-        model.loss(p, b)
+def test_cuda_reduced_stablelm_loss_and_grads_match_cpu(card):
+    """Fault C-9: reduced stablelm-3b (head_dim 16, zero-padded to the
+    kernels' 64) trains on the card: its loss and every gradient leaf
+    against the same step on the CPU (plain versions)."""
+    cfg, model, params, batch = _reduced("stablelm_3b")
+    assert cfg.head_dim == 16
+    layers = cfg.n_layers
+    _loss_and_grads_card_vs_cpu(card, model, params, batch, {
+        "flash_attention_fwd": (2 if cfg.remat else 1) * layers,
+        "flash_attention_bwd": layers, "ssd_fwd": 0, "ssd_bwd": 0})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba_15b", "mamba2_370m"])
+def test_cuda_reduced_ssm_loss_and_grads_match_cpu(card, arch):
+    """Faults C-6 and C-9: reduced hymba-1.5b (hybrid: flash at head_dim
+    16 padded, SSD at chunk 8, P 8, N 8 padded) and mamba2-370m (SSD
+    alone) train on the card: loss and every gradient leaf against the CPU
+    step, each SSD and flash kernel launched once a layer forward and its
+    backward once a layer."""
+    cfg, model, params, batch = _reduced(arch)
+    assert (cfg.ssm_chunk, cfg.ssm_headdim, cfg.ssm_state) == (8, 8, 8)
+    layers = cfg.n_layers
+    fwd = (2 if cfg.remat else 1) * layers
+    attn = "hybrid" in cfg.pattern
+    _loss_and_grads_card_vs_cpu(card, model, params, batch, {
+        "flash_attention_fwd": fwd if attn else 0,
+        "flash_attention_bwd": layers if attn else 0,
+        "ssd_fwd": fwd, "ssd_bwd": layers})
 
 
 @pytest.mark.cuda

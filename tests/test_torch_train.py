@@ -6,7 +6,8 @@
   (hybrid); labels with ignored (-1) entries. Loss within 2e-5 (about 4
   f32 ulps of a loss near 4.9), each gradient leaf within 5e-4 of its
   largest entry (measured: 1.2e-4; the backward sums in another order in
-  every layer).
+  every layer, and SSD's gradient is the port's written-out backward,
+  ``ssd_bwd_plain`` on the CPU, where JAX differentiates its scan).
 * One ``build_accum_step`` step (1 and 2 microbatches, every_k 1 so the
   Newton projection runs) against the reference's: loss within 1e-6,
   Adam moments within 1e-4 of each leaf's scale, params within 3e-4 of
@@ -353,12 +354,17 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
 
 
 def test_train_refuses_unported_on_the_card():
-    """On the card, a config whose blocks run SSD raises before any step
-    (no CUDA is touched: the check comes first); so do mesh / rules."""
+    """mesh / rules raise before any step (the distributed layer is not
+    ported). SSD blocks no longer refuse: hymba-1.5b trains on the card
+    (``tests/test_torch_kernels_flash.py`` holds reduced hymba-1.5b's and
+    mamba2-370m's loss and gradients on the card to the CPU's), so on a
+    machine without CUDA ``train`` on the card, its default device, fails
+    in ``resolve_device`` and not with a refusal naming queue A item 6."""
     hymba = TZ.build(TC.get_reduced("hymba_15b"))
     batcher = LMBatcher(SyntheticLM(128, seed=1), 2, 16)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        train(hymba, batcher, TrainConfig(steps=1), device="cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train(hymba, batcher, TrainConfig(steps=1))
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         train(hymba, batcher, TrainConfig(steps=1), mesh=object(),
               device="cpu")
