@@ -141,7 +141,19 @@ and prints no result. Phases:
                finite and within 2e-4 of its scale of both, a rerun
                bit-equal; device ms warm and flushed, the plain version's
                ms, the bound (the kernel's products, or its bytes), each
-               of the four launches' device ms from one traced call.
+               of the four launches' device ms from one traced call, and
+               the first two launches' registers and CTAs an SM.
+  7c. block_bwd — one block's backward on the card against the CPU, for a
+               ``global``, an ``ssm`` and a ``hybrid`` block at full width
+               (stablelm-3b's, mamba2-370m's and hymba-1.5b's), B 1 x S
+               2048, f32 (``models/blockcheck.py``): the same input and the
+               same upstream gradient through ``block_apply_full`` with
+               ``torch.autograd.grad(..., grad_outputs=...)``, so no depth
+               amplifies the rounding; every parameter's and the input's
+               gradient finite and within twice its noise floor (a card
+               backward from PERTURB-perturbed params, the same run) of the
+               CPU's (plain versions); each card backward launches the
+               block's flash and SSD kernels once each way.
   8. lm_forward — this slice's main path: ``build(get_config("hymba-1.5b"))``
                at full width and depth (32 layers, 1.59 B params), params
                from ``Model.init`` in f32 and then bf16, ``forward`` on a
@@ -320,6 +332,11 @@ SSD_BWD_SHAPES = [
     ("hymba_train_small_dt", 1, 50, 2048, 64, 16, 64, (0.05, 0.6)),
     ("mamba2_train", 1, 32, 2048, 64, 128, 64, (3.0, 20.0)),
     ("mamba2_train_small_dt", 1, 32, 2048, 64, 128, 64, (0.05, 0.6))]
+# phase 7c: one block of each ported kind with an SSD or flash kernel at
+# full width, (config, block kind), B 1 x S BLOCK_SEQ
+BLOCK_BWD = [("stablelm-3b", "global"), ("mamba2-370m", "ssm"),
+             ("hymba-1.5b", "hybrid")]
+BLOCK_SEQ = 2048
 # the LM phases: models, batch and the cuts of the comparison phases
 LM = dict(arch="hymba-1.5b", ssm_arch="mamba2-370m", batch=2, seq=2048,
           cut_depth=2, decode_prompt=1152, full_prompt=64, greedy=8)
@@ -968,7 +985,8 @@ def ssd_bwd_phase(torch, SK, Sref, dev, flush, shapes=SSD_BWD_SHAPES):
              "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
              "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
              "launch_device_ms": {k.split("_kernel")[0]: v for k, v in
-                                  trace["kernels_device_ms"].items()}}
+                                  trace["kernels_device_ms"].items()},
+             "kernel_attrs": SK.bwd_kernel_attrs(Q, N)}
         emit({"phase": "ssd_bwd", "shape": name, "BH": BH, "S": S, "P": P,
               "N": N, "chunk": Q, "dt_range": [lo, hi], "finite": finite,
               "max_abs_err_vs_plain": err, "rel_err_vs_plain": rel,
@@ -979,7 +997,39 @@ def ssd_bwd_phase(torch, SK, Sref, dev, flush, shapes=SSD_BWD_SHAPES):
         torch.cuda.empty_cache()
     row.update(max_abs_err=worst)
     row.pop("launch_device_ms")
+    row.pop("kernel_attrs")
     return row
+
+
+def block_bwd_phase(torch, C, FA, SK, dev, blocks=BLOCK_BWD,
+                    seq=BLOCK_SEQ):
+    """Phase 7c: one block's backward, card against CPU, for each
+    (config, kind) of ``blocks`` at full width (``block_backward_check``);
+    the card's two backwards (the check's and the noise floor's) launch
+    the block's kernels twice each way."""
+    from repro_torch.models.blockcheck import block_backward_check
+    for arch, kind in blocks:
+        cfg = C.get_config(arch)
+        _lm_reset(FA, SK)
+        t = time.perf_counter()
+        rep = block_backward_check(cfg, kind, dev, seq=seq, perturb=PERTURB)
+        seconds = time.perf_counter() - t
+        launched = _lm_counts(FA, SK)
+        attn, ssm = kind in ("global", "hybrid"), kind in ("ssm", "hybrid")
+        want = {"flash_attention_fwd": 2 * attn, "flash_attention_bwd":
+                2 * attn, "ssd_fwd": 2 * ssm, "ssd_bwd": 2 * ssm}
+        check(rep["ok"], f"block_bwd {arch} {kind}: gradients beyond twice "
+              f"their noise floor: {rep['failed']}")
+        check(launched == want, f"block_bwd {arch} {kind}: launches "
+              f"{launched}, want {want}")
+        emit({"phase": "block_bwd", "arch": arch, "kind": kind, "batch": 1,
+              "seq": seq, "perturb": PERTURB, "ok": rep["ok"],
+              "failed": rep["failed"], "launches": launched,
+              "worst_over_floor": max(r["over_floor"]
+                                      for r in rep["leaves"].values()),
+              "seconds": seconds, "leaves": rep["leaves"]})
+        del rep
+        torch.cuda.empty_cache()
 
 
 def _noise_floor(torch, model, params, batch, logits, V, seed):
@@ -2456,6 +2506,7 @@ def main():
     bwd_row, fwd_train_row = attn_bwd_phase(torch, FA, dev, flush)
     ssd_row = ssd_kernel_phase(torch, SK, Sref, dev, flush)
     ssd_bwd_row = ssd_bwd_phase(torch, SK, Sref, dev, flush)
+    block_bwd_phase(torch, C, FA, SK, dev)
     lm_launches = lm_forward_phase(torch, Z, C, FA, SK, dev)
     lm_decode_phase(torch, Z, C, FA, SK, dev)
 

@@ -1,30 +1,33 @@
 #!/usr/bin/env python3
 """Time variants of the port's kernels on the card.
 
-    python3 scripts/torch_kernel_variants.py [--only NAME ...]
+    python3 scripts/torch_kernel_variants.py [--only NAME ...] [--src DIR]
 
 Each variant is the committed ``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``, ``csrc/ssd.cu`` or ``csrc/l1inf.cu``
-with a few exact text substitutions: another tiling
-or launch bound, or one
-part of the work cut out to see what it costs (a "diagnostic" variant,
-whose output is wrong by design and whose error is reported, not checked).
-Every variant is compiled with the port's ``nvcc`` flags into
-``build/variants/`` (all at once, in parallel), loaded with ``ctypes``
-through the same C interface as the wrappers, run at the main path's
-shapes (hymba-1.5b's prefill for flash in f32 and bf16; the backward at
-``chip_smoke.BWD_SHAPES``, stablelm-3b's training attention and hymba-1.5b's
-prefill, with the device ms of its two launches from one traced call;
-hymba-1.5b's and
-mamba2-370m's shapes for SSD; for the l1,inf engine, colstats and mu_solve
-on ``chip_smoke.py`` phase 2's inputs and the Newton loop on the engine's
-state after pass 1, at ``sae_enc1``, ``fig2_wide`` and ``fig2_tall``),
-compared with the plain version, and timed
-as ``chip_smoke.time_ms`` times a kernel (a CUDA graph of back-to-back
-calls between CUDA events, inputs L2-warm). SSD variants also get one
-traced call, for the device ms of each of their three launches. Prints one
-JSON line per variant, then the card's name and power limit. Needs one
-CUDA card; exits non-zero without one.
+``csrc/flash_attention_bwd.cu``, ``csrc/ssd.cu``, ``csrc/ssd_bwd.cu`` or
+``csrc/l1inf.cu`` (or the same file under ``--src``: the ``scalar_*``
+variants apply to the first SSD backward's ``ssd_bwd.cu``, whose chunk
+kernel read its operands as scalars) with a few exact text
+substitutions: another tiling or launch bound, or one part of the work cut
+out to see what it costs (a "diagnostic" variant, whose output is wrong by
+design and whose error is reported, not checked). Every variant is
+compiled with the port's ``nvcc`` flags into ``build/variants/`` (all at
+once, in parallel), loaded with ``ctypes`` through the same C interface as
+the wrappers, run at the main path's shapes (hymba-1.5b's prefill for
+flash in f32 and bf16; the backward at ``chip_smoke.BWD_SHAPES``,
+stablelm-3b's training attention and hymba-1.5b's prefill, with the device
+ms of its two launches from one traced call; hymba-1.5b's and
+mamba2-370m's shapes for SSD, and their training shapes for the SSD
+backward (``chip_smoke.SSD_BWD_SHAPES`` with dt in [3, 20]); for the
+l1,inf engine, colstats and mu_solve on ``chip_smoke.py`` phase 2's inputs
+and the Newton loop on the engine's state after pass 1, at ``sae_enc1``,
+``fig2_wide`` and ``fig2_tall``), compared with the plain version, and
+timed as ``chip_smoke.time_ms`` times a kernel (a CUDA graph of
+back-to-back calls between CUDA events, inputs L2-warm). SSD variants also
+get one traced call, for the device ms of each of their launches;
+``ssd_bwd_phase_clocks`` also reports its chunk kernel's clock64() cycles
+per CTA in each phase. Prints one JSON line per variant, then the card's
+name and power limit. Needs one CUDA card; exits non-zero without one.
 """
 import argparse
 import ctypes
@@ -122,6 +125,125 @@ _DQ_PARTIALS = [
      "    if (!part) return (int)cudaErrorMemoryAllocation;\n"
      "    const int kv_heads = BH / groups;"),
 ]
+# the first SSD backward's chunk kernel (scalar shared-memory loads): the
+# loops of its serial phases (the
+# suffix sums, ddaL, dcoef, phase E's one thread) and its product calls
+_SCALAR_SERIAL = [
+    ("  for (int j = tid; j < Q; j += kThreads) {\n    float run = 0.f;",
+     "  for (int j = Q + tid; j < Q; j += kThreads) {\n    float run = 0.f;"),
+    ("  for (int t = tid; t < Q; t += kThreads) {\n    float s = 0.f;",
+     "  for (int t = Q + tid; t < Q; t += kThreads) {\n    float s = 0.f;"),
+    ("  for (int j = tid; j < Q; j += kThreads) {\n    float s = 0.f;",
+     "  for (int j = Q + tid; j < Q; j += kThreads) {\n    float s = 0.f;"),
+    ("  if (tid == 0) {\n    float hsum", "  if (false) {\n    float hsum")]
+_SCALAR_PRODUCTS = {
+    "dM": "mm<Q, Q, P>(",
+    "V": "mm<Q, P, N>(",
+    "MTdy": "mm<Q, P, Q>(",
+    "dB": "mm<Q, N, Q>([&](int j, int i) { return dGs",
+    "xdh": "mm<Q, N, P>([&](int j, int p)",
+    "dC": "mm<Q, N, Q>([&](int i, int j) { return dGs",
+    "dyh": "mm<Q, N, P>([&](int i, int p)"}
+# the SSD backward: the loop heads of its chunk kernel's products (Q 64)
+# and of the state walk's, its serial phases, the head-sum launch
+_BWD_PRODUCTS = {
+    "dM": "    for (int p = 0; p < P; p += 4) {\n      const float4 a0",
+    "V": "      for (int n = 0; n < NS; n += 4) {\n        float4 hv[4], bv[4];",
+    "dB": "          for (int i = 16 * q; i < 16 * q + 16; i += 4) {\n"
+          "            float4 cv[TN];",
+    "xdh": "        for (int p = 0; p < P; p += 4) {\n          float4 xv[4];",
+    "dC": "          for (int j = 16 * q; j < 16 * q + 16; j += 4) {\n"
+          "            float4 gv[4];",
+    "dyh": "        for (int p = 0; p < P; p += 4) {\n          float4 yv[4];",
+    "MTdy": "      for (int i = 16 * q; i < 16 * q + 16; i += 4) {\n"
+            "        float4 mv[4];",
+    "state": "  for (int i = 0; i < Q; ++i) {\n    const float4 cv"}
+
+
+def _cut(head):
+    """The loop at ``head`` run zero times: its start set to its end."""
+    start = head.split("= ")[1].split(";")[0]
+    end = head.split("< ")[1].split(";")[0]
+    return head.replace(f"= {start};", f"= {end};", 1)
+
+
+_BWD_SERIAL = [
+    ("  const bool zcol = tid < NSEG * Q;", "  const bool zcol = false;"),
+    ("for (int j = 16 * s; j < min(16 * s + 16, t); ++j)",
+     "for (int j = t; j < t; ++j)"),
+    ("      for (int p = 16 * s; p < 16 * s + 16; ++p)",
+     "      for (int p = 0; p < 0; ++p)"),
+    ("  if (warp == 0) warp_scan<Q, true>(dcumE, dda, lane);\n"
+     "  if (warp == 1) warp_scan<Q, false>(kc, kc, lane);",
+     "  if (false) warp_scan<Q, true>(dcumE, dda, lane);\n"
+     "  if (false) warp_scan<Q, false>(kc, kc, lane);")]
+# the chunk kernel's product step loops (pragma, head): as committed
+# (unrolled), and rolled in the ssd_bwd_rolled variant
+_STEP_LOOPS = [
+    ("#pragma unroll 2\n",
+     "    for (int p = 0; p < P; p += 4) {\n      const float4 a0"),
+    ("", "      for (int n = 0; n < NS; n += 4) {\n        float4 hv[4], bv[4];"),
+    ("#pragma unroll\n", "          for (int i = 16 * q; i < 16 * q + 16; i += 4) {\n"
+                        "            float4 cv[TN];"),
+    ("#pragma unroll 4\n",
+     "        for (int p = 0; p < P; p += 4) {\n          float4 xv[4];"),
+    ("#pragma unroll\n", "          for (int j = 16 * q; j < 16 * q + 16; j += 4) {\n"
+                        "            float4 gv[4];"),
+    ("#pragma unroll 4\n",
+     "        for (int p = 0; p < P; p += 4) {\n          float4 yv[4];"),
+    ("#pragma unroll\n", "      for (int i = 16 * q; i < 16 * q + 16; i += 4) {\n"
+                        "        float4 mv[4];")]
+_ROLLED = [(pragma + head, "#pragma unroll 1\n" + head)
+           for pragma, head in _STEP_LOOPS]
+# thread 0 of each chunk-kernel CTA stamps clock64() at its phase bounds
+# (after the first loads; phase 1's product, its epilogue; phase 2; the
+# slices; v's stores, the dx product, its stores; the block sums, dcoef,
+# the end) and adds the gaps to a device array; the variant's
+# ssd_bwd_phase_clocks reads the sums (then zeroes them)
+_STAMP = "  if (tid == 0) stamp_[{k}] = clock64();\n"
+_NSTAMP = 13
+_PHASES = [
+    ("  const float* gb = G + ((size_t)bg * nc + ch) * Q * Q;\n",
+     "  const float* gb = G + ((size_t)bg * nc + ch) * Q * Q;\n"
+     f"  long long stamp_[{_NSTAMP}];\n" + _STAMP.format(k=0)),
+    ("    __syncthreads();\n    float acc[10] = {};\n",
+     "    __syncthreads();\n" + _STAMP.format(k=1) + "    float acc[10] = {};\n"),
+    ("#pragma unroll\n    for (int o = 0; o < 10; ++o)\n      put_dm(",
+     _STAMP.format(k=2) + "#pragma unroll\n    for (int o = 0; o < 10; ++o)\n      put_dm("),
+    ("  __syncthreads();\n\n  // phase 2:",
+     "  __syncthreads();\n" + _STAMP.format(k=3) + "\n  // phase 2:"),
+    ("  __syncthreads();                  // Z is dead: the slices take its place\n",
+     "  __syncthreads();\n" + _STAMP.format(k=4)),
+    ("  __syncthreads();                  // the last slice is read: v takes R\n",
+     "  __syncthreads();\n" + _STAMP.format(k=5)),
+    ("    // M^T dy: i in segment q feeds the columns j = tx + 16 c, c <= q\n",
+     _STAMP.format(k=6) + "    // M^T dy: i in segment q feeds the columns j = tx + 16 c, c <= q\n"),
+    ("#pragma unroll\n    for (int c = 0; c < 4; ++c) {\n      const int j = tx + 16 * c;\n"
+     "      float o[4];",
+     _STAMP.format(k=7) + "#pragma unroll\n    for (int c = 0; c < 4; ++c) {\n"
+     "      const int j = tx + 16 * c;\n      float o[4];"),
+    ("  // the sum of dy * x: each thread's entries",
+     _STAMP.format(k=8) + "  // the sum of dy * x: each thread's entries"),
+    ("    wred[8 + warp] = ddsum;\n  }\n  __syncthreads();\n",
+     "    wred[8 + warp] = ddsum;\n  }\n  __syncthreads();\n" + _STAMP.format(k=9)),
+    ("    dcumE[i] = __fmul_rn(ec[i], dcacc[i]);\n  __syncthreads();\n",
+     "    dcumE[i] = __fmul_rn(ec[i], dcacc[i]);\n  __syncthreads();\n"
+     + _STAMP.format(k=10)),
+    ("      o[0] = dap;\n      o[1] = dd8;\n    }\n  }\n}\n",
+     "      o[0] = dap;\n      o[1] = dd8;\n    }\n  }\n" + _STAMP.format(k=11)
+     + f"  if (tid == 0)\n    for (int k = 0; k < {_NSTAMP - 2}; ++k)\n"
+     "      atomicAdd(&g_phase_clocks[k], "
+     "(unsigned long long)(stamp_[k + 1] - stamp_[k]));\n}\n"),
+    ("namespace {\n\nconstexpr int kThreads = 256;",
+     f"__device__ unsigned long long g_phase_clocks[{_NSTAMP - 2}];\n"
+     "namespace {\n\nconstexpr int kThreads = 256;"),
+    ("const char* ssd_bwd_error_string(int code) {",
+     "int ssd_bwd_phase_clocks(unsigned long long* out) {\n"
+     "  cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));\n"
+     f"  static const unsigned long long zero[{_NSTAMP - 2}] = {{}};\n"
+     "  cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));\n"
+     "  return (int)cudaGetLastError();\n}\n\n"
+     "const char* ssd_bwd_error_string(int code) {")]
 # name -> (source, diagnostic, [(old, new), ...])
 VARIANTS = {
     "l1inf": ("l1inf.cu", False, []),
@@ -192,6 +314,51 @@ VARIANTS = {
     # a scratch buffer (allocated by the launcher here), no turns, and a
     # second pass that sums the slots in ascending kv tile and scales
     "flash_bwd_dq_partials": ("flash_attention_bwd.cu", False, _DQ_PARTIALS),
+    # the first SSD backward (run with --src on a tree that has it): cuts
+    # of its chunk kernel's serial phases and of each of its products
+    "scalar_ssd_bwd": ("ssd_bwd.cu", False, []),
+    "scalar_ssd_bwd_no_serial": ("ssd_bwd.cu", True, _SCALAR_SERIAL),
+    "scalar_ssd_bwd_no_products": ("ssd_bwd.cu", True, [
+        ("  for (int k = 0; k < K; ++k) {", "  for (int k = K; k < K; ++k) {")]),
+    **{f"scalar_ssd_bwd_no_{cut}": ("ssd_bwd.cu", True, [
+        (call, "if (0) " + call)]) for cut, call in _SCALAR_PRODUCTS.items()},
+    # the redesigned SSD backward: cuts of its serial phases, of each
+    # product and of all of them, of the head-sum launch, and its chunk
+    # kernel held to one CTA an SM (its shared memory request doubled)
+    "ssd_bwd": ("ssd_bwd.cu", False, []),
+    "ssd_bwd_no_serial": ("ssd_bwd.cu", True, _BWD_SERIAL),
+    "ssd_bwd_no_products": ("ssd_bwd.cu", True, [
+        (h, _cut(h)) for h in _BWD_PRODUCTS.values()]),
+    **{f"ssd_bwd_no_{cut}": ("ssd_bwd.cu", True, [(h, _cut(h))])
+       for cut, h in _BWD_PRODUCTS.items()},
+    "ssd_bwd_no_sum": ("ssd_bwd.cu", True, [
+        ("    ssd_bwd_sum_kernel<<<", "    if (0) ssd_bwd_sum_kernel<<<")]),
+    # diagnostics of the chunk kernel's other work: no exp in the decay
+    # tile, no global reads of x and dy, none of the slices, no stores of
+    # dx, dB and dC
+    "ssd_bwd_no_decay_exp": ("ssd_bwd.cu", True, [
+        ("    const float L = expf(__fsub_rn(cum[i], cum[j]));",
+         "    const float L = __fsub_rn(cum[i], cum[j]);")]),
+    "ssd_bwd_no_xdy_reads": ("ssd_bwd.cu", True, [
+        ("  load_rows<Q, P, XS>(x + row0 * P, P, xs);\n"
+         "  load_rows<Q, P, XS>(dy + row0 * P, P, dys);\n", "")]),
+    "ssd_bwd_no_slice_reads": ("ssd_bwd.cu", True, [
+        ("  fetch(0);\n", ""),
+        ("    if (sl + 1 < NSL) fetch(sl + 1);\n", "")]),
+    "ssd_bwd_no_stores": ("ssd_bwd.cu", True, [
+        ("            dBp[(row0 + j) * N + n0 + np + 8 * m] =",
+         "            if (0) dBp[(row0 + j) * N + n0 + np + 8 * m] ="),
+        ("            dCp[(row0 + i) * N + n0 + np + 8 * m] =",
+         "            if (0) dCp[(row0 + i) * N + n0 + np + 8 * m] ="),
+        ("      *reinterpret_cast<float4*>(dx + (row0 + j) * P + 4 * ty) =",
+         "      if (0) *reinterpret_cast<float4*>(dx + (row0 + j) * P + 4 * ty) =")]),
+    # the chunk kernel's product loops rolled over their steps (a smaller
+    # body of code)
+    "ssd_bwd_rolled": ("ssd_bwd.cu", False, _ROLLED),
+    "ssd_bwd_phase_clocks": ("ssd_bwd.cu", False, _PHASES),
+    "ssd_bwd_chunk_1_cta": ("ssd_bwd.cu", False, [
+        ("  static constexpr size_t smem2 = ChunkSmem<Q, N>::bytes;",
+         "  static constexpr size_t smem2 = 2 * ChunkSmem<Q, N>::bytes;")]),
     "ssd": ("ssd.cu", False, []),
     "ssd_output_2_ctas": ("ssd.cu", False, [
         (_SSD_OB, _SSD_OB.replace("N <= 32 ? 3 : 2", "2"))]),
@@ -221,13 +388,14 @@ VARIANTS = {
 }
 
 
-def build(names, nvcc, flags):
-    """Write and compile every variant at once; {name: library path}."""
+def build(names, nvcc, flags, csrc=CSRC):
+    """Write and compile every variant at once, each from its source under
+    ``csrc``; {name: library path}."""
     os.makedirs(OUT, exist_ok=True)
     jobs = {}
     for name in names:
         src, _, subs = VARIANTS[name]
-        text = open(os.path.join(CSRC, src)).read()
+        text = open(os.path.join(csrc, src)).read()
         for old, new in subs:
             if old not in text:
                 raise SystemExit(f"variant {name}: text not found: {old!r}")
@@ -237,7 +405,7 @@ def build(names, nvcc, flags):
             fh.write(text)
         lib = cu[:-3] + ".so"
         jobs[name] = (lib, subprocess.Popen(
-            [nvcc, *flags, "-I", CSRC, "-o", lib, cu],
+            [nvcc, *flags, "-I", csrc, "-o", lib, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     libs = {}
     for name, (lib, proc) in jobs.items():
@@ -353,6 +521,66 @@ def ssd_runs(torch, CS, SK, lib, dev):
     return rows
 
 
+def ssd_bwd_runs(torch, CS, SK, lib, dev):
+    """{shape: row} at hymba-1.5b's and mamba2-370m's training shapes
+    (chip_smoke.SSD_BWD_SHAPES with dt in [3, 20]) on the forward kernels'
+    saved state: each gradient's max |err| over its scale against the
+    plain version, ms, and the device ms of each launch."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_bwd.argtypes = [P] * 21 + [I] * 6 + [P]
+    g = torch.Generator(device=dev).manual_seed(14)
+    rows = {}
+    for name, BG, groups, S, Pd, N, Q, (lo, hi) in CS.SSD_BWD_SHAPES[::2]:
+        BH, nc = BG * groups, S // Q
+        x = torch.randn((BH, S, Pd), generator=g, device=dev)
+        dt = torch.rand((BH, S), generator=g, device=dev) * (hi - lo) + lo
+        a = -torch.exp(torch.rand((BH,), generator=g, device=dev) - 0.5)
+        d = torch.ones((BH,), device=dev)
+        Bm = torch.randn((BG, S, N), generator=g, device=dev) * 2
+        Cm = torch.randn((BG, S, N), generator=g, device=dev) * 2
+        dy = torch.randn((BH, S, Pd), generator=g, device=dev)
+        args = (x, dt, a, d, Bm, Cm)
+        hst, cum, G = SK._fwd_kernel(*args, Q, groups)[2]
+        f32 = dict(device=dev)
+        out = [torch.empty_like(x), torch.empty_like(dt),
+               torch.empty((BH,), **f32), torch.empty((BH,), **f32),
+               torch.empty_like(Bm), torch.empty_like(Cm)]
+        scratch = [torch.empty((BH, nc, Pd, N), **f32),
+                   torch.empty((BH, S, N), **f32),
+                   torch.empty((BH, S, N), **f32),
+                   torch.empty((BH, nc, 2), **f32)]
+        fn = lambda: lib.ssd_bwd(
+            *(t.data_ptr() for t in (x, dt, a, d, Bm, Cm, dy)), None,
+            *(t.data_ptr() for t in (cum, G, hst, *out, *scratch)),
+            BH, S, Pd, N, Q, groups, torch.cuda.current_stream().cuda_stream)
+        if fn() != 0:
+            raise SystemExit("ssd_bwd variant: launch failed")
+        want = SK.ssd_bwd_plain(*args, dy, None, (hst, cum, G), chunk=Q,
+                                groups=groups)
+        err = {k: float((u - w).abs().max() / w.abs().max())
+               for k, u, w in zip(("dx", "ddt", "da", "dd", "dB", "dC"),
+                                  out, want)}
+        trace = CS._profile(torch, fn)
+        launches = {r["name"].split("::")[-1].split("<")[0].split("(")[0]:
+                    r["device_ms"] for r in trace["top_device"]
+                    if "ssd_bwd" in r["name"]}
+        rows[name] = {"ms": CS.time_ms(torch, fn),
+                      "max_err_over_scale_vs_plain": err,
+                      "launch_device_ms": launches}
+        if hasattr(lib, "ssd_bwd_phase_clocks"):
+            clocks = (ctypes.c_ulonglong * (_NSTAMP - 2))()
+            lib.ssd_bwd_phase_clocks(clocks)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            lib.ssd_bwd_phase_clocks(clocks)
+            rows[name]["phase_clocks_per_cta"] = [c / (BH * nc)
+                                                  for c in clocks]
+        del x, dt, dy, hst, cum, G, out, scratch, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def l1inf_runs(torch, CS, K, O, lib, dev):
     """{shape: row} for colstats, mu_solve and the Newton loop: the inputs
     of chip_smoke.py phase 2 (a vector theta, two thirds of the blocks
@@ -431,6 +659,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", nargs="*", choices=sorted(VARIANTS),
                     help="variants to run (default: all)")
+    ap.add_argument("--src", default=CSRC,
+                    help="the csrc directory the variants are made from "
+                         "(default: this tree's); the scalar_* variants "
+                         "apply to the first SSD backward's csrc")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -448,11 +680,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     names = args.only or list(VARIANTS)
-    libs = build(names, _build._nvcc(), _build.NVCC_FLAGS)
+    libs = build(names, _build._nvcc(), _build.NVCC_FLAGS, args.src)
     for name in names:
         src, diagnostic, subs = VARIANTS[name]
         lib = ctypes.CDLL(libs[name])
-        line = {"variant": name, "source": f"src/repro_torch/csrc/{src}",
+        line = {"variant": name,
+                "source": os.path.join(os.path.relpath(args.src, ROOT), src),
                 "diagnostic": diagnostic,
                 "substitutions": [new for _, new in subs]}
         if src == "flash_attention.cu":
@@ -460,6 +693,8 @@ def main():
                 line[dname] = {"ms": ms, "max_abs_err_vs_plain": err}
         elif src == "flash_attention_bwd.cu":
             line.update(bwd_runs(torch, CS, FA, lib, dev))
+        elif src == "ssd_bwd.cu":
+            line.update(ssd_bwd_runs(torch, CS, SK, lib, dev))
         elif src == "l1inf.cu":
             line.update(l1inf_runs(torch, CS, K, O, lib, dev))
         else:

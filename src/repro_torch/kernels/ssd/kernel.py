@@ -26,7 +26,8 @@ scan in reverse over the chunks, the per-chunk gradients of x, dt, a, d,
 B and C from the forward's saved state entering each chunk, its cum and
 G = C B^T, and a pass that sums dB and dC over the heads of a group and
 da and dd over the chunks in order. One wrapper call (four launches)
-counts one launch. It replaces the jnp autodiff of
+counts one launch; ``bwd_kernel_attrs`` reads the registers and CTAs an
+SM of the state and chunk kernels. It replaces the jnp autodiff of
 ``repro.models.ssm.ssd_apply`` that the JAX reference trains through (the
 Pallas kernel is forward-only). Bound: operations, 1.9 GFLOP (0.028 ms)
 at hymba-1.5b's training shape, 5.9 GFLOP (0.088 ms) at mamba2-370m's.
@@ -57,8 +58,10 @@ backward: on the card a bf16 input that requires grad raises.
 Beside each wrapper sits a plain PyTorch version that repeats the
 kernels' arithmetic: the forward's sequential cumsum (so cum is bit-equal)
 and its three stages in its association order; the backward's stages and
-formulas with the sequential reverse cumsum, batched over heads and
-chunks (it is held to the kernel within a tolerance, not bit for bit).
+formulas, batched over heads and chunks, at the kernels' padded P and N,
+with every sum that is not a matrix product in the kernels' order (it is
+held to the kernel within a tolerance, not bit for bit: the products and
+fmaf differ).
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernels (building them at first use)
 or the call raises. The wrappers check device, dtype, shape and
@@ -80,7 +83,7 @@ from ... import _build
 
 __all__ = ["ssd_fwd", "ssd_fwd_plain", "ssd_bwd", "ssd_bwd_plain",
            "SSDFunction", "KERNEL_SHAPES", "kernel_shape", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "bwd_kernel_attrs"]
 
 _LAUNCHES: Dict[str, int] = {"ssd_fwd": 0, "ssd_bwd": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -114,6 +117,9 @@ def _lib(name: str) -> ctypes.CDLL:
         else:
             lib.ssd_bwd.argtypes = [P] * 21 + [I] * 6 + [P]
             lib.ssd_bwd.restype = I
+            IP = ctypes.POINTER(I)
+            lib.ssd_bwd_kernel_attrs.argtypes = [I, I, I, IP, IP]
+            lib.ssd_bwd_kernel_attrs.restype = I
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [I]
         err.restype = ctypes.c_char_p
@@ -353,41 +359,171 @@ def _check_bwd(x, dy, dstate, saved, chunk: int, groups: int):
         raise ValueError("ssd_bwd: inputs on different devices")
 
 
+def _bwd_dims(P: int, N: int) -> Tuple[int, int]:
+    """(P, N) as the backward kernels sum them: P zero-padded to a multiple
+    of 64, N to the next of ``KERNEL_SHAPES`` (a multiple of 32 above)."""
+    Pk = 64 * -(-P // 64)
+    Nk = next((k for k in KERNEL_SHAPES["N"] if k >= N), 32 * -(-N // 32))
+    return Pk, Nk
+
+
+def _chain(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The sum over ``dim`` one rounded add at a time from index 0."""
+    t = t.movedim(dim, -1)
+    run = t[..., 0]
+    for k in range(1, t.shape[-1]):
+        run = run + t[..., k]
+    return run
+
+
+def _butterfly(v: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dim (a power of two) as a warp's xor shuffles
+    leave it in lane 0: v[l] + v[l ^ off] for off = n/2, ..., 1."""
+    n = v.shape[-1]
+    lanes = torch.arange(n, device=v.device)
+    off = n // 2
+    while off:
+        v = v + v[..., lanes ^ off]
+        off //= 2
+    return v[..., 0]
+
+
+def _block_sum(terms: torch.Tensor) -> torch.Tensor:
+    """The chunk kernel's sum over the last dim as its 256 threads take it:
+    thread l holds entries l, l + 256, ... and sums them in order, then a
+    butterfly in each warp of 32, then the eight warps in order."""
+    pad = -terms.shape[-1] % 256
+    terms = F.pad(terms, (0, pad)).reshape(*terms.shape[:-1], -1, 256)
+    lanes = _chain(terms, -2)
+    return _chain(_butterfly(lanes.reshape(*lanes.shape[:-1], 8, 32)), -1)
+
+
+def _warp_scan(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan over the last dim Q as one warp runs it: lane l sums
+    its E = ceil(Q / 32) entries from E l on in order, the lanes' totals run
+    through a Hillis-Steele scan (v[l] + v[l - off], off = 1, ..., 16), and
+    each lane adds its exclusive prefix to its partial sums."""
+    Q = v.shape[-1]
+    E = -(-Q // 32)
+    lanes = F.pad(v, (0, 32 * E - Q)).reshape(*v.shape[:-1], 32, E)
+    loc = _cumsum_in_order(lanes)
+    inc = loc[..., -1]
+    for off in (1, 2, 4, 8, 16):
+        inc = torch.cat([inc[..., :off], inc[..., off:] + inc[..., :-off]], -1)
+    ex = torch.cat([torch.zeros_like(inc[..., :1]), inc[..., :-1]], -1)
+    return (ex[..., None] + loc).reshape(*v.shape[:-1], 32 * E)[..., :Q]
+
+
+def _quarters(terms: torch.Tensor, width: int) -> torch.Tensor:
+    """The sum over the last dim in four partial sums, [k w, k w + w) for
+    k < 3 and [3 w, end), each in order, combined as (p0 + p1) + (p2 + p3)
+    (four lanes and two xor shuffles)."""
+    n = terms.shape[-1]
+    bounds = [min(k * width, n) for k in range(4)] + [n]
+    parts = [_chain(terms[..., lo:hi]) if hi > lo
+             else torch.zeros_like(terms[..., 0])
+             for lo, hi in zip(bounds[:-1], bounds[1:])]
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
+def _lane_sum(terms: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dim Q as one warp takes it: lane l sums t = l,
+    l + 32, ... in order, then a butterfly."""
+    Q = terms.shape[-1]
+    E = -(-Q // 32)
+    lanes = F.pad(terms, (0, 32 * E - Q)).reshape(*terms.shape[:-1], E, 32)
+    return _butterfly(_chain(lanes, -2))
+
+
+def _slice_width(Nk: int) -> int:
+    """The state columns a slice of the chunk kernel takes."""
+    return min(Nk, 32)
+
+
+def _pair_sum(cu: torch.Tensor) -> torch.Tensor:
+    """sum_n cu[..., n] over the last dim Nk as the chunk kernel's dC lanes
+    take it: per slice of NS = min(Nk, 32) columns, lane l (of 8) sums its
+    columns l, l + 8, ... in order, the 8 lanes meet in a butterfly, and
+    the slices add in order."""
+    Nk = cu.shape[-1]
+    NS = _slice_width(Nk)
+    lanes = _chain(cu.reshape(*cu.shape[:-1], Nk // NS, NS // 8, 8), -2)
+    return _chain(_butterfly(lanes), -1)
+
+
+def _slice_major(t: torch.Tensor) -> torch.Tensor:
+    """(..., P, N) entries flattened in the order the chunk kernel reads
+    them: slice of NS = min(N, 32) columns after slice, each slice's
+    (P, NS) entries row-major."""
+    P, N = t.shape[-2:]
+    NS = _slice_width(N)
+    t = t.reshape(*t.shape[:-2], P, N // NS, NS).transpose(-3, -2)
+    return t.reshape(*t.shape[:-3], -1)
+
+
+def _suffix_sums(Z: torch.Tensor) -> torch.Tensor:
+    """ZS[..., t, j] = sum_{i>=t} Z[..., i, j] as the chunk kernel forms it:
+    within each segment of 16 rows from its bottom row up, then plus the
+    totals of the segments below, nearest first (carry_s = T_{s+1} +
+    carry_{s+1})."""
+    Q = Z.shape[-2]
+    segs = [_cumsum_in_order(Z[..., s0:s0 + 16, :].flip(-2).transpose(
+        -1, -2)).transpose(-1, -2).flip(-2) for s0 in range(0, Q, 16)]
+    out, carry = [None] * len(segs), None
+    for s in reversed(range(len(segs))):
+        out[s] = segs[s] if carry is None else segs[s] + carry[..., None, :]
+        carry = segs[s][..., 0, :] if carry is None \
+            else segs[s][..., 0, :] + carry
+    return torch.cat(out, -2)
+
+
 def ssd_bwd_plain(x, dt, a, d, B, C, dy, dstate, saved, *, chunk: int = 64,
                   groups: int = 1):
     """Plain version of ``ssd_bwd`` (same arguments and results): the
     kernels' stages and formulas, batched over heads and chunks, written
-    out (no autograd), never an exp of a positive cum difference."""
+    out (no autograd), never an exp of a positive cum difference. P and N
+    are zero-padded to the kernels' sizes (``_bwd_dims``), and every sum
+    that is not a matrix product runs in the kernels' order: Z's suffix
+    sums in segments of 16 rows (``_suffix_sums``), ddaL and dcoef in four
+    partial sums (``_quarters``), C . dy h in the chunk kernel's lanes and
+    slices of up to 32 columns (``_pair_sum``), the sums of dh * h and
+    dy * x as its threads and warps take them (``_block_sum``), the scans
+    of dda as a warp runs them (``_warp_scan``), da over a warp
+    (``_lane_sum``), and the chunks and the heads of a group one at a
+    time."""
     BH, S, P = x.shape
     N = B.shape[-1]
     Q = chunk
     nc = S // Q
     dev = x.device
+    Pk, Nk = _bwd_dims(P, N)
     hst, cum, G = saved
-    h_in = hst[:, :, :P, :N].float()                         # (BH, nc, P, N)
-    xf = x.float().reshape(BH, nc, Q, P)
-    dyf = dy.float().reshape(BH, nc, Q, P)
+    h_in = _pad(hst[:, :, :P, :N].float(), Pk, Nk)          # (BH, nc, Pk, Nk)
+    xf = _pad(x.float(), Pk).reshape(BH, nc, Q, Pk)
+    dyf = _pad(dy.float(), Pk).reshape(BH, nc, Q, Pk)
     dtf = dt.float().reshape(BH, nc, Q)
-    Bf = B.float().repeat_interleave(groups, dim=0).reshape(BH, nc, Q, N)
-    Cf = C.float().repeat_interleave(groups, dim=0).reshape(BH, nc, Q, N)
+    Bf = _pad(B.float(), Nk).repeat_interleave(groups, dim=0).reshape(
+        BH, nc, Q, Nk)
+    Cf = _pad(C.float(), Nk).repeat_interleave(groups, dim=0).reshape(
+        BH, nc, Q, Nk)
     G = G.float().repeat_interleave(groups, dim=0)           # (BH, nc, Q, Q)
     cum = cum.float().reshape(BH, nc, Q)
     seg = cum[..., -1]
     ec = torch.exp(cum)
     ecoef = torch.exp(seg[..., None] - cum)
     coef = dtf * ecoef
-    # 1. chunk-local state gradients, 2. their scan in reverse: dhn[:, c]
-    # is the gradient of the state leaving chunk c
-    dupd = dyf.transpose(-1, -2) @ (ec[..., None] * Cf)      # (BH, nc, P, N)
+    # 1. the state gradients in reverse over the chunks: dhn[:, c] is the
+    # gradient of the state leaving chunk c
+    dupd = dyf.transpose(-1, -2) @ (ec[..., None] * Cf)      # (BH, nc, Pk, Nk)
     eseg = torch.exp(seg)
-    dh = (torch.zeros((BH, P, N), dtype=torch.float32, device=dev)
-          if dstate is None else dstate.float())
+    dh = (torch.zeros((BH, Pk, Nk), dtype=torch.float32, device=dev)
+          if dstate is None else _pad(dstate.float(), Pk, Nk))
     dhn = [None] * nc
     for c in reversed(range(nc)):
         dhn[c] = dh
         dh = eseg[:, c, None, None] * dh + dupd[:, c]
-    dhn = torch.stack(dhn, dim=1)                            # (BH, nc, P, N)
-    # 3. per chunk
+    dhn = torch.stack(dhn, dim=1)                            # (BH, nc, Pk, Nk)
+    # 2. per chunk
     L = _decay(cum)
     tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()
     dM = (dyf @ xf.transpose(-1, -2)).masked_fill(~tri, 0.0)
@@ -396,33 +532,33 @@ def ssd_bwd_plain(x, dt, a, d, B, C, dy, dstate, saved, *, chunk: int = 64,
     W = dM * L
     dG = W * dtj
     Z = W * G
-    # Z's column suffix sums ZS[t][j] = sum_{i>=t} Z[i][j] (t >= j)
-    ZS = _cumsum_in_order(Z.transpose(-1, -2).flip(-1)).flip(-1) \
-        .transpose(-1, -2).masked_fill(~tri, 0.0)
+    ZS = _suffix_sums(Z).masked_fill(~tri, 0.0)
     ddtM = ZS.diagonal(dim1=-2, dim2=-1)
-    ddaL = (ZS.masked_fill(~tri.tril(-1), 0.0) * dtj).sum(-1)
-    V = Bf @ dhn.transpose(-1, -2)                           # (Q, P)
-    dcoef = (xf * V).sum(-1)
+    ddaL = _quarters((ZS * dtj).masked_fill(~tri.tril(-1), 0.0), 16)
+    V = Bf @ dhn.transpose(-1, -2)                           # (Q, Pk)
+    dcoef = _quarters(xf * V, Pk // 4)
     dx = M.transpose(-1, -2) @ dyf + coef[..., None] * V \
         + d.float()[:, None, None, None] * dyf
     dBh = dG.transpose(-1, -2) @ Cf + coef[..., None] * (xf @ dhn)
-    U = dyf @ h_in                                           # (Q, N)
+    U = dyf @ h_in                                           # (Q, Nk)
     dCh = dG @ Bf + ec[..., None] * U
-    dcumE = ec * (Cf * U).sum(-1)
+    dcumE = ec * _pair_sum(Cf * U)
+    # the sums of dh * h and of dy * x over the chunk kernel's threads
+    hsum = _block_sum(_slice_major(dhn * h_in))
+    ddc = _block_sum((dyf * xf).reshape(BH, nc, -1))
     # the gradient of da_t: the L entries that span t, exp(cum_i) for
     # i >= t, coef_j for j < t, exp(seg); each a sum without cancellation
-    kc = dcoef * coef
-    kc_before = torch.cat([torch.zeros_like(kc[..., :1]),
-                           _cumsum_in_order(kc[..., :-1])], -1)
-    dda = (ddaL + _cumsum_in_order(dcumE.flip(-1)).flip(-1) + kc_before
-           + (eseg * (dhn * h_in).sum((-1, -2)))[..., None])
+    kc = _warp_scan(dcoef * coef)
+    kc_before = torch.cat([torch.zeros_like(kc[..., :1]), kc[..., :-1]], -1)
+    dda = (ddaL + _warp_scan(dcumE.flip(-1)).flip(-1) + kc_before
+           + (eseg * hsum)[..., None])
     ddt = ddtM + dcoef * ecoef + a.float()[:, None, None] * dda
-    da = (dtf * dda).sum(-1).sum(-1)
-    dd = (dyf * xf).sum((-1, -2)).sum(-1)
-    dB = dBh.reshape(BH // groups, groups, S, N).sum(1)
-    dC = dCh.reshape(BH // groups, groups, S, N).sum(1)
-    return (dx.reshape(BH, S, P).to(x.dtype), ddt.reshape(BH, S).to(dt.dtype),
-            da, dd, dB.to(B.dtype), dC.to(C.dtype))
+    da, dd = _chain(_lane_sum(dtf * dda), -1), _chain(ddc, -1)
+    dB = _chain(dBh.reshape(BH // groups, groups, S, Nk), 1)[..., :N]
+    dC = _chain(dCh.reshape(BH // groups, groups, S, Nk), 1)[..., :N]
+    dx = dx.reshape(BH, S, Pk)[..., :P]
+    return (dx.to(x.dtype), ddt.reshape(BH, S).to(dt.dtype), da, dd,
+            dB.to(B.dtype), dC.to(C.dtype))
 
 
 def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -481,6 +617,21 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if Nk != N:
         dB, dC = dB[..., :N].contiguous(), dC[..., :N].contiguous()
     return dx, ddt, da, dd, dB, dC
+
+
+def bwd_kernel_attrs(chunk: int, N: int) -> Dict[str, Dict[str, int]]:
+    """{"state": ..., "chunk": ...}: the registers a thread and resident
+    CTAs an SM of ``ssd_bwd``'s state and chunk kernels on the current
+    card, at ``chunk`` and N (padded as ``ssd_bwd`` pads it)."""
+    _, Nk = kernel_shape(1, N, chunk, "ssd_bwd")
+    out = {}
+    for which, name in enumerate(("state", "chunk")):
+        regs, ctas = ctypes.c_int(), ctypes.c_int()
+        rc = _lib("ssd_bwd").ssd_bwd_kernel_attrs(
+            chunk, Nk, which, ctypes.byref(regs), ctypes.byref(ctas))
+        _raise_on(rc, "ssd_bwd")
+        out[name] = {"registers": regs.value, "ctas_per_sm": ctas.value}
+    return out
 
 
 class SSDFunction(torch.autograd.Function):

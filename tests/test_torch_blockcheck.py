@@ -1,0 +1,100 @@
+"""``repro_torch.models.blockcheck``: one block's backward on the card held
+against the CPU's, every parameter's and the input's gradient within twice
+a noise floor measured in the same run.
+
+On the CPU the check's "card" is the CPU too, so every distance is 0; the
+CPU tests show that it covers every leaf of each block kind and that a
+fault on the checked side only (a dropped SSD gradient in the first two
+backwards, the card's) fails it. Tests marked ``cuda`` run the check as
+``chip_smoke.py`` phase 7c does, at full width, and with
+``SSDFunction.backward`` dropping ddt for CUDA tensors: the check fails.
+"""
+import pytest
+import torch
+
+from repro_torch import configs as TC
+from repro_torch.models import reduce_config
+from repro_torch.models.blockcheck import FLOOR_FACTOR, block_backward_check
+from repro_torch.kernels.ssd import kernel as SK
+
+KINDS = [("stablelm-3b", "global"), ("mamba2-370m", "ssm"),
+         ("hymba-1.5b", "hybrid")]
+
+
+def _drop_ddt(monkeypatch, when):
+    """SSDFunction.backward with ddt replaced by zeros where ``when(dy,
+    call)`` holds (call counts from 1)."""
+    orig = SK.SSDFunction.backward
+    calls = []
+
+    def faulty(ctx, dy, dstate):
+        calls.append(1)
+        grads = list(orig(ctx, dy, dstate))
+        if when(dy, len(calls)):
+            grads[1] = torch.zeros_like(grads[1])
+        return tuple(grads)
+
+    monkeypatch.setattr(SK.SSDFunction, "backward", staticmethod(faulty))
+    return calls
+
+
+@pytest.mark.parametrize("arch,kind", KINDS)
+def test_check_covers_every_leaf_on_the_cpu(arch, kind):
+    cfg = reduce_config(TC.get_config(arch))
+    rep = block_backward_check(cfg, kind, "cpu", seq=32)
+    assert rep["ok"] and not rep["failed"]
+    assert "x" in rep["leaves"]
+    assert any(k.startswith("ssm/") for k in rep["leaves"]) == (
+        kind != "global")
+    assert any(k.startswith("attn/") for k in rep["leaves"]) == (
+        kind != "ssm")
+    for row in rep["leaves"].values():
+        assert row["max_abs_diff"] == 0.0 and row["finite"]
+        assert row["noise_floor"] > 0.0
+
+
+@pytest.mark.parametrize("arch,kind", KINDS[1:])
+def test_check_fails_a_fault_on_the_checked_side(arch, kind, monkeypatch):
+    """ddt dropped in the first two backwards (the checked one and its
+    noise floor) and not in the third (the reference's): the SSD's dt
+    leaves and the input fail."""
+    cfg = reduce_config(TC.get_config(arch))
+    calls = _drop_ddt(monkeypatch, lambda dy, n: n <= 2)
+    rep = block_backward_check(cfg, kind, "cpu", seq=32)
+    assert len(calls) == 3
+    assert not rep["ok"]
+    assert {"ssm/dt_bias", "ssm/wdt", "x"} <= set(rep["failed"])
+    row = rep["leaves"]["ssm/wdt"]
+    assert row["max_abs_diff"] > FLOOR_FACTOR * row["noise_floor"]
+
+
+# ------------------------------ on the card -----------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ for "
+                    "sm_90a, built with nvcc, with no interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", KINDS)
+def test_cuda_block_backward_matches_cpu(card, arch, kind):
+    """A full-width block, B 1 x S 2048, f32: every gradient within twice
+    its noise floor of the CPU's."""
+    rep = block_backward_check(TC.get_config(arch), kind, card)
+    assert rep["ok"], rep["failed"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", KINDS[1:])
+def test_cuda_block_check_catches_a_dropped_ssd_gradient(card, arch, kind,
+                                                        monkeypatch):
+    """SSDFunction's backward dropping ddt on the card only (a fault in the
+    glue around the SSD kernels): the full-width check fails, naming the
+    dt leaves and the input."""
+    _drop_ddt(monkeypatch, lambda dy, n: dy.is_cuda)
+    rep = block_backward_check(TC.get_config(arch), kind, card)
+    assert not rep["ok"]
+    assert {"ssm/dt_bias", "ssm/wdt", "x"} <= set(rep["failed"])

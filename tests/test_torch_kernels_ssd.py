@@ -488,6 +488,157 @@ def test_plain_fwd_never_takes_exp_of_a_positive_difference(monkeypatch):
     assert seen and max(seen) <= 0.0
 
 
+# -------------------- the backward's orders of summation -----------------------
+# Each sum of ssd_bwd_plain that is not a matrix product runs in the CUDA
+# kernels' order (csrc/ssd_bwd.cu); each helper is held bit for bit to a
+# loop over np.float32 scalars that adds in that order, one rounding at a
+# time.
+
+def _f(v):
+    return [np.float32(t) for t in v]
+
+
+def _seq(v):
+    run = v[0]
+    for t in v[1:]:
+        run = np.float32(run + t)
+    return run
+
+
+def _fly(lanes):
+    """lane 0 after xor shuffles v[l] + v[l ^ off], off = n/2 .. 1"""
+    off = len(lanes) // 2
+    while off:
+        lanes = [np.float32(lanes[l] + lanes[l ^ off])
+                 for l in range(len(lanes))]
+        off //= 2
+    return lanes[0]
+
+
+def _oracle_block_sum(v):              # thread l holds v[l], v[l + 256], ...
+    lanes = [_seq(_f(v[l::256])) if l < len(v) else np.float32(0)
+             for l in range(256)]
+    return _seq([_fly(lanes[32 * w:32 * w + 32]) for w in range(8)])
+
+
+def _oracle_lane_sum(v):                # lane l: v[l], v[l + 32], ...
+    lanes = [_seq(_f(v[l::32])) if l < len(v) else np.float32(0)
+             for l in range(32)]
+    return _fly(lanes)
+
+
+def _oracle_warp_scan(v):
+    Q = len(v)
+    E = -(-Q // 32)
+    w = _f(list(v) + [0.0] * (32 * E - Q))
+    loc = []
+    for l in range(32):
+        run, part = None, []
+        for e in range(E):
+            run = w[E * l + e] if run is None else np.float32(run + w[E * l + e])
+            part.append(run)
+        loc.append(part)
+    inc = [p[-1] for p in loc]
+    off = 1
+    while off < 32:
+        inc = [inc[l] if l < off else np.float32(inc[l] + inc[l - off])
+               for l in range(32)]
+        off *= 2
+    ex = [np.float32(0)] + inc[:-1]
+    out = [np.float32(ex[l] + loc[l][e]) for l in range(32) for e in range(E)]
+    return out[:Q]
+
+
+def _oracle_quarters(v, width):
+    n = len(v)
+    bounds = [min(k * width, n) for k in range(4)] + [n]
+    parts = [_seq(_f(v[lo:hi])) if hi > lo else np.float32(0)
+             for lo, hi in zip(bounds[:-1], bounds[1:])]
+    return np.float32(np.float32(parts[0] + parts[1])
+                      + np.float32(parts[2] + parts[3]))
+
+
+def _oracle_suffix(Z):                  # one column j's entries by row
+    Q = len(Z)
+    segs, tots = [], []
+    for s0 in range(0, Q, 16):
+        run, loc = np.float32(0), {}
+        for i in reversed(range(s0, min(s0 + 16, Q))):
+            run = np.float32(run + Z[i])
+            loc[i] = run
+        segs.append(loc)
+        tots.append(run)
+    out, carry = [None] * Q, None
+    for s in reversed(range(len(segs))):
+        for i, v in segs[s].items():
+            out[i] = v if carry is None else np.float32(v + carry)
+        carry = tots[s] if carry is None else np.float32(tots[s] + carry)
+    return out
+
+
+def _oracle_pair_sum(v):                # v (Nk,), Nk a multiple of 8
+    NS = min(len(v), 32)
+    acc = None
+    for s0 in range(0, len(v), NS):
+        lanes = [_seq(_f(v[s0 + l:s0 + NS:8])) for l in range(8)]
+        part = _fly(lanes)
+        acc = part if acc is None else np.float32(acc + part)
+    return acc
+
+
+ORDERS = ["block_sum", "lane_sum", "warp_scan", "quarters", "suffix_sums",
+          "pair_sum", "slice_major"]
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_bwd_plain_sums_in_the_kernels_order(order):
+    rng = np.random.default_rng(ORDERS.index(order))
+    r = lambda *shape: rng.normal(size=shape).astype(np.float32) * \
+        rng.uniform(0.1, 1e3, size=shape).astype(np.float32)
+    eq = lambda got, want: np.float32(got).tobytes() == \
+        np.float32(want).tobytes()
+    if order == "block_sum":
+        for n in (256, 1024, 384):
+            v = r(n)
+            assert eq(K._block_sum(torch.from_numpy(v)), _oracle_block_sum(v))
+    elif order == "lane_sum":
+        for Q in (8, 16, 32, 64):
+            v = r(Q)
+            assert eq(K._lane_sum(torch.from_numpy(v)), _oracle_lane_sum(v))
+    elif order == "warp_scan":
+        for Q in (8, 16, 32, 64):
+            v = r(Q)
+            got = K._warp_scan(torch.from_numpy(v)).numpy()
+            assert got.tobytes() == np.array(_oracle_warp_scan(v)).tobytes()
+    elif order == "quarters":
+        for n, width in ((64, 16), (8, 16), (32, 16), (64, 4)):
+            v = r(n)
+            assert eq(K._quarters(torch.from_numpy(v), width),
+                      _oracle_quarters(v, width))
+    elif order == "suffix_sums":
+        for Q in (8, 32, 64):
+            Z = np.tril(r(Q, Q))
+            got = K._suffix_sums(torch.from_numpy(Z)).numpy()
+            for j in range(Q):
+                want = _oracle_suffix(Z[:, j])
+                assert got[j:, j].tobytes() == np.array(want[j:]).tobytes()
+    elif order == "pair_sum":
+        for n in (16, 32, 64, 128):
+            v = r(n)
+            assert eq(K._pair_sum(torch.from_numpy(v)), _oracle_pair_sum(v))
+    else:
+        # the e-th entry read: slice after slice of min(N, 32) columns,
+        # (P, NS) row-major
+        for N in (16, 128):
+            NS = min(N, 32)
+            t = np.arange(64 * N, dtype=np.float32).reshape(64, N)
+            got = K._slice_major(torch.from_numpy(t)).numpy()
+            assert got.shape == (64 * N,)
+            for e in (0, 17, 255, 64 * N - 64 * NS + 3, 64 * N - 1):
+                sl, p, n = e // (64 * NS), (e % (64 * NS)) // NS, e % NS
+                assert got[e] == t[p, NS * sl + n]
+
+
 # ------------------------------ on the card -----------------------------------
 
 @pytest.fixture
