@@ -21,13 +21,18 @@ and prints no result. Phases:
                shape also the kernels' times with L2 flushed, as in 2b. Then
                the Newton loop kernel (newton_loop, one cooperative launch a
                projection) against its plain version, the host loop over
-               mu_solve_plain, on the engine's state after pass 1 of phase
-               3's projection at each shape: theta to 1e-6, newton_iters
-               equal or one apart on a last fp-rounding step (thetas within
-               4 ulps, work_cols then larger by that step), the alive prefix
-               and mu's support equal, mu within 1e-5 * colmax, a rerun
-               bit-equal; the kernel's device ms (CUDA graph) and the plain
-               loop's wall ms (it syncs once a step).
+               the same solves (pass 2 cold, later ones warm), on the
+               engine's state after pass 1 of phase 3's projection at each
+               shape: theta to 1e-6, newton_iters equal or one apart on a
+               last fp-rounding step (thetas within 4 ulps, work_cols then
+               larger by that step), the alive prefix and mu's support
+               equal, mu within 1e-5 * colmax, a rerun bit-equal; the
+               kernel's device ms (CUDA graph) L2-warm and flushed, the
+               empty loop's (``scripts/torch_kernel_variants.py``'s
+               newton_loop_empty, built beside the kernels: the same grid
+               and grid.sync() count with nothing solved, the floor of any
+               one-launch loop) and the plain loop's wall ms (it syncs once
+               a step).
   2b. fused  — the fused step's two kernels (adam_colstats, adam_clip_apply)
                against their plain versions on the leaves the fused step
                hands them: the SAE's ``enc1/w`` (10000 x 96, max axis 1),
@@ -247,6 +252,8 @@ and prints no result. Phases:
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
+import concurrent.futures
+import ctypes
 import dataclasses
 import gc
 import json
@@ -464,15 +471,42 @@ def refuses_grad(torch, call, x):
     return True
 
 
-def loop_phase(torch, K, O, Y, C):
+def _empty_loop(torch, lib, args, kw, iters):
+    """A call of the empty loop library (the loop kernel with nothing
+    solved, stepping until max_newton) on the wrapper's arguments, run to
+    ``iters`` Newton steps: the same grid and grid.sync() count as the
+    kernel's run."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.l1inf_newton_loop.argtypes = [P] * 10 + [I] * 8 + [P]
+    lib.l1inf_newton_loop_clusters.argtypes = [I, I, I]
+    A = args[0]
+    n, m = A.shape
+    ncl = lib.l1inf_newton_loop_clusters(n, m, 1)
+    out = [torch.empty(m, device=A.device), torch.empty(1, device=A.device),
+           torch.empty(3, dtype=torch.int64, device=A.device),
+           torch.empty(2 * ncl * 3, device=A.device)]
+    ptrs = [t.data_ptr() for t in args] + [t.data_ptr() for t in out]
+
+    def call():
+        rc = lib.l1inf_newton_loop(
+            *ptrs, n, m, 1, kw["block_m"], 26, 8, iters, 1,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty loop launch failed: CUDA error {rc}")
+    return call
+
+
+def loop_phase(torch, K, O, Y, C, flush, empty_lib):
     """The Newton loop kernel against its plain version (the host loop over
-    mu_solve_plain) on the engine's state after pass 1 of projecting Y onto
-    the ball of radius C: theta to atol = rtol 1e-6, newton_iters equal or
-    one apart where the last step is fp rounding (thetas within 4 ulps,
-    work_cols then larger by that step's prefix), active_cols_per_step and
-    mu's support equal, mu within 1e-5 * colmax; a rerun bit-equal. Times:
-    the kernel in a CUDA graph (``time_ms``), the plain loop on the host
-    clock (``wall_ms``: it syncs once a step, so it cannot be captured)."""
+    the same solves) on the engine's state after pass 1 of projecting Y
+    onto the ball of radius C: theta to atol = rtol 1e-6, newton_iters
+    equal or one apart where the last step is fp rounding (thetas within 4
+    ulps, work_cols then larger by that step's prefix), active_cols_per_step
+    and mu's support equal, mu within 1e-5 * colmax; a rerun bit-equal.
+    Times: the kernel in a CUDA graph (``time_ms``) L2-warm and flushed
+    (``time_cold_ms``), the empty loop the same way at the kernel's step
+    count, the plain loop on the host clock (``wall_ms``: it syncs once a
+    step, so it cannot be captured)."""
     n, m = Y.shape
     Ypad, bm = O._padded(Y, 0)
     sids = (torch.arange(Ypad.shape[1], device=Y.device) >= m).to(
@@ -506,18 +540,26 @@ def loop_phase(torch, K, O, Y, C):
               else torch.equal(a, b) for a, b in zip(got, again)),
           "newton_loop: rerun not bit-equal")
     # bound: read the first evaluation's prefix once; 2 f32 operations an
-    # element on each of 36 passes over every evaluation's prefix
-    swept = int(work) - Ypad.shape[1]
+    # element on each of pass 2's 36 cold passes over its prefix and on the
+    # 2 passes (a step and the one that confirms it) a warm evaluation
+    # takes at least over each later prefix
     first = min(int(li["num_active"]) + bm - 1, Ypad.shape[1]) // bm * bm
+    later = int(work) - Ypad.shape[1] - first
     bound = max((n * first * 4 / HBM_BYTES_PER_S * 1e3, "bytes"),
-                (36 * 2 * n * swept / F32_OPS_PER_S * 1e3, "operations"))
+                (2 * n * (36 * first + 2 * later) / F32_OPS_PER_S * 1e3,
+                 "operations"))
+    loop = lambda: K.newton_loop(*args, **kw)
+    empty = _empty_loop(torch, empty_lib, args, kw, int(it))
     return {"newton_iters": int(it), "newton_iters_plain": int(itp),
             "work_cols": int(work), "work_cols_plain": int(workp),
             "active_cols_per_step": int(acps),
             "num_active": int(li["num_active"]),
             "theta": float(th[0]), "theta_plain": float(thp[0]),
             "max_abs_err": dmu,
-            "ms": time_ms(torch, lambda: K.newton_loop(*args, **kw)),
+            "ms": time_ms(torch, loop),
+            "ms_l2_flushed": time_cold_ms(torch, loop, flush),
+            "empty_loop_ms": time_ms(torch, empty),
+            "empty_loop_ms_l2_flushed": time_cold_ms(torch, empty, flush),
             "plain_ms": wall_ms(torch, lambda: K.newton_loop_plain(
                 *args, **kw), reps=3),
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
@@ -2027,8 +2069,16 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
 
     # -- 1. build --------------------------------------------------------
+    # the port's sources, and beside them the empty Newton loop (phase 2's
+    # floor), every nvcc started at once
+    sys.path.insert(0, os.path.join(root, "scripts"))
+    import torch_kernel_variants as KV
     t0 = time.perf_counter()
-    libs = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        empty_build = pool.submit(KV.build, ["newton_loop_empty"],
+                                  _build._nvcc(), _build.NVCC_FLAGS)
+        libs = _build.build()
+        empty_lib = ctypes.CDLL(empty_build.result()["newton_loop_empty"])
     build_s = time.perf_counter() - t0
     ptxas = []
     for path in libs.values():
@@ -2131,9 +2181,8 @@ def main():
                     torch, lambda: K.clip_apply(Y, mu), flush)})
         ncols, C = proj[name]
         loops[name] = lp = loop_phase(torch, K, O,
-                                      Y[:, :ncols].contiguous(), C)
-        errs["newton_loop"] = max(errs.get("newton_loop", 0.0),
-                                  lp["max_abs_err"])
+                                      Y[:, :ncols].contiguous(), C, flush,
+                                      empty_lib)
         emit({"phase": "kernels", "shape": name, "n": n, "m": m,
               "mu_solve_prefix_cols": P,
               "colstats_sum_rel_err": rel,
@@ -2532,9 +2581,9 @@ def main():
     # flushed before each call (the one to hold against the HBM bound: the
     # inputs fit in L2); no single PyTorch call computes either fused
     # pass, so their library_ms is null
-    # the loop kernel's row: its time and bound on the projection of the
-    # SAE's enc1/w (phase 2), launches on the main path (phase 4)
-    lsae = loops["sae_enc1"]
+    # the loop kernel's rows: its times and bound on the projection of the
+    # SAE's enc1/w and of the Fig. 2 buffers (phase 2), launches on the
+    # main path (phase 4)
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
@@ -2545,9 +2594,10 @@ def main():
         {"name": "newton_loop", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["newton_loop"],
          "launches": launches["newton_loop"],
-         "max_abs_err": errs["newton_loop"],
-         **{k: lsae[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")}}] + [
+         "max_abs_err": loops[shape]["max_abs_err"], "shape": shape,
+         **{k: loops[shape][k] for k in (
+             "ms", "ms_l2_flushed", "empty_loop_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")}} for shape in SHAPES] + [
         {"name": k, "route": "cuda", "source": FUSED_SOURCE,
          "replaces": FUSED_REPLACES[k], "launches": fused_launches[k],
          "max_abs_err": ferrs[k], "ms": fsae[k][0],

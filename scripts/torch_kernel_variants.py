@@ -26,7 +26,10 @@ timed as ``chip_smoke.time_ms`` times a kernel (a CUDA graph of
 back-to-back calls between CUDA events, inputs L2-warm). SSD variants also
 get one traced call, for the device ms of each of their launches;
 ``ssd_bwd_phase_clocks`` also reports its chunk kernel's clock64() cycles
-per CTA in each phase. Prints one JSON line per variant, then the card's
+per CTA in each phase, and ``newton_loop_phase_clocks`` (with
+``cold_loop_phase_clocks`` for the first loop kernel's source) the Newton
+loop's, beside its L2-flushed time; the ``*_empty`` variants run the loop
+with nothing solved for as many steps as the plain loop takes. Prints one JSON line per variant, then the card's
 name and power limit. Needs one CUDA card; exits non-zero without one.
 """
 import argparse
@@ -244,6 +247,146 @@ _PHASES = [
      "  cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));\n"
      "  return (int)cudaGetLastError();\n}\n\n"
      "const char* ssd_bwd_error_string(int code) {")]
+# The Newton loop kernel's phases: thread 0 of each CTA stamps clock64() at
+# the end of each phase and adds the gap to a per-CTA sum in shared memory
+# (phase_mark); at the kernel's end the sums go to a device array with the
+# CTA count (phase_mark(-2)), which the variant's l1inf_phase_clocks reads
+# (then zeroes). Phases: the column load, the colmax (and colsum) pass,
+# the bisection, the polish, the payloads, the column sums and the posting,
+# the wait at grid.sync(), update, the alive-prefix count (in the
+# committed kernel: each group's alive test) and the warm Michelot steps.
+LOOP_PHASES = ("load", "stats", "bisect", "polish", "payloads", "colsums",
+               "grid_sync", "update", "nact", "warm")
+_NPH = len(LOOP_PHASES)
+_PHASE_MARK = [
+    ("namespace cg = cooperative_groups;\n",
+     "namespace cg = cooperative_groups;\n\n"
+     f"__device__ unsigned long long g_phase_clocks[{_NPH + 1}];\n\n"
+     "__device__ __forceinline__ void phase_mark(int k) {\n"
+     "  __shared__ long long last_;\n"
+     f"  __shared__ unsigned long long acc_[{_NPH}];\n"
+     "  if (threadIdx.x != 0) return;\n"
+     "  const long long now = clock64();\n"
+     f"  if (k == -1) for (int j = 0; j < {_NPH}; ++j) acc_[j] = 0;\n"
+     "  if (k == -2) {\n"
+     f"    for (int j = 0; j < {_NPH}; ++j) atomicAdd(&g_phase_clocks[j], acc_[j]);\n"
+     f"    atomicAdd(&g_phase_clocks[{_NPH}], 1ull);\n"
+     "    return;\n  }\n"
+     "  if (k >= 0) acc_[k] += (unsigned long long)(now - last_);\n"
+     "  last_ = clock64();\n}\n"),
+    ("const char* l1inf_error_string(int code) {",
+     "int l1inf_phase_clocks(unsigned long long* out) {\n"
+     "  cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));\n"
+     f"  static const unsigned long long zero[{_NPH + 1}] = {{}};\n"
+     "  cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));\n"
+     "  return (int)cudaGetLastError();\n}\n\n"
+     "const char* l1inf_error_string(int code) {")]
+# the first loop kernel (every Newton step a cold 36-pass mu_solve over
+# columns reloaded from global memory, every CTA rescanning the alive
+# prefix): apply to its l1inf.cu with --src
+_COLD_LOOP_MARKS = _PHASE_MARK + [
+    ("  __syncthreads();\n  unsigned pass = 0;\n\n",
+     "  __syncthreads();\n  unsigned pass = 0;\n  phase_mark(-1);\n\n"),
+    ("    bound = last + 1;\n    return",
+     "    bound = last + 1;\n    phase_mark(8);\n    return"),
+    ("      load_slab<VPL, TL>(a.A, a.m, c0, r0, r1, tile, v);\n",
+     "      load_slab<VPL, TL>(a.A, a.m, c0, r0, r1, tile, v);\n"
+     "      phase_mark(0);\n"),
+    ("  const bool active = colsum > th;\n",
+     "  const bool active = colsum > th;\n  phase_mark(1);\n"),
+    ("  // Michelot polish from below", "  phase_mark(2);\n"
+     "  // Michelot polish from below"),
+    ("  mu = fmaxf(mu, 0.f);\n\n  // exact payloads",
+     "  phase_mark(3);\n  mu = fmaxf(mu, 0.f);\n\n  // exact payloads"),
+    ("  return Solved{mu, fmaxf(cnt, 1.f), ssum, active};",
+     "  phase_mark(4);\n  return Solved{mu, fmaxf(cnt, 1.f), ssum, active};"),
+    ("        // the next load_slab's first barrier orders colres's reuse\n",
+     "        phase_mark(5);\n"),
+    ("          __stcg(dst + t, acc[t]);\n        }\n      }\n",
+     "          __stcg(dst + t, acc[t]);\n        }\n      }\n"
+     "      phase_mark(5);\n"),
+    ("  grid.sync();\n  bool moved = update(buf);\n",
+     "  grid.sync();\n  phase_mark(6);\n  bool moved = update(buf);\n"
+     "  phase_mark(7);\n"),
+    ("    grid.sync();\n    moved = update(buf);\n",
+     "    grid.sync();\n    phase_mark(6);\n    moved = update(buf);\n"
+     "    phase_mark(7);\n"),
+    ("      a.stats[2] = (long long)nfinal * a.bm;\n    }\n  }\n",
+     "      a.stats[2] = (long long)nfinal * a.bm;\n    }\n  }\n"
+     "  phase_mark(-2);\n")]
+# the committed loop kernel (warm steps, the polish ending at its first
+# step that does not raise the level, so its payloads are that step's)
+_LOOP_MARKS = _PHASE_MARK + [
+    ("  __syncthreads();\n  unsigned pass = 0;\n\n",
+     "  __syncthreads();\n  unsigned pass = 0;\n  phase_mark(-1);\n\n"),
+    ("      if (__syncthreads_or(alive)) {\n",
+     "      const bool any_alive = __syncthreads_or(alive);\n"
+     "      phase_mark(8);\n      if (any_alive) {\n"),
+    ("        fetch_slab<VPL, TL>(tile, v);\n",
+     "        fetch_slab<VPL, TL>(tile, v);\n        phase_mark(0);\n"),
+    ("        const bool cold = alive && !ok;\n",
+     "        phase_mark(9);\n        const bool cold = alive && !ok;\n"),
+    ("            cmax = mx;\n          }\n",
+     "            cmax = mx;\n          }\n          phase_mark(1);\n"),
+    ("          float mc = lo, kc = 1.f, sc = 0.f;\n",
+     "          phase_mark(2);\n          float mc = lo, kc = 1.f, sc = 0.f;\n"),
+    ("          if (cold) {\n            mu = mc;\n",
+     "          phase_mark(3);\n          if (cold) {\n            mu = mc;\n"),
+    ("                                              lane));\n      }\n",
+     "                                              lane));\n      }\n"
+     "      phase_mark(5);\n"),
+    ("      posted[0] = last < 0 ? 0 : (last / T::kCols - cl) / ncl + 1;\n"
+     "    }\n",
+     "      posted[0] = last < 0 ? 0 : (last / T::kCols - cl) / ncl + 1;\n"
+     "    }\n    phase_mark(5);\n"),
+    ("  grid.sync();\n  bool moved = update(buf, true);\n",
+     "  grid.sync();\n  phase_mark(6);\n  bool moved = update(buf, true);\n"
+     "  phase_mark(7);\n"),
+    ("    grid.sync();\n    moved = update(buf, true);\n",
+     "    grid.sync();\n    phase_mark(6);\n    moved = update(buf, true);\n"
+     "    phase_mark(7);\n"),
+    ("      a.stats[2] = (long long)nact() * a.bm;\n    }\n  }\n",
+     "      a.stats[2] = (long long)nact() * a.bm;\n    }\n  }\n"
+     "  phase_mark(-2);\n")]
+# staging a group's tile: the Newton loop with the scalar loads mu_solve
+# keeps (its 16-byte loads off), and the same as 4-byte cp.async copies
+# with |.| taken when the lanes fetch their values
+_VEC4 = "(int)(m % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0)};"
+_SCALAR_LOADS = [(_VEC4, "0};")]
+_STAGE = ("      float x = 0.f;\n"
+          "      if (row < r1 && col < m) x = fabsf(A[(size_t)row * m + col]);\n"
+          "      tile[r * T::kStride + c] = x;\n")
+_STAGE_CP = _SCALAR_LOADS + [
+    (_STAGE, "      const bool in = row < r1 && col < m;\n"
+     "      const unsigned dst = (unsigned)__cvta_generic_to_shared(\n"
+     "          tile + r * T::kStride + c);\n"
+     "      asm volatile(\"cp.async.ca.shared.global [%0], [%1], 4, %2;\\n\"\n"
+     "                   :: \"r\"(dst), \"l\"(A + (in ? (size_t)row * m + col : 0)),\n"
+     "                   \"r\"(in ? 4 : 0));\n"),
+    ("    }\n  }\n  __syncthreads();\n}\n",
+     "    }\n    asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n"
+     "  }\n  __syncthreads();\n}\n"),
+    ("    v[i] = tile[(rl + TL * i) * T::kStride + w * T::kCPW + sub];",
+     "    v[i] = fabsf(tile[(rl + TL * i) * T::kStride + w * T::kCPW + sub]);")]
+# the same grid and grid.sync() count with no solve: no group is visited
+# and every step "moves", so the loop runs to max_newton (the runner passes
+# the plain loop's Newton count)
+_LOOP_EMPTY = [
+    ("    for (int i = 0; i < visit; ++i) {",
+     "    for (int i = visit; i < visit; ++i) {"),
+    ("    return __syncthreads_or(moved) != 0;",
+     "    return __syncthreads_or(moved) >= 0;")]
+# the same grid and grid.sync() count with no work: no column is solved,
+# the prefix scan is cut and every step "moves", so the loop runs to
+# max_newton (the runner passes the committed kernel's Newton count)
+_COLD_LOOP_EMPTY = [
+    ("    for (int g = cl; g < ngroups; g += ncl) {",
+     "    for (int g = ngroups; g < ngroups; g += ncl) {"),
+    ("    for (int c = threadIdx.x; c < bound; c += kThreads) {",
+     "    for (int c = bound; c < bound; c += kThreads) {"),
+    ("    return __syncthreads_or(moved) != 0;",
+     "    return __syncthreads_or(moved) >= 0;")]
+
 # name -> (source, diagnostic, [(old, new), ...])
 VARIANTS = {
     "l1inf": ("l1inf.cu", False, []),
@@ -253,9 +396,19 @@ VARIANTS = {
     "mu_solve_no_cluster_exchange": ("l1inf.cu", True, [
         (_COMBINE, "  float2 p = make_float2(a, b);\n")]),
     "mu_solve_no_bisect_shuffles": ("l1inf.cu", True, [
-        ("    float removed = lanes_sum<TL>(removed_at(v, mid));",
-         "    float removed = removed_at(v, mid);")]),
+        ("\n    float removed = lanes_sum<TL>(removed_at(v, mid));",
+         "\n    float removed = removed_at(v, mid);")]),
     "colstats_one_cta": ("l1inf.cu", False, [(_STAT_S, "const int S = 1;")]),
+    "newton_loop_2_ctas": ("l1inf.cu", False, [
+        (_LOOP_BOUNDS, "constexpr int min_loop_ctas() { return 2; }")]),
+    "newton_loop_3_ctas": ("l1inf.cu", False, [
+        (_LOOP_BOUNDS, "constexpr int min_loop_ctas() { return 3; }")]),
+    "newton_loop_phase_clocks": ("l1inf.cu", False, _LOOP_MARKS),
+    "newton_loop_scalar_loads": ("l1inf.cu", False, _SCALAR_LOADS),
+    "stage_cp_async": ("l1inf.cu", False, _STAGE_CP),
+    "newton_loop_empty": ("l1inf.cu", True, _LOOP_EMPTY),
+    "cold_loop_phase_clocks": ("l1inf.cu", False, _COLD_LOOP_MARKS),
+    "cold_loop_empty": ("l1inf.cu", True, _COLD_LOOP_EMPTY),
     "flash": ("flash_attention.cu", False, []),
     "flash_f32_tile_128x64": ("flash_attention.cu", False, [
         (_F32_TILE, "launch_f32<64, 8, 64>")]),
@@ -581,10 +734,14 @@ def ssd_bwd_runs(torch, CS, SK, lib, dev):
     return rows
 
 
-def l1inf_runs(torch, CS, K, O, lib, dev):
+def l1inf_runs(torch, CS, K, O, lib, dev, empty=False):
     """{shape: row} for colstats, mu_solve and the Newton loop: the inputs
     of chip_smoke.py phase 2 (a vector theta, two thirds of the blocks
-    active) and the engine's state after pass 1 of phase 3's projection."""
+    active) and the engine's state after pass 1 of phase 3's projection.
+    The loop is timed L2-warm and flushed; a variant with
+    ``l1inf_phase_clocks`` also reports one launch's clock64() cycles a CTA
+    in each of ``LOOP_PHASES``. ``empty``: the loop runs max_newton = the
+    plain loop's Newton count (an empty-loop variant steps until then)."""
     import numpy as np
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.l1inf_colstats.argtypes = [P, P, P, I, I, I, P]
@@ -593,6 +750,8 @@ def l1inf_runs(torch, CS, K, O, lib, dev):
     lib.l1inf_newton_loop_clusters.argtypes = [I, I, I]
     rng = np.random.default_rng(0)
     g = torch.Generator(device=dev).manual_seed(0)
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    flush = lambda: flush_buf.fill_(1.0)          # 256 MB through L2
     rows = {}
     for name, (n, m_pad) in CS.SHAPES.items():
         m, C = {"sae_enc1": (10000, 0.2), "fig2_wide": (10000, 1.0),
@@ -635,22 +794,36 @@ def l1inf_runs(torch, CS, K, O, lib, dev):
         mu, th = torch.empty(mp, device=dev), torch.empty(1, device=dev)
         st = torch.empty(3, dtype=torch.int64, device=dev)
         clusters = lib.l1inf_newton_loop_clusters(n, mp, 1)
-        part = torch.empty(4 * clusters, device=dev)
+        part = torch.empty(2 * clusters * 3, device=dev)   # 2 x (2G + 1)
+        plain = K.newton_loop_plain(
+            li["A"], li["sids"], li["colsum"], li["t1"], li["Csafe"],
+            li["num_active"], num_segments=1, block_m=bm)
+        cap = int(plain[2]) if empty else 32
         loop = lambda: lib.l1inf_newton_loop(
             *(li[k].data_ptr() for k in ("A", "sids", "colsum", "t1",
                                          "Csafe", "num_active")),
             mu.data_ptr(), th.data_ptr(), st.data_ptr(), part.data_ptr(),
-            n, mp, 1, bm, 26, 8, 32, 1, stream())
+            n, mp, 1, bm, 26, 8, cap, 1, stream())
         if loop() != 0:
             raise SystemExit("l1inf variant: loop launch failed")
-        plain = K.newton_loop_plain(
-            li["A"], li["sids"], li["colsum"], li["t1"], li["Csafe"],
-            li["num_active"], num_segments=1, block_m=bm)
         row.update({"newton_loop_ms": CS.time_ms(torch, loop),
+                    "newton_loop_ms_flushed": CS.time_cold_ms(torch, loop,
+                                                              flush),
                     "newton_loop_clusters": clusters,
                     "newton_iters": int(st[0]),
                     "newton_iters_plain": int(plain[2]),
                     "theta_err": float((th - plain[0]).abs().max())})
+        if hasattr(lib, "l1inf_phase_clocks"):
+            clocks = (ctypes.c_ulonglong * (_NPH + 1))()
+            torch.cuda.synchronize()
+            lib.l1inf_phase_clocks(clocks)
+            loop()
+            torch.cuda.synchronize()
+            lib.l1inf_phase_clocks(clocks)
+            ctas = max(clocks[_NPH], 1)
+            row["loop_phase_cycles_per_cta"] = {
+                k: clocks[i] / ctas for i, k in enumerate(LOOP_PHASES)}
+            row["loop_ctas"] = clocks[_NPH]
         rows[name] = row
     return rows
 
@@ -680,7 +853,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     names = args.only or list(VARIANTS)
-    libs = build(names, _build._nvcc(), _build.NVCC_FLAGS, args.src)
+    # a name given twice is built once and run twice (in turns)
+    libs = build(list(dict.fromkeys(names)), _build._nvcc(),
+                 _build.NVCC_FLAGS, args.src)
     for name in names:
         src, diagnostic, subs = VARIANTS[name]
         lib = ctypes.CDLL(libs[name])
@@ -696,7 +871,8 @@ def main():
         elif src == "ssd_bwd.cu":
             line.update(ssd_bwd_runs(torch, CS, SK, lib, dev))
         elif src == "l1inf.cu":
-            line.update(l1inf_runs(torch, CS, K, O, lib, dev))
+            line.update(l1inf_runs(torch, CS, K, O, lib, dev,
+                                   empty=name.endswith("_empty")))
         else:
             for shape, same, ms, launches in ssd_runs(torch, CS, SK, lib,
                                                       dev):

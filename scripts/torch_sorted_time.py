@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time ``project_l1inf_sorted`` at paper Fig. 2's shapes and hold it to
-the same tree's ``project_l1inf_newton``.
+"""Time ``project_l1inf_sorted`` and the kernel engine at paper Fig. 2's
+shapes and hold them to the same tree's ``project_l1inf_newton``.
 
     python3 scripts/torch_sorted_time.py [--src DIR] [--reps N]
 
@@ -9,10 +9,11 @@ the same tree's ``project_l1inf_newton``.
 beside this one in the same call. Inputs: U(0, 1) 1000 x 10000 and
 10000 x 1000 at C = 1, drawn with numpy (``chip_smoke.py`` phase 3's
 draw) and with ``torch.rand`` (seed 0). One JSON line per (shape, draw):
-the median wall ms of one sorted and of one Newton projection (each call
-synchronized, after two warm calls) and max |sorted - Newton|; then the
-card's name and power limit as ``nvidia-smi`` gives them. Needs one CUDA
-card.
+the median wall ms of one sorted, one kernel-engine
+(``project_l1inf_kernel``, its kernels built from that tree) and one
+Newton projection (each call synchronized, after two warm calls) and
+their max |. - Newton|; then the card's name and power limit as
+``nvidia-smi`` gives them. Needs one CUDA card.
 """
 import argparse
 import json
@@ -53,6 +54,7 @@ def main():
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.core.l1inf import (project_l1inf_newton,
                                         project_l1inf_sorted)
+    from repro_torch.kernels.l1inf.ops import project_l1inf_kernel
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     draws = {}
@@ -64,15 +66,20 @@ def main():
             generator=torch.Generator(device=dev).manual_seed(0))
     for (name, draw), Y in draws.items():
         Xs = project_l1inf_sorted(Y, C)
+        Xk = project_l1inf_kernel(Y, C)
         Xn = project_l1inf_newton(Y, C)
         print(json.dumps({
             "src": args.src, "shape": name, "draw": draw, "C": C,
             "sorted_ms": wall_ms(
                 torch, lambda: project_l1inf_sorted(Y, C), args.reps),
+            "kernel_ms": wall_ms(
+                torch, lambda: project_l1inf_kernel(Y, C), args.reps),
             "newton_ms": wall_ms(
                 torch, lambda: project_l1inf_newton(Y, C), args.reps),
             "sorted_max_abs_diff_vs_newton": float(
-                (Xs - Xn).abs().max())}), flush=True)
+                (Xs - Xn).abs().max()),
+            "kernel_max_abs_diff_vs_newton": float(
+                (Xk - Xn).abs().max())}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

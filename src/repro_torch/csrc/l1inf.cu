@@ -41,17 +41,37 @@
 //
 // newton_loop (the engine's loop: kernels/l1inf/ops.py::_engine, pass 2
 //   to the end). One cooperative launch per projection, at a grid the
-//   occupancy API says is resident. Each Newton evaluation: every CTA (or
-//   cluster) runs the mu_solve body above over its column groups of the
-//   still-alive prefix, adds its columns' S/k and 1/k per segment in column
-//   order, posts them, grid.sync(), then EVERY CTA adds the posted
-//   partials in cluster order (a fixed 32-lane tree) and applies Eq. (19)
-//   and theta = max(new, theta) itself: all CTAs hold the same theta, so no
-//   second sync broadcasts it. The alive-prefix count (nact) is a block-
-//   wide max over the compacted columns, also computed by every CTA. The
-//   loop, its counters and the cap-exit re-evaluation are those of the
-//   host loop it replaces (kernel.py::newton_loop_plain); the host never
-//   syncs. Bound: the mu_solve launches it replaces.
+//   occupancy API says is resident; the loop, its counters and the cap-exit
+//   re-evaluation are those of kernel.py::newton_loop_plain, and the host
+//   never syncs. Bound: operations, the passes of every evaluation over its
+//   prefix. A cold mu_solve a step spends 36 passes a column, so the design
+//   is about passes and what surrounds them:
+//   * Each cluster owns the column groups cl, cl + ncl, ... for the whole
+//     loop and keeps, per owned column, its level mu, its count above k and
+//     its max in shared memory (the grid is sized with room for them; a
+//     buffer too wide for that raises). Theta only rises, so each level
+//     only falls: from pass 3 on a column starts under the tangent at its
+//     previous level, mu_prev - (theta - theta_prev) / k_prev (a lower
+//     bound, removed(mu) being convex), less kWarmMargin * colmax for the
+//     f32 rounding, and Michelot climbs to the fixed point in 2-5 passes
+//     instead of 36. A column whose first step lowers its level, or that
+//     has not settled after n_polish steps, takes mu_solve's cold passes
+//     (26 bisections, the polish stopping at its first step that does not
+//     raise the level, which leaves the result as it was).
+//   * The teams of a warp (and the warps of a cluster) make their passes
+//     together until the last of their columns settles, so every shuffle
+//     and cluster barrier is taken by all.
+//   * The groups whose tiles fit in the shared memory the grid leaves over
+//     are staged once, at pass 2, and read from there after; the others
+//     are staged again each evaluation, by 16-byte loads where m and A
+//     allow.
+//   * Each cluster adds its columns' S/k and 1/k per segment by a 32-lane
+//     tree per group, and posts them with its last alive column (theta
+//     only rises, so the groups past it are not visited again): one
+//     grid.sync() a step, after which EVERY CTA adds the posted partials
+//     in cluster order and applies Eq. (19) and theta = max(new, theta)
+//     itself, and takes the max of the posted last columns for the prefix
+//     count: all CTAs hold the same theta, so no second sync broadcasts it.
 //
 // clip_apply (replaces kernel.py::clip_apply)
 //   X = sign(Y) * min(|Y|, mu_j) in Y's dtype (f32 or bf16), with mu
@@ -69,6 +89,7 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -104,18 +125,6 @@ __device__ __forceinline__ float lanes_max(float x) {
     x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
   }
   return x;
-}
-
-// Block-wide max of an int; every thread gets it.
-__device__ __forceinline__ int block_max(int x, int* red) {
-  x = __reduce_max_sync(kFull, x);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  int t = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) t = max(t, red[w]);
-  __syncthreads();
-  return t;
 }
 
 // -------------------------------------------------------------------------
@@ -215,32 +224,69 @@ struct Tile {
   static_assert(kRows * kCols == VPL * kThreads, "one value a thread a step");
 };
 
-// Stage rows [r0, r1) of columns [c0, c0 + kCols) of |A| through shared
-// memory (row segments of kCols floats per load instruction group) and hand
-// each lane its VPL values; rows and columns outside the buffer read 0,
-// which no pass counts (every threshold is >= 0).
+// Stage rows [r0, r1) of columns [c0, c0 + kCols) of |A| in shared memory
+// (row segments of kCols floats per load instruction group); rows and
+// columns outside the buffer read 0, which no pass counts (every threshold
+// is >= 0). With vec4 (m a multiple of 4, A 16-byte aligned) each thread
+// loads 16 bytes at a time: a quarter of the load instructions, four
+// times the bytes in flight (what the Newton loop's reloads at paper
+// Fig. 2's shapes wait on, PERF.md). The caller has made sure no thread
+// still reads the tile.
 template <int VPL, int TL>
-__device__ __forceinline__ void load_slab(const float* __restrict__ A, int m,
-                                          int c0, int r0, int r1,
-                                          float* tile, float (&v)[VPL]) {
+__device__ __forceinline__ void stage_slab(const float* __restrict__ A, int m,
+                                           int c0, int r0, int r1,
+                                           float* tile, bool vec4 = false) {
   using T = Tile<VPL, TL>;
-  __syncthreads();              // the previous group is done with the tile
+  if (vec4) {
+    constexpr int Q = T::kCols / 4;               // 16-byte loads a row
 #pragma unroll
-  for (int it = 0; it < VPL; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int r = idx / T::kCols, c = idx % T::kCols;
-    const int row = r0 + r, col = c0 + c;
-    float x = 0.f;
-    if (row < r1 && col < m) x = fabsf(A[(size_t)row * m + col]);
-    tile[r * T::kStride + c] = x;
+    for (int it = 0; it < VPL / 4; ++it) {
+      const int idx = it * kThreads + threadIdx.x;
+      const int r = idx / Q, c = idx % Q * 4;
+      const int row = r0 + r, col = c0 + c;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < r1 && col < m) {
+        x = __ldg(reinterpret_cast<const float4*>(A + (size_t)row * m + col));
+      }
+      float* t = tile + r * T::kStride + c;
+      t[0] = fabsf(x.x);
+      t[1] = fabsf(x.y);
+      t[2] = fabsf(x.z);
+      t[3] = fabsf(x.w);
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < VPL; ++it) {
+      const int idx = it * kThreads + threadIdx.x;
+      const int r = idx / T::kCols, c = idx % T::kCols;
+      const int row = r0 + r, col = c0 + c;
+      float x = 0.f;
+      if (row < r1 && col < m) x = fabsf(A[(size_t)row * m + col]);
+      tile[r * T::kStride + c] = x;
+    }
   }
   __syncthreads();
+}
+
+// Hand each lane its VPL values of a staged tile.
+template <int VPL, int TL>
+__device__ __forceinline__ void fetch_slab(const float* tile, float (&v)[VPL]) {
+  using T = Tile<VPL, TL>;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int sub = lane / TL, rl = lane % TL;
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     v[i] = tile[(rl + TL * i) * T::kStride + w * T::kCPW + sub];
   }
+}
+
+template <int VPL, int TL>
+__device__ __forceinline__ void load_slab(const float* __restrict__ A, int m,
+                                          int c0, int r0, int r1,
+                                          float* tile, float (&v)[VPL]) {
+  __syncthreads();              // the previous group is done with the tile
+  stage_slab<VPL, TL>(A, m, c0, r0, r1, tile);
+  fetch_slab<VPL, TL>(tile, v);
 }
 
 // Cluster mode (TL = 32, one column a warp): add this pass's two partials
@@ -292,6 +338,19 @@ __device__ __forceinline__ void above(const float (&v)[VPL], float mu,
   sum = (s[0] + s[1]) + (s[2] + s[3]);
 }
 
+// Count and sum of a column's values above mu: team totals (cluster
+// totals when S > 1), the same on every lane.
+template <int VPL, int TL>
+__device__ __forceinline__ void above_total(const float (&v)[VPL], float mu,
+                                            int S, float2* post,
+                                            unsigned& pass, float& cnt,
+                                            float& sum) {
+  above(v, mu, cnt, sum);
+  cnt = lanes_sum<TL>(cnt);
+  sum = lanes_sum<TL>(sum);
+  if (S > 1) cluster_combine(cnt, sum, false, S, post, pass);
+}
+
 struct Solved {
   float mu, k, s;
   bool active;
@@ -336,10 +395,7 @@ __device__ __forceinline__ Solved solve(const float (&v)[VPL], float th,
   float mu = lo;
   for (int it = 0; it < n_polish; ++it) {
     float cnt, ssum;
-    above(v, mu, cnt, ssum);
-    cnt = lanes_sum<TL>(cnt);
-    ssum = lanes_sum<TL>(ssum);
-    if (S > 1) cluster_combine(cnt, ssum, false, S, post, pass);
+    above_total<VPL, TL>(v, mu, S, post, pass, cnt, ssum);
     const float k = fmaxf(cnt, 1.f);
     mu = fmaxf((ssum - th) / k, mu);
   }
@@ -347,10 +403,7 @@ __device__ __forceinline__ Solved solve(const float (&v)[VPL], float th,
 
   // exact payloads at the solved level
   float cnt, ssum;
-  above(v, mu, cnt, ssum);
-  cnt = lanes_sum<TL>(cnt);
-  ssum = lanes_sum<TL>(ssum);
-  if (S > 1) cluster_combine(cnt, ssum, false, S, post, pass);
+  above_total<VPL, TL>(v, mu, S, post, pass, cnt, ssum);
   return Solved{mu, fmaxf(cnt, 1.f), ssum, active};
 }
 
@@ -511,6 +564,8 @@ mu_solve_stream_kernel(const float* __restrict__ A,
 // newton_loop: the engine's Newton loop in one cooperative launch
 // -------------------------------------------------------------------------
 
+constexpr float kWarmMargin = 1.f / 65536.f;   // kernel.py::WARM_MARGIN
+
 struct LoopArgs {
   const float* A;          // (n, m) compacted |Y|
   const int* sids;         // (m,) compacted segment ids (G = padding)
@@ -521,15 +576,60 @@ struct LoopArgs {
   float* mu;               // (m,) out: water levels, compacted order
   float* theta;            // (G,) out
   long long* stats;        // out: newton_iters, work_cols, active_cols
-  float* partials;         // (2, clusters, 2G) scratch
+  float* partials;         // (2, clusters, 2G + 1) scratch
   int n, m, G, bm, n_bisect, n_polish, max_newton, shrink, S, slab;
+  int own;                 // column groups a cluster owns, at most
+  int resident;            // of them, those whose tile stays in shared memory
+  int vec4;                // m % 4 == 0 and A 16-byte aligned
 };
 
+// Tiles: `resident` that stay, one more to stage the other groups in.
+__host__ __device__ constexpr int loop_tiles(int own, int resident) {
+  return resident + (own > resident ? 1 : 0);
+}
+
 template <int VPL, int TL>
-__host__ __device__ constexpr size_t loop_smem_bytes(int G) {
-  return body_smem_bytes<VPL, TL>() +
-         Tile<VPL, TL>::kCols * (sizeof(float2) + sizeof(int)) +
-         kWarps * sizeof(int) + 5 * (size_t)G * sizeof(float);
+__host__ __device__ constexpr size_t loop_smem_bytes(int G, int own,
+                                                     int resident) {
+  using T = Tile<VPL, TL>;
+  return (size_t)loop_tiles(own, resident) * T::kTileFloats * sizeof(float) +
+         2 * kWarps * sizeof(float2) + T::kCols * (sizeof(float2) + sizeof(int)) +
+         3 * (size_t)own * T::kCols * sizeof(float) +
+         5 * (size_t)G * sizeof(float) + 2 * sizeof(int);
+}
+
+// True on every lane of a solve when any of its columns asks for one more
+// pass: a warp's teams make their passes together (S == 1), and so do the
+// warps of a cluster's CTAs (S > 1: every rank holds the same totals, so
+// each CTA reaches the same answer).
+__device__ __forceinline__ bool any_team(bool x, int S) {
+  return S > 1 ? __syncthreads_or(x) != 0 : __any_sync(kFull, x);
+}
+
+// Warp 0, after a group's solve: add its columns' (S/k, 1/k) into acc by
+// segment, one segment at a time in the order of its first column, each by
+// a 32-lane tree (a fixed order, so reruns are bit-equal). Returns the
+// group's last alive column, -1 if none.
+template <int NC>
+__device__ __forceinline__ int group_sums(const float2* colres,
+                                          const int* colseg, int c0,
+                                          float* acc, int G, int lane) {
+  const float2 r = lane < NC ? colres[lane] : make_float2(0.f, 0.f);
+  const int sg = lane < NC ? colseg[lane] : -1;
+  unsigned todo = __ballot_sync(kFull, sg >= 0);
+  const int last = __reduce_max_sync(kFull, sg >= 0 ? c0 + lane : -1);
+  while (todo) {
+    const int seg = __shfl_sync(kFull, sg, __ffs((int)todo) - 1);
+    const bool mine = sg == seg;
+    const float x = lanes_sum<32>(mine ? r.x : 0.f);
+    const float y = lanes_sum<32>(mine ? r.y : 0.f);
+    if (lane == 0) {
+      acc[seg] += x;
+      acc[G + seg] += y;
+    }
+    todo &= ~__ballot_sync(kFull, mine);
+  }
+  return last;
 }
 
 template <int VPL, int TL>
@@ -537,110 +637,189 @@ __global__ void __launch_bounds__(kThreads, min_loop_ctas<VPL>())
 newton_loop_kernel(const LoopArgs a) {
   using T = Tile<VPL, TL>;
   extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);
-  float2* post = reinterpret_cast<float2*>(tile + T::kTileFloats);
+  float* tiles = reinterpret_cast<float*>(smem4);
+  float2* post = reinterpret_cast<float2*>(
+      tiles + (size_t)loop_tiles(a.own, a.resident) * T::kTileFloats);
   float2* colres = post + 2 * kWarps;             // this group's S/k, 1/k
   int* colseg = reinterpret_cast<int*>(colres + T::kCols);
-  int* redi = colseg + T::kCols;
-  float* th = reinterpret_cast<float*>(redi + kWarps);
+  float* st_mu = reinterpret_cast<float*>(colseg + T::kCols);  // own groups'
+  float* st_k = st_mu + a.own * T::kCols;         // levels, counts above
+  float* st_max = st_k + a.own * T::kCols;        // and column maxima
+  float* th = st_max + a.own * T::kCols;
   float* prev = th + a.G;
   float* cs = prev + a.G;
   float* acc = cs + a.G;                          // (2G) this CTA's sums
+  int* posted = reinterpret_cast<int*>(acc + 2 * a.G);  // visit, last alive
 
   cg::grid_group grid = cg::this_grid();
   const int S = a.S;
   const int rank = S > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int cl = blockIdx.x / S, ncl = gridDim.x / S;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int sub = lane / TL, rl = lane % TL;
+  const int rl = lane % TL;
+  const int j = w * T::kCPW + lane / TL;          // the team's column in a group
   const int ngroups = (a.m + T::kCols - 1) / T::kCols;
   const int nblocks = a.m / a.bm;
   const int r0 = rank * a.slab, r1 = min(a.n, r0 + a.slab);
+  const int own = cl < ngroups ? (ngroups - 1 - cl) / ncl + 1 : 0;
+  // this cluster's groups are cl + i * ncl; those with i < visit may hold
+  // a column alive at theta (J bounds them at first)
+  const int gJ = ((a.shrink ? *a.num_active : a.m) + T::kCols - 1) / T::kCols;
+  int visit = gJ > cl ? (gJ - 1 - cl) / ncl + 1 : 0;
   for (int t = threadIdx.x; t < a.G; t += kThreads) {
     th[t] = a.t1[t];
     prev[t] = a.t1[t];
     cs[t] = a.csafe[t];
   }
-  // columns at or past `bound` are dead: J at first, then the last alive
-  // index + 1 (theta only rises, so the alive set only shrinks)
-  int bound = a.shrink ? *a.num_active : a.m;
+  for (int c = visit * T::kCols + threadIdx.x; c < own * T::kCols;
+       c += kThreads) {                            // never solved: level 0
+    const int col = (cl + c / T::kCols * ncl) * T::kCols + c % T::kCols;
+    if (rank == 0 && col < a.m) a.mu[col] = 0.f;
+  }
   __syncthreads();
   unsigned pass = 0;
 
-  // kernel.py::newton_loop_plain's nact_of: blocks up to the last alive
-  auto nact_of = [&]() -> int {
-    if (!a.shrink) return nblocks;
-    int last = -1;
-    for (int c = threadIdx.x; c < bound; c += kThreads) {
-      const int sid = a.sids[c];
-      if (sid < a.G && a.colsum[c] > th[sid]) last = c;
-    }
-    last = block_max(last, redi);
-    bound = last + 1;
-    return (last + 1 + a.bm - 1) / a.bm;
-  };
-
-  // one mu_solve over the prefix of nact blocks; with `post_partials`,
-  // this cluster's per-segment sums of S/k and 1/k go to partials[buf]
-  auto eval = [&](int nact, bool post_partials, int buf) {
-    const long long P = (long long)nact * a.bm;
+  // One Newton evaluation at th over the visited groups, pass 2 cold and
+  // every later one warm; this cluster's per-segment sums of S/k and 1/k
+  // and its last alive column go to partials[buf], and the count of
+  // groups the next evaluation visits to posted[0].
+  auto eval = [&](bool warm, int buf) {
     for (int t = threadIdx.x; t < 2 * a.G; t += kThreads) acc[t] = 0.f;
-    for (int g = cl; g < ngroups; g += ncl) {
-      const int c0 = g * T::kCols;
-      const int col = c0 + w * T::kCPW + sub;
-      const bool writer = rank == 0 && rl == 0 && col < a.m;
-      if (c0 >= P) {
-        if (writer) a.mu[col] = 0.f;
-        continue;
-      }
-      const int sid = a.sids[min(col, a.m - 1)];
+    int last = -1;
+    for (int i = 0; i < visit; ++i) {
+      const int c0 = (cl + i * ncl) * T::kCols;
+      const int col = c0 + j, slot = i * T::kCols + j;
+      const int sid = col < a.m ? a.sids[col] : a.G;
       const float thc = sid < a.G ? th[sid] : kPadTheta;
-      float v[VPL];
-      load_slab<VPL, TL>(a.A, a.m, c0, r0, r1, tile, v);
-      const Solved r = solve<VPL, TL>(v, thc, a.n_bisect, a.n_polish, S,
-                                      post, pass);
-      const bool live = r.active && col < P;
-      if (writer) a.mu[col] = live ? r.mu : 0.f;
-      if (post_partials && rank == 0) {
-        if (rl == 0) {
-          const bool use = live && sid < a.G && col < a.m;
-          colres[w * T::kCPW + sub] =
-              use ? make_float2(r.s / r.k, 1.f / r.k) : make_float2(0.f, 0.f);
-          colseg[w * T::kCPW + sub] = use ? sid : -1;
+      const bool alive = sid < a.G && a.colsum[col] > thc;
+      float* tile = tiles + (size_t)min(i, a.resident) * T::kTileFloats;
+      float mu = 0.f, k = 1.f, s = 0.f, cmax = 0.f;
+      // (also: the previous group is done with colres and the stage tile)
+      if (__syncthreads_or(alive)) {
+        if (!warm || i >= a.resident) {
+          stage_slab<VPL, TL>(a.A, a.m, c0, r0, r1, tile, a.vec4 != 0);
         }
-        __syncthreads();
-        if (threadIdx.x == 0) {          // columns in order
-          for (int c = 0; c < T::kCols; ++c) {
-            const int sg = colseg[c];
-            if (sg >= 0) {
-              acc[sg] += colres[c].x;
-              acc[a.G + sg] += colres[c].y;
+        float v[VPL];
+        fetch_slab<VPL, TL>(tile, v);
+        bool ok = false;
+        if (warm) {
+          // Michelot from below the tangent at the previous level (kernel.py
+          // warm_levels); a first step that lowers the level, or a cap of
+          // n_polish steps, sends the column to the cold solve
+          if (alive) {
+            cmax = st_max[slot];
+            mu = fmaxf(st_mu[slot] - (thc - prev[sid]) / st_k[slot] -
+                           cmax * kWarmMargin, 0.f);
+          }
+          bool done = !alive;
+          for (int it = 0; it < a.n_polish && any_team(!done, S); ++it) {
+            float c, sm;
+            above_total<VPL, TL>(v, mu, S, post, pass, c, sm);
+            const float kc = fmaxf(c, 1.f);
+            const float nm = (sm - thc) / kc;
+            if (!done && nm <= mu) {
+              done = true;
+              ok = it > 0 || nm == mu;
+              k = kc;
+              s = sm;
+            } else if (!done) {
+              mu = nm;
             }
           }
         }
-        // the next load_slab's first barrier orders colres's reuse
-      }
-    }
-    if (post_partials) {
-      __syncthreads();
-      if (rank == 0) {
-        float* dst = a.partials + ((size_t)buf * ncl + cl) * 2 * a.G;
-        for (int t = threadIdx.x; t < 2 * a.G; t += kThreads) {
-          __stcg(dst + t, acc[t]);
+        const bool cold = alive && !ok;
+        if (any_team(cold, S)) {
+          // mu_solve's passes (kernel.py _cold_levels), the polish ending
+          // at its first step that does not raise the level
+          if (!warm) {
+            float mx = 0.f;
+#pragma unroll
+            for (int q = 0; q < VPL; ++q) mx = fmaxf(mx, v[q]);
+            mx = lanes_max<TL>(mx);
+            if (S > 1) {
+              float unused = 0.f;
+              cluster_combine(unused, mx, true, S, post, pass);
+            }
+            cmax = mx;
+          }
+          float lo = 0.f, hi = cmax;
+          for (int it = 0; it < a.n_bisect; ++it) {
+            const float mid = 0.5f * (lo + hi);
+            float removed = lanes_sum<TL>(removed_at(v, mid));
+            if (S > 1) {
+              float unused = 0.f;
+              cluster_combine(removed, unused, false, S, post, pass);
+            }
+            const bool ge = removed >= thc;
+            lo = ge ? mid : lo;
+            hi = ge ? hi : mid;
+          }
+          float mc = lo, kc = 1.f, sc = 0.f;
+          bool done = !cold;
+          for (int it = 0; it <= a.n_polish && any_team(!done, S); ++it) {
+            float c, sm;
+            above_total<VPL, TL>(v, mc, S, post, pass, c, sm);
+            const float kk = fmaxf(c, 1.f);
+            const float nm = (sm - thc) / kk;
+            if (!done && (it == a.n_polish || nm <= mc)) {
+              done = true;
+              kc = kk;
+              sc = sm;
+            } else if (!done) {
+              mc = nm;
+            }
+          }
+          if (cold) {
+            mu = mc;
+            k = kc;
+            s = sc;
+          }
+        }
+        if (alive && rl == 0) {
+          st_mu[slot] = mu;
+          st_k[slot] = k;
+          st_max[slot] = cmax;
         }
       }
+      if (rank == 0 && rl == 0 && col < a.m) a.mu[col] = alive ? mu : 0.f;
+      if (rl == 0) {
+        colres[j] = alive ? make_float2(s / k, 1.f / k) : make_float2(0.f, 0.f);
+        colseg[j] = alive ? sid : -1;
+      }
+      __syncthreads();
+      if (w == 0) {
+        last = max(last, group_sums<T::kCols>(colres, colseg, c0, acc, a.G,
+                                              lane));
+      }
+    }
+    __syncthreads();
+    if (rank == 0) {
+      float* dst = a.partials + ((size_t)buf * ncl + cl) * (2 * a.G + 1);
+      for (int t = threadIdx.x; t < 2 * a.G; t += kThreads) {
+        __stcg(dst + t, acc[t]);
+      }
+      if (threadIdx.x == 0) __stcg(dst + 2 * a.G, __int_as_float(last));
+    }
+    // theta only rises: the groups past the last alive column stay dead
+    if (threadIdx.x == 0) {
+      posted[0] = last < 0 ? 0 : (last / T::kCols - cl) / ncl + 1;
     }
   };
 
-  // after grid.sync: every CTA adds the clusters' partials in the same
-  // fixed order and takes the Eq.-(19) step; returns any(theta > prev)
-  auto update = [&](int buf) -> bool {
-    for (int t = w; t < a.G; t += kWarps) {
+  // After grid.sync: every CTA adds the clusters' partials in the same
+  // fixed order (a lane-strided sum and a 32-lane tree a segment, each
+  // partial read once) and takes the Eq.-(19) step and theta = max(new,
+  // theta), so all CTAs hold the same theta with no broadcast; the last
+  // warp takes the max of the posted last alive columns into posted[1].
+  // Returns any(theta > prev); with `step` false it only reads the max.
+  auto update = [&](int buf, bool step) -> bool {
+    const size_t stride = 2 * (size_t)a.G + 1;
+    const float* base = a.partials + (size_t)buf * ncl * stride;
+    for (int t = w; step && t < a.G; t += kWarps) {
       float sa = 0.f, sb = 0.f;
       for (int c = lane; c < ncl; c += 32) {
-        const float* p = a.partials + ((size_t)buf * ncl + c) * 2 * a.G;
-        sa += __ldcg(p + t);
-        sb += __ldcg(p + a.G + t);
+        sa += __ldcg(base + c * stride + t);
+        sb += __ldcg(base + c * stride + a.G + t);
       }
       sa = lanes_sum<32>(sa);
       sb = lanes_sum<32>(sb);
@@ -650,42 +829,58 @@ newton_loop_kernel(const LoopArgs a) {
         th[t] = fmaxf(nw, th[t]);
       }
     }
+    if (w == kWarps - 1) {
+      int last = -1;
+      for (int c = lane; c < ncl; c += 32) {
+        last = max(last, __float_as_int(__ldcg(base + c * stride + 2 * a.G)));
+      }
+      last = __reduce_max_sync(kFull, last);
+      if (lane == 0) posted[1] = last;
+    }
     __syncthreads();
+    visit = posted[0];
+    if (!step) return false;
     int moved = 0;
     for (int t = threadIdx.x; t < a.G; t += kThreads) {
       moved |= th[t] > prev[t];
     }
     return __syncthreads_or(moved) != 0;
   };
+  // blocks up to the last alive column (kernel.py::newton_loop_plain's
+  // nact_of) at the theta of the evaluation just added
+  auto nact = [&]() -> int {
+    return a.shrink ? (posted[1] + a.bm) / a.bm : nblocks;
+  };
 
   // pass 2 at t1, then the monotone ascent with mu carried
   long long work = (long long)nblocks * a.bm;
   int buf = 0;
-  int nact = nact_of();
-  work += (long long)nact * a.bm;
-  eval(nact, true, buf);
+  eval(false, buf);
   grid.sync();
-  bool moved = update(buf);
+  bool moved = update(buf, true);
+  work += (long long)nact() * a.bm;
   buf ^= 1;
   int iters = 2;
   while (iters < a.max_newton && moved) {
-    nact = nact_of();
-    eval(nact, true, buf);
+    eval(true, buf);
     grid.sync();
-    moved = update(buf);
+    moved = update(buf, true);
+    work += (long long)nact() * a.bm;
     buf ^= 1;
     ++iters;
-    work += (long long)nact * a.bm;
   }
   // max_newton cap exit: mu lags theta by one iterate; re-evaluate
-  if (moved) eval(nact_of(), false, buf);
-  const int nfinal = nact_of();
+  if (moved) {
+    eval(true, buf);
+    grid.sync();
+    update(buf, false);
+  }
   if (blockIdx.x == 0) {
     for (int t = threadIdx.x; t < a.G; t += kThreads) a.theta[t] = th[t];
     if (threadIdx.x == 0) {
       a.stats[0] = iters;
       a.stats[1] = work;
-      a.stats[2] = (long long)nfinal * a.bm;
+      a.stats[2] = (long long)nact() * a.bm;
     }
   }
   if (S > 1) cg::this_cluster().sync();   // keep post alive for the ranks
@@ -735,10 +930,10 @@ MuFn mu_fn(const Plan& p, size_t* smem) {
   return nullptr;
 }
 
-LoopFn loop_fn(const Plan& p, int G, size_t* smem) {
+LoopFn loop_fn(const Plan& p, int G, int own, int resident, size_t* smem) {
 #define X(V, L)                                                    \
   if (p.vpl == V && p.tl == L) {                                   \
-    *smem = loop_smem_bytes<V, L>(G);                              \
+    *smem = loop_smem_bytes<V, L>(G, own, resident);               \
     return newton_loop_kernel<V, L>;                               \
   }
   L1INF_PLANS(X)
@@ -801,37 +996,93 @@ struct LaunchCfg {
   }
 };
 
-// Resident clusters (CTAs when S = 1) of a cooperative loop launch,
-// remembered per (kernel, shared memory, cluster size): the first call is
-// eager, so a later one inside a CUDA-graph capture makes no occupancy
-// query.
-int resident_clusters(LoopFn fn, size_t smem, int S, cudaStream_t stream,
-                      cudaError_t* err) {
-  struct Entry {
-    LoopFn fn;
-    size_t smem;
-    int S, value;
-  };
-  static Entry cache[32];
+// Resident clusters (CTAs when S = 1) of a cooperative loop launch with
+// smem bytes of dynamic shared memory. The kernel may take all the
+// card's opt-in limit leaves beside its static shared memory (set every
+// time to the same value, never lowered, so a plan made for one shape
+// stays launchable after another's).
+cudaError_t resident_clusters(LoopFn fn, size_t smem, int S, int* value) {
+  static int limit = 0;
+  if (limit == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+  }
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return e;
+  const int dynamic = limit - (int)attr.sharedSizeBytes;
+  if (smem > (size_t)dynamic) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           dynamic);
+  if (e != cudaSuccess) return e;
+  if (S > 1) {
+    LaunchCfg lc(S, smem, nullptr, S, false);
+    return cudaOccupancyMaxActiveClusters(value, fn, &lc.cfg);
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(value, fn, kThreads,
+                                                    smem);
+  *value *= sm_count();
+  return e;
+}
+
+struct LoopPlan {
+  int n, m, G;             // the shape it was made for
+  LoopFn fn;
+  size_t smem;
+  int S, slab, ncl, own, resident;
+};
+
+// The loop kernel's launch for an (n, m) buffer of G segments, remembered
+// per shape: the first call is eager, so a later one inside a CUDA-graph
+// capture makes no occupancy query. The grid is the resident cluster count
+// the occupancy API gives (at most one a column group) with room for the
+// state of the groups a cluster owns; the shared memory that grid leaves
+// over keeps as many of those groups' tiles resident as fit.
+cudaError_t loop_plan(int n, int m, int G, LoopPlan* out) {
+  static LoopPlan cache[32];
   static int used = 0;
   for (int i = 0; i < used; ++i) {
-    if (cache[i].fn == fn && cache[i].smem == smem && cache[i].S == S) {
-      return cache[i].value;
+    if (cache[i].n == n && cache[i].m == m && cache[i].G == G) {
+      *out = cache[i];
+      return cudaSuccess;
     }
   }
-  int value = 0;
-  if (S > 1) {
-    LaunchCfg lc(S, smem, stream, S, false);
-    *err = cudaOccupancyMaxActiveClusters(&value, fn, &lc.cfg);
-  } else {
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&value, fn, kThreads,
-                                                         smem);
-    value *= sm_count();
+  const Plan p = plan_for(n);
+  const int groups = (m + cols_per_cta(p) - 1) / cols_per_cta(p);
+  LoopPlan lp{n, m, G, nullptr, 0, p.S, p.slab, 0, 1, 1};
+  for (;;) {              // own only grows and the grid only shrinks
+    lp.resident = lp.own == 1 ? 1 : 0;          // one tile
+    lp.fn = loop_fn(p, G, lp.own, lp.resident, &lp.smem);
+    int value = 0;
+    const cudaError_t e = resident_clusters(lp.fn, lp.smem, p.S, &value);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return e;
+    }
+    lp.ncl = std::min(groups, value);
+    if (lp.ncl < 1) return cudaErrorCooperativeLaunchTooLarge;
+    const int need = (groups + lp.ncl - 1) / lp.ncl;
+    if (need <= lp.own) break;
+    lp.own = need;
   }
-  if (*err == cudaSuccess && used < 32) {
-    cache[used++] = Entry{fn, smem, S, value};
+  for (int r = lp.resident + 1; r <= lp.own; ++r) {
+    size_t smem = 0;
+    const LoopFn fn = loop_fn(p, G, lp.own, r, &smem);
+    int value = 0;
+    if (resident_clusters(fn, smem, p.S, &value) != cudaSuccess ||
+        std::min(groups, value) < lp.ncl) {
+      cudaGetLastError();                        // a refused probe
+      break;
+    }
+    lp.resident = r;
+    lp.smem = smem;
   }
-  return value;
+  if (used < 32) cache[used++] = lp;
+  *out = lp;
+  return cudaSuccess;
 }
 
 __device__ __forceinline__ float clip1(float y, float mu) {
@@ -925,21 +1176,13 @@ int l1inf_mu_solve(const float* A, const float* theta, int theta_stride,
 int l1inf_newton_loop_max_rows() { return kRegRows; }
 
 // The loop kernel's grid in clusters (CTAs when S = 1) for an (n, m)
-// buffer of G segments: the resident count the occupancy API gives, at
-// most one cluster per column group. Sizes the wrapper's scratch; a
+// buffer of G segments (loop_plan). Sizes the wrapper's scratch; a
 // negative value is a CUDA error code.
 int l1inf_newton_loop_clusters(int n, int m, int G) {
   if (n > kRegRows || G < 1) return -(int)cudaErrorInvalidValue;
-  const Plan p = plan_for(n);
-  size_t smem = 0;
-  const LoopFn fn = loop_fn(p, G, &smem);
-  cudaError_t e = allow_smem(fn, smem);
-  if (e != cudaSuccess) return -launched(e);
-  const int resident = resident_clusters(fn, smem, p.S, nullptr, &e);
-  if (e != cudaSuccess) return -launched(e);
-  const int groups = (m + cols_per_cta(p) - 1) / cols_per_cta(p);
-  const int ncl = std::min(groups, resident);
-  return ncl < 1 ? -(int)cudaErrorCooperativeLaunchTooLarge : ncl;
+  LoopPlan lp;
+  const cudaError_t e = loop_plan(n, m, G, &lp);
+  return e != cudaSuccess ? -(int)e : lp.ncl;
 }
 
 int l1inf_newton_loop(const float* A, const int* sids, const float* colsum,
@@ -948,17 +1191,16 @@ int l1inf_newton_loop(const float* A, const int* sids, const float* colsum,
                       long long* stats, float* partials, int n, int m, int G,
                       int bm, int n_bisect, int n_polish, int max_newton,
                       int shrink, cudaStream_t stream) {
-  const int ncl = l1inf_newton_loop_clusters(n, m, G);
-  if (ncl < 0) return -ncl;
-  const Plan p = plan_for(n);
-  size_t smem = 0;
-  const LoopFn fn = loop_fn(p, G, &smem);
+  if (n > kRegRows || G < 1) return (int)cudaErrorInvalidValue;
+  LoopPlan lp;
+  const cudaError_t e = loop_plan(n, m, G, &lp);
+  if (e != cudaSuccess) return (int)e;
   LoopArgs a{A, sids, colsum, t1, csafe, num_active, mu, theta, stats,
              partials, n, m, G, bm, n_bisect, n_polish, max_newton, shrink,
-             p.S, p.slab};
-  LaunchCfg lc(ncl * p.S, smem, stream, p.S, true);
-  const cudaError_t e = cudaLaunchKernelEx(&lc.cfg, fn, a);
-  return launched(e);
+             lp.S, lp.slab, lp.own, lp.resident,
+             (int)(m % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0)};
+  LaunchCfg lc(lp.ncl * lp.S, lp.smem, stream, lp.S, true);
+  return launched(cudaLaunchKernelEx(&lc.cfg, lp.fn, a));
 }
 
 int l1inf_clip_apply_f32(const float* Y, const float* mu, float* X, int n,

@@ -15,8 +15,10 @@ plain PyTorch version that repeats the kernel's arithmetic:
   * ``newton_loop`` — the engine's monotone Newton on theta from pass 2 to
                      the end (carried mu, the alive-prefix count, the work
                      counter, the cap-exit re-evaluation) in ONE persistent
-                     launch; its plain version is the host loop over
-                     ``mu_solve_plain`` that the engine ran before.
+                     launch; pass 2 solves cold as ``mu_solve`` does, every
+                     later step starts each column from its previous level
+                     (``warm_levels``). Its plain version is the host loop
+                     over the same solves.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (building it at first use) or
@@ -37,7 +39,7 @@ from ...core.l1inf import _PAD_THETA, _segment_summer
 
 __all__ = ["colstats", "mu_solve", "clip_apply", "newton_loop",
            "colstats_plain", "mu_solve_plain", "clip_apply_plain",
-           "newton_loop_plain", "eq19_step", "launch_counts",
+           "newton_loop_plain", "warm_levels", "eq19_step", "launch_counts",
            "reset_launch_counts"]
 
 _LAUNCHES: Dict[str, int] = {"colstats": 0, "mu_solve": 0, "clip_apply": 0,
@@ -182,6 +184,32 @@ def _mu_inputs(Yabs, theta, block_m, nact_blocks):
     return theta, nact
 
 
+def _above(y, mu):
+    """Per column: (max(count of y > mu, 1), sum of y > mu)."""
+    gt = y > mu[None, :]
+    k = torch.clamp(gt.to(torch.float32).sum(dim=0), min=1.0)
+    return k, torch.where(gt, y, torch.zeros_like(y)).sum(dim=0)
+
+
+def _cold_levels(y, th, colmax, n_bisect, n_polish):
+    """Every column's level at removed mass th from nothing: n_bisect
+    bisection steps on [0, colmax], n_polish Michelot steps from below,
+    the payloads at the level. Returns (mu, k, S_k) for every column."""
+    lo, hi = torch.zeros_like(colmax), colmax
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        removed = torch.clamp(y - mid[None, :], min=0.0).sum(dim=0)
+        ge = removed >= th
+        lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid)
+    mu = lo
+    for _ in range(n_polish):
+        k, S = _above(y, mu)
+        mu = torch.maximum((S - th) / k, mu)
+    mu = torch.clamp(mu, min=0.0)
+    k, S = _above(y, mu)
+    return mu, k, S
+
+
 def mu_solve_plain(Yabs: torch.Tensor, theta: torch.Tensor, *,
                    block_m: int, nact: torch.Tensor, n_bisect: int = 26,
                    n_polish: int = 8):
@@ -190,29 +218,9 @@ def mu_solve_plain(Yabs: torch.Tensor, theta: torch.Tensor, *,
     y = Yabs.to(torch.float32).abs()
     m = y.shape[1]
     th = theta if theta.numel() == m else theta.reshape(())
-    colsum = y.sum(dim=0)
-    colmax = y.amax(dim=0)
-    active = colsum > th
+    active = y.sum(dim=0) > th
     zero = torch.zeros((), dtype=torch.float32, device=y.device)
-
-    lo, hi = torch.zeros_like(colsum), colmax
-    for _ in range(n_bisect):
-        mid = 0.5 * (lo + hi)
-        removed = torch.clamp(y - mid[None, :], min=0.0).sum(dim=0)
-        ge = removed >= th
-        lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid)
-
-    def payloads(mu):
-        gt = y > mu[None, :]
-        k = torch.clamp(gt.to(torch.float32).sum(dim=0), min=1.0)
-        return k, torch.where(gt, y, zero).sum(dim=0)
-
-    mu = lo
-    for _ in range(n_polish):
-        k, S = payloads(mu)
-        mu = torch.maximum((S - th) / k, mu)
-    mu = torch.clamp(mu, min=0.0)
-    k, S = payloads(mu)
+    mu, k, S = _cold_levels(y, th, y.amax(dim=0), n_bisect, n_polish)
 
     cols = torch.arange(m, device=y.device)
     live = active & (cols < nact.to(torch.int64) * block_m)
@@ -349,16 +357,71 @@ def _host_loop(solve, A, sids, colsum, t1, Csafe, G, bm, shrink,
             nact_of(theta) * bm)
 
 
+# The warm start's distance below the tangent, in units of the column's
+# max: more than the f32 rounding of the previous level (a sum of up to
+# n values), so the start stays below the new level.
+WARM_MARGIN = 2.0 ** -16
+
+
+def warm_levels(y, th, th_prev, mu_prev, k_prev, colmax, n_polish):
+    """Every column's level at removed mass th, started from the level
+    mu_prev (with k_prev values above it) solved at th_prev <= th.
+
+    removed(mu) = sum (y - mu)_+ is convex, so its tangent at mu_prev puts
+    the new level at or above mu_prev - (th - th_prev) / k_prev; the start
+    is that, less ``WARM_MARGIN * colmax``, clamped at 0. Michelot steps
+    from there climb monotonely to the exact fixed point; the first step
+    that does not raise the level ends a column's solve, and its (k, S_k)
+    are the payloads. A column is not ``converged`` when its first step
+    lowers the level (the start was above it) or after n_polish steps that
+    all raised it. Returns (mu, k, S_k, converged) for every column."""
+    mu = torch.clamp(mu_prev - (th - th_prev) / k_prev - colmax * WARM_MARGIN,
+                     min=0.0)
+    k, S = torch.ones_like(mu), torch.zeros_like(mu)
+    done = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
+    converged = done.clone()
+    for it in range(n_polish):
+        kc, Sc = _above(y, mu)
+        nm = (Sc - th) / kc
+        stop = ~done & (nm <= mu)
+        converged |= stop & (nm == mu) if it == 0 else stop
+        k, S = torch.where(stop, kc, k), torch.where(stop, Sc, S)
+        done |= stop
+        mu = torch.where(done, mu, nm)
+    return mu, k, S, converged
+
+
 def newton_loop_plain(A, sids, colsum, t1, Csafe, num_active, *,
                       num_segments: int, block_m: int, shrink: bool = True,
                       n_bisect: int = 26, n_polish: int = 8,
                       max_newton: int = 32):
-    """Plain version of ``newton_loop``: the host loop over
-    ``mu_solve_plain`` (``num_active`` is not needed: it scans every
-    column for the alive prefix)."""
+    """Plain version of ``newton_loop``: the host loop over the kernel's
+    solve (``num_active`` is not needed: it scans every column for the
+    alive prefix). A column is alive while its ``colsum`` exceeds its
+    theta. Pass 2 solves every column cold (``mu_solve_plain``'s
+    bisection and polish); every later evaluation starts each column from
+    its previous level (``warm_levels``) and solves cold only the columns
+    that did not converge from there."""
+    y = A.to(torch.float32).abs()
+    colmax = y.amax(dim=0)
+    cols = torch.arange(y.shape[1], device=y.device)
+    prev = {}
+
     def solve(A_, th, nact):
-        return mu_solve_plain(A_, th, block_m=block_m, nact=nact,
-                              n_bisect=n_bisect, n_polish=n_polish)
+        live = (colsum > th) & (cols < nact.to(torch.int64) * block_m)
+        if not prev:
+            mu, k, S = _cold_levels(y, th, colmax, n_bisect, n_polish)
+        else:
+            mu, k, S, ok = warm_levels(y, th, prev["th"], prev["mu"],
+                                       prev["k"], colmax, n_polish)
+            cold = torch.nonzero(live & ~ok)[:, 0]
+            if cold.numel():
+                mu[cold], k[cold], S[cold] = _cold_levels(
+                    y[:, cold], th[cold], colmax[cold], n_bisect, n_polish)
+        prev.update(th=th, mu=mu, k=k)
+        zero = torch.zeros((), dtype=torch.float32, device=y.device)
+        return (torch.where(live, mu, zero), torch.where(live, k, zero + 1.0),
+                torch.where(live, S, zero), live)
     return _host_loop(solve, A, sids, colsum, t1, Csafe, int(num_segments),
                       block_m, shrink, max_newton)
 
@@ -413,8 +476,8 @@ def newton_loop(A: torch.Tensor, sids: torch.Tensor, colsum: torch.Tensor,
     clusters = lib.l1inf_newton_loop_clusters(n, m, G)
     if clusters < 0:
         _launched("newton_loop", -clusters)       # raises with the error
-    partials = torch.empty((2 * clusters * 2 * G,), dtype=torch.float32,
-                           device=dev)
+    partials = torch.empty((2 * clusters * (2 * G + 1),),
+                           dtype=torch.float32, device=dev)
     rc = lib.l1inf_newton_loop(
         A.data_ptr(), sids.data_ptr(), colsum.data_ptr(), t1.data_ptr(),
         Csafe.data_ptr(), num_active.data_ptr(), mu.data_ptr(),

@@ -328,6 +328,111 @@ def test_bf16_vs_pallas(jax_ref):
                                rtol=3e-2)
 
 
+# ------------------------- the warm Newton loop -------------------------------
+
+def _plain_loop(Y, C, **kw):
+    """newton_loop_plain on the engine's state after pass 1 of projecting
+    Y onto the ball of radius C (as project_l1inf_kernel hands it)."""
+    Yt = _t(Y)
+    Ypad, bm = O._padded(Yt, 0)
+    sids = (torch.arange(Ypad.shape[1]) >= Yt.shape[1]).to(torch.int32)
+    li = O._loop_inputs(Ypad, sids, torch.full((1,), C), 1, None, bm=bm,
+                        n_bisect=26, n_polish=8, shrink=True)
+    return K.newton_loop_plain(li["A"], li["sids"], li["colsum"], li["t1"],
+                               li["Csafe"], li["num_active"],
+                               num_segments=1, block_m=bm, **kw)
+
+
+def _loop_vs_pallas(out, sj):
+    th, _, it, work, acps = out
+    _stats_equal({"theta": th[0], "newton_iters": it, "work_cols": work,
+                  "active_cols_per_step": acps,
+                  "num_active": sj["num_active"], "full_cols": sj["full_cols"]},
+                 sj)
+    np.testing.assert_allclose(float(th[0]), float(sj["theta"]), atol=1e-6,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("Cfrac", [0.05, 0.3, 0.7])
+def test_newton_loop_plain_warm_ties_vs_pallas(Cfrac, jax_ref, monkeypatch):
+    """The plain loop's warm solves on tie-heavy columns (values on a
+    0.5 grid) against the JAX engine: theta and the counters, and every
+    warm solve converged from its start (no column fell back to cold)."""
+    Y = np.random.default_rng(21).choice(
+        [0.0, 0.5, 1.0, -1.0, 1.5, 2.0, 2.0], size=(56, 320)).astype(
+        np.float32)
+    C = Cfrac * float(np.abs(Y).max(axis=0).sum())
+    solves = []
+    warm = K.warm_levels
+
+    def counting(y, th, *args):
+        out = warm(y, th, *args)
+        live = y.sum(dim=0) > th
+        solves.append((int(live.sum()), int((live & ~out[3]).sum())))
+        return out
+    monkeypatch.setattr(K, "warm_levels", counting)
+    out = _plain_loop(Y, C)
+    _, sj = project_l1inf_pallas(jnp.asarray(Y), C, interpret=True,
+                                 return_stats=True)
+    _loop_vs_pallas(out, sj)
+    assert len(solves) == int(out[2]) - 2 and sum(n for n, _ in solves) > 0
+    assert sum(c for _, c in solves) == 0, solves
+
+
+def test_warm_levels_converge_or_refuse():
+    """warm_levels from a start under the level reaches mu_solve_plain's
+    level, counts and sums; from a start above it (its first step lowers
+    the level) or with too few steps it reports the column unconverged."""
+    rng = np.random.default_rng(22)
+    y = _t(rng.uniform(0, 1, size=(300, 64)).astype(np.float32))
+    th = y.sum(dim=0) * 0.3
+    cold = K.mu_solve_plain(y, th, block_m=64, nact=torch.tensor(1))
+    colmax = y.amax(dim=0)
+    prev = y.sum(dim=0) * 0.2
+    mup, kp, _, _ = K.mu_solve_plain(y, prev, block_m=64,
+                                     nact=torch.tensor(1))
+    mu, k, S, ok = K.warm_levels(y, th, prev, mup, kp, colmax, 8)
+    assert bool(ok.all())
+    torch.testing.assert_close(mu, cold[0], atol=1e-5, rtol=0)
+    assert torch.equal(k, cold[1]) and torch.equal(S, cold[2])
+    above = K.warm_levels(y, th, th, cold[0] + 0.01, kp, colmax, 8)[3]
+    assert not bool(above.any())
+    capped = K.warm_levels(y, th, prev, mup, kp, colmax, 1)[3]
+    assert not bool(capped.any())
+
+
+def test_newton_loop_plain_cold_fallback_vs_pallas(jax_ref, monkeypatch):
+    """With the warm start put above every level, each warm solve refuses
+    and the column takes the cold passes: the loop is then the all-cold
+    loop, equal to the JAX engine's."""
+    Y = np.random.default_rng(23).normal(size=(64, 400)).astype(np.float32)
+    C = 0.1 * float(np.abs(Y).max(axis=0).sum())
+    monkeypatch.setattr(K, "WARM_MARGIN", -1.0)
+    out = _plain_loop(Y, C)
+    _, sj = project_l1inf_pallas(jnp.asarray(Y), C, interpret=True,
+                                 return_stats=True)
+    _loop_vs_pallas(out, sj)
+    assert int(out[2]) > 3
+
+
+@pytest.mark.parametrize("max_newton", [2, 3, 4])
+def test_engine_max_newton_cap_vs_pallas(max_newton, jax_ref):
+    """The cap exit: theta still rising at max_newton; mu re-evaluated at
+    the last theta (a warm solve) and the counters as the JAX engine's."""
+    Y = np.random.default_rng(24).uniform(0, 1, size=(80, 500)).astype(
+        np.float32)
+    C = 0.01 * float(np.abs(Y).max(axis=0).sum())
+    X, st = project_l1inf_kernel(_t(Y), C, max_newton=max_newton,
+                                 return_stats=True)
+    Xj, sj = project_l1inf_pallas(jnp.asarray(Y), C, max_newton=max_newton,
+                                  interpret=True, return_stats=True)
+    assert int(sj["newton_iters"]) == max_newton
+    np.testing.assert_allclose(X.numpy(), np.asarray(Xj), atol=1e-5)
+    np.testing.assert_allclose(float(st["theta"]), float(sj["theta"]),
+                               atol=1e-6, rtol=1e-6)
+    _stats_equal(st, sj)
+
+
 # ------------------------------ on the card -----------------------------------
 
 @pytest.fixture
@@ -383,17 +488,36 @@ def test_cuda_engine_vs_newton(card):
 
 # The Newton loop kernel against its plain loop, on the engine's own state
 # after pass 1: SAE enc1's packed (96, 10112), paper Fig. 2's 1000 x 10000
-# and 10000 x 1000 (padded), and a 3-segment buffer with a warm start.
+# and 10000 x 1000 (padded), a 3-segment buffer with a warm start, 40000
+# columns of 200 rows (about 20 groups a CTA, more than its resident
+# tiles: the others are staged every step), and 64 segments of 7 to 260
+# columns (the per-segment state of size G, several segments a group).
 LOOP_CASES = ["sae_enc1", "fig2_wide", "fig2_tall", "tall_3000",
-              "segmented_warm"]
+              "segmented_warm", "many_groups", "segments_64"]
+
+
+def _segments_64():
+    rng = np.random.default_rng(64)
+    widths = rng.integers(7, 261, size=64)
+    Y = (rng.normal(size=(72, int(widths.sum())))
+         * np.repeat(rng.choice([0.2, 1.0, 3.0], size=64), widths)[None, :])
+    sids = np.repeat(np.arange(64), widths).astype(np.int32)
+    Cs = np.array([0.15 * np.abs(Y[:, sids == g]).max(axis=0).sum()
+                   for g in range(64)], np.float32)
+    return Y.astype(np.float32), sids, Cs
 
 
 def _loop_case(card, case):
     g = torch.Generator(device=card).manual_seed(7)
-    if case == "segmented_warm":
-        Y, sids, Cs = (_t(a).to(card) for a in _packed(16))
-        _, th = project_l1inf_kernel_segmented(Y, sids, Cs, num_segments=3)
-        theta0, G = th * 0.9, 3
+    if case in ("segmented_warm", "segments_64"):
+        if case == "segmented_warm":
+            Y, sids, Cs = (_t(a).to(card) for a in _packed(16))
+            _, th = project_l1inf_kernel_segmented(Y, sids, Cs,
+                                                   num_segments=3)
+            theta0, G = th * 0.9, 3
+        else:
+            Y, sids, Cs = (_t(a).to(card) for a in _segments_64())
+            theta0, G = None, 64
         m = sids.shape[0]                     # lane padding: segment id G
         sids = torch.cat([sids, sids.new_full((-m % 128,), G)])
     else:
@@ -401,7 +525,8 @@ def _loop_case(card, case):
             "sae_enc1": (96, 10000, 10112, 0.05, 0.05),
             "fig2_wide": (1000, 10000, 10112, 1.0, 1e-4),
             "fig2_tall": (10000, 1000, 1024, 1.0, 1e-3),
-            "tall_3000": (3000, 600, 640, 1.0, 1e-2)}[case]
+            "tall_3000": (3000, 600, 640, 1.0, 1e-2),
+            "many_groups": (200, 40000, 40064, 1.0, 2e-3)}[case]
         Y = torch.zeros((n, m_pad), device=card)
         Y[:, :m] = torch.rand((n, m), generator=g, device=card) * scale
         sids = (torch.arange(m_pad, device=card) >= m).to(torch.int32)
@@ -447,6 +572,20 @@ def test_cuda_newton_loop_vs_plain(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sae_enc1", "fig2_tall", "segments_64"])
+@pytest.mark.parametrize("max_newton", [2, 3])
+def test_cuda_newton_loop_cap_exit_vs_plain(card, case, max_newton):
+    """The cap exit: theta still rising at max_newton, mu re-evaluated at
+    the last theta (a warm solve on the card, after one extra grid.sync
+    for the alive prefix)."""
+    args, kw = _loop_case(card, case)
+    got = K.newton_loop(*args, max_newton=max_newton, **kw)
+    want = K.newton_loop_plain(*args, max_newton=max_newton, **kw)
+    assert int(got[2]) == int(want[2]) == max_newton
+    _loop_outputs_agree(got, want, args[0].amax(dim=0))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", LOOP_CASES)
 def test_cuda_newton_loop_rerun_bit_equal(card, case):
     args, kw = _loop_case(card, case)
@@ -454,6 +593,22 @@ def test_cuda_newton_loop_rerun_bit_equal(card, case):
     second = K.newton_loop(*args, **kw)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LOOP_CASES)
+def test_cuda_newton_loop_never_syncs(card, case):
+    """The loop launch alone under the sync debug mode "error": its plan is
+    made at the first call, after which a call makes no host sync."""
+    args, kw = _loop_case(card, case)
+    K.newton_loop(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = K.newton_loop(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(o.device.type == "cuda" for o in out)
 
 
 @pytest.mark.cuda

@@ -11,7 +11,12 @@
   tolerance on the path (SSD, ``tests/test_kernels_ssd.py``).
 * Six ``decode_step``s against JAX's, logits and every cache leaf, at
   1e-4: f32 decode reaches no kernel, but its error compounds over the
-  depth and the steps.
+  depth and the steps. A leaf whose scale passes 1e2 (the SSM ``state``
+  of reduced hymba and mamba2, up to 8.1e3 by step 6 under the large dt
+  of fault C-5) carries f32 rounding of that size in its small elements
+  too, on either side: each package's distance to a float64 run of the
+  port's own decode is held instead, the port's within twice JAX's plus
+  1e-6 of the leaf's scale.
 * The port's ``forward`` against its own step-by-step decode over all 48
   positions, at 3e-4 / 3e-3 (the JAX suite's full-vs-decode tolerance in
   ``tests/test_kernels_ssd.py``).
@@ -28,6 +33,7 @@ from repro import configs as JC
 from repro.models import transformer as JT
 from repro.models import zoo as JZ
 from repro_torch import configs as TC
+from repro_torch._tree import tree_map
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import transformer as TT
 from repro_torch.models import zoo as TZ
@@ -138,19 +144,32 @@ def test_decode_steps_vs_jax(arch, over):
     model = TZ.build(tcfg)
     tc = model.init_cache(B, 16, torch.float32, device="cpu")
     jc = JT.init_cache(jcfg, B, 16, jnp.float32)
+    # the float64 oracle: the port's decode on the same params in float64
+    p64 = tree_map(lambda a: a.double() if a.is_floating_point() else a, tp)
+    oc = model.init_cache(B, 16, torch.float64, device="cpu")
+
+    def flat(tree, as_np):
+        return dict((jax.tree_util.keystr(p), as_np(a)) for p, a in
+                    jax.tree_util.tree_flatten_with_path(tree)[0])
     for t in range(6):
-        tl, tc = model.decode(tp, tc, torch.from_numpy(tokens[:, t:t + 1]),
-                              t)
+        tok = torch.from_numpy(tokens[:, t:t + 1])
+        tl, tc = model.decode(tp, tc, tok, t)
+        _, oc = model.decode(p64, oc, tok, t)
         jl, jc = JT.decode_step(jp, jc, jnp.asarray(tokens[:, t:t + 1]),
                                 jnp.asarray(t), jcfg)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **DEC)
-        jflat = dict((jax.tree_util.keystr(p), np.asarray(a)) for p, a in
-                     jax.tree_util.tree_flatten_with_path(jc)[0])
-        tflat = dict((jax.tree_util.keystr(p), a.numpy()) for p, a in
-                     jax.tree_util.tree_flatten_with_path(tc)[0])
-        assert sorted(jflat) == sorted(tflat)
+        jflat = flat(jc, np.asarray)
+        tflat = flat(tc, lambda a: a.numpy())
+        oflat = flat(oc, lambda a: a.numpy())
+        assert sorted(jflat) == sorted(tflat) == sorted(oflat)
         for key, want in jflat.items():
-            np.testing.assert_allclose(tflat[key], want, **DEC)
+            scale = float(np.abs(oflat[key]).max())
+            if scale < 1e2:
+                np.testing.assert_allclose(tflat[key], want, **DEC)
+                continue
+            port = float(np.abs(tflat[key] - oflat[key]).max())
+            ref = float(np.abs(want - oflat[key]).max())
+            assert port <= 2 * ref + 1e-6 * scale, (t, key, port, ref, scale)
 
 
 def test_decode_vector_positions_vs_jax():
