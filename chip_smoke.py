@@ -198,6 +198,32 @@ and prints no result. Phases:
                floor is the logits' own scale, so the distance is reported
                beside the floor, not checked. Compaction ratio, wall ms of
                compact and dense, peak memory.
+ 10b. fleet_serve — the serving loop: ``FleetEngine`` (``serve/engine.py``)
+               serving hymba-1.5b at full width and depth (32 layers, f32,
+               the reference's init) with 8 slots and max_seq 256, its
+               decode step captured once into a CUDA graph over a cache
+               written in place. (a) The dense engine under churn: 24
+               requests from the seed (prompts 4-48 tokens, budgets 4-40,
+               heavy-tailed) in three waves, one cancelled in flight; every
+               completion equal to the same request served alone in an
+               8-slot engine (a 1-slot engine would run GEMMs of another M;
+               the cancelled one a prefix of it), the three shortest equal
+               to an eager ``decode_step`` loop at width 8 (the graph
+               against no graph). (b) The compacted engine: phase 10's
+               projection (``solver="kernel"``) and ``compact_model``, 8
+               requests, a ``refresh`` (values x 1.25) and a ``recompact``
+               (one more w1 column dead) mid-flight; every completion
+               equal to a solo run switching at the same local step. Per
+               engine: one capture across the lifecycle (the solo engines'
+               reloads included), the cache tensors' addresses unchanged
+               from the first step to the last, allocated memory flat over
+               50 steady steps, replays equal to steps; the graphed step's
+               wall ms (median of the 50), one replay's device ms (CUDA
+               events), the eager ``decode_step``'s wall ms at the same B,
+               the device ms of ``decode_step`` (one cache copy) and
+               ``decode_step_`` (in place) each captured alone, a ten-step
+               profiler window (idle share, device calls, top ops), tokens
+               a second, TTFT and per-token p50 / p99.
  11. lm_train — this slice's main path: ``train`` (``train/loop.py``) of
                stablelm-3b at full width and depth (32 layers, 2.80 B
                params), f32, B 1 x S 2048 from ``LMBatcher(SyntheticLM(
@@ -354,6 +380,15 @@ LM = dict(arch="hymba-1.5b", ssm_arch="mamba2-370m", batch=2, seq=2048,
 TRAIN = dict(arch="stablelm-3b", seq=2048, steps=10, resume_seq=512,
              resume_steps=6, resume_every_k=2,
              ssm_archs=("hymba-1.5b", "mamba2-370m"))
+# phase 10b: the serving loop at hymba-1.5b's full size, B 8, Smax 256; 24
+# requests in three waves of ``wave_steps`` steps each (prompts 4-48
+# tokens, budgets 4-40, heavy-tailed), the three shortest also through an
+# eager decode_step loop; 8 short requests on the compacted engine with a
+# refresh and a recompact mid-flight; 50 steady steps per engine
+FLEET = dict(arch="hymba-1.5b", slots=8, max_seq=256, requests=24,
+             prompt=(4, 48), budget=(4, 40), waves=3, wave_steps=12,
+             eager_requests=3, steady=50, compact_prompt=(4, 12),
+             compact_budget=(6, 16), refresh_at=5, recompact_at=10)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SSD_TOL = 2e-4
 # the SSD backward against its plain version and against float64 autograd
@@ -611,6 +646,7 @@ def _profile(torch, fn, kernels=()):
     busy = sum(r[2] for r in rows) / 1e3
     out = {"wall_ms": wall, "device_ms": busy,
            "device_idle_share": max(0.0, 1.0 - busy / wall),
+           "device_calls": sum(r[1] for r in rows),
            "top_device": [{"name": r[0][:80], "calls": r[1],
                            "device_ms": r[2] / 1e3} for r in rows[:10]]}
     if kernels:
@@ -1616,6 +1652,316 @@ def lm_compact_phase(torch, Z, C, K, FA, SK, dev, lm=LM):
     torch.cuda.empty_cache()
 
 
+def _fleet_requests(rng, n, V, prompt, budget):
+    """``n`` requests from ``rng``: prompt lengths uniform in ``prompt``
+    (inclusive), token ids uniform over the vocab, budgets heavy-tailed
+    (the shortest plus a Pareto(1.2) tail, capped at ``budget[1]``)."""
+    lens = rng.integers(prompt[0], prompt[1] + 1, size=n)
+    tail = np.floor(rng.pareto(1.2, size=n) * 4).astype(np.int64)
+    budgets = np.minimum(budget[0] + tail, budget[1])
+    return ([rng.integers(0, V, size=int(k)).tolist() for k in lens],
+            [int(b) for b in budgets])
+
+
+def _cache_ptrs(eng):
+    from repro_torch._tree import leaves
+    return [a.data_ptr() for a in leaves(eng._cache)]
+
+
+def _solo_tokens(eng, params, prompt, max_new, switches=()):
+    """``prompt`` served alone by ``eng`` (reloaded with ``params``, a
+    dense tree or a ``CompactModel``), every other slot idle; ``switches``:
+    (local step, engine method, dense tree) applied after that many
+    steps. Returns the completion's tokens."""
+    if hasattr(params, "sels"):
+        eng.load_compact(params)
+    else:
+        eng.load(params)
+    eng.submit(prompt, max_new)
+    steps, done = 0, []
+    for at, method, tree in switches:
+        while steps < at:
+            done += eng.step()
+            steps += 1
+        getattr(eng, method)(tree)
+    done += eng.drain()
+    assert len(done) == 1, done
+    return done[0].tokens
+
+
+def _eager_tokens(torch, model, params, prompt, max_new, B, smax, dev):
+    """Greedy tokens of ``prompt`` in row 0 of a width-``B`` eager
+    ``decode_step`` loop (the other rows fed token 0 at position 0): the
+    engine's step without the graph."""
+    cache = model.init_cache(B, smax, dtype=torch.float32, device=dev)
+    out, feed = list(prompt), prompt[0]
+    for p in range(len(prompt) + max_new - 1):
+        tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+        tok[0, 0] = feed
+        pos = torch.zeros((B,), dtype=torch.long, device=dev)
+        pos[0] = p
+        lg, cache = model.decode(params, cache, tok, pos)
+        nxt = int(lg[0, -1].argmax())
+        if p + 1 < len(prompt):
+            feed = prompt[p + 1]
+        else:
+            out.append(nxt)
+            feed = nxt
+    return out
+
+
+def _steady(torch, eng, n, prompt_len, V, rng):
+    """Fill every slot with a request longer than ``n`` steps and time ``n``
+    steps of the full engine: per-step wall ms (host clock; each step
+    waits only for the previous step's outputs), allocated memory before
+    and after, the largest in between."""
+    rids = [eng.submit(rng.integers(0, V, size=prompt_len).tolist(), n + 8)
+            for _ in range(eng.B)]
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    mem0, peak, times = torch.cuda.memory_allocated(), 0, []
+    for _ in range(n):
+        t = time.perf_counter()
+        eng.step()
+        times.append((time.perf_counter() - t) * 1e3)
+        peak = max(peak, torch.cuda.memory_allocated())
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    for rid in rids:
+        eng.cancel(rid)
+    eng.drain()
+    return {"step_ms_median": float(np.median(times)),
+            "step_ms_max": float(np.max(times)),
+            "mem_before": mem0, "mem_after": mem1, "mem_peak": peak}
+
+
+def _replay_ms(torch, eng, reps=20):
+    """Device ms of one replay of the engine's graph (CUDA events around
+    ``reps`` replays on its stream), on an engine with no row active."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.cuda.stream(eng._stream):
+        eng._graph.replay()
+        start.record()
+        for _ in range(reps):
+            eng._graph.replay()
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _engine_report(torch, eng, model, params, name, first_ptrs, steady,
+                   eager_B, dev, fleet):
+    """The per-engine checks and numbers: one capture, the cache's
+    addresses, flat memory over the steady steps, replays equal to steps;
+    graphed step wall ms, one replay's device ms, the eager decode_step at
+    the same width, one traced engine step."""
+    st = eng.stats()
+    check(eng.n_traces == 1, f"fleet_serve {name}: {eng.n_traces} captures")
+    check(_cache_ptrs(eng) == first_ptrs,
+          f"fleet_serve {name}: a cache tensor moved")
+    check(steady["mem_after"] == steady["mem_before"]
+          and steady["mem_peak"] == steady["mem_before"],
+          f"fleet_serve {name}: allocated memory moved over the steady "
+          f"steps: {steady}")
+    check(eng.n_replays == st["steps"],
+          f"fleet_serve {name}: {eng.n_replays} replays, {st['steps']} "
+          f"steps")
+    replay = _replay_ms(torch, eng)
+    cache = model.init_cache(eager_B, fleet["max_seq"], dtype=torch.float32,
+                             device=dev)
+    tok = torch.zeros((eager_B, 1), dtype=torch.long, device=dev)
+    pos = torch.zeros((eager_B,), dtype=torch.long, device=dev)
+    eager = wall_ms(torch, lambda: model.decode(params, cache, tok, pos),
+                    reps=3)
+    # device ms of the step with its one cache copy and in place, each
+    # captured on its own (no host in the number)
+    graph_dev = {"decode_step": time_ms(
+        torch, lambda: model.decode(params, cache, tok, pos), 150.0),
+        "decode_step_": time_ms(
+        torch, lambda: model.decode_(params, cache, tok, pos), 150.0)}
+    del cache
+    # a steady window of ten engine steps under the profiler
+    prof = _profile(torch, lambda: [eng.step() for _ in range(10)])
+    prof["steps"] = 10
+    eng.flush()
+    lat = eng.latency_report()
+    return {"n_traces": eng.n_traces, "replays": eng.n_replays,
+            "stats": st, "graph_step_wall_ms_median": steady[
+                "step_ms_median"], "steady": steady,
+            "replay_device_ms": replay,
+            "idle_share_from_replay": max(
+                0.0, 1.0 - replay / steady["step_ms_median"]),
+            "eager_decode_step_ms": eager, "eager_batch": eager_B,
+            "graph_device_ms": graph_dev,
+            "traced_step": prof,
+            "ttft_ms": {k: lat["ttft"][k] * 1e3 for k in ("p50", "p99")},
+            "per_token_ms": {k: lat["per_token"][k] * 1e3
+                             for k in ("p50", "p99")}}
+
+
+def fleet_serve_phase(torch, Z, C, K, dev, fleet=FLEET, seed=11):
+    """Phase 10b: the serving loop. hymba-1.5b at full width and depth
+    (f32, the reference's init) behind ``FleetEngine``: (a) the dense
+    engine under churn, (b) the compacted engine through a mid-flight
+    refresh and recompact."""
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.core import ProjectionEngine
+    from repro_torch.serve import (EngineConfig, FleetEngine,
+                                   compact_model)
+    cfg = C.get_config(fleet["arch"])
+    model = Z.build(cfg)
+    V, B, smax = cfg.vocab, fleet["slots"], fleet["max_seq"]
+    ecfg = EngineConfig(max_seq=smax)
+    rng = np.random.default_rng(seed)
+
+    # (a) the dense engine under churn: three waves, one cancel
+    params = model.init(generator=torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    prompts, budgets = _fleet_requests(rng, fleet["requests"], V,
+                                       fleet["prompt"], fleet["budget"])
+    eng = FleetEngine(model, B, ecfg)
+    eng.load(params)
+    waves = np.array_split(np.arange(len(prompts)), fleet["waves"])
+    rids, done, first_ptrs = {}, [], None
+    cancelled = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w, idx in enumerate(waves):
+        for i in idx:
+            rids[eng.submit(prompts[i], budgets[i])] = int(i)
+        for _ in range(fleet["wave_steps"]):
+            done += eng.step()
+            if first_ptrs is None:
+                first_ptrs = _cache_ptrs(eng)
+        if w == 0:
+            # the request of wave 0 (all admitted at the first step) with
+            # the most left to do that has not finished
+            finished = {c.rid for c in done}
+            left = {r: len(prompts[i]) + budgets[i] for r, i in rids.items()
+                    if r not in finished}
+            cancelled = max(left, key=left.get)
+            check(eng.cancel(cancelled),
+                  f"fleet_serve dense: cancel({cancelled}) refused")
+    done += eng.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    got = {c.rid: c for c in done}
+    check(sorted(got) == sorted(rids),
+          f"fleet_serve dense: {len(got)} of {len(rids)} completions")
+    gen_tokens = sum(len(c.generated) for c in got.values())
+    solo = FleetEngine(model, B, ecfg)
+    mismatched = []
+    t = time.perf_counter()
+    for r, i in rids.items():
+        want = _solo_tokens(solo, params, prompts[i], budgets[i])
+        c = got[r]
+        ok = (c.tokens == want[:len(c.tokens)] and c.evicted
+              if r == cancelled else
+              c.tokens == want and not c.evicted and not c.truncated)
+        if not ok:
+            mismatched.append(r)
+    solo_s = time.perf_counter() - t
+    check(not mismatched,
+          f"fleet_serve dense: continuous != solo for rids {mismatched}")
+    check(solo.n_traces == 1,
+          f"fleet_serve dense: the solo engine captured {solo.n_traces}x")
+    # the graph against no graph: the shortest three requests
+    short = sorted((r for r in rids if r != cancelled),
+                   key=lambda r: len(prompts[rids[r]]) + budgets[rids[r]])
+    eager_bad = []
+    t = time.perf_counter()
+    for r in short[:fleet["eager_requests"]]:
+        i = rids[r]
+        want = _eager_tokens(torch, model, params, prompts[i], budgets[i],
+                             B, smax, dev)
+        if want != got[r].tokens:
+            eager_bad.append(r)
+    eager_s = time.perf_counter() - t
+    check(not eager_bad,
+          f"fleet_serve dense: graph != eager decode_step for {eager_bad}")
+    steady = _steady(torch, eng, fleet["steady"], 4, V, rng)
+    dense_line = _engine_report(torch, eng, model, params, "dense",
+                                first_ptrs, steady, B, dev, fleet)
+    dense_line.update({
+        "requests": len(rids), "cancelled": cancelled,
+        "generated_tokens": gen_tokens, "serve_s": serve_s,
+        "tokens_per_s": gen_tokens / serve_s, "solo_s": solo_s,
+        "eager_checked": short[:fleet["eager_requests"]],
+        "eager_s": eager_s, "continuous_eq_solo": not mismatched,
+        "graph_eq_eager": not eager_bad,
+        "cache_bytes": sum(a.numel() * a.element_size()
+                           for a in leaves(eng._cache))})
+    del eng, solo, params
+    torch.cuda.empty_cache()
+
+    # (b) the compacted engine: refresh (values x 1.25) and recompact (one
+    # more column dead) mid-flight, against solo runs switching at the
+    # same local depth
+    _, raw = lm_compact_params(torch, Z, C, dev)
+    dense, _ = ProjectionEngine(cfg.projection_specs,
+                                solver="kernel").apply(raw)
+    del raw
+    cm = compact_model(dense, cfg.projection_specs)
+    w1 = next(p for p in cm.live if p.endswith("mlp/w1"))
+    victim = int(cm.sels[w1][0])
+    dense2 = tree_map(lambda a: a * 1.25, dense)
+    dense3 = tree_map(torch.clone, dense2)
+    for block in dense3["blocks"].values():
+        block["mlp"]["w1"][..., victim] = 0.0
+    del dense
+    torch.cuda.empty_cache()
+    cprompts, cbudgets = _fleet_requests(rng, B, V, fleet["compact_prompt"],
+                                         fleet["compact_budget"])
+    switches = ((fleet["refresh_at"], "refresh", dense2),
+                (fleet["recompact_at"], "recompact", dense3))
+    eng = FleetEngine(model, B, ecfg)
+    eng.load_compact(cm)
+    crids = [eng.submit(p, n) for p, n in zip(cprompts, cbudgets)]
+    done, steps, first_ptrs = [], 0, None
+    t0 = time.perf_counter()
+    for at, method, tree in switches:
+        while steps < at:
+            done += eng.step()
+            steps += 1
+            if first_ptrs is None:
+                first_ptrs = _cache_ptrs(eng)
+        getattr(eng, method)(tree)
+    live_after = eng.compact.live[w1]
+    done += eng.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    got = {c.rid: c for c in done}
+    gen_tokens = sum(len(c.generated) for c in got.values())
+    check(live_after == cm.live[w1] - 1,
+          f"fleet_serve compact: live {live_after} after the recompact, "
+          f"{cm.live[w1]} before")
+    solo = FleetEngine(model, B, ecfg)
+    mismatched = []
+    for r, p, n in zip(crids, cprompts, cbudgets):
+        if got[r].tokens != _solo_tokens(solo, cm, p, n, switches):
+            mismatched.append(r)
+    check(not mismatched,
+          f"fleet_serve compact: mid-flight switch != solo for {mismatched}")
+    check(solo.n_traces == 1,
+          f"fleet_serve compact: the solo engine captured {solo.n_traces}x")
+    del solo
+    steady = _steady(torch, eng, fleet["steady"], 4, V, rng)
+    compact_line = _engine_report(torch, eng, model, eng.params, "compact",
+                                  first_ptrs, steady, B, dev, fleet)
+    compact_line.update({
+        "requests": len(crids), "refresh_at": fleet["refresh_at"],
+        "recompact_at": fleet["recompact_at"], "live_before": cm.live[w1],
+        "live_after": live_after, "slot_width": cm.slot_width(w1),
+        "n_cols": cm.supports[w1].n_cols, "generated_tokens": gen_tokens,
+        "serve_s": serve_s, "tokens_per_s": gen_tokens / serve_s,
+        "midflight_eq_solo": not mismatched})
+    emit({"phase": "fleet_serve", "arch": cfg.name, "slots": B,
+          "max_seq": smax, "dense": dense_line, "compact": compact_line})
+    del eng, cm, dense2, dense3
+    torch.cuda.empty_cache()
+
+
 def _every_k(cfg, k):
     return dataclasses.replace(cfg, projection_specs=tuple(
         dataclasses.replace(spec, every_k=k) for spec in cfg.projection_specs))
@@ -2561,6 +2907,7 @@ def main():
 
     # -- 10. hymba-1.5b projected, compacted and served ---------------------
     lm_compact_phase(torch, Z, C, K, FA, SK, dev)
+    fleet_serve_phase(torch, Z, C, K, dev)
 
     # -- 11.-12. stablelm-3b trained on the card ---------------------------
     train_launches = lm_train_phase(torch, Z, C, FA, K, dev)

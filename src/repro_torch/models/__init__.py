@@ -1,8 +1,9 @@
 """The LM zoo: layers, attention (flash kernels), Mamba2 SSD (SSD kernels),
-pattern-built stacks with ``forward`` and ``decode_step``, and ``build``."""
+pattern-built stacks with ``forward`` and ``decode_step`` (``decode_step_``
+in place), and ``build``."""
 from .param import PM, is_pm, materialize, stack_layout, count_params
 from .transformer import (ArchConfig, block_layout, block_apply_full,
                           model_layout, forward, init_cache, decode_step,
-                          cache_max_len)
+                          decode_step_, cache_max_len)
 from .zoo import (SHAPES, Model, build, cell_supported, make_batch,
                   reduce_config)

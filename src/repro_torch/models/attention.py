@@ -6,9 +6,12 @@ when the tensors are on the card, its plain PyTorch version on the CPU
 (the JAX package's models run a jnp chunked attention here and keep the
 Pallas kernel as the TPU drop-in for the same math).
 
-Decode attends one new token against a KV cache. Caches are updated
-functionally, as in the JAX package: a write returns a new cache and
-leaves the old one as it was.
+Decode attends one new token against a KV cache. ``attn_decode_`` writes
+the new timestep into the cache in place (``_cache_write_``), with no host
+sync, so a serving step can run it under CUDA graph capture;
+``attn_decode`` keeps the JAX package's functional contract (a write
+returns a new cache and leaves the old one as it was) by writing into a
+copy.
 
 Cross attention and multi-head latent attention (MLA) are not ported yet
 (ROADMAP queue A item 6).
@@ -25,7 +28,7 @@ from .layers import apply_rope
 from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = ["attn_layout", "attn_apply", "attn_prefill_cache",
-           "decode_attention", "attn_decode"]
+           "decode_attention", "attn_decode", "attn_decode_"]
 
 _NEG = -1e30
 
@@ -98,24 +101,37 @@ def _decode_positions(pos, B: int, device) -> torch.Tensor:
     return pos.to(torch.int32)[:, None]
 
 
-def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
-    """Write one new timestep into a (B, Smax, ...) cache at ``pos`` and
-    return the new cache, as the JAX package does:
+def _cache_write_(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write one new timestep (B, 1, ...) into a (B, Smax, ...) cache at
+    ``pos``, in place, with the JAX package's semantics:
 
     * a scalar ``pos`` is ``dynamic_update_slice``: a negative pos counts
       from the end, and the start is then clamped into [0, Smax - 1];
     * a (B,) ``pos`` is a per-row scatter with ``mode="drop"``: a negative
       pos counts from the end, and a row whose pos is then out of range
       writes nothing.
-    """
+
+    A dropped row writes its old value back at a clamped index, so no
+    branch depends on the data and nothing waits for the device."""
     B, Smax = cache.shape[:2]
     pos = pos_tensor(pos, cache.device).long()
     pos = torch.where(pos < 0, pos + Smax, pos)
+    rows = torch.arange(B, device=cache.device)
+    val = new[:, 0].to(cache.dtype)
     if pos.ndim == 0:
-        pos = pos.clamp(0, Smax - 1).expand(B)
-    rows = torch.arange(Smax, device=cache.device)[None, :] == pos[:, None]
-    rows = rows.reshape((B, Smax) + (1,) * (cache.ndim - 2))
-    return torch.where(rows, new.to(cache.dtype), cache)
+        cache.index_put_((rows, pos.clamp(0, Smax - 1).expand(B)), val)
+        return
+    idx = pos.clamp(0, Smax - 1)
+    keep = ((pos >= 0) & (pos < Smax)).reshape((B,) + (1,) * (val.ndim - 1))
+    cache.index_put_((rows, idx), torch.where(keep, val, cache[rows, idx]))
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
+    """``_cache_write_`` into a copy: returns the new cache and leaves
+    ``cache`` as it was."""
+    out = cache.clone()
+    _cache_write_(out, new, pos)
+    return out
 
 
 # ------------------------------ GQA module ----------------------------------
@@ -174,23 +190,31 @@ def attn_prefill_cache(params, x, *, n_heads, n_kv, head_dim, positions,
     return k, v
 
 
-def attn_decode(params, x, cache: Tuple[torch.Tensor, torch.Tensor],
-                pos, *, n_heads: int, n_kv: int, head_dim: int,
-                window: int = 0, rope_theta: float = 10000.0,
-                rope_frac: float = 1.0):
-    """One-token decode. x: (B, 1, d); cache: (k, v) each (B, Smax, KV, hd);
-    pos: index of the new token — scalar (whole batch at one depth) or (B,)
-    per-row. Returns (y, new_cache)."""
+def attn_decode_(params, x, cache: Tuple[torch.Tensor, torch.Tensor],
+                 pos, *, n_heads: int, n_kv: int, head_dim: int,
+                 window: int = 0, rope_theta: float = 10000.0,
+                 rope_frac: float = 1.0) -> torch.Tensor:
+    """One-token decode. x: (B, 1, d); cache: (k, v) each (B, Smax, KV, hd),
+    written in place; pos: index of the new token — scalar (whole batch at
+    one depth) or (B,) per-row. Returns y."""
     B = x.shape[0]
     pos = pos_tensor(pos, x.device)
     positions = _decode_positions(pos, B, x.device)
     q, k_new, v_new = _project_qkv(params, x, n_heads, n_kv, head_dim,
                                    positions, rope_theta, rope_frac)
     k_cache, v_cache = cache
-    k_cache = _cache_write(k_cache, k_new, pos)
-    v_cache = _cache_write(v_cache, v_new, pos)
+    _cache_write_(k_cache, k_new, pos)
+    _cache_write_(v_cache, v_new, pos)
     R = n_heads // n_kv
     qg = q.reshape(B, 1, n_kv, R, head_dim)
     out = decode_attention(qg, k_cache, v_cache, pos, window=window)
     out = out.reshape(B, 1, n_heads, head_dim)
-    return _out_proj(out, params["wo"]), (k_cache, v_cache)
+    return _out_proj(out, params["wo"])
+
+
+def attn_decode(params, x, cache: Tuple[torch.Tensor, torch.Tensor],
+                pos, **kw):
+    """``attn_decode_`` on a copy of the cache. Returns (y, new_cache); the
+    old cache is left as it was."""
+    new = tuple(c.clone() for c in cache)
+    return attn_decode_(params, x, new, pos, **kw), new

@@ -25,7 +25,7 @@ from .._device import resolve_device
 from ..kernels.ssd.ops import ssd_attention
 
 __all__ = ["CONV_W", "ssm_layout", "ssd_apply", "ssm_init_cache",
-           "ssd_decode"]
+           "ssd_decode", "ssd_decode_"]
 
 CONV_W = 4  # causal depthwise conv width
 
@@ -126,8 +126,10 @@ def ssm_init_cache(B: int, d_inner: int, n_state: int, headdim: int,
     }
 
 
-def ssd_decode(params, u, cache, *, headdim: int):
-    """Single-token recurrent step. u: (B, 1, d). Returns (y, new_cache)."""
+def ssd_decode_(params, u, cache, *, headdim: int) -> torch.Tensor:
+    """Single-token recurrent step. u: (B, 1, d); ``cache`` (state,
+    conv_x, conv_B, conv_C) is updated in place (each leaf keeps its
+    dtype). Returns y."""
     B_ = u.shape[0]
     z, x, Bm, Cm, dt_raw = _ssd_inputs(params, u)
     x, conv_x = _causal_conv_step(x, cache["conv_x"], params["conv_x"])
@@ -147,7 +149,14 @@ def ssd_decode(params, u, cache, *, headdim: int):
     y = y + params["D"].float()[None, :, None] * xh
     y = y.reshape(B_, 1, H * headdim).to(u.dtype)
     y = rmsnorm_apply({"scale": params["norm"]}, y * F.silu(z))
-    y = y @ params["wo"]
-    new_cache = {"state": state, "conv_x": conv_x, "conv_B": conv_B,
-                 "conv_C": conv_C}
-    return y, new_cache
+    for key, new in (("state", state), ("conv_x", conv_x),
+                     ("conv_B", conv_B), ("conv_C", conv_C)):
+        cache[key].copy_(new)
+    return y @ params["wo"]
+
+
+def ssd_decode(params, u, cache, *, headdim: int):
+    """``ssd_decode_`` on a copy of the cache. Returns (y, new_cache); the
+    old cache is left as it was."""
+    new = {k: v.clone() for k, v in cache.items()}
+    return ssd_decode_(params, u, new, headdim=headdim), new

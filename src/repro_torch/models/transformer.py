@@ -20,8 +20,9 @@ indexes the stacked leaves.
 
 Entry points: ``forward`` (prefill / scoring logits), ``train_loss``
 (the next-token CE that ``Model.loss`` and the train loop differentiate),
-``init_cache`` / ``decode_step`` (serving). With ``cfg.remat`` and grad
-mode on, ``forward`` runs each layer cycle under
+``init_cache`` / ``decode_step`` (serving; ``decode_step_`` writes the
+cache in place, so a serving loop can capture it into a CUDA graph).
+With ``cfg.remat`` and grad mode on, ``forward`` runs each layer cycle under
 ``torch.utils.checkpoint`` (non-reentrant), which keeps only the cycle's
 input and recomputes the rest in the backward, as ``jax.checkpoint`` does
 in the reference.
@@ -29,6 +30,7 @@ in the reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -44,7 +46,7 @@ from .._tree import tree_map
 
 __all__ = ["ArchConfig", "block_layout", "block_apply_full", "model_layout",
            "forward", "train_loss", "init_cache", "decode_step",
-           "cache_max_len", "PORTED_KINDS"]
+           "decode_step_", "cache_max_len", "PORTED_KINDS"]
 
 PORTED_KINDS = ("global", "local", "ssm", "hybrid")
 
@@ -350,76 +352,79 @@ def init_cache(cfg: ArchConfig, B: int, Smax: int, dtype=torch.bfloat16,
     return cache
 
 
-def _block_decode(params, x, kind: str, cfg: ArchConfig, cache, pos):
+def _block_decode_(params, x, kind: str, cfg: ArchConfig, cache, pos):
+    """One block's decode step; ``cache`` (the block's leaves, views of the
+    stacked ones) is written in place."""
     if kind not in PORTED_KINDS:
         raise _unported(f"block kind {kind!r}")
     if kind in ("global", "local", "hybrid"):
         h = L.norm_apply(params["attn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        y, (k, v) = A.attn_decode(
+        y = A.attn_decode_(
             params["attn"], h, (cache["k"], cache["v"]), pos,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
             window=cfg.window if kind in ("local", "hybrid") else 0,
             rope_theta=cfg.rope_theta, rope_frac=cfg.rope_frac)
-        cache = {**cache, "k": k, "v": v}
         if kind == "hybrid":
             hs = L.norm_apply(params["ssm_norm"], x, cfg.norm_kind,
                               cfg.norm_eps)
-            ssm_cache = {k2: cache[k2] for k2 in
-                         ("state", "conv_x", "conv_B", "conv_C")}
-            y2, new_ssm = SSMOD.ssd_decode(params["ssm"], hs, ssm_cache,
-                                           headdim=cfg.ssm_headdim)
-            cache = {**cache, **new_ssm}
+            y2 = SSMOD.ssd_decode_(params["ssm"], hs, cache,
+                                   headdim=cfg.ssm_headdim)
             x = x + 0.5 * (y + y2)
         else:
             x = x + y
     if kind == "ssm":
         h = L.norm_apply(params["ssm_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        y, new_ssm = SSMOD.ssd_decode(params["ssm"], h, cache,
-                                      headdim=cfg.ssm_headdim)
-        cache = {**cache, **new_ssm}
-        x = x + y
-    return _mlp_part_apply(params, x, cfg), cache
+        x = x + SSMOD.ssd_decode_(params["ssm"], h, cache,
+                                  headdim=cfg.ssm_headdim)
+    return _mlp_part_apply(params, x, cfg)
 
 
-def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
-    """One serving step: tokens (B, 1) int at position ``pos`` — a scalar
-    (the whole batch at one depth) or a (B,) vector of per-row positions.
-    Returns (logits (B, 1, V) in the activation dtype, new_cache); the old
-    cache is left as it was."""
+@functools.lru_cache(maxsize=16)
+def _position_table(S: int, d: int, device: torch.device) -> torch.Tensor:
+    """``sinusoidal_positions(S, d)`` on ``device``, copied there once: a
+    host-to-device copy inside a decode step would stall the stream and
+    cannot be captured into a CUDA graph."""
+    return L.sinusoidal_positions(S, d, device=device)
+
+
+def decode_step_(params, cache, tokens, pos, cfg: ArchConfig):
+    """One serving step that writes ``cache`` in place: tokens (B, 1) int at
+    position ``pos`` — a scalar (the whole batch at one depth) or a (B,)
+    vector of per-row positions. Each layer updates views of the stacked
+    cache leaves. Returns the logits (B, 1, V) in the activation dtype.
+    With ``pos`` a tensor on the cache's device it never waits for the
+    device, so a CUDA graph can capture it."""
     x = L.embed_apply(params["embed"], tokens,
                       scale=np.sqrt(cfg.d_model) if cfg.embed_scale else None)
     pos = A.pos_tensor(pos, x.device)        # once, not at every layer
     if not cfg.rope_theta:
-        table = L.sinusoidal_positions(cache_max_len(cache, cfg),
-                                       cfg.d_model, device=x.device)
-        pos_a = pos
-        if pos_a.ndim:                    # per-row absolute positions
-            x = x + table[pos_a].to(x.dtype)[:, None]
+        table = _position_table(cache_max_len(cache, cfg), cfg.d_model,
+                                x.device)
+        if pos.ndim:                      # per-row absolute positions
+            x = x + table[pos].to(x.dtype)[:, None]
         else:                             # clamped, as dynamic_slice does
-            i = pos_a.clamp(0, table.shape[0] - 1)
+            i = pos.clamp(0, table.shape[0] - 1)
             x = x + table[i].to(x.dtype)[None, None]
     cycles, rem = _split_pattern(cfg)
-    per_layer: Dict[str, list] = {}
-    new_cache: Dict[str, Any] = {}
     for c in range(cycles):
         for i, kind in enumerate(cfg.pattern):
             key = f"p{i}_{kind}"
-            x, blk_cache = _block_decode(
-                _layer(params["blocks"][key], c), x, kind, cfg,
-                _layer(cache["blocks"][key], c), pos)
-            per_layer.setdefault(key, []).append(blk_cache)
-    if cycles:
-        new_cache["blocks"] = {
-            key: tree_map(lambda *ls: torch.stack(ls), *caches)
-            for key, caches in per_layer.items()}
+            x = _block_decode_(_layer(params["blocks"][key], c), x, kind,
+                               cfg, _layer(cache["blocks"][key], c), pos)
     for r in range(rem):
         kind = cfg.pattern[r]
         key = f"rem{r}_{kind}"
-        x, new_cache[key] = _block_decode(params[key], x, kind, cfg,
-                                          cache[key], pos)
+        x = _block_decode_(params[key], x, kind, cfg, cache[key], pos)
     x = L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed_apply(table, x, true_vocab=cfg.vocab), new_cache
+    return L.unembed_apply(table, x, true_vocab=cfg.vocab)
+
+
+def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
+    """``decode_step_`` on a copy of the cache. Returns (logits (B, 1, V) in
+    the activation dtype, new_cache); the old cache is left as it was."""
+    new_cache = tree_map(torch.clone, cache)
+    return decode_step_(params, new_cache, tokens, pos, cfg), new_cache
 
 
 def cache_max_len(cache, cfg: ArchConfig) -> int:

@@ -14,7 +14,7 @@ import torch
 
 from .._device import resolve_device
 from .transformer import (ArchConfig, model_layout, forward, train_loss,
-                          init_cache, decode_step)
+                          init_cache, decode_step, decode_step_)
 from .param import materialize, count_params
 
 __all__ = ["SHAPES", "cell_supported", "make_batch", "Model", "build",
@@ -85,7 +85,12 @@ class Model:
         return init_cache(self.cfg, B, Smax, dtype, device)
 
     def decode(self, params, cache, tokens, pos):
+        """(logits, new_cache); ``cache`` is left as it was."""
         return decode_step(params, cache, tokens, pos, self.cfg)
+
+    def decode_(self, params, cache, tokens, pos):
+        """Logits; ``cache`` is written in place."""
+        return decode_step_(params, cache, tokens, pos, self.cfg)
 
 
 def build(cfg: ArchConfig) -> Model:

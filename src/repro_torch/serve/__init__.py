@@ -1,5 +1,5 @@
-"""Model-generic compact serving: structural zeros compiled out of any
-projected-trained param tree (port of ``repro.serve``).
+"""Model-generic compact serving and the serving loop (port of
+``repro.serve``).
 
 ``compact.py`` owns the static side — support derivation from
 ``ProjectionSpec`` lists (the same ``column_masks`` contract the training
@@ -9,14 +9,24 @@ which gathers a dense checkpoint into a ``CompactModel``. ``refresh.py``
 owns the checkpoint lifecycle — ``refresh_model`` (value refresh through
 the frozen ``sel``) and ``recompact_model`` (live re-compaction: support
 only shrinks under the frozen mask, so the re-gather is monotone and
-shape-preserving). The SAE path (``sae/serve.py``) is a thin adapter over
-this layer. The serving loop (the JAX package's ``FleetEngine``) is not
-ported yet.
+shape-preserving).
+
+``engine.py`` owns the serving loop itself — ``FleetEngine``, the
+continuous-batching engine that keeps one decode step hot under churn:
+on-device slot state, in-step sampling, masked admission, a cache written
+in place, one CUDA graph on the card, and a ``RecompactScheduler`` that
+turns checkpoint refreshes into live re-compactions with hysteresis.
+
+The SAE path (``sae/serve.py``) and the LM zoo path (``train/serve.py``'s
+``BatchServer``) are both thin adapters over this layer.
 """
 from .compact import (LeafSupport, support_selection, CompactRule, ZOO_RULES,
                       CompactModel, compact_model)
 from .refresh import refresh_model, recompact_model
+from .engine import (EngineConfig, Request, Completion, LatencyStats,
+                     RecompactScheduler, FleetEngine)
 
 __all__ = ["LeafSupport", "support_selection", "CompactRule", "ZOO_RULES",
            "CompactModel", "compact_model", "refresh_model",
-           "recompact_model"]
+           "recompact_model", "EngineConfig", "Request", "Completion",
+           "LatencyStats", "RecompactScheduler", "FleetEngine"]

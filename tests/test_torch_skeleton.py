@@ -69,7 +69,8 @@ def test_every_module_listed():
                  "repro_torch.data", "repro_torch.data.pipeline",
                  "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
                  "repro_torch.dist", "repro_torch.dist.watchdog",
-                 "repro_torch.train", "repro_torch.train.loop"):
+                 "repro_torch.train", "repro_torch.train.loop",
+                 "repro_torch.serve.engine", "repro_torch.train.serve"):
         assert want in names
 
 
