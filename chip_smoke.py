@@ -121,6 +121,19 @@ and prints no result. Phases:
                calls it: device ms warm and flushed, plain ms, bound, SDPA's
                forward (the kernels line's second flash_attention_fwd
                row).
+  6c. attn_zoo — the flash kernels at the shapes the new block kinds give
+               them, f32: whisper-small's encoder self attention (BH 24,
+               1500 x 1500, hd 64, full) and decoder cross attention (448
+               x 1500), llama-3.2-vision's cross attention (BH 64, 2048 x
+               1600, hd 128) and deepseek-v2's MLA (BH 128, S 2048, causal,
+               q/k hd 192 on the hd-256 kernel, v 128 zero-padded to 192,
+               as ``flash_attention`` pads it): forward and backward
+               against their plain versions (2e-5 of the scale), reruns
+               bit-equal, the padded columns of out exact zeros; device ms
+               warm and flushed, the plain versions' ms, the bound on the
+               true head dims (q . k at 192, p . v at 128), the share of
+               products the padding adds, and SDPA's forward and backward
+               on the true dims (its v head dim as it is).
   7. ssd_kernels — the SSD kernel against its plain version (atol = rtol
                2e-4) and against the naive recurrence ``ssd_ref`` (2e-4 of
                the output's scale), y and final state, at hymba-1.5b's shape
@@ -150,15 +163,26 @@ and prints no result. Phases:
                the first two launches' registers and CTAs an SM.
   7c. block_bwd — one block's backward on the card against the CPU, for a
                ``global``, an ``ssm`` and a ``hybrid`` block at full width
-               (stablelm-3b's, mamba2-370m's and hymba-1.5b's), B 1 x S
-               2048, f32 (``models/blockcheck.py``): the same input and the
-               same upstream gradient through ``block_apply_full`` with
+               (stablelm-3b's, mamba2-370m's and hymba-1.5b's), and for
+               whisper-small's ``enc`` and ``dec_cross``, llama-3.2-
+               vision's ``cross``, deepseek-v2's ``mla`` (160 experts) and
+               mixtral-8x7b's ``local`` with its MoE MLP, B 1 x S 2048,
+               f32, none cut (``models/blockcheck.py``): the same input
+               (and, for the cross-attention kinds, the same memory of the
+               model's length: 1500 encoder positions, 1600 image tokens)
+               and the same upstream gradient through the block's two
+               parts (``block_apply_full``'s) with
                ``torch.autograd.grad(..., grad_outputs=...)``, so no depth
-               amplifies the rounding; every parameter's and the input's
-               gradient finite and within twice its noise floor (a card
-               backward from PERTURB-perturbed params, the same run) of the
-               CPU's (plain versions); each card backward launches the
-               block's flash and SSD kernels once each way.
+               amplifies the rounding;
+               every parameter's, the input's and the memory's gradient
+               finite and within twice its noise floor (a card backward
+               from PERTURB-perturbed params, the same run) of the CPU's
+               (plain versions). A MoE block's routing (each token's top-k
+               experts and the capacity keep mask) must be equal in the
+               three runs first; a flip fails the check and the line
+               reports the smallest gap between a token's k-th and
+               (k+1)-th gate. Each card backward launches the block's
+               flash and SSD kernels once each way.
   8. lm_forward — this slice's main path: ``build(get_config("hymba-1.5b"))``
                at full width and depth (32 layers, 1.59 B params), params
                from ``Model.init`` in f32 and then bf16, ``forward`` on a
@@ -274,11 +298,61 @@ and prints no result. Phases:
                more (idle share, top device ops, the SSD and flash
                kernels' share). Then one ``build_accum_step`` step of
                hymba-1.5b at depth 2 on the card against the CPU, as 11b.
- 14. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+ 14. zoo_encdec — whisper-small at full size (12 encoder and 12 decoder
+               layers, 0.24 B params), the reference's init, B 2, 1500
+               frames, 448 tokens: forward in f32 and bf16, logits finite,
+               the flash forward launched 12 times at each of 1500 x 1500
+               (full), 448 x 448 (causal) and 448 x 1500 (cross); prefill
+               ms, peak memory, a one-forward trace (flash share). B 1,
+               whole and cut to 2 + 2 layers, f32: every block of the
+               forward fed the card's input to it on the CPU too, within
+               FLOOR_FACTOR times its own noise floor (PERTURB), and what
+               lies between the blocks (positions, norms, the memory,
+               embedding and unembedding) within GLUE_REL of its scale;
+               the whole model on the card, on the CPU and perturbed on
+               each (at this init the floor is a third to three quarters
+               of the logits' scale, C-5): at the cut the encoder's output
+               within FLOOR_FACTOR times its floor and the logits' median
+               within FLOOR_FACTOR times the floor's, whole reported only;
+               ``decode_step`` over the first 64 positions, each layer's
+               ck / cv filled from the encoder's memory through its cross
+               wk / wv, against the forward: at the cut within the floor
+               and LM_MAX_REL of the logits' scale, whole reported only.
+               One ``Model.loss`` backward at full size (B 2, remat):
+               loss and every gradient finite, the flash backward launched
+               36 times (the forward 72). Then llama-3.2-vision-90b at full
+               width cut to one cycle of its pattern (4 global + 1 cross
+               layer, 6.50 B params), B 1 x S 2048, 1600 image tokens:
+               forward in f32 and bf16 (launches by shape: 4 causal 2048 x
+               2048, 1 full 2048 x 1600), decode over 64 positions with
+               the cross cache filled from the image embeddings, against
+               the forward within the noise floor (measured last, with the
+               params perturbed in place).
+ 15. zoo_moe — mixtral-8x7b at full width: depth 4 (6.07 B params), B 1
+               x S 2048, forward in f32 and bf16 with its MoE auxiliaries
+               (lb_loss, z_loss, dropped_frac); ``train`` at depth 2 (3.16
+               B params), f32, remat, B 1 x S 2049, ten steps with
+               ``proj_solver="kernel"``: its own moe/w1 l1,inf spec (radius
+               64, every_k 10) fires at the tenth on the stacked expert
+               leaf (2, 8, 4096, 14336), every slice within 1e-4 of the
+               radius; one step more whose engine projects and keeps the
+               leaf, held to ``solver="newton"`` (atol 3e-4 * scale);
+               losses finite, flash launches, step ms, peak memory. Then
+               deepseek-v2-236b at full width, depth 2 (8.99 B params, 160
+               experts, top-6, 2 shared), B 1 x S 2048: forward in f32 and
+               bf16 (MLA through flash at hd 192 with v 128, 2 launches),
+               decode over 64 positions with ``mla_absorb`` off and on,
+               each against the forward and each other within the noise
+               floor. Last, reduced mixtral-8x7b and deepseek-v2 behind
+               ``FleetEngine`` (3 slots, 7 requests, a refresh
+               mid-flight): one capture, replays equal to steps, tokens
+               equal to the CPU engine's.
+ 16. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -366,10 +440,18 @@ SSD_BWD_SHAPES = [
     ("mamba2_train", 1, 32, 2048, 64, 128, 64, (3.0, 20.0)),
     ("mamba2_train_small_dt", 1, 32, 2048, 64, 128, 64, (0.05, 0.6))]
 # phase 7c: one block of each ported kind with an SSD or flash kernel at
-# full width, (config, block kind), B 1 x S BLOCK_SEQ
+# full width, (config, block kind), B 1 x S BLOCK_SEQ; the cross-attention
+# kinds attend to the model's memory length (whisper's 1500 encoder
+# positions, llama-vision's 1600 image tokens)
 BLOCK_BWD = [("stablelm-3b", "global"), ("mamba2-370m", "ssm"),
-             ("hymba-1.5b", "hybrid")]
+             ("hymba-1.5b", "hybrid"), ("whisper-small", "enc"),
+             ("whisper-small", "dec_cross"),
+             ("llama-3.2-vision-90b", "cross"), ("deepseek-v2-236b", "mla"),
+             ("mixtral-8x7b", "local")]
 BLOCK_SEQ = 2048
+# the flash launches a block's forward makes
+BLOCK_ATTN = {"global": 1, "local": 1, "hybrid": 1, "enc": 1, "cross": 1,
+              "mla": 1, "dec_cross": 2, "ssm": 0}
 # the LM phases: models, batch and the cuts of the comparison phases
 LM = dict(arch="hymba-1.5b", ssm_arch="mamba2-370m", batch=2, seq=2048,
           cut_depth=2, decode_prompt=1152, full_prompt=64, greedy=8)
@@ -389,6 +471,26 @@ FLEET = dict(arch="hymba-1.5b", slots=8, max_seq=256, requests=24,
              prompt=(4, 48), budget=(4, 40), waves=3, wave_steps=12,
              eager_requests=3, steady=50, compact_prompt=(4, 12),
              compact_budget=(6, 16), refresh_at=5, recompact_at=10)
+# phases 14 and 15: the rest of the zoo at full width. whisper-small whole
+# (B 2, its 1500 encoder positions, 448 decoder tokens); llama-3.2-vision-
+# 90b cut to one cycle of its pattern (4 global + 1 cross), B 1 x S 2048,
+# 1600 image tokens; mixtral-8x7b's forward at depth 4 and train() at depth
+# 2 (B 1 x S 2048, ten steps: its moe/w1 spec's every_k 10 fires at the
+# tenth); deepseek-v2-236b at depth 2; decode against forward over the
+# first ``decode_prompt`` positions; reduced MoE models behind FleetEngine
+ZOO = dict(encdec="whisper-small", encdec_batch=2, encdec_seq=448,
+           vision="llama-3.2-vision-90b", vision_seq=2048, decode_prompt=64,
+           moe="mixtral-8x7b", moe_fwd_depth=4, moe_train_depth=2,
+           moe_train_steps=10, moe_seq=2048, mla="deepseek-v2-236b",
+           mla_depth=2, engine_archs=("mixtral-8x7b", "deepseek-v2-236b"))
+# phase 6c: the flash kernels at the new kinds' shapes, f32 (name, B, H,
+# Sq, Skv, head_dim, v head_dim, causal): whisper's encoder self attention
+# and decoder cross attention, llama-vision's cross attention, and
+# deepseek's MLA (q/k 192 on the hd-256 kernel, v 128 padded to 192)
+ZOO_ATTN_SHAPES = [("whisper_enc", 2, 12, 1500, 1500, 64, 64, False),
+                   ("whisper_cross", 2, 12, 448, 1500, 64, 64, False),
+                   ("vision_cross", 1, 64, 2048, 1600, 128, 128, False),
+                   ("deepseek_mla", 1, 128, 2048, 2048, 192, 128, True)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SSD_TOL = 2e-4
 # the SSD backward against its plain version and against float64 autograd
@@ -403,6 +505,15 @@ SSD_BWD_TOL = 2e-4
 # logits' scale.
 PERTURB = 1e-6
 LM_MAX_REL = 1e-2
+# models/blockcheck.py's factor: the noise floor's own spread from one draw
+# of the noise to the next, for comparisons whose two sides sum in other
+# orders (decode against forward) or whose floor is the logits' own scale
+FLOOR_FACTOR = 2.0
+# what a model computes between its blocks (positions, norms, the
+# embedding and unembedding) on the card against the CPU, from the same
+# inputs, as a fraction of its scale: a few f32 ulps over a norm's or a
+# 768-long dot product's reduction
+GLUE_REL = 1e-5
 # compact serving against dense, as a fraction of the dense output's scale:
 # tests/test_sae_serve.py's atol (f32) and its bf16 tolerance
 SERVE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
@@ -1082,32 +1193,53 @@ def ssd_bwd_phase(torch, SK, Sref, dev, flush, shapes=SSD_BWD_SHAPES):
 def block_bwd_phase(torch, C, FA, SK, dev, blocks=BLOCK_BWD,
                     seq=BLOCK_SEQ):
     """Phase 7c: one block's backward, card against CPU, for each
-    (config, kind) of ``blocks`` at full width (``block_backward_check``);
-    the card's two backwards (the check's and the noise floor's) launch
-    the block's kernels twice each way."""
-    from repro_torch.models.blockcheck import block_backward_check
+    (config, kind) of ``blocks`` at full width (``block_backward_check``),
+    the memory's gradient checked for the cross-attention kinds and the
+    routing for the MoE ones (equal in the three runs, else the check
+    fails and the smallest gap between a token's k-th and (k+1)-th gate is
+    reported). The card's two backwards (the check's and the noise
+    floor's) launch the block's kernels twice each way."""
+    from repro_torch.models.blockcheck import block_backward_check, memory_len
+    by_block = {}
     for arch, kind in blocks:
         cfg = C.get_config(arch)
         _lm_reset(FA, SK)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        rep = block_backward_check(cfg, kind, dev, seq=seq, perturb=PERTURB)
+        with _flash_shapes(FA) as shapes:
+            rep = block_backward_check(cfg, kind, dev, seq=seq,
+                                       perturb=PERTURB)
         seconds = time.perf_counter() - t
+        by_block[(arch, kind)] = shapes
         launched = _lm_counts(FA, SK)
-        attn, ssm = kind in ("global", "hybrid"), kind in ("ssm", "hybrid")
+        attn, ssm = BLOCK_ATTN[kind], kind in ("ssm", "hybrid")
         want = {"flash_attention_fwd": 2 * attn, "flash_attention_bwd":
                 2 * attn, "ssd_fwd": 2 * ssm, "ssd_bwd": 2 * ssm}
+        check(rep["routing_equal"], f"block_bwd {arch} {kind}: routing "
+              f"differs between card, CPU and perturbed runs; smallest "
+              f"k-th to (k+1)-th gate gap {rep['min_gate_gap']}")
         check(rep["ok"], f"block_bwd {arch} {kind}: gradients beyond twice "
               f"their noise floor: {rep['failed']}")
         check(launched == want, f"block_bwd {arch} {kind}: launches "
               f"{launched}, want {want}")
         emit({"phase": "block_bwd", "arch": arch, "kind": kind, "batch": 1,
-              "seq": seq, "perturb": PERTURB, "ok": rep["ok"],
-              "failed": rep["failed"], "launches": launched,
+              "seq": seq, "memory_len": memory_len(cfg, kind),
+              "n_experts": cfg.n_experts if cfg.d_ff else 0,
+              "perturb": PERTURB, "ok": rep["ok"], "failed": rep["failed"],
+              "routing_equal": rep["routing_equal"],
+              "min_gate_gap": rep["min_gate_gap"], "launches": launched,
+              "flash_launches_by_shape": shapes,
               "worst_over_floor": max(r["over_floor"]
                                       for r in rep["leaves"].values()),
-              "seconds": seconds, "leaves": rep["leaves"]})
+              "seconds": seconds,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "leaves": rep["leaves"]})
         del rep
+        gc.collect()
         torch.cuda.empty_cache()
+    return by_block
 
 
 def _noise_floor(torch, model, params, batch, logits, V, seed):
@@ -1277,12 +1409,14 @@ def lm_forward_phase(torch, Z, C, FA, SK, dev, lm=LM):
     return main_launches
 
 
-def _decode_all(torch, model, params, tokens, smax):
-    """Step every prompt position through decode_step; (logits (B, S, V),
+def _decode_all(torch, model, params, tokens, smax, cache=None):
+    """Step every prompt position through decode_step from ``cache`` (a
+    zeroed f32 cache of ``smax`` positions when None); (logits (B, S, V),
     cache, mean wall ms per step)."""
     B, S = tokens.shape
-    cache = model.init_cache(B, smax, dtype=torch.float32,
-                             device=tokens.device)
+    if cache is None:
+        cache = model.init_cache(B, smax, dtype=torch.float32,
+                                 device=tokens.device)
     outs = []
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2378,6 +2512,805 @@ def lm_train_ssm_phase(torch, Z, C, FA, SK, K, dev, tr=TRAIN):
     return first
 
 
+def _shape_key(way, sq, skv, hd, causal):
+    return f"{way} {sq}x{skv} hd{hd} {'causal' if causal else 'full'}"
+
+
+@contextlib.contextmanager
+def _flash_shapes(FA):
+    """Within the block, every launch of a flash kernel on the card adds
+    one to the yielded {"fwd|bwd SqxSkv hd<head_dim> causal|full": n}
+    (the head dim before any zero-padding)."""
+    seen = {}
+    fwd, bwd = FA._fwd_kernel, FA.flash_attention_bwd
+
+    def add(way, q, k, causal):
+        key = _shape_key(way, q.shape[1], k.shape[1], q.shape[2], causal)
+        seen[key] = seen.get(key, 0) + 1
+
+    def rec_fwd(q, k, v, groups, causal, window, want_lse):
+        add("fwd", q, k, causal)
+        return fwd(q, k, v, groups, causal, window, want_lse)
+
+    def rec_bwd(q, k, v, out, dout, lse, **kw):
+        if q.is_cuda:
+            add("bwd", q, k, kw.get("causal", True))
+        return bwd(q, k, v, out, dout, lse, **kw)
+
+    FA._fwd_kernel, FA.flash_attention_bwd = rec_fwd, rec_bwd
+    try:
+        yield seen
+    finally:
+        FA._fwd_kernel, FA.flash_attention_bwd = fwd, bwd
+
+
+def _perturb_(torch, params, seed):
+    """Multiply every float leaf of ``params`` by (1 + PERTURB * N(0, 1))
+    in place: the noise floor of a model whose copy would not fit beside
+    it. The params stay perturbed."""
+    from repro_torch._tree import leaves
+    flat = leaves(params)
+    g = torch.Generator(device=flat[0].device).manual_seed(seed)
+    with torch.no_grad():
+        for a in flat:
+            if a.is_floating_point():
+                a.mul_(1 + PERTURB * torch.randn(a.shape, generator=g,
+                                                 device=a.device))
+
+
+def _fill_cross(torch, params, cache, memory):
+    """Each cross-attention layer's ck / cv from ``memory`` (B, Sm, d)
+    through its own wk / wv, as a serving prefill fills them."""
+    for key, blk in params["blocks"].items():
+        if "cross" not in blk:
+            continue
+        for c in range(blk["cross"]["wk"].shape[0]):
+            for name, w in (("ck", "wk"), ("cv", "wv")):
+                cache["blocks"][key][name][c].copy_(torch.einsum(
+                    "bsd,dhk->bshk", memory, blk["cross"][w][c]))
+    return cache
+
+
+def _memory_batch(torch, cfg, B, S, dev, seed):
+    """tokens (B, S) and the memory input ``cfg`` reads: frames (B,
+    enc_seq, d) or image_embeds (B, n_img_tokens, d), N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     device=dev)}
+    if cfg.encdec:
+        batch["frames"] = torch.randn((B, cfg.enc_seq, cfg.d_model),
+                                      generator=g, device=dev)
+    if cfg.n_img_tokens:
+        batch["image_embeds"] = torch.randn(
+            (B, cfg.n_img_tokens, cfg.d_model), generator=g, device=dev)
+    return batch
+
+
+def _prefill(torch, FA, model, params, batch, dname, want_shapes):
+    """One no-grad forward of ``model`` on the card: logits finite, the
+    flash launches by shape equal ``want_shapes``; returns its line (wall
+    ms, peak memory, a one-forward trace with the flash kernels' share)
+    and the logits."""
+    cfg = model.cfg
+    # the memory inputs in the params' dtype, as the model's activations
+    batch = {k: v.to(_dtype(torch, dname)) if v.is_floating_point() else v
+             for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    with torch.no_grad(), _flash_shapes(FA) as shapes:
+        logits, aux = model.forward(params, batch)
+        torch.cuda.synchronize()
+    launched = FA.launch_counts()
+    valid = logits[..., :cfg.vocab].float()
+    finite = bool(torch.isfinite(valid).all())
+    check(finite and logits.dtype == _dtype(torch, dname),
+          f"{cfg.name} depth {cfg.n_layers} {dname} logits: finite "
+          f"{finite}, dtype {logits.dtype}")
+    check(shapes == want_shapes, f"{cfg.name} {dname} flash launches by "
+          f"shape {shapes}, want {want_shapes}")
+    check(launched["flash_attention_bwd"] == 0, f"{cfg.name} forward ran "
+          f"the flash backward")
+    line = {"arch": cfg.name, "dtype": dname, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "n_params": model.n_params(),
+            "batch": batch["tokens"].shape[0],
+            "seq": batch["tokens"].shape[1], "launches": launched,
+            "flash_launches_by_shape": shapes, "logits_finite": finite,
+            "logits_abs_max": float(valid.abs().max()),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "aux": {k: float(v) for k, v in aux.items()}}
+    with torch.no_grad():
+        line["prefill_ms"] = wall_ms(
+            torch, lambda: model.forward(params, batch), reps=3)
+        line["profile"] = _profile(
+            torch, lambda: model.forward(params, batch),
+            kernels=("flash_f32_kernel", "flash_bf16_kernel"))
+    return line, logits
+
+
+def _decode_vs_forward(torch, model, params, batch, full, P, noise, memory,
+                       label, rel=LM_MAX_REL):
+    """The first P positions of ``batch`` stepped through ``decode_step``
+    (the cross caches filled from ``memory``) against the forward's logits
+    ``full`` there, within ``noise`` and (unless ``rel`` is None) ``rel``
+    of the logits' scale; returns the line's numbers and the decode
+    logits."""
+    V = model.cfg.vocab
+    tokens = batch["tokens"][:, :P]
+    cache = model.init_cache(tokens.shape[0], P + 1, dtype=torch.float32,
+                             device=tokens.device)
+    with torch.no_grad():
+        if memory is not None:
+            cache = _fill_cross(torch, params, cache, memory)
+        steps, _, step_ms = _decode_all(torch, model, params, tokens, P + 1,
+                                        cache=cache)
+    ref = full[:, :P, :V].float()
+    scale = float(ref.abs().max())
+    diff = float((steps[..., :V].float() - ref).abs().max())
+    check(diff <= noise and (rel is None or diff <= rel * scale),
+          f"{label}: decode vs forward max diff {diff}, limit {noise}, "
+          f"scale {scale}")
+    return {"prompt": P, "max_abs_diff": diff, "logits_scale": scale,
+            "noise_floor": noise, "rel_diff": diff / max(scale, 1e-30),
+            "decode_ms_per_step": step_ms}, steps
+
+
+# the run that gives each phase 6c row its shape: whisper's f32 forward and
+# its loss backward (phase 14), llama-vision's and deepseek's forwards
+# (phases 14, 15) and, for their backwards (no training run takes them),
+# phase 7c's cross and mla blocks
+_ZOO_RUNS = {("whisper_enc", "fwd"): "encdec_forward",
+             ("whisper_enc", "bwd"): "encdec_step",
+             ("whisper_cross", "fwd"): "encdec_forward",
+             ("whisper_cross", "bwd"): "encdec_step",
+             ("vision_cross", "fwd"): "vision_forward",
+             ("vision_cross", "bwd"): "block_cross",
+             ("deepseek_mla", "fwd"): "mla_forward",
+             ("deepseek_mla", "bwd"): "block_mla"}
+
+
+def _zoo_launches(launches, row):
+    """A phase 6c row's launches: its kernel's launches at its shape in the
+    run ``_ZOO_RUNS`` names."""
+    way = "bwd" if row["name"] == "flash_attention_bwd" else "fwd"
+    key = _shape_key(way, row["Sq"], row["Skv"], row["head_dim"],
+                     row["causal"])
+    return launches[_ZOO_RUNS[(row["shape"], way)]].get(key, 0)
+
+
+def _abs_diff(torch, a, b):
+    """max and median |a - b|, on the CPU."""
+    d = (a.cpu().float() - b.cpu().float()).abs()
+    return {"max": float(d.max()), "median": float(d.median())}
+
+
+def _encdec_forced(torch, model, params, one, cpu_params, seed):
+    """The encoder-decoder's forward on the card, then on the CPU with
+    every block (``TT.block_apply_full``) fed the card's input to it and
+    its output replaced by the card's, so that no depth carries a
+    difference on: each block's card-vs-CPU distance within FLOOR_FACTOR
+    times its noise floor (the block's params times 1 + PERTURB * N(0, 1),
+    on the card), and what the model computes between blocks (frames
+    plus positions, the encoder's final norm as the memory each decoder
+    layer reads, the embedding, the final norm and the unembedding), from
+    the card's values on both sides, within GLUE_REL of its scale.
+    Returns the check's numbers."""
+    from repro_torch._tree import tree_map
+    from repro_torch.models import transformer as TT
+    inner = TT.block_apply_full
+    calls, blocks, glue = [], [], []
+
+    def record(p, x, kind, cfg, positions, memory=None, aux_acc=None):
+        out = inner(p, x, kind, cfg, positions, memory=memory,
+                    aux_acc=aux_acc)
+        calls.append((p, x, kind, positions, memory, out[0]))
+        return out
+
+    def forced(p, x, kind, cfg, positions, memory=None, aux_acc=None):
+        i = len(blocks)
+        cp, cx, ckind, cpos, cmem, cout = calls[i]
+        check(kind == ckind, f"forced block {i}: kind {kind}, card {ckind}")
+        glue.append((f"block {i} {kind} input", x, cx))
+        if cmem is not None:
+            glue.append((f"block {i} {kind} memory", memory, cmem))
+        y, aux_acc = inner(p, cx.cpu(), kind, cfg, positions,
+                           memory=None if cmem is None else cmem.cpu(),
+                           aux_acc=aux_acc)
+        g = torch.Generator(device=cx.device).manual_seed(seed + i)
+        pert = tree_map(lambda a: a * (1 + PERTURB * torch.randn(
+            a.shape, generator=g, device=a.device)), cp)
+        moved = inner(pert, cx, kind, cfg, cpos, memory=cmem)[0]
+        diff = float((y - cout.cpu()).abs().max())
+        floor = float((moved - cout).abs().max())
+        blocks.append({"block": i, "kind": kind, "max_abs_diff": diff,
+                       "noise_floor": floor,
+                       "scale": float(cout.abs().max()),
+                       "ok": diff <= FLOOR_FACTOR * floor})
+        return cout.cpu(), aux_acc
+
+    V = model.cfg.vocab
+    host = {k: v.cpu() for k, v in one.items()}
+    try:
+        with torch.no_grad():
+            TT.block_apply_full = record
+            logits, _ = model.forward(params, one)
+            TT.block_apply_full = forced
+            on_cpu, _ = model.forward(cpu_params, host)
+    finally:
+        TT.block_apply_full = inner
+    glue.append(("logits", on_cpu[..., :V], logits[..., :V]))
+    check(len(blocks) == len(calls), f"forced forward ran {len(blocks)} "
+          f"blocks, the card's {len(calls)}")
+    bad = [b for b in blocks if not b["ok"]]
+    check(not bad, f"{model.cfg.name} blocks beyond FLOOR_FACTOR x their "
+          f"noise floor, fed the card's inputs: {bad}")
+    rows = []
+    for name, cpu_side, card_side in glue:
+        diff = float((cpu_side - card_side.cpu()).abs().max())
+        scale = float(card_side.abs().max())
+        rows.append({"what": name, "max_abs_diff": diff, "scale": scale})
+        check(diff <= GLUE_REL * scale, f"{model.cfg.name} {name}: CPU "
+              f"vs card max diff {diff}, scale {scale}")
+    return {"blocks": blocks, "worst_block_over_floor": max(
+                b["max_abs_diff"] / b["noise_floor"] if b["noise_floor"]
+                else float(b["max_abs_diff"] > 0) for b in blocks),
+            "glue_worst_rel": max(r["max_abs_diff"] / max(r["scale"], 1e-30)
+                                  for r in rows),
+            "glue": [r for r in rows if "input" not in r["what"]]}
+
+
+def _encdec_vs_cpu(torch, Z, FA, model, params, one, zoo, strict):
+    """The encoder-decoder's f32 forward on the card against the CPU's
+    (plain versions) on the B 1 batch ``one``. At the reference's init a
+    full-width whisper stack is chaotic (C-5: its stacked attention
+    weights put each softmax near an argmax that ten ulps of weight noise
+    flip, and each flipped row moves the next layer), so the whole model is
+    compared three ways: the card against the CPU; the noise floor on the
+    card (its params times 1 + PERTURB * N(0, 1)); and the same perturbed
+    params on the CPU against the CPU, a second witness that the
+    amplification is the model's and not the card's. Each for the logits
+    and the encoder's output, by the largest and the median distance.
+
+    ``strict`` (the 2 + 2 cut, where the encoder's output sits within 1%
+    of its scale of the floor and the logits' median far below it): the
+    encoder's output within FLOOR_FACTOR times its floor, the logits'
+    median within FLOOR_FACTOR times its floor's, and decode over the
+    first ``decode_prompt`` positions (each layer's ck / cv filled from
+    the encoder's memory through its cross wk / wv) within the floor and
+    LM_MAX_REL of the logits' scale, as phase 9. Whole, where the floor is
+    the logits' own scale, the same numbers are reported, not checked.
+    At both depths ``_encdec_forced`` holds every block, and what lies
+    between them, sharply."""
+    from repro_torch._tree import tree_map
+    from repro_torch.models import transformer as TT
+    cfg = model.cfg
+    V = cfg.vocab
+    host = {k: v.cpu() for k, v in one.items()}
+    g = torch.Generator(device=one["tokens"].device).manual_seed(22)
+    pert = tree_map(lambda a: a * (1 + PERTURB * torch.randn(
+        a.shape, generator=g, device=a.device)), params)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    runs, cpu_s = {}, 0.0
+    with torch.no_grad():
+        for name, p, b in (("card", params, one), ("cpu", cpu_params, host),
+                           ("card_perturbed", pert, one),
+                           ("cpu_perturbed", tree_map(lambda t: t.cpu(),
+                                                      pert), host)):
+            t = time.perf_counter()
+            logits, _ = model.forward(p, b)
+            if name == "cpu":
+                cpu_s = time.perf_counter() - t
+            runs[name] = (logits[..., :V], TT._encode(p, b["frames"], cfg))
+    del pert
+    whole = {}
+    for i, what in enumerate(("logits", "encoder_out")):
+        card, cpu, card_p, cpu_p = (runs[k][i] for k in (
+            "card", "cpu", "card_perturbed", "cpu_perturbed"))
+        whole[what] = {"scale": float(cpu.abs().max()),
+                       "card_vs_cpu": _abs_diff(torch, card, cpu),
+                       "floor_card": _abs_diff(torch, card_p, card),
+                       "floor_cpu": _abs_diff(torch, cpu_p, cpu)}
+    full, memory = runs["card"]
+    del runs
+    label = f"{cfg.name} depth {cfg.n_enc_layers} + {cfg.n_layers}"
+    if strict:
+        enc, lg = whole["encoder_out"], whole["logits"]
+        check(enc["card_vs_cpu"]["max"]
+              <= FLOOR_FACTOR * enc["floor_card"]["max"],
+              f"{label} encoder output: card vs CPU {enc['card_vs_cpu']}, "
+              f"floor {enc['floor_card']}, scale {enc['scale']}")
+        check(lg["card_vs_cpu"]["median"]
+              <= FLOOR_FACTOR * lg["floor_card"]["median"],
+              f"{label} logits: card vs CPU {lg['card_vs_cpu']}, floor "
+              f"{lg['floor_card']}, scale {lg['scale']}")
+    noise = whole["logits"]["floor_card"]["max"]
+    dec, _ = _decode_vs_forward(
+        torch, model, params, one, full, zoo["decode_prompt"],
+        noise if strict else float("inf"), memory, label,
+        rel=LM_MAX_REL if strict else None)
+    forced = _encdec_forced(torch, model, params, one, cpu_params, seed=26)
+    emit({"phase": "zoo_encdec", "check": "card_vs_cpu", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+          "checked": "encoder output max, logits median, decode within the "
+          "floor and LM_MAX_REL; every block fed the card's inputs"
+          if strict else "every block fed the card's inputs (whole-model "
+          "and decode numbers reported only)",
+          "batch": 1, "seq": one["tokens"].shape[1],
+          "frames": one["frames"].shape[1], "perturb": PERTURB,
+          "cpu_forward_s": cpu_s, "whole": whole, "decode": dec,
+          "forced": forced})
+
+
+def zoo_encdec_phase(torch, Z, C, FA, dev, zoo=None):
+    """Phase 14: whisper-small at full size (forward f32 and bf16, card
+    against the CPU, decode against forward, one ``Model.loss`` backward)
+    and llama-3.2-vision-90b at full width cut to one cycle of its
+    pattern (forward f32 and bf16, decode against forward). Returns the
+    flash launches of one whisper forward and of its loss backward, and
+    llama-vision's forward."""
+    from repro_torch._tree import leaves, tree_map
+    zoo = zoo or ZOO
+    out = {}
+    # -- whisper-small, full size --------------------------------------
+    cfg = C.get_config(zoo["encdec"])
+    model = Z.build(cfg)
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    B, S, F = zoo["encdec_batch"], zoo["encdec_seq"], cfg.enc_seq
+    batch = _memory_batch(torch, cfg, B, S, dev, seed=21)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    hd = cfg.head_dim
+    want = {_shape_key("fwd", F, F, hd, False): E,
+            _shape_key("fwd", S, S, hd, True): L,
+            _shape_key("fwd", S, F, hd, False): L}
+    for dname in ("float32", "bfloat16"):
+        p = params if dname == "float32" else _cast(torch, params,
+                                                    torch.bfloat16)
+        line, _ = _prefill(torch, FA, model, p, batch, dname, want)
+        if dname == "float32":
+            out["encdec_forward"] = line["flash_launches_by_shape"]
+        emit({"phase": "zoo_encdec", "check": "forward", **line})
+        del p
+    # the whole model's f32 forward on the card against the CPU, B 1, and
+    # decode against forward, at full depth and cut to 2 + 2 layers
+    one = {k: v[:1] for k, v in batch.items()}
+    _encdec_vs_cpu(torch, Z, FA, model, params, one, zoo, strict=False)
+    cut = dataclasses.replace(cfg, n_layers=2, n_enc_layers=2)
+    cmodel = Z.build(cut)
+    cparams = cmodel.init(torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    _encdec_vs_cpu(torch, Z, FA, cmodel, cparams, one, zoo, strict=True)
+    del cparams
+    # one Model.loss backward at full size (remat: each layer's forward
+    # twice, its backward once)
+    g = torch.Generator(device=dev).manual_seed(23)
+    batch["labels"] = torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                    device=dev)
+    q = tree_map(lambda a: a.detach().requires_grad_(), params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    t = time.perf_counter()
+    with _flash_shapes(FA) as step_shapes:
+        loss, metrics = model.loss(q, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    launched = FA.launch_counts()
+    out["encdec_step"] = step_shapes
+    finite = all(bool(torch.isfinite(a.grad).all()) for a in leaves(q))
+    n_attn = E + 2 * L
+    want_l = {"flash_attention_fwd": (2 if cfg.remat else 1) * n_attn,
+              "flash_attention_bwd": n_attn}
+    check(finite and bool(torch.isfinite(loss)), f"whisper-small loss "
+          f"{float(loss.detach())}: gradients finite {finite}")
+    check(launched == want_l, f"whisper-small loss backward flash launches "
+          f"{launched}, want {want_l}")
+    emit({"phase": "zoo_encdec", "check": "loss_backward", "arch": cfg.name,
+          "batch": B, "seq": S, "frames": F, "loss": float(loss.detach()),
+          "grads_finite": finite, "launches": launched,
+          "flash_launches_by_shape": step_shapes,
+          "expected_launches": want_l, "step_ms": step_ms,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del q, loss, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- llama-3.2-vision-90b, full width, one cycle of its pattern -------
+    vcfg = dataclasses.replace(C.get_config(zoo["vision"]),
+                               n_layers=len(C.get_config(zoo["vision"])
+                                            .pattern))
+    vmodel = Z.build(vcfg)
+    S, M = zoo["vision_seq"], vcfg.n_img_tokens
+    batch = _memory_batch(torch, vcfg, 1, S, dev, seed=24)
+    params = vmodel.init(torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    n_self = sum(k == "global" for k in vcfg.pattern)
+    hd = vcfg.head_dim
+    want = {_shape_key("fwd", S, S, hd, True): n_self,
+            _shape_key("fwd", S, M, hd, False): 1}
+    line, full = _prefill(torch, FA, vmodel, params, batch, "float32", want)
+    out["vision_forward"] = line["flash_launches_by_shape"]
+    emit({"phase": "zoo_encdec", "check": "forward",
+          "depth_cut": f"{vcfg.n_layers} of "
+                       f"{C.get_config(zoo['vision']).n_layers} layers",
+          **line})
+    dec, _ = _decode_vs_forward(
+        torch, vmodel, params, batch, full, zoo["decode_prompt"],
+        float("inf"), batch["image_embeds"], "llama-3.2-vision")
+    # the noise floor last: it perturbs the params in place; decode and
+    # forward sum in other orders (einsum attention, another GEMM shape),
+    # so they are held to FLOOR_FACTOR times the floor, the floor's own
+    # spread from one draw to the next
+    _perturb_(torch, params, seed=25)
+    with torch.no_grad():
+        moved, _ = vmodel.forward(params, batch)
+    V = vcfg.vocab
+    noise = float((moved[:, :zoo["decode_prompt"], :V]
+                   - full[:, :zoo["decode_prompt"], :V]).abs().max())
+    del moved
+    dec["noise_floor"] = noise
+    check(dec["max_abs_diff"] <= FLOOR_FACTOR * noise, f"llama-3.2-vision "
+          f"decode vs forward max diff {dec['max_abs_diff']}, noise floor "
+          f"{noise}")
+    emit({"phase": "zoo_encdec", "check": "decode_vs_forward",
+          "arch": vcfg.name, "n_layers": vcfg.n_layers, "batch": 1,
+          "image_tokens": M, "perturb": PERTURB, **dec})
+    del full, params
+    torch.cuda.empty_cache()
+    bparams = vmodel.init(torch.Generator(device=dev).manual_seed(0),
+                          dtype=torch.bfloat16, device=dev)
+    line, _ = _prefill(torch, FA, vmodel, bparams, batch, "bfloat16", want)
+    emit({"phase": "zoo_encdec", "check": "forward",
+          "depth_cut": f"{vcfg.n_layers} of "
+                       f"{C.get_config(zoo['vision']).n_layers} layers",
+          **line})
+    del bparams, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _w1_only(params, key):
+    return {"blocks": {key: {"moe": {
+        "w1": params["blocks"][key]["moe"]["w1"]}}}}
+
+
+def zoo_moe_phase(torch, Z, C, FA, K, dev, zoo=None):
+    """Phase 15: mixtral-8x7b at full width (forward f32 and bf16 at depth
+    4; ``train`` at depth 2, ten steps, the config's moe/w1 l1,inf spec
+    firing at the tenth through the l1,inf kernels, one step more held to
+    the Newton), deepseek-v2-236b at full width, depth 2 (forward f32 and
+    bf16, MLA through flash at hd 192 with v 128; decode against forward
+    with mla_absorb off and on), and a reduced MoE model behind
+    ``FleetEngine`` (one capture, tokens equal to the CPU engine's).
+    Returns the flash launches of the mixtral run and of one deepseek
+    forward."""
+    from repro_torch.core import ProjectionEngine
+    from repro_torch.optim import AdamConfig
+    from repro_torch.train import loop as TL
+    from repro_torch.serve import EngineConfig, FleetEngine
+    from repro_torch._tree import tree_map
+    zoo = zoo or ZOO
+    out = {}
+    # -- mixtral-8x7b forward, depth 4 ------------------------------------
+    full_cfg = C.get_config(zoo["moe"])
+    cfg = dataclasses.replace(full_cfg, n_layers=zoo["moe_fwd_depth"])
+    model = Z.build(cfg)
+    S, hd = zoo["moe_seq"], cfg.head_dim
+    batch = _memory_batch(torch, cfg, 1, S, dev, seed=31)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    want = {_shape_key("fwd", S, S, hd, True): cfg.n_layers}
+    cut = f"{cfg.n_layers} of {full_cfg.n_layers} layers"
+    for dname in ("float32", "bfloat16"):
+        if dname == "bfloat16":     # the init in bf16: the router stays f32
+            del params
+            torch.cuda.empty_cache()
+            params = model.init(torch.Generator(device=dev).manual_seed(0),
+                                dtype=torch.bfloat16, device=dev)
+        p = params
+        line, logits = _prefill(torch, FA, model, p, batch, dname, want)
+        check(set(line["aux"]) == {"lb_loss", "z_loss", "dropped_frac"}
+              and all(np.isfinite(list(line["aux"].values()))),
+              f"mixtral {dname} MoE aux {line['aux']}")
+        emit({"phase": "zoo_moe", "check": "forward", "depth_cut": cut,
+              **line})
+        del p, logits
+    del batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- mixtral-8x7b trained, depth 2 ------------------------------------
+    tcfg_model = dataclasses.replace(full_cfg, n_layers=zoo["moe_train_depth"])
+    tmodel = Z.build(tcfg_model)
+    batcher = _lm_batcher(tcfg_model)
+    steps = zoo["moe_train_steps"]
+    tcfg = TL.TrainConfig(steps=steps, proj_solver="kernel", log_every=1,
+                          ckpt_dir=None)
+    every_k = {spec.every_k for spec in tcfg_model.projection_specs}
+    layers = tcfg_model.n_layers
+    want_flash = {"flash_attention_fwd": (2 if tcfg_model.remat else 1)
+                  * layers * steps, "flash_attention_bwd": layers * steps}
+    want_l1inf = {k: steps // max(every_k) for k in REPLACES}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    res = TL.train(tmodel, batcher, tcfg)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    flash, l1inf = FA.launch_counts(), K.launch_counts()
+    out["moe_train"] = {**flash, **l1inf}
+
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = res["losses"]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"mixtral train losses {losses}")
+    check(flash == want_flash, f"mixtral train flash launches {flash}, "
+          f"want {want_flash}")
+    check(l1inf == want_l1inf, f"mixtral train l1,inf launches {l1inf}, "
+          f"want {want_l1inf}")
+    key = "p0_local"
+    norm_ratio = _norm_over_radius(_w1_only(res["params"], key),
+                                   tcfg_model.projection_specs)
+    check(norm_ratio <= 1 + 1e-4, f"mixtral train: moe/w1 l1,inf norm "
+          f"{norm_ratio} of the radius")
+    step_ms = [m["step_time_s"] * 1e3 for m in res["step_metrics"]]
+    # one step more through an engine that projects at every step and
+    # keeps the stacked expert leaf it projects: the kernel projection
+    # against the Newton's on that leaf
+    specs1 = _every_k(tcfg_model, 1).projection_specs
+    pre = []
+
+    class Recording(ProjectionEngine):
+        def apply(self, params, *, step=None, state=None, with_stats=False):
+            pre.append(tree_map(lambda a: a.clone(), _w1_only(params, key)))
+            return super().apply(params, step=step, state=state,
+                                 with_stats=with_stats)
+
+    acfg = AdamConfig(lr=tcfg.lr)
+    rec_fn = TL.build_accum_step(tmodel, acfg, tcfg,
+                                 engine=Recording(specs1, solver="kernel"))
+    tb = {k: torch.from_numpy(v).to(dev, torch.int64)
+          for k, v in batcher.get(steps).items()}
+    state = [res["params"], res["opt_state"], res["proj_state"]]
+    del res
+    K.reset_launch_counts()
+    state[:3] = rec_fn(*state, tb, TL.lr_at(tcfg, steps), count=steps + 1)[:3]
+    torch.cuda.synchronize()
+    rec_l1inf = K.launch_counts()
+    check(len(pre) == 1 and rec_l1inf == {k: 1 for k in REPLACES},
+          f"mixtral projecting step: {len(pre)} projections, l1,inf "
+          f"launches {rec_l1inf}")
+    err, scale, rec_ratio = _projection_vs_newton(
+        torch, pre[0], _w1_only(state[0], key), specs1)
+    del pre
+    check(rec_ratio <= 1 + 1e-4, f"mixtral projecting step: moe/w1 l1,inf "
+          f"norm {rec_ratio} of the radius")
+    check(err <= 3e-4 * scale, f"mixtral: kernel projection of moe/w1 vs "
+          f"newton max err {err} (scale {scale})")
+    w1 = state[0]["blocks"][key]["moe"]["w1"]
+    emit({"phase": "zoo_moe", "check": "train", "arch": tcfg_model.name,
+          "n_layers": layers, "depth_cut": f"{layers} of "
+          f"{full_cfg.n_layers} layers", "n_params": tmodel.n_params(),
+          "batch": 1, "seq": batcher.get(0)["tokens"].shape[1],
+          "steps": steps, "remat": tcfg_model.remat,
+          "every_k": sorted(every_k), "w1_shape": list(w1.shape),
+          "radius": tcfg_model.projection_specs[0].radius,
+          "losses": losses, "launches": {**flash, **l1inf},
+          "expected_launches": {**want_flash, **want_l1inf},
+          "step_ms": step_ms,
+          "median_step_ms_2_to_9": float(np.median(step_ms[1:9])),
+          "wall_s": wall_s, "peak_memory_gb": peak_gb,
+          "norm_over_radius": norm_ratio,
+          "projecting_step": {"launches": rec_l1inf,
+                              "projection_vs_newton_max_err": err,
+                              "projection_scale": scale,
+                              "norm_over_radius": rec_ratio}})
+    del state, tb, w1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- deepseek-v2-236b, depth 2 ----------------------------------------
+    dfull = C.get_config(zoo["mla"])
+    dcfg = dataclasses.replace(dfull, n_layers=zoo["mla_depth"])
+    dmodel = Z.build(dcfg)
+    S = zoo["moe_seq"]
+    batch = _memory_batch(torch, dcfg, 1, S, dev, seed=32)
+    params = dmodel.init(torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    qk = dcfg.qk_nope + dcfg.qk_rope
+    want = {_shape_key("fwd", S, S, qk, True): dcfg.n_layers}
+    cut = f"{dcfg.n_layers} of {dfull.n_layers} layers"
+    line, full = _prefill(torch, FA, dmodel, params, batch, "float32", want)
+    out["mla_forward"] = line["flash_launches_by_shape"]
+    emit({"phase": "zoo_moe", "check": "forward", "depth_cut": cut,
+          "v_head_dim": dcfg.v_head_dim, **line})
+    P = zoo["decode_prompt"]
+    decs = {}
+    for absorb in (False, True):
+        m = Z.build(dataclasses.replace(dcfg, mla_absorb=absorb))
+        decs[absorb] = _decode_vs_forward(
+            torch, m, params, batch, full, P, float("inf"), None,
+            f"deepseek mla_absorb={absorb}")
+    both = float((decs[True][1][..., :dcfg.vocab]
+                  - decs[False][1][..., :dcfg.vocab]).abs().max())
+    # the noise floor last, the params perturbed in place; decode is held
+    # to FLOOR_FACTOR times it, as llama-vision's
+    _perturb_(torch, params, seed=33)
+    with torch.no_grad():
+        moved, _ = dmodel.forward(params, batch)
+    V = dcfg.vocab
+    noise = float((moved[:, :P, :V] - full[:, :P, :V]).abs().max())
+    del moved
+    for absorb, (d, _) in decs.items():
+        d["noise_floor"] = noise
+        check(d["max_abs_diff"] <= FLOOR_FACTOR * noise, f"deepseek decode "
+              f"(mla_absorb={absorb}) vs forward max diff "
+              f"{d['max_abs_diff']}, noise floor {noise}")
+    check(both <= FLOOR_FACTOR * noise, f"deepseek decode mla_absorb on vs "
+          f"off max diff {both}, noise floor {noise}")
+    emit({"phase": "zoo_moe", "check": "decode_vs_forward",
+          "arch": dcfg.name, "n_layers": dcfg.n_layers, "batch": 1,
+          "perturb": PERTURB, "plain": decs[False][0],
+          "absorb": decs[True][0], "absorb_vs_plain_max_abs_diff": both,
+          "noise_floor": noise})
+    del full, decs, params
+    torch.cuda.empty_cache()
+    bparams = dmodel.init(torch.Generator(device=dev).manual_seed(0),
+                          dtype=torch.bfloat16, device=dev)
+    line, _ = _prefill(torch, FA, dmodel, bparams, batch, "bfloat16", want)
+    emit({"phase": "zoo_moe", "check": "forward", "depth_cut": cut,
+          "v_head_dim": dcfg.v_head_dim, **line})
+    del bparams, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- a reduced MoE model behind FleetEngine ----------------------------
+    for arch in zoo["engine_archs"]:
+        ecfg = C.get_reduced(arch)
+        emodel = Z.build(ecfg)
+        p = emodel.init(torch.Generator().manual_seed(5), device="cpu")
+        p2 = tree_map(lambda a: a * 1.25, p)
+        runs = {}
+        for where in ("cpu", dev):
+            eng = FleetEngine(emodel, 3, EngineConfig(max_seq=24))
+            to = lambda t: tree_map(lambda a: a.to(where), t)
+            eng.load(to(p))
+            rng = np.random.default_rng(12)
+            rids = [eng.submit(rng.integers(0, ecfg.vocab, size=int(n))
+                               .tolist(), int(b)) for n, b in zip(
+                rng.integers(2, 9, size=7), rng.integers(2, 12, size=7))]
+            done = []
+            for _ in range(4):
+                done += eng.step()
+            eng.refresh(to(p2))
+            done += eng.drain()
+            runs[str(where)] = ({c.rid: c.tokens for c in done}, eng)
+        (cpu_tok, _), (card_tok, eng) = runs["cpu"], runs[str(dev)]
+        check(card_tok == cpu_tok and sorted(card_tok) == sorted(rids),
+              f"{arch} engine: card tokens differ from the CPU engine's")
+        check(eng.n_traces == 1 and eng.n_replays == eng.stats()["steps"],
+              f"{arch} engine: {eng.n_traces} captures, {eng.n_replays} "
+              f"replays for {eng.stats()['steps']} steps")
+        emit({"phase": "zoo_moe", "check": "fleet_engine", "arch": ecfg.name,
+              "reduced": True, "slots": 3, "requests": len(rids),
+              "n_traces": eng.n_traces, "n_replays": eng.n_replays,
+              "steps": eng.stats()["steps"],
+              "tokens_equal_cpu": card_tok == cpu_tok})
+        del runs, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def attn_zoo_phase(torch, FA, dev, flush, shapes=None):
+    """Phase 6c: the flash kernels at the shapes the new kinds give them,
+    f32 (the training dtype): forward and backward against their plain
+    versions (2e-5 of the scale), device ms warm and flushed, the plain
+    version's ms, the bound on the true head dims and SDPA's ms for the
+    same function. MLA's q/k head dim 192 runs on the hd-256 kernel and
+    its v 128 is zero-padded to 192 first (``flash_attention``); the bound
+    counts 192 for q . k and 128 for p . v, and ``padding_waste`` is the
+    share of the kernel's products that the padding adds. Returns the
+    kernels-line rows."""
+    import torch.nn.functional as F
+    shapes = shapes or ZOO_ATTN_SHAPES
+    g = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for name, B, H, Sq, Skv, hd, hv, causal in shapes:
+        BH = B * H
+        pairs = (int(np.tril(np.ones((Sq, Skv), bool)).sum()) if causal
+                 else Sq * Skv)
+        q = torch.randn((BH, Sq, hd), generator=g, device=dev)
+        k = torch.randn((BH, Skv, hd), generator=g, device=dev)
+        v = torch.randn((BH, Skv, hv), generator=g, device=dev)
+        dout = torch.randn((BH, Sq, hd), generator=g, device=dev)
+        dout[..., hv:] = 0      # the padded columns' gradient
+        vp = F.pad(v, (0, hd - hv))
+        kw = dict(groups=1, causal=causal, window=0)
+        fwd = lambda: FA.flash_attention_fwd(q, k, vp, **kw)
+        out = fwd()
+        plain = FA.flash_attention_fwd_plain(q, k, vp, **kw)
+        ferr = float((out - plain).abs().max())
+        check(bool(torch.isfinite(out).all()) and ferr <= FLASH_TOL[
+            "float32"] * float(plain.abs().max()),
+            f"flash {name}: kernel vs plain max err {ferr}")
+        check(hv == hd or float(out[..., hv:].abs().max()) == 0.0,
+              f"flash {name}: padded v columns of out not zero")
+        check(bits_equal(torch, out, fwd()), f"flash {name}: rerun not "
+              f"bit-equal")
+        out, lse = FA._fwd_kernel(q, k, vp, 1, causal, 0, True)
+        bargs = (q, k, vp, out, dout, lse)
+        bwd = lambda: FA.flash_attention_bwd(*bargs, **kw)
+        got = bwd()
+        want = FA.flash_attention_bwd_plain(*bargs, **kw)
+        berr = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(got, want))
+        check(berr <= BWD_TOL and all(bool(torch.isfinite(a).all())
+                                      for a in got),
+              f"flash bwd {name}: kernel vs plain max err {berr} of scale")
+        check(all(bits_equal(torch, a, b) for a, b in zip(got, bwd())),
+              f"flash bwd {name}: rerun not bit-equal")
+        # SDPA on the true dims (it takes v's head dim as it is)
+        qs, ks, vs = (t.view(B, H, -1, t.shape[-1]) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=causal)
+        lib_err = float((sdpa().reshape(BH, Sq, hv) - out[..., :hv])
+                        .abs().max())
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (qs, ks, vs))
+        dg = dout[..., :hv].reshape(B, H, Sq, hv)
+        sdpa_g = lambda: F.scaled_dot_product_attention(qg, kg, vg,
+                                                        is_causal=causal)
+        with torch.no_grad():
+            lib_fwd = eager_ms(torch, sdpa_g)
+        lib_both = eager_ms(torch, lambda: torch.autograd.grad(
+            sdpa_g(), (qg, kg, vg), dg))
+        kd = FA.kernel_head_dim(hd)
+        # bounds on the true dims: q . k at hd, p . v at hv
+        f_ops = 2 * pairs * BH * (hd + hv)
+        f_bytes = 4 * (q.numel() + k.numel() + v.numel() + BH * Sq * hv)
+        # backward: s = q k^T and dp = dout v^T recomputed, dv = p^T dout,
+        # dq = ds k, dk = ds^T q
+        b_ops = 2 * pairs * BH * (3 * hd + 2 * hv)
+        b_bytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                       + 2 * BH * Sq * hv + lse.numel())
+        fb = max((f_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                 (f_ops / F32_OPS_PER_S * 1e3, "operations"))
+        bb = max((b_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                 (b_ops / F32_OPS_PER_S * 1e3, "operations"))
+        common = {"shape": name, "B": B, "H": H, "Sq": Sq, "Skv": Skv,
+                  "head_dim": hd, "v_head_dim": hv, "causal": causal,
+                  "kernel_head_dim": kd}
+        f_row = {**common, "name": "flash_attention_fwd",
+                 "ms": time_ms(torch, fwd),
+                 "ms_l2_flushed": time_cold_ms(torch, fwd, flush),
+                 "plain_ms": time_ms(torch, lambda: FA.flash_attention_fwd_plain(
+                     q, k, vp, **kw), budget_ms=300.0),
+                 "bound_ms": fb[0], "bound_by": fb[1], "library_ms": lib_fwd,
+                 "library_max_abs_err": lib_err, "max_abs_err": ferr,
+                 "gflop": f_ops / 1e9,
+                 "padding_waste": 1 - (hd + hv) / (2 * kd)}
+        b_row = {**common, "name": "flash_attention_bwd",
+                 "ms": time_ms(torch, bwd),
+                 "ms_l2_flushed": time_cold_ms(torch, bwd, flush),
+                 "plain_ms": time_ms(torch, lambda: FA.flash_attention_bwd_plain(
+                     *bargs, **kw), budget_ms=300.0),
+                 "bound_ms": bb[0], "bound_by": bb[1],
+                 "library_ms": lib_both - lib_fwd,
+                 "max_abs_err": berr, "gflop": b_ops / 1e9,
+                 "padding_waste": 1 - (3 * hd + 2 * hv) / (5 * kd)}
+        emit({"phase": "attn_zoo", "forward": f_row, "backward": b_row})
+        rows += [f_row, b_row]
+        del q, k, v, vp, dout, out, lse, got, want, qg, kg, vg
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     import torch
 
@@ -2899,9 +3832,10 @@ def main():
     from repro_torch.models import zoo as Z
     attn_row = attn_kernel_phase(torch, FA, dev, flush)
     bwd_row, fwd_train_row = attn_bwd_phase(torch, FA, dev, flush)
+    zoo_rows = attn_zoo_phase(torch, FA, dev, flush)
     ssd_row = ssd_kernel_phase(torch, SK, Sref, dev, flush)
     ssd_bwd_row = ssd_bwd_phase(torch, SK, Sref, dev, flush)
-    block_bwd_phase(torch, C, FA, SK, dev)
+    block_launches = block_bwd_phase(torch, C, FA, SK, dev)
     lm_launches = lm_forward_phase(torch, Z, C, FA, SK, dev)
     lm_decode_phase(torch, Z, C, FA, SK, dev)
 
@@ -2918,7 +3852,15 @@ def main():
     ssm_launches = lm_train_ssm_phase(torch, Z, C, FA, SK, K, dev)
     lm_train_cpu_phase(torch, Z, C, FA, SK, dev, arch=TRAIN["ssm_archs"][0])
 
-    # -- 14. result ------------------------------------------------------------
+    # -- 14.-15. the rest of the zoo: cross attention and the encoder-
+    # decoder, MLA and the MoE MLP ---------------------------------------------
+    zoo_launches = zoo_encdec_phase(torch, Z, C, FA, dev)
+    zoo_launches.update(zoo_moe_phase(torch, Z, C, FA, K, dev))
+    zoo_launches["block_cross"] = block_launches[
+        ("llama-3.2-vision-90b", "cross")]
+    zoo_launches["block_mla"] = block_launches[("deepseek-v2-236b", "mla")]
+
+    # -- 16. result ------------------------------------------------------------
     if FAILURES:
         print(json.dumps({"failures": FAILURES}), file=sys.stderr)
         return 1
@@ -2970,7 +3912,16 @@ def main():
         # ten-step lm_train_ssm run of hymba-1.5b
         {"name": "ssd_bwd", "route": "cuda", "source": LM_SOURCE["ssd_bwd"],
          "replaces": LM_REPLACES["ssd_bwd"],
-         "launches": ssm_launches["ssd_bwd"], **ssd_bwd_row}]})
+         "launches": ssm_launches["ssd_bwd"], **ssd_bwd_row}] + [
+        # the flash kernels at the new kinds' shapes (phase 6c), launches
+        # in the run that gives them that shape: whisper's forward (its
+        # encoder's and cross attention's) and loss backward, llama-
+        # vision's forward, deepseek's forward; mixtral's ten-step train
+        # run beside them has their own causal shape
+        {"route": "cuda", "source": LM_SOURCE[row["name"]],
+         "replaces": LM_REPLACES[row["name"]],
+         "launches": _zoo_launches(zoo_launches, row), **row}
+        for row in zoo_rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""The LM zoo: layers, attention (flash kernels), Mamba2 SSD (SSD kernels),
-pattern-built stacks with ``forward`` and ``decode_step`` (``decode_step_``
-in place), and ``build``."""
+"""The LM zoo: layers, attention (GQA, cross, MLA; flash kernels), Mamba2
+SSD (SSD kernels), the MoE MLP, pattern-built stacks (an encoder-decoder
+too) with ``forward`` and ``decode_step`` (``decode_step_`` in place), and
+``build``."""
 from .param import PM, is_pm, materialize, stack_layout, count_params
 from .transformer import (ArchConfig, block_layout, block_apply_full,
                           model_layout, forward, init_cache, decode_step,

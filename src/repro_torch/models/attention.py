@@ -1,4 +1,5 @@
-"""Attention for the LM zoo: GQA/MQA with optional sliding window.
+"""Attention for the LM zoo: GQA/MQA with optional sliding window, cross
+attention and multi-head latent attention (MLA).
 
 Full-sequence attention (train / prefill) goes through
 ``kernels.flash_attention.flash_attention``: the hand-written CUDA kernel
@@ -13,8 +14,12 @@ sync, so a serving step can run it under CUDA graph capture;
 returns a new cache and leaves the old one as it was) by writing into a
 copy.
 
-Cross attention and multi-head latent attention (MLA) are not ported yet
-(ROADMAP queue A item 6).
+Cross attention (``cross_attn_apply``: llama-vision's image layers,
+whisper's decoder) is non-causal flash over a memory of another length,
+with no RoPE. MLA (deepseek-v2) runs its full-sequence form through flash
+at q/k head dim nope + rope with v's head dim below it (``flash_attention``
+zero-pads v); its decode reads and writes the compressed cache (c, k_rope),
+in place in ``mla_decode_``, plainly or in the matrix-absorbed form.
 """
 from __future__ import annotations
 
@@ -24,11 +29,13 @@ import numpy as np
 import torch
 
 from .param import PM
-from .layers import apply_rope
+from .layers import apply_rope, rmsnorm_apply
 from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = ["attn_layout", "attn_apply", "attn_prefill_cache",
-           "decode_attention", "attn_decode", "attn_decode_"]
+           "decode_attention", "attn_decode", "attn_decode_",
+           "cross_attn_layout", "cross_attn_apply", "mla_layout",
+           "mla_apply", "mla_decode", "mla_decode_"]
 
 _NEG = -1e30
 
@@ -48,6 +55,23 @@ def attn_layout(d: int, n_heads: int, n_kv: int, head_dim: int,
         lay["bk"] = PM((n_kv, head_dim), ("kv_heads", None), init="zeros")
         lay["bv"] = PM((n_kv, head_dim), ("kv_heads", None), init="zeros")
     return lay
+
+
+def mla_layout(d: int, n_heads: int, q_lora: int, kv_lora: int,
+               nope: int, rope: int, v_dim: int):
+    return {
+        "wq_a": PM((d, q_lora), ("fsdp", None), init="scaled"),
+        "q_norm": PM((q_lora,), (None,), init="ones"),
+        "wq_b": PM((q_lora, n_heads, nope + rope), (None, "heads", None),
+                   init="scaled"),
+        "wkv_a": PM((d, kv_lora + rope), ("fsdp", None), init="scaled"),
+        "kv_norm": PM((kv_lora,), (None,), init="ones"),
+        "wk_b": PM((kv_lora, n_heads, nope), (None, "heads", None),
+                   init="scaled"),
+        "wv_b": PM((kv_lora, n_heads, v_dim), (None, "heads", None),
+                   init="scaled"),
+        "wo": PM((n_heads, v_dim, d), ("heads", None, "fsdp"), init="scaled"),
+    }
 
 
 # ------------------------------ decode helpers ------------------------------
@@ -218,3 +242,128 @@ def attn_decode(params, x, cache: Tuple[torch.Tensor, torch.Tensor],
     old cache is left as it was."""
     new = tuple(c.clone() for c in cache)
     return attn_decode_(params, x, new, pos, **kw), new
+
+
+# ---------------------------- cross attention -------------------------------
+
+def cross_attn_layout(d: int, n_heads: int, head_dim: int, d_mem: int):
+    return {
+        "wq": PM((d, n_heads, head_dim), ("fsdp", "heads", None), init="scaled"),
+        "wk": PM((d_mem, n_heads, head_dim), ("fsdp", "heads", None),
+                 init="scaled"),
+        "wv": PM((d_mem, n_heads, head_dim), ("fsdp", "heads", None),
+                 init="scaled"),
+        "wo": PM((n_heads, head_dim, d), ("heads", None, "fsdp"), init="scaled"),
+    }
+
+
+def cross_attn_apply(params, x, memory, *, n_heads: int, head_dim: int,
+                     q_chunk: int = 512, kv_chunk: int = 512):
+    """x: (B, S, d) queries; memory: (B, Sm, d_mem) keys/values (no RoPE).
+    Non-causal flash with one kv head a query head; Sm need not be a
+    multiple of a tile (1600 image tokens)."""
+    q = _proj_heads(x, params["wq"])
+    k = _proj_heads(memory, params["wk"])
+    v = _proj_heads(memory, params["wv"])
+    out = flash_attention(q, k, v, causal=False, block_q=q_chunk,
+                          block_kv=kv_chunk)
+    return _out_proj(out, params["wo"])
+
+
+# -------------------------------- MLA ---------------------------------------
+
+def _mla_qkv(params, x, n_heads, nope, rope_dim, positions, rope_theta):
+    cq = rmsnorm_apply({"scale": params["q_norm"]}, x @ params["wq_a"])
+    q = _proj_heads(cq, params["wq_b"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+    ckr = x @ params["wkv_a"]
+    kv_lora = params["wkv_a"].shape[1] - rope_dim
+    c, k_rope_raw = ckr[..., :kv_lora], ckr[..., kv_lora:]
+    c = rmsnorm_apply({"scale": params["kv_norm"]}, c)
+    k_rope = apply_rope(k_rope_raw, positions, rope_theta)  # (B, S, rope)
+    return q_nope, q_rope, c, k_rope
+
+
+def mla_apply(params, x, *, n_heads: int, nope: int, rope_dim: int,
+              v_dim: int, positions, rope_theta: float = 10000.0,
+              q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
+    """Multi-head Latent Attention, full-sequence form (train / prefill):
+    causal flash at q/k head dim nope + rope_dim with v at v_dim."""
+    B, S, _ = x.shape
+    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, n_heads, nope, rope_dim,
+                                         positions, rope_theta)
+    k_nope = _proj_heads(c, params["wk_b"])
+    v = _proj_heads(c, params["wv_b"])
+    k_rope_h = k_rope[:, :, None, :].expand(B, S, n_heads, rope_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_h], dim=-1)
+    out = flash_attention(q_full, k_full, v, causal=True, block_q=q_chunk,
+                          block_kv=kv_chunk)
+    return _out_proj(out, params["wo"])
+
+
+def _promoted(*ts):
+    """``ts`` in their promoted dtype, as jnp.einsum promotes its operands
+    (a bf16 cache against f32 weights computes in f32)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def mla_decode_(params, x, cache, pos, *, n_heads: int, nope: int,
+                rope_dim: int, v_dim: int, rope_theta: float = 10000.0,
+                absorb: bool = False) -> torch.Tensor:
+    """MLA decode over the *compressed* cache (c, k_rope), (B, Smax,
+    kv_lora) and (B, Smax, rope), written in place. ``absorb=True`` uses
+    the matrix-absorbed form (q projected into latent space; no per-step
+    K/V materialization). ``pos`` may be a scalar or a (B,) per-row
+    position vector. Returns y (B, 1, d)."""
+    B = x.shape[0]
+    pos = pos_tensor(pos, x.device)
+    positions = _decode_positions(pos, B, x.device)
+    q_nope, q_rope, c_new, k_rope_new = _mla_qkv(
+        params, x, n_heads, nope, rope_dim, positions, rope_theta)
+    c_cache, kr_cache = cache
+    _cache_write_(c_cache, c_new, pos)
+    _cache_write_(kr_cache, k_rope_new, pos)
+    Smax = c_cache.shape[1]
+    scale = (nope + rope_dim) ** -0.5
+    pos_b = pos[:, None] if pos.ndim else pos
+    valid = torch.broadcast_to(
+        torch.arange(Smax, device=x.device) <= pos_b, (B, Smax))
+    neg = torch.full((), _NEG, device=x.device)
+    if absorb:
+        # q_nope (B, 1, H, nope) @ wk_b^T -> latent space (B, 1, H, kv_lora)
+        q_lat = torch.einsum("bqhk,lhk->bqhl", q_nope.float(),
+                             params["wk_b"].float())
+        logits = (torch.einsum("bqhl,bsl->bqhs", q_lat, c_cache.float())
+                  + torch.einsum("bqhk,bsk->bqhs", q_rope.float(),
+                                 kr_cache.float())) * scale
+        logits = torch.where(valid[:, None, None, :], logits, neg)
+        p = torch.softmax(logits, dim=-1)
+        o_lat = torch.einsum("bqhs,bsl->bqhl", p, c_cache.float())
+        out = torch.einsum("bqhl,lhk->bqhk", o_lat,
+                           params["wv_b"].float()).to(x.dtype)
+    else:
+        k_nope = _proj_heads(*_promoted(c_cache, params["wk_b"]))
+        v = _proj_heads(*_promoted(c_cache, params["wv_b"]))
+        k_rope_h = kr_cache[:, :, None, :].expand(
+            kr_cache.shape[:2] + (n_heads, rope_dim))
+        k_full = torch.cat(_promoted(k_nope, k_rope_h), dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        logits = torch.einsum("bqhk,bshk->bqhs", q_full.float(),
+                              k_full.float()) * scale
+        logits = torch.where(valid[:, None, None, :], logits, neg)
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bqhs,bshk->bqhk", p, v.float()).to(x.dtype)
+    return _out_proj(out, params["wo"])
+
+
+def mla_decode(params, x, cache, pos, **kw):
+    """``mla_decode_`` on a copy of the cache. Returns (y, new_cache); the
+    old cache is left as it was."""
+    new = tuple(c.clone() for c in cache)
+    return mla_decode_(params, x, new, pos, **kw), new
+

@@ -1,31 +1,39 @@
 """Transformer stacks for the zoo: pattern-based block composition.
 
 An architecture is a *pattern* — a short cycle of block kinds repeated over
-the depth. Ported kinds:
+the depth:
 
-  global    causal full attention + MLP
-  local     causal sliding-window attention + MLP
+  global    causal full attention + MLP/MoE
+  local     causal sliding-window attention + MLP/MoE
+  cross     cross-attention to provided memory + MLP      (llama-vision)
+  mla       multi-head latent attention + MoE             (deepseek-v2)
   ssm       Mamba2 SSD block (no MLP when d_ff == 0)      (mamba2)
   hybrid    parallel local-attention + SSD heads + MLP    (hymba)
+  enc       bidirectional attention + MLP                 (whisper encoder)
+  dec_cross causal self-attn + cross-attn + MLP           (whisper decoder)
 
-Not ported yet (ROADMAP queue A item 6; they raise NotImplementedError):
-``cross`` (llama-vision), ``mla`` (deepseek-v2), ``enc`` / ``dec_cross``
-and the encoder (whisper), and the MoE MLP (mixtral, deepseek-v2).
+The MLP part is the MoE MLP (``models/moe.py``) when ``n_experts``; its
+auxiliaries are summed over the layers and ``train_loss`` adds them.
+``moe_impl="shardmap"`` (manual expert parallelism) waits for the
+distributed layer (ROADMAP queue A item 8); remat "dots", ``ssd_bf16`` and
+a bf16 backward wait for item 6 and raise NotImplementedError.
 
 Parameters and caches are nested dicts with the JAX package's keys and
-layouts (layer-stacked leaves under ``blocks/p{i}_{kind}``), so
-``convert.params_from_numpy`` carries either across unchanged. Where the
-JAX package scans over the stacked layers, this module loops in Python and
-indexes the stacked leaves.
+layouts (layer-stacked leaves under ``blocks/p{i}_{kind}`` and, for an
+encoder-decoder, ``enc_blocks``), so ``convert.params_from_numpy`` carries
+either across unchanged. Where the JAX package scans over the stacked
+layers, this module loops in Python and indexes the stacked leaves.
 
 Entry points: ``forward`` (prefill / scoring logits), ``train_loss``
-(the next-token CE that ``Model.loss`` and the train loop differentiate),
-``init_cache`` / ``decode_step`` (serving; ``decode_step_`` writes the
-cache in place, so a serving loop can capture it into a CUDA graph).
-With ``cfg.remat`` and grad mode on, ``forward`` runs each layer cycle under
-``torch.utils.checkpoint`` (non-reentrant), which keeps only the cycle's
-input and recomputes the rest in the backward, as ``jax.checkpoint`` does
-in the reference.
+(the next-token CE, plus the MoE auxiliaries, that ``Model.loss`` and the
+train loop differentiate), ``init_cache`` / ``decode_step`` (serving;
+``decode_step_`` writes the cache in place, so a serving loop can capture
+it into a CUDA graph). The cross-attention caches (``ck`` / ``cv``) hold
+the memory's keys and values; decode reads them and never writes them.
+With ``cfg.remat`` and grad mode on, ``forward`` runs each layer cycle
+(and each encoder layer) under ``torch.utils.checkpoint``
+(non-reentrant), which keeps only the cycle's input and recomputes the
+rest in the backward, as ``jax.checkpoint`` does in the reference.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from .param import stack_layout
 from . import layers as L
 from . import attention as A
 from . import ssm as SSMOD
+from . import moe as MOE
 from .._device import resolve_device
 from .._tree import tree_map
 
@@ -48,7 +57,8 @@ __all__ = ["ArchConfig", "block_layout", "block_apply_full", "model_layout",
            "forward", "train_loss", "init_cache", "decode_step",
            "decode_step_", "cache_max_len", "PORTED_KINDS"]
 
-PORTED_KINDS = ("global", "local", "ssm", "hybrid")
+PORTED_KINDS = ("global", "local", "cross", "mla", "ssm", "hybrid", "enc",
+                "dec_cross")
 
 # ---------------------------------------------------------------------------
 # config
@@ -134,34 +144,46 @@ class ArchConfig:
         return kinds <= {"local", "ssm", "hybrid"} or "ssm" in kinds
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue A item 6); "
-        f"ported block kinds: {', '.join(PORTED_KINDS)}, dense MLP")
-
-
 # ---------------------------------------------------------------------------
 # block layout / apply
 # ---------------------------------------------------------------------------
 
+def _check_kind(kind: str):
+    if kind not in PORTED_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}; block kinds: "
+                         f"{', '.join(PORTED_KINDS)}")
+
+
 def _mlp_part_layout(cfg: ArchConfig):
     if cfg.d_ff <= 0:
         return {}
+    lay = {"mlp_norm": L.norm_layout(cfg.d_model, cfg.norm_kind)}
     if cfg.n_experts:
-        raise _unported("the MoE MLP")
-    return {"mlp_norm": L.norm_layout(cfg.d_model, cfg.norm_kind),
-            "mlp": L.mlp_layout(cfg.d_model, cfg.d_ff, cfg.mlp_kind)}
+        lay["moe"] = MOE.moe_layout(
+            cfg.d_model, cfg.d_ff, cfg.n_experts,
+            n_shared=cfg.n_shared_experts,
+            shared_ff=cfg.d_ff * max(cfg.n_shared_experts, 1),
+            expert_sharding=cfg.expert_sharding, mlp_kind=cfg.mlp_kind)
+    else:
+        lay["mlp"] = L.mlp_layout(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
+    return lay
 
 
 def block_layout(cfg: ArchConfig, kind: str):
-    if kind not in PORTED_KINDS:
-        raise _unported(f"block kind {kind!r}")
+    _check_kind(kind)
     d = cfg.d_model
     lay: Dict[str, Any] = {}
-    if kind in ("global", "local", "hybrid"):
+    if kind in ("global", "local", "enc", "dec_cross", "hybrid"):
         lay["attn_norm"] = L.norm_layout(d, cfg.norm_kind)
         lay["attn"] = A.attn_layout(d, cfg.n_heads, cfg.n_kv_heads,
                                     cfg.head_dim, cfg.qkv_bias)
+    if kind in ("cross", "dec_cross"):
+        lay["cross_norm"] = L.norm_layout(d, cfg.norm_kind)
+        lay["cross"] = A.cross_attn_layout(d, cfg.n_heads, cfg.head_dim, d)
+    if kind == "mla":
+        lay["attn_norm"] = L.norm_layout(d, cfg.norm_kind)
+        lay["mla"] = A.mla_layout(d, cfg.n_heads, cfg.q_lora, cfg.kv_lora,
+                                  cfg.qk_nope, cfg.qk_rope, cfg.v_head_dim)
     if kind in ("ssm", "hybrid"):
         lay["ssm_norm"] = L.norm_layout(d, cfg.norm_kind)
         lay["ssm"] = SSMOD.ssm_layout(d, cfg.d_inner, cfg.ssm_state,
@@ -170,27 +192,65 @@ def block_layout(cfg: ArchConfig, kind: str):
     return lay
 
 
-def _mlp_part_apply(params, x, cfg: ArchConfig):
+def _mlp_part_apply(params, x, cfg: ArchConfig, aux_acc):
+    """The MLP (or MoE) part; returns (x, aux_acc) with the MoE auxiliaries
+    added to ``aux_acc``."""
     if cfg.d_ff <= 0:
-        return x
+        return x, aux_acc
     h = L.norm_apply(params["mlp_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + L.mlp_apply(params["mlp"], h, cfg.mlp_kind)
+    if not cfg.n_experts:
+        return x + L.mlp_apply(params["mlp"], h, cfg.mlp_kind), aux_acc
+    if cfg.moe_impl == "shardmap" and cfg.expert_sharding == "ep":
+        raise NotImplementedError(
+            "moe_impl 'shardmap' (manual expert parallelism) is not ported "
+            "to repro_torch yet (ROADMAP.md queue A item 8)")
+    y, aux = MOE.moe_apply(
+        params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_kind,
+        expert_sharding=cfg.expert_sharding)
+    aux_acc = {k: aux_acc.get(k, 0.0) + v for k, v in aux.items()}
+    return x + y, aux_acc
 
 
-def block_apply_full(params, x, kind: str, cfg: ArchConfig, positions):
-    """Full-sequence block application (prefill / scoring)."""
-    if kind not in PORTED_KINDS:
-        raise _unported(f"block kind {kind!r}")
+def block_apply_full(params, x, kind: str, cfg: ArchConfig, positions,
+                     memory=None, aux_acc=None):
+    """Full-sequence block application (train / prefill). ``memory`` (B,
+    Sm, d) feeds the cross-attention kinds. Returns (x, aux_acc): the MoE
+    auxiliaries added to ``aux_acc`` ({} when None)."""
+    _check_kind(kind)
+    x = _mix_part_apply(params, x, kind, cfg, positions, memory)
+    return _mlp_part_apply(params, x, cfg,
+                           aux_acc if aux_acc is not None else {})
+
+
+def _mix_part_apply(params, x, kind: str, cfg: ArchConfig, positions,
+                    memory=None):
+    """The part before the MLP (self attention, cross attention, MLA or
+    the SSM), its residual added."""
     common = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                   head_dim=cfg.head_dim, positions=positions,
                   rope_theta=cfg.rope_theta, rope_frac=cfg.rope_frac,
                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                   sliced_window=cfg.sliced_window)
-    if kind in ("global", "local"):
+    if kind in ("global", "local", "enc", "dec_cross"):
         h = L.norm_apply(params["attn_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + A.attn_apply(params["attn"], h, causal=True,
+        x = x + A.attn_apply(params["attn"], h, causal=(kind != "enc"),
                              window=cfg.window if kind == "local" else 0,
                              **common)
+    if kind in ("cross", "dec_cross"):
+        h = L.norm_apply(params["cross_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        x = x + A.cross_attn_apply(params["cross"], h, memory,
+                                   n_heads=cfg.n_heads,
+                                   head_dim=cfg.head_dim,
+                                   q_chunk=cfg.q_chunk,
+                                   kv_chunk=cfg.kv_chunk)
+    if kind == "mla":
+        h = L.norm_apply(params["attn_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        x = x + A.mla_apply(params["mla"], h, n_heads=cfg.n_heads,
+                            nope=cfg.qk_nope, rope_dim=cfg.qk_rope,
+                            v_dim=cfg.v_head_dim, positions=positions,
+                            rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
+                            kv_chunk=cfg.kv_chunk)
     if kind == "ssm":
         h = L.norm_apply(params["ssm_norm"], x, cfg.norm_kind, cfg.norm_eps)
         x = x + SSMOD.ssd_apply(params["ssm"], h, headdim=cfg.ssm_headdim,
@@ -204,7 +264,7 @@ def block_apply_full(params, x, kind: str, cfg: ArchConfig, positions):
         y_attn = A.attn_apply(params["attn"], ha, causal=True,
                               window=cfg.window, **common)
         x = x + 0.5 * (y_ssm + y_attn)
-    return _mlp_part_apply(params, x, cfg)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -217,8 +277,6 @@ def _split_pattern(cfg: ArchConfig):
 
 
 def model_layout(cfg: ArchConfig):
-    if cfg.encdec:
-        raise _unported("the encoder-decoder stack")
     cycles, rem = _split_pattern(cfg)
     lay: Dict[str, Any] = {
         "embed": L.embed_layout(cfg.vocab_padded, cfg.d_model)}
@@ -232,6 +290,10 @@ def model_layout(cfg: ArchConfig):
     lay["final_norm"] = L.norm_layout(cfg.d_model, cfg.norm_kind)
     if not cfg.tie_embeddings:
         lay["unembed"] = L.embed_layout(cfg.vocab_padded, cfg.d_model)
+    if cfg.encdec:
+        lay["enc_blocks"] = stack_layout(block_layout(cfg, "enc"),
+                                         cfg.n_enc_layers, "layers")
+        lay["enc_norm"] = L.norm_layout(cfg.d_model, cfg.norm_kind)
     return lay
 
 
@@ -243,7 +305,8 @@ def _layer(tree, i: int):
 
 
 def _remat(cfg: ArchConfig):
-    """Whether ``forward`` checkpoints each layer cycle."""
+    """Whether ``forward`` checkpoints each layer cycle (and ``_encode``
+    each encoder layer)."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return False
     if cfg.remat_policy != "full":
@@ -258,10 +321,38 @@ def _remat(cfg: ArchConfig):
 # forward (prefill / scoring)
 # ---------------------------------------------------------------------------
 
+def _encode(params, frames, cfg: ArchConfig):
+    """Whisper-style encoder over precomputed frame embeddings (B, S, d):
+    sinusoidal positions, the ``enc`` stack, the encoder's final norm."""
+    B, S = frames.shape[:2]
+    x = frames + L.sinusoidal_positions(S, cfg.d_model,
+                                        device=frames.device).to(frames.dtype)
+    positions = torch.arange(S, device=frames.device).expand(B, S)
+    remat = _remat(cfg)
+
+    def layer(x, blk):
+        return block_apply_full(blk, x, "enc", cfg, positions)[0]
+
+    for i in range(cfg.n_enc_layers):
+        blk = _layer(params["enc_blocks"], i)
+        x = (checkpoint(layer, x, blk, use_reentrant=False) if remat
+             else layer(x, blk))
+    return L.norm_apply(params["enc_norm"], x, cfg.norm_kind, cfg.norm_eps)
+
+
+def _zero_aux(cfg: ArchConfig, device):
+    """The MoE auxiliaries' starting sums ({} without experts)."""
+    if not cfg.n_experts:
+        return {}
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("lb_loss", "z_loss", "dropped_frac")}
+
+
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
-    """Logits for a full sequence. batch keys: tokens (B, S). Returns
-    (logits (B, S, V) in the activation dtype, aux dict — empty: no ported
-    block reports auxiliary losses)."""
+    """Logits for a full sequence. batch keys: tokens (B, S) [, frames (B,
+    S_enc, d) for an encoder-decoder, image_embeds (B, n_img_tokens, d)].
+    Returns (logits (B, S, V) in the activation dtype, aux dict: the MoE
+    auxiliaries summed over the layers, {} without experts)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed_apply(params["embed"], tokens,
@@ -270,42 +361,54 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
         x = x + L.sinusoidal_positions(S, cfg.d_model,
                                        device=x.device).to(x.dtype)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    memory = None
+    if cfg.encdec:
+        memory = _encode(params, batch["frames"], cfg)
+    elif cfg.n_img_tokens:
+        memory = batch["image_embeds"]
+    aux = _zero_aux(cfg, x.device)
     cycles, rem = _split_pattern(cfg)
     remat = _remat(cfg)
     for c in range(cycles):
         cyc = {f"p{i}_{kind}": _layer(params["blocks"][f"p{i}_{kind}"], c)
                for i, kind in enumerate(cfg.pattern)}
 
-        def cycle(x, cyc=cyc):
+        def cycle(x, aux, cyc=cyc):
             for i, kind in enumerate(cfg.pattern):
-                x = block_apply_full(cyc[f"p{i}_{kind}"], x, kind, cfg,
-                                     positions)
-            return x
+                x, aux = block_apply_full(cyc[f"p{i}_{kind}"], x, kind, cfg,
+                                          positions, memory=memory,
+                                          aux_acc=aux)
+            return x, aux
 
-        x = checkpoint(cycle, x, use_reentrant=False) if remat else cycle(x)
+        x, aux = (checkpoint(cycle, x, aux, use_reentrant=False) if remat
+                  else cycle(x, aux))
     for r in range(rem):
         kind = cfg.pattern[r]
-        x = block_apply_full(params[f"rem{r}_{kind}"], x, kind, cfg,
-                             positions)
+        x, aux = block_apply_full(params[f"rem{r}_{kind}"], x, kind, cfg,
+                                  positions, memory=memory, aux_acc=aux)
     x = L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed_apply(table, x, true_vocab=cfg.vocab), {}
+    return L.unembed_apply(table, x, true_vocab=cfg.vocab), aux
 
 
 def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     """Mean next-token CE in f32: logsumexp of the logits minus the label
-    logit, labels (B, S) of -1 ignored. Returns (loss, {"ce": ce}). The
-    label logit is a gather where the reference takes a one-hot product
-    (the same function). MoE auxiliaries would add here; the MoE MLP is
-    not ported (ROADMAP.md queue A item 6)."""
-    logits, _ = forward(params, batch, cfg)
+    logit, labels (B, S) of -1 ignored; with experts, plus 0.01 lb_loss +
+    1e-3 z_loss. Returns (loss, metrics): {"ce": ce} and, with experts, the
+    MoE auxiliaries. The label logit is a gather where the reference takes
+    a one-hot product (the same function)."""
+    logits, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     take = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     ce = ((lse - take) * mask).sum() / mask.sum().clamp(min=1.0)
-    return ce, {"ce": ce}
+    loss, metrics = ce, {"ce": ce}
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+        metrics.update(aux)
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -317,8 +420,20 @@ def _block_cache_shape(cfg: ArchConfig, kind: str, B: int, Smax: int,
     hd = cfg.head_dim
     kv = lambda: torch.zeros((B, Smax, cfg.n_kv_heads, hd), dtype=dtype,
                              device=device)
+    mem = lambda m: torch.zeros((B, m, cfg.n_heads, hd), dtype=dtype,
+                                device=device)
     if kind in ("global", "local"):
         return {"k": kv(), "v": kv()}
+    if kind == "dec_cross":
+        return {"k": kv(), "v": kv(), "ck": mem(cfg.enc_seq),
+                "cv": mem(cfg.enc_seq)}
+    if kind == "cross":
+        return {"ck": mem(cfg.n_img_tokens), "cv": mem(cfg.n_img_tokens)}
+    if kind == "mla":
+        return {"c": torch.zeros((B, Smax, cfg.kv_lora), dtype=dtype,
+                                 device=device),
+                "kr": torch.zeros((B, Smax, cfg.qk_rope), dtype=dtype,
+                                  device=device)}
     if kind == "ssm":
         return SSMOD.ssm_init_cache(B, cfg.d_inner, cfg.ssm_state,
                                     cfg.ssm_headdim, dtype, device)
@@ -327,7 +442,7 @@ def _block_cache_shape(cfg: ArchConfig, kind: str, B: int, Smax: int,
                                  cfg.ssm_headdim, dtype, device)
         c["k"], c["v"] = kv(), kv()
         return c
-    raise _unported(f"block kind {kind!r}")
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ArchConfig, B: int, Smax: int, dtype=torch.bfloat16,
@@ -354,10 +469,10 @@ def init_cache(cfg: ArchConfig, B: int, Smax: int, dtype=torch.bfloat16,
 
 def _block_decode_(params, x, kind: str, cfg: ArchConfig, cache, pos):
     """One block's decode step; ``cache`` (the block's leaves, views of the
-    stacked ones) is written in place."""
-    if kind not in PORTED_KINDS:
-        raise _unported(f"block kind {kind!r}")
-    if kind in ("global", "local", "hybrid"):
+    stacked ones) is written in place, except the cross-attention caches
+    ``ck`` / ``cv``, which it only reads."""
+    _check_kind(kind)
+    if kind in ("global", "local", "dec_cross", "hybrid"):
         h = L.norm_apply(params["attn_norm"], x, cfg.norm_kind, cfg.norm_eps)
         y = A.attn_decode_(
             params["attn"], h, (cache["k"], cache["v"]), pos,
@@ -372,11 +487,27 @@ def _block_decode_(params, x, kind: str, cfg: ArchConfig, cache, pos):
             x = x + 0.5 * (y + y2)
         else:
             x = x + y
+    if kind in ("cross", "dec_cross"):
+        h = L.norm_apply(params["cross_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        q = A._proj_heads(h, params["cross"]["wq"])
+        B = x.shape[0]
+        qg = q.reshape(B, 1, cfg.n_heads, 1, cfg.head_dim)
+        out = A.decode_attention(qg, cache["ck"], cache["cv"],
+                                 cache["ck"].shape[1] - 1)
+        out = out.reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        x = x + A._out_proj(out, params["cross"]["wo"])
+    if kind == "mla":
+        h = L.norm_apply(params["attn_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        x = x + A.mla_decode_(params["mla"], h, (cache["c"], cache["kr"]),
+                              pos, n_heads=cfg.n_heads, nope=cfg.qk_nope,
+                              rope_dim=cfg.qk_rope, v_dim=cfg.v_head_dim,
+                              rope_theta=cfg.rope_theta,
+                              absorb=cfg.mla_absorb)
     if kind == "ssm":
         h = L.norm_apply(params["ssm_norm"], x, cfg.norm_kind, cfg.norm_eps)
         x = x + SSMOD.ssd_decode_(params["ssm"], h, cache,
                                   headdim=cfg.ssm_headdim)
-    return _mlp_part_apply(params, x, cfg)
+    return _mlp_part_apply(params, x, cfg, {})[0]
 
 
 @functools.lru_cache(maxsize=16)

@@ -75,7 +75,9 @@ class Model:
 
     # functional entry points
     def loss(self, params, batch):
-        """(mean next-token CE, {"ce": ce}); batch: tokens, labels."""
+        """(loss, metrics): the mean next-token CE, plus 0.01 lb_loss +
+        1e-3 z_loss with experts; metrics {"ce"} and, with experts, the
+        MoE auxiliaries. batch: tokens, labels [, frames, image_embeds]."""
         return train_loss(params, batch, self.cfg)
 
     def forward(self, params, batch):

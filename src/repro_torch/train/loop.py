@@ -72,13 +72,13 @@ def _grad_leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _grad_tree(params: Dict[str, Any], grads: Dict[str, Any]):
-    """The tree the backward differentiates. Each stacked block leaf is
-    handed over as one leaf a layer (``models.transformer._layer`` takes
+    """The tree the backward differentiates. Each stacked block leaf (the
+    decoder's and an encoder's) is handed over as one leaf a layer (``models.transformer._layer`` takes
     either): indexing a stacked leaf under autograd would build a
     full-size zero gradient for every layer."""
     return {k: tree_map(
         (lambda p, g: [_grad_leaf(p[i], g[i]) for i in range(p.shape[0])])
-        if k == "blocks" else _grad_leaf, v, grads[k])
+        if k in ("blocks", "enc_blocks") else _grad_leaf, v, grads[k])
         for k, v in params.items()}
 
 

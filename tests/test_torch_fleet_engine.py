@@ -13,6 +13,9 @@
   equal greedy tokens, flags and ``stats()`` counters, for a tiny gemma
   (``global``), reduced mamba2-370m (``ssm``) and reduced hymba-1.5b
   (``hybrid``, which exercises ``_reset_recurrent``), dense and compact,
+  reduced mixtral-8x7b (``local`` with the MoE MLP, capacity-routed at
+  every step) and deepseek-v2 (``mla`` over the compressed cache, MoE with
+  shared experts), dense,
   and for the KV-only kind also a bf16 cache (an ``ssm`` or ``hybrid``
   step of the reference hands its conv tails back in the activation
   dtype, so its bf16 cache does not stay bf16; the port's in-place cache
@@ -22,9 +25,12 @@
 * ``_request_key`` bit-equal to the reference's; the counter-based sampler
   at temperature > 0: continuous == solo, and its frequencies over 20k
   draws at vocab 8 within 4 standard errors of softmax(logits / T).
+* Both engines refuse an encoder-decoder or vision model (their memory
+  caches need a per-request prefill) with the same message.
 * On the card (``cuda``): a reduced hybrid engine captures once across
   admit / cancel / refresh / recompact, equals the CPU engine's tokens and
-  reruns bit-equal; the sampler's bits equal the CPU's; a staged admission
+  reruns bit-equal; so does a reduced MoE engine (mixtral, deepseek)
+  across admit / evict / refresh; the sampler's bits equal the CPU's; a staged admission
   buffer is not reused before its copy has run.
 """
 import dataclasses
@@ -365,7 +371,8 @@ def _jax_min_gap(jcfg, step, jp, tokens, plen, dtype, smax):
 PARITY = [("gemma", False, None), ("gemma", True, None),
           ("gemma", False, "bf16"), ("gemma", True, "bf16"),
           ("mamba2_370m", False, None), ("mamba2_370m", True, None),
-          ("hymba_15b", False, None), ("hymba_15b", True, None)]
+          ("hymba_15b", False, None), ("hymba_15b", True, None),
+          ("mixtral_8x7b", False, None), ("deepseek_v2_236b", False, None)]
 
 
 @pytest.mark.parametrize("arch,compact,cache", PARITY)
@@ -401,6 +408,16 @@ def test_engine_parity_with_jax(arch, compact, cache):
             gap = _jax_min_gap(jcfg, step, jeng.params, tokens, len(p),
                                jdt or jnp.float32, SMAX)
             assert gap > GAP, (tokens, gap)
+
+
+@pytest.mark.parametrize("arch", ["whisper_small", "llama32_vision_90b"])
+def test_memory_models_refused_by_both_engines(arch):
+    with pytest.raises(ValueError) as jerr:
+        JS.FleetEngine(j_build(j_reduced(arch)), 2, JS.EngineConfig())
+    with pytest.raises(ValueError) as terr:
+        FleetEngine(build(get_reduced(arch)), 2, EngineConfig())
+    assert str(terr.value) == str(jerr.value)
+    assert "decoder-only" in str(terr.value)
 
 
 def test_request_key_bit_equal_to_reference():
@@ -569,3 +586,41 @@ def test_cuda_staged_admission_waits_for_its_copy(card):
     slots = eng._slots["prompt"].cpu()
     for slot, prompt in enumerate(PROMPTS[:3]):
         assert slots[slot, :len(prompt)].tolist() == prompt, slot
+
+
+def _moe_lifecycle(model, dev, params, params2):
+    """Admit (more requests than slots, so slots are evicted and reused),
+    a refresh mid-flight, drain; returns (tokens per rid, engine)."""
+    eng = FleetEngine(model, 3, EngineConfig(max_seq=24))
+    to = lambda t: tree_map(lambda a: a.to(dev), t)
+    eng.load(to(params))
+    rids = [eng.submit(p, n) for p, n in zip(PROMPTS, BUDGETS)]
+    done = []
+    for _ in range(4):
+        done += eng.step()
+    eng.refresh(to(params2))
+    done += eng.drain()
+    assert sorted(c.rid for c in done) == sorted(rids)
+    return {c.rid: (c.tokens, c.evicted) for c in done}, eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "deepseek_v2_236b"])
+def test_cuda_moe_engine_one_capture_matches_cpu(card, arch):
+    """The MoE decode step (router, sort-based dispatch, combine) is
+    captured once and replayed across admit / evict / refresh: tokens equal
+    to the CPU engine's, a rerun bit-equal."""
+    cfg = get_reduced(arch)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(5), device="cpu")
+    params2 = tree_map(lambda a: a * 1.25 if a.is_floating_point() else a,
+                       params)
+    want, _ = _moe_lifecycle(model, "cpu", params, params2)
+    got, eng = _moe_lifecycle(model, card, params, params2)
+    assert eng.n_traces == 1
+    assert eng.n_replays == eng.stats()["steps"]
+    assert got == want
+    again, eng2 = _moe_lifecycle(model, card, params, params2)
+    assert again == got
+    for a, b in zip(leaves(eng._cache), leaves(eng2._cache)):
+        assert torch.equal(a, b)

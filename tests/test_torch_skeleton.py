@@ -70,7 +70,8 @@ def test_every_module_listed():
                  "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
                  "repro_torch.dist", "repro_torch.dist.watchdog",
                  "repro_torch.train", "repro_torch.train.loop",
-                 "repro_torch.serve.engine", "repro_torch.train.serve"):
+                 "repro_torch.serve.engine", "repro_torch.train.serve",
+                 "repro_torch.models.moe", "repro_torch.models.blockcheck"):
         assert want in names
 
 

@@ -157,6 +157,50 @@ def test_accum_step_matches_reference(microbatches):
                                    atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("solver", ["fused", "kernel"])
+def test_accum_step_projects_stacked_experts_like_reference(solver):
+    """Reduced mixtral-8x7b: one projected step (every_k 1) against the
+    reference's, at the bounds of the step above. Its spec puts the l1,inf
+    ball on ``moe/w1``, a 4-D stacked expert leaf (cycles, E, d, d_ff):
+    every (d, d_ff) slice is projected on its own, through the Newton
+    (``"fused"``) or the l1,inf kernels' plain versions (``"kernel"``), and
+    the loss carries the MoE auxiliaries."""
+    jcfg = _every(JC.get_reduced("mixtral_8x7b"), 1)
+    tcfg = _every(TC.get_reduced("mixtral_8x7b"), 1)
+    jm, tm = JZ.build(jcfg), TZ.build(tcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    assert tp["blocks"]["p0_local"]["moe"]["w1"].ndim == 4
+    batch = JBatcher(JSynthetic(jcfg.vocab, seed=1), 4, 16).get(0)
+    jacfg = JAdamConfig(lr=1e-3)
+    jeng = JEngine(jcfg.projection_specs, solver="fused")
+    jstep = JL.build_accum_step(jm, jacfg, JL.TrainConfig(), engine=jeng)
+    jn, jo, jproj, jl = jstep(jp, jax_adam_init(jp, jacfg),
+                              jeng.init_state(jp),
+                              jax.tree_util.tree_map(jnp.asarray, batch),
+                              1e-3)
+    acfg = AdamConfig(lr=1e-3)
+    eng = ProjectionEngine(tcfg.projection_specs, solver=solver)
+    step = build_accum_step(tm, acfg, TrainConfig(), engine=eng)
+    tb = {k: torch.from_numpy(np.asarray(v)).long() for k, v in batch.items()}
+    tn, to, tproj, tl = step(tp, adam_init(tp, acfg), eng.init_state(tp),
+                             tb, 1e-3, count=1)
+    assert abs(float(tl) - float(jl)) <= 1e-6
+    _close_by_scale(to.mu, _np_tree(jo.mu), 1e-4, "mu")
+    _close_by_scale(tn, _np_tree(jn), STEP_REL, "params")
+    assert sorted(tproj) == sorted(jproj) and tproj
+    for key, theta in jproj.items():
+        np.testing.assert_allclose(tproj[key].numpy(), np.asarray(theta),
+                                   atol=1e-5, rtol=1e-5)
+    # the projection bit: every expert slice of w1 within the radius
+    from repro_torch.core.l1inf import l1inf_norm
+    radius = tcfg.projection_specs[0].radius
+    w1 = tn["blocks"]["p0_local"]["moe"]["w1"]
+    norms = [float(l1inf_norm(m, axis=0)) for m in w1.reshape(
+        (-1,) + w1.shape[-2:])]
+    assert max(norms) <= radius * (1 + 1e-5) and min(norms) > 0.5 * radius
+
+
 @pytest.mark.parametrize("norm,solver", [("l1inf", "newton"),
                                          ("l12", "fused")])
 def test_step_updates_in_place_bit_equal_to_functional(norm, solver):
