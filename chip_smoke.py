@@ -101,7 +101,8 @@ and prints no result. Phases:
                input that requires grad gets its gradient through the
                forward and backward kernels (one launch of each, equal to
                autograd through the plain forward within 2e-5 of its
-               scale); bf16, which has no backward, still refuses. Fault
+               scale), and so does bf16 (through the bf16 backward
+               kernel, within 3e-2, for q, k and v each). Fault
                C-9: head_dim 32 runs zero-padded on the hd-64 kernel
                (against the plain version), head_dim 264 raises.
   6b. attn_bwd — the flash backward kernel against its plain version, f32,
@@ -121,6 +122,17 @@ and prints no result. Phases:
                calls it: device ms warm and flushed, plain ms, bound, SDPA's
                forward (the kernels line's second flash_attention_fwd
                row).
+  6e. attn_bwd_bf16 — the bf16 backward kernel (flash_attention_bwd_bf16,
+               mma.sync on the tensor cores) the same way at stablelm-3b's
+               training shape and hymba-1.5b's (B 1 x S 2048, the shape
+               phase 16 trains at): dq, dk, dv within 1e-2 of each
+               gradient's scale of the plain version, a rerun bit-equal,
+               one launch a call counted under bf16; the bf16 forward's lse
+               against the plain forward's; device ms warm and flushed,
+               plain ms, the bound (five products at 989 TFLOP/s), SDPA's
+               bf16 backward, the delta and main launches' device ms, the
+               main kernel's CTAs an SM; the bf16 forward with and without
+               lse at stablelm's shape.
   6c. attn_zoo — the flash kernels at the shapes the new block kinds give
                them, f32: whisper-small's encoder self attention (BH 24,
                1500 x 1500, hd 64, full) and decoder cross attention (448
@@ -182,7 +194,11 @@ and prints no result. Phases:
                three runs first; a flip fails the check and the line
                reports the smallest gap between a token's k-th and
                (k+1)-th gate. Each card backward launches the block's
-               flash and SSD kernels once each way.
+               flash and SSD kernels once each way. Then stablelm-3b's
+               ``global`` and hymba-1.5b's ``hybrid`` block in bf16 (block,
+               input and upstream gradient bf16; the SSD in f32 as the
+               model casts it; the floor at perturb 2^-8, about one bf16
+               ulp of each parameter), every flash backward on bf16.
   8. lm_forward — this slice's main path: ``build(get_config("hymba-1.5b"))``
                at full width and depth (32 layers, 1.59 B params), params
                from ``Model.init`` in f32 and then bf16, ``forward`` on a
@@ -347,7 +363,22 @@ and prints no result. Phases:
                ``FleetEngine`` (3 slots, 7 requests, a refresh
                mid-flight): one capture, replays equal to steps, tokens
                equal to the CPU engine's.
- 16. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+ 16. lm_train_bf16 — hymba-1.5b at full size (1.59 B params) trained in
+               bf16 with f32 Adam moments through the production step
+               (``launch.steps.build_train_step``), B 1 x S 2048, from the
+               seed-0 init in each run: two steps under remat "dots", then
+               ten under "full" (its first two losses and params bit-equal
+               to "dots"'), the config's spec (every_k 10) projecting
+               mlp/w1 and ssm/wx at the tenth step: each slice on its ball
+               within one bf16 rounding and within 3e-4 of the scale,
+               beyond one bf16 rounding, of the Newton on the weights it
+               projected; every flash backward launch on bf16 (by dtype),
+               the SSD's forward and backward each layer, no l1,inf or
+               fused-step launch; three steps at every_k 1 (the extra
+               Newton evaluations a step, launches); four in f32 at the
+               same shape. Step ms, peak memory, and of one traced step
+               more the idle share and flash's share of the device time.
+ 17. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
@@ -391,6 +422,8 @@ LM_SOURCE = {"flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
              "ssd_fwd": "src/repro_torch/csrc/ssd.cu",
              "flash_attention_bwd":
                  "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "flash_attention_bwd_bf16":
+                 "src/repro_torch/csrc/flash_attention_bwd_bf16.cu",
              "ssd_bwd": "src/repro_torch/csrc/ssd_bwd.cu"}
 LM_REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:78",
@@ -398,6 +431,8 @@ LM_REPLACES = {
     # no pallas_call: the jnp autodiff of chunked_attention, which the
     # reference runs in place of a TPU backward
     "flash_attention_bwd": "src/repro/models/attention.py:97",
+    # the same autodiff on bf16 q, k, v (the reference's production dtype)
+    "flash_attention_bwd_bf16": "src/repro/models/attention.py:97",
     # no pallas_call: the jnp autodiff of the chunked SSD scan
     "ssd_bwd": "src/repro/models/ssm.py:67"}
 # the device kernels of each LM wrapper, by name in a profiler trace
@@ -419,9 +454,19 @@ ATTN_SHAPES = [("hymba_prefill", 2, 25, 5, 2048, 64, True, 1024),
 # the kernels line reports), the second hymba-1.5b's prefill
 BWD_SHAPES = [("stablelm_train", 1, 32, 32, 2048, 80, True, 0),
               ("hymba_prefill", 2, 25, 5, 2048, 64, True, 1024)]
+# phase 6e's: stablelm-3b's training attention and hymba-1.5b's (B 1, the
+# shape phase 16 trains it at)
+BWD_BF16_SHAPES = [BWD_SHAPES[0], ("hymba_train", 1, 25, 5, 2048, 64, True,
+                                   1024)]
 # dq, dk, dv against the plain version, as a fraction of each gradient's
-# largest entry: the forward's f32 tolerance
-BWD_TOL = 2e-5
+# largest entry: the forward's f32 tolerance; in bf16 (phase 6e) 1e-2: the
+# kernel and the plain version round the same operands to bf16 and sum
+# them in other orders, and each output is rounded to bf16 once (2^-9)
+BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# the bf16 backward's device kernels, by name in a profiler trace
+BWD_TRACE_NAMES = {"float32": ("bwd_delta_kernel", "bwd_main_kernel"),
+                   "bfloat16": ("bwd_bf16_delta_kernel",
+                                "bwd_bf16_main_kernel")}
 # (name, B, heads per group, S, P, N, chunk, dt range, dtype); the first is
 # hymba-1.5b's, the one the kernels line reports
 SSD_SHAPES = [("hymba", 2, 50, 2048, 64, 16, 64, (3.0, 20.0), "float32"),
@@ -449,6 +494,9 @@ BLOCK_BWD = [("stablelm-3b", "global"), ("mamba2-370m", "ssm"),
              ("llama-3.2-vision-90b", "cross"), ("deepseek-v2-236b", "mla"),
              ("mixtral-8x7b", "local")]
 BLOCK_SEQ = 2048
+# phase 7c's bf16 rows: stablelm-3b's global block (hd 80) and hymba-1.5b's
+# hybrid block, the bf16 flash kernels forward and backward
+BLOCK_BWD_BF16 = [("stablelm-3b", "global"), ("hymba-1.5b", "hybrid")]
 # the flash launches a block's forward makes
 BLOCK_ATTN = {"global": 1, "local": 1, "hybrid": 1, "enc": 1, "cross": 1,
               "mla": 1, "dec_cross": 2, "ssm": 0}
@@ -471,6 +519,13 @@ FLEET = dict(arch="hymba-1.5b", slots=8, max_seq=256, requests=24,
              prompt=(4, 48), budget=(4, 40), waves=3, wave_steps=12,
              eager_requests=3, steady=50, compact_prompt=(4, 12),
              compact_budget=(6, 16), refresh_at=5, recompact_at=10)
+# phase 16: hymba-1.5b at full size trained in bf16 (f32 Adam moments)
+# through launch/steps.build_train_step, B 1 x S 2048 (phase 13's shape):
+# ten steps under remat "full" (every_k 10: the projection at the tenth),
+# two under "dots" from the same init (bit-equal to "full"'s first two),
+# three at every_k 1, and f32 steps at the same shape to compare with
+TRAIN_BF16 = dict(arch="hymba-1.5b", seq=2048, steps=10, dots_steps=2,
+                  every1_steps=3, f32_steps=4)
 # phases 14 and 15: the rest of the zoo at full width. whisper-small whole
 # (B 2, its 1500 encoder positions, 448 decoder tokens); llama-3.2-vision-
 # 90b cut to one cycle of its pattern (4 global + 1 cross), B 1 x S 2048,
@@ -843,26 +898,35 @@ def attn_kernel_phase(torch, FA, dev, flush, shapes=ATTN_SHAPES):
         check(False, "flash kernel took head_dim 264")
     except ValueError:
         pass
-    # C-6: an f32 input that requires grad gets its gradient through the
-    # kernels; bf16, which has no backward, still refuses
-    x = torch.randn((2, 64, 64), generator=g, device=dev)
-    xg = x.clone().requires_grad_(True)
-    FA.reset_launch_counts()
-    (grad,) = torch.autograd.grad(FA.flash_attention_fwd(xg, xg, xg).sum(),
-                                  xg)
-    xp = x.clone().requires_grad_(True)
-    with torch.enable_grad():
-        FA.flash_attention_fwd_plain(xp, xp, xp).sum().backward()
-    gerr = float((grad - xp.grad).abs().max())
-    check(FA.launch_counts() == {"flash_attention_fwd": 1,
-                                 "flash_attention_bwd": 1}
-          and gerr <= BWD_TOL * float(xp.grad.abs().max()),
-          f"flash f32 under grad: launches {FA.launch_counts()}, gradient "
-          f"vs autograd of the plain forward max err {gerr}")
-    check(refuses_grad(torch, lambda t: FA.flash_attention_fwd(t, t, t),
-                       torch.ones((2, 64, 64), device=dev,
-                                  dtype=torch.bfloat16)),
-          "flash kernel ran a bf16 input that requires grad")
+    # C-6: inputs that require grad get their gradients through the
+    # kernels, f32 and bf16: each of dq, dk, dv against autograd through
+    # the plain forward (f32 arithmetic rounded once, P unrounded in its
+    # backward), within the f32 backward's tolerance and, in bf16, the
+    # JAX suite's bf16 tolerance (3e-2; the kernel's own, against its
+    # plain version, is phase 6e's)
+    for dname, tol in (("float32", BWD_TOL["float32"]),
+                       ("bfloat16", FLASH_TOL["bfloat16"])):
+        qkv = [torch.randn((2, 64, 64), generator=g, device=dev).to(
+            _dtype(torch, dname)) for _ in range(3)]
+        xg = [t.clone().requires_grad_(True) for t in qkv]
+        FA.reset_launch_counts()
+        grads = torch.autograd.grad(
+            FA.flash_attention_fwd(*xg).float().sum(), xg)
+        by_dtype = FA.bwd_launches_by_dtype()
+        xp = [t.clone().requires_grad_(True) for t in qkv]
+        with torch.enable_grad():
+            FA.flash_attention_fwd_plain(*xp).float().sum().backward()
+        gerr = max(float((a.float() - b.grad.float()).abs().max())
+                   / float(b.grad.float().abs().max())
+                   for a, b in zip(grads, xp))
+        check(FA.launch_counts() == {"flash_attention_fwd": 1,
+                                     "flash_attention_bwd": 1}
+              and by_dtype[dname] == 1
+              and all(a.dtype == qkv[0].dtype for a in grads)
+              and gerr <= tol,
+              f"flash {dname} under grad: launches {FA.launch_counts()} "
+              f"{by_dtype}, gradients vs autograd of the plain forward, "
+              f"largest error of the scale {gerr}")
     row.update(max_abs_err=err, bfloat16=bf16)
     return row
 
@@ -883,63 +947,76 @@ def eager_ms(torch, fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES):
-    """Phase 6b: the flash backward kernel against its plain version on the
-    forward kernel's out and lse, at stablelm-3b's training shape and
-    hymba-1.5b's prefill, f32: dq, dk, dv within BWD_TOL of each
-    gradient's scale, a rerun bit-equal; device ms warm and flushed, the
-    plain version's ms and the backward of
-    ``scaled_dot_product_attention`` (forward + backward minus forward);
-    the device ms of the delta and main launches from one traced call and
-    the main kernel's CTAs an SM. Returns the kernels-line rows of the
-    first shape: the backward's and the f32 forward's (with lse, as
-    training runs it)."""
+def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES,
+                   dname="float32"):
+    """Phase 6b (f32) and 6e (``dname="bfloat16"``): the flash backward
+    kernel of that dtype against its plain version on the forward kernel's
+    out and lse, at stablelm-3b's training shape and hymba-1.5b's
+    prefill: dq, dk, dv within BWD_TOL of each gradient's scale, a rerun
+    bit-equal, the forward's lse against the plain forward's; device ms
+    warm and flushed, the plain version's ms and the backward of
+    ``scaled_dot_product_attention`` in the same dtype (forward + backward
+    minus forward, device time of one traced call each; the eager event
+    times beside it); the device ms of the delta and main launches from one
+    traced call and the main kernel's CTAs an SM. Returns the kernels-line
+    rows of every shape (the backward's) and of the first shape's forward
+    with lse, as training runs it."""
     import torch.nn.functional as F
+    dt = _dtype(torch, dname)
+    esize = 4 if dname == "float32" else 2
+    peak = F32_OPS_PER_S if dname == "float32" else BF16_OPS_PER_S
     g = torch.Generator(device=dev).manual_seed(13)
-    row = fwd_row = None
+    rows, fwd_row = [], None
     for name, B, H, KV, S, hd, causal, window in shapes:
         kw = dict(groups=H // KV, causal=causal, window=window)
         pairs, mask = _pairs(S, causal, window)
-        q = torch.randn((B * H, S, hd), generator=g, device=dev)
-        k = torch.randn((B * KV, S, hd), generator=g, device=dev)
-        v = torch.randn((B * KV, S, hd), generator=g, device=dev)
-        dout = torch.randn((B * H, S, hd), generator=g, device=dev)
+        q = torch.randn((B * H, S, hd), generator=g, device=dev).to(dt)
+        k = torch.randn((B * KV, S, hd), generator=g, device=dev).to(dt)
+        v = torch.randn((B * KV, S, hd), generator=g, device=dev).to(dt)
+        dout = torch.randn((B * H, S, hd), generator=g, device=dev).to(dt)
         out, lse = FA._fwd_kernel(q, k, v, H // KV, causal, window, True)
         plain_out, plain_lse = FA.flash_attention_fwd_plain(
             q, k, v, return_lse=True, **kw)
         # the forward that feeds the backward, held as phase 6 holds it
-        out_err = float((out - plain_out).abs().max())
-        out_scale = float(plain_out.abs().max())
+        out_err = float((out.float() - plain_out.float()).abs().max())
+        out_scale = float(plain_out.float().abs().max())
         check(bool(torch.isfinite(out).all())
-              and out_err <= FLASH_TOL["float32"] * out_scale,
-              f"flash fwd out {name}: max err {out_err}, scale {out_scale}")
+              and out_err <= FLASH_TOL[dname] * out_scale,
+              f"flash fwd {dname} out {name}: max err {out_err}, scale "
+              f"{out_scale}")
         lse_err = float((lse - plain_lse).abs().max())
         check(lse_err <= 2e-5 * float(plain_lse.abs().max()),
-              f"flash fwd lse {name}: max err {lse_err}")
+              f"flash fwd {dname} lse {name}: max err {lse_err}")
         del plain_out
         args = (q, k, v, out, dout, lse)
+        FA.reset_launch_counts()
         got = FA.flash_attention_bwd(*args, **kw)
-        want = FA.flash_attention_bwd_plain(*args, **kw)
+        by_dtype = FA.bwd_launches_by_dtype()
+        check(by_dtype[dname] == 1 and sum(by_dtype.values()) == 1,
+              f"flash bwd {dname} {name}: launches {by_dtype}")
+        want = FA.flash_attention_bwd_plain(
+            *args, **kw, block_kv=32 if hd > 128 and esize == 2 else 64)
         errs = {}
         for gname, a, b in zip(("dq", "dk", "dv"), got, want):
-            scale = float(b.abs().max())
-            errs[gname] = float((a - b).abs().max())
+            scale = float(b.float().abs().max())
+            errs[gname] = float((a.float() - b.float()).abs().max())
             check(bool(torch.isfinite(a).all())
-                  and errs[gname] <= BWD_TOL * scale,
-                  f"flash bwd {name} {gname}: max err {errs[gname]}, scale "
-                  f"{scale}")
+                  and errs[gname] <= BWD_TOL[dname] * scale,
+                  f"flash bwd {dname} {name} {gname}: max err "
+                  f"{errs[gname]}, scale {scale}")
         again = FA.flash_attention_bwd(*args, **kw)
         check(all(bits_equal(torch, a, b) for a, b in zip(got, again)),
-              f"flash bwd {name}: rerun not bit-equal")
+              f"flash bwd {dname} {name}: rerun not bit-equal")
         # bound: five products over the unmasked pairs; q, k, v, out, dout
         # and lse read once, dq, dk, dv written once
         ops = 5 * 2 * hd * pairs * B * H
-        nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                      + lse.numel())
+        nbytes = esize * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+            + 4 * lse.numel()
         bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                    (ops / F32_OPS_PER_S * 1e3, "operations"))
-        # the library yardstick: SDPA's backward in f32 (its efficient or
-        # math kernel), forward + backward minus forward
+                    (ops / peak * 1e3, "operations"))
+        # the library yardstick: SDPA's backward in the same dtype (its
+        # flash, efficient or math kernel), forward + backward minus
+        # forward
         qs, ks, vs = (t.view(B, -1, S, hd).clone().requires_grad_(True)
                       for t in (q, k, v))
         ds = dout.view(B, H, S, hd)
@@ -947,14 +1024,26 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES):
         sdpa = lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mk, is_causal=mk is None, enable_gqa=True)
         lib_grads = torch.autograd.grad(sdpa(), (qs, ks, vs), ds)
-        lib_err = max(float((a.reshape(b.shape) - b).abs().max())
+        lib_err = max(float((a.reshape(b.shape).float()
+                             - b.float()).abs().max())
                       for a, b in zip(lib_grads, got))
-        with torch.no_grad():
-            lib_fwd = eager_ms(torch, sdpa)
-        lib_both = eager_ms(torch, lambda: torch.autograd.grad(
-            sdpa(), (qs, ks, vs), ds))
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                sdpa()
+
+        def sdpa_both():
+            torch.autograd.grad(sdpa(), (qs, ks, vs), ds)
+
+        lib_fwd, lib_both = eager_ms(torch, sdpa_fwd), eager_ms(torch,
+                                                               sdpa_both)
+        # the same as device time of one traced call each (the eager
+        # event times carry the host's enqueue gaps, which grow as the
+        # host is loaded): the library row is the device time
+        lib_fwd_dev = _profile(torch, sdpa_fwd)["device_ms"]
+        lib_both_dev = _profile(torch, sdpa_both)["device_ms"]
         trace = _profile(torch, lambda: FA.flash_attention_bwd(*args, **kw),
-                         ("bwd_delta_kernel", "bwd_main_kernel"))
+                         BWD_TRACE_NAMES[dname])
         t = {"ms": time_ms(torch, lambda: FA.flash_attention_bwd(*args,
                                                                  **kw)),
              "ms_l2_flushed": time_cold_ms(
@@ -962,43 +1051,52 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES):
              "plain_ms": time_ms(torch, lambda: FA.flash_attention_bwd_plain(
                  *args, **kw), budget_ms=300.0),
              "bound_ms": bound[0], "bound_by": bound[1],
-             "library_ms": lib_both - lib_fwd,
+             "library_ms": lib_both_dev - lib_fwd_dev,
+             "library_fwd_bwd_device_ms": lib_both_dev,
+             "library_fwd_device_ms": lib_fwd_dev,
+             "library_eager_ms": lib_both - lib_fwd,
              "library_fwd_bwd_ms": lib_both, "library_fwd_ms": lib_fwd,
              "library_max_abs_err": lib_err,
              "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
              "launch_device_ms": {
                  k.split("_kernel")[0]: v
                  for k, v in trace["kernels_device_ms"].items()},
-             "ctas_per_sm": FA.bwd_ctas_per_sm(hd)}
-        line = {"phase": "attn_bwd", "shape": name, "B": B, "H": H,
+             "ctas_per_sm": FA.bwd_ctas_per_sm(hd, dt)}
+        line = {"phase": "attn_bwd" if esize == 4 else "attn_bwd_bf16",
+                "dtype": dname, "shape": name, "B": B, "H": H,
                 "KV": KV, "S": S, "head_dim": hd, "causal": causal,
                 "window": window, "max_abs_err": errs,
                 "out_max_abs_err": out_err, "out_scale": out_scale,
                 "lse_max_abs_err": lse_err, **t}
-        if row is None:
-            row = dict(t, max_abs_err=max(errs.values()))
-            # the forward as training calls it (with lse) at this shape;
-            # bound: two products over the unmasked pairs, q, k, v read
-            # and out, lse written once
+        rows.append(dict(t, shape=name, max_abs_err=max(errs.values())))
+        if fwd_row is None:
+            # the forward as training calls it (with lse) at this shape,
+            # and without lse; bound: two products over the unmasked
+            # pairs, q, k, v read and out, lse written once
             fwd = lambda: FA._fwd_kernel(q, k, v, H // KV, causal, window,
                                          True)
+            no_lse = lambda: FA._fwd_kernel(q, k, v, H // KV, causal,
+                                            window, False)
             fops = 4 * hd * pairs * B * H
-            fbytes = 4 * (2 * q.numel() + 2 * k.numel() + lse.numel())
+            fbytes = esize * (2 * q.numel() + 2 * k.numel()) \
+                + 4 * lse.numel()
             fbound = max((fbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                         (fops / F32_OPS_PER_S * 1e3, "operations"))
+                         (fops / peak * 1e3, "operations"))
             fwd_row = {
                 "shape": name, "ms": time_ms(torch, fwd),
                 "ms_l2_flushed": time_cold_ms(torch, fwd, flush),
+                "ms_without_lse": time_ms(torch, no_lse),
                 "plain_ms": time_ms(torch, lambda: FA.flash_attention_fwd_plain(
                     q, k, v, return_lse=True, **kw), budget_ms=300.0),
                 "bound_ms": fbound[0], "bound_by": fbound[1],
-                "library_ms": lib_fwd, "max_abs_err": out_err,
+                "library_ms": lib_fwd_dev, "library_eager_ms": lib_fwd,
+                "max_abs_err": out_err, "lse_max_abs_err": lse_err,
                 "gflop": fops / 1e9, "mbytes": fbytes / 1e6}
-            line["fwd_f32"] = fwd_row
+            line[f"fwd_{'f32' if esize == 4 else 'bf16'}"] = fwd_row
         emit(line)
         del qs, ks, vs, lib_grads, got, want, again
         torch.cuda.empty_cache()
-    return row, fwd_row
+    return rows, fwd_row
 
 
 def ssd_kernel_phase(torch, SK, Sref, dev, flush, shapes=SSD_SHAPES):
@@ -1191,15 +1289,21 @@ def ssd_bwd_phase(torch, SK, Sref, dev, flush, shapes=SSD_BWD_SHAPES):
 
 
 def block_bwd_phase(torch, C, FA, SK, dev, blocks=BLOCK_BWD,
-                    seq=BLOCK_SEQ):
+                    seq=BLOCK_SEQ, dname="float32"):
     """Phase 7c: one block's backward, card against CPU, for each
     (config, kind) of ``blocks`` at full width (``block_backward_check``),
     the memory's gradient checked for the cross-attention kinds and the
     routing for the MoE ones (equal in the three runs, else the check
     fails and the smallest gap between a token's k-th and (k+1)-th gate is
     reported). The card's two backwards (the check's and the noise
-    floor's) launch the block's kernels twice each way."""
-    from repro_torch.models.blockcheck import block_backward_check, memory_len
+    floor's) launch the block's kernels twice each way. In bf16 (this
+    slice's rows) the block, its input and its upstream gradient are bf16
+    and the noise floor is taken at bf16's scale (blockcheck.PERTURB)."""
+    from repro_torch.models.blockcheck import (PERTURB as BLOCK_PERTURB,
+                                               block_backward_check,
+                                               memory_len)
+    dt = _dtype(torch, dname)
+    perturb = PERTURB if dname == "float32" else BLOCK_PERTURB[dt]
     by_block = {}
     for arch, kind in blocks:
         cfg = C.get_config(arch)
@@ -1210,13 +1314,16 @@ def block_bwd_phase(torch, C, FA, SK, dev, blocks=BLOCK_BWD,
         t = time.perf_counter()
         with _flash_shapes(FA) as shapes:
             rep = block_backward_check(cfg, kind, dev, seq=seq,
-                                       perturb=PERTURB)
+                                       perturb=perturb, dtype=dt)
         seconds = time.perf_counter() - t
         by_block[(arch, kind)] = shapes
         launched = _lm_counts(FA, SK)
         attn, ssm = BLOCK_ATTN[kind], kind in ("ssm", "hybrid")
         want = {"flash_attention_fwd": 2 * attn, "flash_attention_bwd":
                 2 * attn, "ssd_fwd": 2 * ssm, "ssd_bwd": 2 * ssm}
+        by_dtype = FA.bwd_launches_by_dtype()
+        check(by_dtype[dname] == 2 * attn, f"block_bwd {arch} {kind} "
+              f"{dname}: flash backward launches by dtype {by_dtype}")
         check(rep["routing_equal"], f"block_bwd {arch} {kind}: routing "
               f"differs between card, CPU and perturbed runs; smallest "
               f"k-th to (k+1)-th gate gap {rep['min_gate_gap']}")
@@ -1224,10 +1331,12 @@ def block_bwd_phase(torch, C, FA, SK, dev, blocks=BLOCK_BWD,
               f"their noise floor: {rep['failed']}")
         check(launched == want, f"block_bwd {arch} {kind}: launches "
               f"{launched}, want {want}")
-        emit({"phase": "block_bwd", "arch": arch, "kind": kind, "batch": 1,
+        emit({"phase": "block_bwd", "arch": arch, "kind": kind,
+              "dtype": dname, "batch": 1,
               "seq": seq, "memory_len": memory_len(cfg, kind),
               "n_experts": cfg.n_experts if cfg.d_ff else 0,
-              "perturb": PERTURB, "ok": rep["ok"], "failed": rep["failed"],
+              "perturb": perturb, "ok": rep["ok"], "failed": rep["failed"],
+              "flash_bwd_launches_by_dtype": by_dtype,
               "routing_equal": rep["routing_equal"],
               "min_gate_gap": rep["min_gate_gap"], "launches": launched,
               "flash_launches_by_shape": shapes,
@@ -2512,6 +2621,192 @@ def lm_train_ssm_phase(torch, Z, C, FA, SK, K, dev, tr=TRAIN):
     return first
 
 
+def _hymba_ball(params):
+    """The leaves hymba-1.5b's spec constrains: mlp/w1 and ssm/wx."""
+    blk = params["blocks"]["p0_hybrid"]
+    return {"blocks": {"p0_hybrid": {"mlp": {"w1": blk["mlp"]["w1"]},
+                                     "ssm": {"wx": blk["ssm"]["wx"]}}}}
+
+
+def lm_train_bf16_phase(torch, Z, C, FA, SK, K, FK, dev, tr=TRAIN_BF16):
+    """Phase 16, this slice's main path: hymba-1.5b at full size trained
+    in bf16 with f32 Adam moments (``AdamConfig(moment_dtype=float32)``)
+    through ``launch.steps.build_train_step``, B 1 x S 2048, from the
+    seed-0 init in each run:
+
+    * ten steps under remat "full" with the config's spec (every_k 10:
+      the Newton projects mlp/w1 and ssm/wx at the tenth step): every loss
+      finite; after step ten every constrained slice on its ball (within
+      one bf16 rounding: 1 + 2^-8) and within 3e-4 of the scale, beyond
+      one bf16 rounding of each entry (half an ulp, at most 2^-8 of it), of
+      ``ProjectionEngine(solver="newton")`` on the weights the step
+      projected; every flash backward launch on bf16 inputs;
+    * two steps under remat "dots": losses and params bit-equal to the
+      "full" run's first two;
+    * three steps at every_k 1: the extra Newton evaluations a step and
+      the launches of every kernel on that route;
+    * f32 steps at the same shape (f32 params and moments).
+
+    Step ms (host clock around each synchronised step; median of steps
+    2-9 in bf16 "full", of steps 2-4 in f32), peak memory a run, and of
+    one traced step more the idle share and flash's share of the device
+    time. Returns the "full" run's launches."""
+    from repro_torch._tree import flatten_with_path, tree_map
+    from repro_torch.core import ProjectionEngine
+    from repro_torch.launch.steps import (build_train_step,
+                                          projection_engine_for)
+    from repro_torch.optim import AdamConfig, adam_init
+    base = C.get_config(tr["arch"])
+    batcher = _lm_batcher(base, tr)
+    acfg = AdamConfig(moment_dtype=torch.float32)
+    flash_names = ("flash_bf16_kernel", "flash_f32_kernel",
+                   *BWD_TRACE_NAMES["bfloat16"], *BWD_TRACE_NAMES["float32"])
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev, torch.int64)
+                for k, v in batcher.get(i).items()}
+
+    def run(cfg, dtype, steps, after=None, profile=False):
+        model = Z.build(cfg)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            dtype=dtype, device=dev)
+        opt = adam_init(params, acfg)
+        proj = projection_engine_for(cfg).init_state(params)
+        step = build_train_step(model, None, None, acfg)
+        _lm_reset(FA, SK)
+        K.reset_launch_counts()
+        FK.reset_launch_counts()
+        losses, ms, extra = [], [], []
+        for i in range(steps):
+            b = batch(i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, met, params, opt, proj = step(params, opt, proj, b)
+            losses.append(float(loss))
+            extra.append(int(met["proj_newton_extra_evals"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            if after is not None:
+                after(i, params)
+        out = {"losses": losses, "step_ms": ms, "extra_evals": extra,
+               "launches": {**_lm_counts(FA, SK), **K.launch_counts(),
+                            **FK.launch_counts()},
+               "flash_bwd_launches_by_dtype": FA.bwd_launches_by_dtype(),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"lm_train_bf16 {cfg.remat_policy} {dtype} losses {losses}")
+        if profile:
+            state = [params, opt, proj]
+            b = batch(steps)
+
+            def one_step():
+                state[:] = step(*state, b)[2:]
+
+            prof = _profile(torch, one_step, kernels=(
+                *flash_names, *LM_TRACE_NAMES[2:], *SSD_BWD_TRACE_NAMES))
+            mine = prof["kernels_device_ms"]
+            prof["flash_share"] = sum(mine[k] for k in flash_names) / max(
+                prof["device_ms"], 1e-9)
+            out["profile"] = prof
+            params = state[0]
+            del state
+        return out, params
+
+    bf16 = torch.bfloat16
+    steps = tr["steps"]
+    want = {k: v * steps for k, v in _step_counts(base).items()}
+    want.update({k: 0 for k in REPLACES}, adam_colstats=0, adam_clip_apply=0)
+    # "dots" first: its two steps' params, kept on the host, are what the
+    # "full" run must repeat bit for bit
+    dots_cfg = dataclasses.replace(base, remat_policy="dots")
+    dots, dparams = run(dots_cfg, bf16, tr["dots_steps"])
+    dots_host = {p: a.cpu() for p, a in flatten_with_path(dparams)}
+    del dparams
+    # "full": the weights the tenth step projects are recorded as they go
+    # into the projection
+    pre, post, equal = {}, {}, {}
+    orig_apply = ProjectionEngine.apply
+
+    def recording_apply(self, params, *, step=None, state=None,
+                        with_stats=False):
+        if step == steps and self.specs:
+            pre["ball"] = tree_map(lambda a: a.clone(), _hymba_ball(params))
+        return orig_apply(self, params, step=step, state=state,
+                          with_stats=with_stats)
+
+    def after(i, params):
+        if i == tr["dots_steps"] - 1:
+            # the peak over the steps "dots" ran, to set beside its own
+            equal["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            equal["params"] = all(
+                bits_equal(torch, a.cpu(), dots_host[p])
+                for p, a in flatten_with_path(params))
+        if i == steps - 1:
+            post["ball"] = tree_map(lambda a: a.clone(), _hymba_ball(params))
+
+    ProjectionEngine.apply = recording_apply
+    try:
+        full, params = run(base, bf16, steps, after=after, profile=True)
+    finally:
+        ProjectionEngine.apply = orig_apply
+    del dots_host
+    k = tr["dots_steps"]
+    check(dots["losses"] == full["losses"][:k] and equal.get("params"),
+          f"lm_train_bf16: dots losses {dots['losses']} vs full "
+          f"{full['losses'][:k]}, params bit-equal {equal.get('params')}")
+    check(full["launches"] == want, f"lm_train_bf16 launches "
+          f"{full['launches']}, want {want}")
+    check(full["flash_bwd_launches_by_dtype"] == {
+        "float32": 0, "bfloat16": want["flash_attention_bwd"]},
+        f"lm_train_bf16 flash backward by dtype "
+        f"{full['flash_bwd_launches_by_dtype']}")
+    # the tenth step projected (the profile's step after it did not)
+    del params
+    ball = tree_map(lambda a: a.float(), post.pop("ball"))
+    ratio = _norm_over_radius(ball, base.projection_specs)
+    check(len(pre) == 1 and ratio <= 1 + 2 ** -8,
+          f"lm_train_bf16: projection recorded {len(pre)}, l1,inf norm "
+          f"{ratio} of the radius")
+    newton, _ = ProjectionEngine(_every_k(base, 1).projection_specs,
+                                 solver="newton").apply(
+        tree_map(lambda a: a.float(), pre.pop("ball")))
+    flat_n = dict(flatten_with_path(newton))
+    excess, scale = 0.0, 0.0
+    for path, leaf in flatten_with_path(ball):
+        want_leaf = flat_n[path]
+        excess = max(excess, float(((leaf - want_leaf).abs()
+                                    - 2 ** -8 * want_leaf.abs()).max()))
+        scale = max(scale, float(want_leaf.abs().max()))
+    del ball, newton, flat_n
+    check(excess <= 3e-4 * scale, f"lm_train_bf16: projection vs newton "
+          f"{excess} beyond one bf16 rounding (scale {scale})")
+    # every_k 1: the Newton at every step, warm-started from the second
+    every1, p1 = run(_every_k(base, 1), bf16, tr["every1_steps"])
+    del p1
+    # f32 at the same shape
+    f32, p32 = run(base, torch.float32, tr["f32_steps"], profile=True)
+    del p32
+    torch.cuda.empty_cache()
+    median = lambda r, a, b: float(np.median(r["step_ms"][a:b]))
+    emit({"phase": "lm_train_bf16", "arch": base.name,
+          "n_params": Z.build(base).n_params(), "batch": 1,
+          "seq": tr["seq"], "adam_moment_dtype": "float32",
+          "full": {**full, "median_step_ms_2_to_9": median(full, 1, 9),
+                   "peak_memory_gb_first_steps": equal.get("peak_gb")},
+          "dots": {**dots, "bit_equal_to_full": bool(
+              dots["losses"] == full["losses"][:k] and equal.get("params"))},
+          "every_k_1": every1,
+          "f32": {**f32, "median_step_ms_2_to_4": median(f32, 1, 4)},
+          "norm_over_radius": ratio,
+          "projection_vs_newton_beyond_bf16": excess,
+          "projection_scale": scale})
+    return full["launches"], full["flash_bwd_launches_by_dtype"]
+
+
 def _shape_key(way, sq, skv, hd, causal):
     return f"{way} {sq}x{skv} hd{hd} {'causal' if causal else 'full'}"
 
@@ -3251,7 +3546,7 @@ def attn_zoo_phase(torch, FA, dev, flush, shapes=None):
         berr = max(float((a - b).abs().max()) / max(float(b.abs().max()),
                                                     1e-30)
                    for a, b in zip(got, want))
-        check(berr <= BWD_TOL and all(bool(torch.isfinite(a).all())
+        check(berr <= BWD_TOL["float32"] and all(bool(torch.isfinite(a).all())
                                       for a in got),
               f"flash bwd {name}: kernel vs plain max err {berr} of scale")
         check(all(bits_equal(torch, a, b) for a, b in zip(got, bwd())),
@@ -3831,11 +4126,19 @@ def main():
     from repro_torch.kernels.ssd import ref as Sref
     from repro_torch.models import zoo as Z
     attn_row = attn_kernel_phase(torch, FA, dev, flush)
-    bwd_row, fwd_train_row = attn_bwd_phase(torch, FA, dev, flush)
+    bwd_rows, fwd_train_row = attn_bwd_phase(torch, FA, dev, flush)
+    bwd_row = bwd_rows[0]
+    # -- 6e. this slice: the bf16 backward kernel, and the bf16 forward's
+    # lse, at the same shapes
+    bf16_bwd_rows, _ = attn_bwd_phase(
+        torch, FA, dev, flush, shapes=BWD_BF16_SHAPES, dname="bfloat16")
     zoo_rows = attn_zoo_phase(torch, FA, dev, flush)
     ssd_row = ssd_kernel_phase(torch, SK, Sref, dev, flush)
     ssd_bwd_row = ssd_bwd_phase(torch, SK, Sref, dev, flush)
     block_launches = block_bwd_phase(torch, C, FA, SK, dev)
+    # this slice's bf16 rows: stablelm-3b's global and hymba-1.5b's hybrid
+    block_bwd_phase(torch, C, FA, SK, dev, blocks=BLOCK_BWD_BF16,
+                    dname="bfloat16")
     lm_launches = lm_forward_phase(torch, Z, C, FA, SK, dev)
     lm_decode_phase(torch, Z, C, FA, SK, dev)
 
@@ -3860,7 +4163,12 @@ def main():
         ("llama-3.2-vision-90b", "cross")]
     zoo_launches["block_mla"] = block_launches[("deepseek-v2-236b", "mla")]
 
-    # -- 16. result ------------------------------------------------------------
+    # -- 16. this slice: hymba-1.5b trained in bf16 through the production
+    # step (launch/steps.py), remat "full" and "dots", every_k 1, and f32
+    bf16_launches, bf16_by_dtype = lm_train_bf16_phase(
+        torch, Z, C, FA, SK, K, FK, dev)
+
+    # -- result ------------------------------------------------------------
     if FAILURES:
         print(json.dumps({"failures": FAILURES}), file=sys.stderr)
         return 1
@@ -3921,7 +4229,15 @@ def main():
         {"route": "cuda", "source": LM_SOURCE[row["name"]],
          "replaces": LM_REPLACES[row["name"]],
          "launches": _zoo_launches(zoo_launches, row), **row}
-        for row in zoo_rows]})
+        for row in zoo_rows] + [
+        # this slice: the bf16 backward at stablelm-3b's training shape and
+        # hymba-1.5b's (phase 6e), launches in phase 16's ten-step bf16
+        # "full" run of hymba-1.5b
+        {"name": "flash_attention_bwd_bf16", "route": "cuda",
+         "source": LM_SOURCE["flash_attention_bwd_bf16"],
+         "replaces": LM_REPLACES["flash_attention_bwd_bf16"],
+         "launches": bf16_by_dtype["bfloat16"], **row}
+        for row in bf16_bwd_rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

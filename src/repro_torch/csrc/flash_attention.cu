@@ -14,10 +14,13 @@
 //   test. Query rows past Sq are not stored and keys past Skv are masked,
 //   so Sq and Skv need not be multiples of a tile. Nothing is carried
 //   across blocks and nothing accumulates with atomics: a rerun is
-//   bit-equal. Given a non-null lse pointer, the f32 kernel also writes
+//   bit-equal. Given a non-null lse pointer, either kernel also writes
 //   each row's log-sum-exp of the scaled logits, lse = m + log max(l,
-//   1e-30), f32 (BH, Sq): the row statistics that the backward
-//   (flash_attention_bwd.cu) recomputes P from.
+//   1e-30), f32 (BH, Sq), from the same m and l that produced out: the row
+//   statistics that the backwards (flash_attention_bwd.cu in f32,
+//   flash_attention_bwd_bf16.cu in bf16) recompute P from. The bf16 kernel
+//   keeps m in log2 units (m2 = m log2 e) and writes m2 ln 2 + log max(l,
+//   1e-30).
 //
 // Bound on the card: operations. At hymba-1.5b's prefill (BH 50, S 2048,
 // hd 64, causal, window 1024) the unmasked (q, k) pairs need 20.1 GFLOP:
@@ -77,7 +80,7 @@
 //
 // Plain C interface (loaded with ctypes): pointers, sizes, flags, the
 // scale and the stream; dtype code 0 = f32, 1 = bf16; head_dim 64, 80, 128
-// or 256; lse is null or (f32 only) a (BH, Sq) f32 output; the bf16 path
+// or 256; lse is null or a (BH, Sq) f32 output; the bf16 path
 // needs q, k, v 16-byte aligned. Returns
 // cudaGetLastError() right after the launch, or the error that stopped
 // it.
@@ -358,6 +361,7 @@ constexpr int kBN = 64;                          // keys per tile
 constexpr int kStages = 2;
 constexpr int kSlab = 64 * 64 * 2;               // one 64 x 64 bf16 slab
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HDP>
 struct Bf16Smem {
@@ -494,8 +498,9 @@ __global__ void __launch_bounds__(kBf16Threads, Bf16Smem<HDP>::kCtas)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tmQ,
                   const __grid_constant__ CUtensorMap tmK,
                   const __grid_constant__ CUtensorMap tmV,
-                  __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                  int groups, int causal, int window, float scale_log2) {
+                  __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ lse, int Sq, int Skv, int groups,
+                  int causal, int window, float scale_log2) {
   using L = Bf16Smem<HDP>;
   constexpr int NS = L::NS;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -689,6 +694,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmQ,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    // lse from the m and l of the rows' four threads (equal after the
+    // shuffles): one writes it
+    if (lse != nullptr && t4 == 0) {
+      if (qr0 < Sq) lse[(size_t)bh * Sq + qr0] = fmaf(m0, kLn2, logf(d0));
+      if (qr1 < Sq) lse[(size_t)bh * Sq + qr1] = fmaf(m1, kLn2, logf(d1));
+    }
     __nv_bfloat16* ob = out + (size_t)bh * Sq * HD;
 #pragma unroll
     for (int sl = 0; sl < NS; ++sl)
@@ -754,8 +765,8 @@ bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
 
 template <int HD, int HDP>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int BH, int Sq, int Skv, int groups, int causal, int window,
-                float scale, cudaStream_t stream) {
+                void* lse, int BH, int Sq, int Skv, int groups, int causal,
+                int window, float scale, cudaStream_t stream) {
   auto kern = flash_bf16_kernel<HD, HDP>;
   constexpr size_t smem = Bf16Smem<HDP>::bytes;
   // opt in once per instantiation (thread-safe static init), so a launch
@@ -772,8 +783,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Sq + kBM - 1) / kBM, BH);
   kern<<<grid, kBf16Threads, smem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, Sq, Skv, groups, causal, window,
-      scale * kLog2e);
+      tq, tk, tv, (__nv_bfloat16*)out, (float*)lse, Sq, Skv, groups, causal,
+      window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -801,19 +812,19 @@ int flash_attention_fwd(int dtype, int hd, const void* q, const void* k,
         return launch_f32<256, 4, 32>(q, k, v, out, lse, BH, Sq, Skv, groups,
                                       causal, window, scale, s);
     }
-  } else if (dtype == 1 && lse == nullptr) {   // no lse in bf16
+  } else if (dtype == 1) {
     switch (hd) {
       case 64:
-        return launch_bf16<64, 64>(q, k, v, out, BH, Sq, Skv, groups, causal,
-                                   window, scale, s);
+        return launch_bf16<64, 64>(q, k, v, out, lse, BH, Sq, Skv, groups,
+                                   causal, window, scale, s);
       case 80:
-        return launch_bf16<80, 128>(q, k, v, out, BH, Sq, Skv, groups,
+        return launch_bf16<80, 128>(q, k, v, out, lse, BH, Sq, Skv, groups,
                                     causal, window, scale, s);
       case 128:
-        return launch_bf16<128, 128>(q, k, v, out, BH, Sq, Skv, groups,
+        return launch_bf16<128, 128>(q, k, v, out, lse, BH, Sq, Skv, groups,
                                      causal, window, scale, s);
       case 256:
-        return launch_bf16<256, 256>(q, k, v, out, BH, Sq, Skv, groups,
+        return launch_bf16<256, 256>(q, k, v, out, lse, BH, Sq, Skv, groups,
                                      causal, window, scale, s);
     }
   }

@@ -7,9 +7,10 @@ design). It replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``: forward
 online-softmax attention with GQA (kv head = q head // groups), optional
 causal and sliding-window masks, fully masked tiles skipped, running
-(m, l, acc) in f32 and out = acc / max(l, 1e-30) in q's dtype. In f32 it
-can also write each row's log-sum-exp, lse = m + log max(l, 1e-30), the
-statistics the backward needs (the Pallas kernel returns m and l).
+(m, l, acc) in f32 and out = acc / max(l, 1e-30) in q's dtype. In either
+dtype it can also write each row's log-sum-exp, lse = m + log max(l,
+1e-30) in f32, the statistics the backward needs (the Pallas kernel
+returns m and l).
 
 Backward: ``csrc/flash_attention_bwd.cu`` (its source note gives the
 design), f32 on the CUDA cores: delta = rowsum(dout * out), then one
@@ -20,13 +21,21 @@ order (ascending kv tile): five products, and a rerun is bit-equal. It
 replaces the jnp autodiff of ``repro.models.attention.chunked_attention``
 that the JAX reference runs in place of a TPU backward (the Pallas kernel
 is forward-only and names "the standard flash backward" as its pair).
+bf16: ``csrc/flash_attention_bwd_bf16.cu``, the same schedule on the
+tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums): P is rounded
+to bf16 as dv's operand (as the forward rounds p before p v), dS to two
+bf16 terms, hi + lo, as dk's and dq's (dS's rows sum to zero, so one bf16
+rounding would cost dq and dk several times JAX's f32 error), dq's parts
+are summed in f32 in a scratch buffer in the same turn order, and dq, dk,
+dv are rounded to bf16 once, at the end.
 
 Bound on the card: operations. The forward at hymba-1.5b's prefill (BH 50,
 S 2048, hd 64, causal, window 1024): 20.1 GFLOP of unmasked pairs, 0.020
 ms at the bf16 tensor cores' peak, 0.30 ms at the f32 CUDA cores'. The
 backward at stablelm-3b's training shape (BH 32, S 2048, hd 80, causal):
-five products over 67.1 M pairs, 53.7 GFLOP, 0.80 ms in f32. bf16 runs the
-forward on the tensor cores (wgmma, TMA), with p rounded to bf16 before
+five products over 67.1 M pairs, 53.7 GFLOP, 0.80 ms in f32 and 0.054 ms
+in bf16. bf16 runs both directions on the tensor cores (the forward on
+wgmma and TMA, the backward on mma.sync), with p rounded to bf16 before
 the product with v; f32 runs both directions on the CUDA cores in full f32.
 
 Head dims: the kernels are built for ``KERNEL_HEAD_DIMS``; on the card a
@@ -37,18 +46,18 @@ output, which is sliced back. A head_dim above 256 raises.
 
 ``flash_attention_fwd`` with grad mode on and an input that requires grad
 goes through ``FlashAttentionFunction``: its forward launches the forward
-kernel with lse, its backward launches ``flash_attention_bwd``. No ported
-path trains in bf16, and there is no bf16 backward: on the card a bf16
-input that requires grad raises (ROADMAP.md queue A item 6).
+kernel with lse, its backward launches ``flash_attention_bwd`` (the f32 or
+the bf16 kernel, by the inputs' dtype).
 
 Beside each wrapper sits a plain PyTorch version that repeats the kernels'
 tile arithmetic: the same tile test, the same -1e30 masking with p forced
 to 0 after the exp, the same online update (forward), P recomputed from lse
 with masked entries 0 and dS = P (dP - delta) (backward), and p rounded to
-q's dtype before ``p @ v`` when that dtype is bf16. ``block_q`` /
-``block_kv`` set its tiles only (the kernels pick their own, by
-head_dim), and tails that are not a multiple of a tile are bounds-masked
-in both. The backward's plain version takes the kernel's dq order: each
+q's dtype before ``p @ v`` when that dtype is bf16 (in the backward, P
+before its product and dS as two bf16 terms). ``block_q`` / ``block_kv``
+set its tiles only (the kernels pick their own, by head_dim), and tails
+that are not a multiple of a tile are bounds-masked in both. The
+backward's plain version takes the kernel's dq order: each
 query tile's parts are summed from its first kv tile up to its last, then
 scaled. ``scale`` (default ``head_dim ** -0.5``) lets a test run the
 plain versions on zero-padded inputs as the card runs the kernels.
@@ -59,7 +68,9 @@ contiguity, copy an input whose address is not 16-byte aligned (the
 kernels' vector and TMA loads need it), allocate outputs and scratch with
 ``torch.empty``, launch on the current stream without synchronising, raise
 if the launch reports an error, and add one to their launch count
-(``flash_attention_fwd``, ``flash_attention_bwd``: one call of each).
+(``flash_attention_fwd``, ``flash_attention_bwd``: one call of each, of
+either dtype; ``bwd_launches_by_dtype`` splits the backward's count
+between its f32 and its bf16 kernel).
 """
 from __future__ import annotations
 
@@ -74,6 +85,7 @@ __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "FlashAttentionFunction", "KERNEL_HEAD_DIMS", "MAX_HEAD_DIM",
            "bwd_ctas_per_sm", "kernel_head_dim", "launch_counts",
+           "BWD_KERNELS", "bwd_launches_by_dtype",
            "reset_launch_counts"]
 
 _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
@@ -84,10 +96,10 @@ _CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 80, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 _NEG = -1e30
-_NO_BF16_BWD = ("the flash-attention kernel is forward-only in bf16: there "
-                "is no bf16 backward, and no ported path trains in bf16 "
-                "(ROADMAP.md queue A item 6); train in f32 or call under "
-                "torch.no_grad()")
+# the backward kernel (its csrc stem) by the inputs' dtype, and its launches
+BWD_KERNELS = {torch.float32: "flash_attention_bwd",
+               torch.bfloat16: "flash_attention_bwd_bf16"}
+_BWD_LAUNCHES: Dict[torch.dtype, int] = {dt: 0 for dt in BWD_KERNELS}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -99,6 +111,14 @@ def reset_launch_counts() -> None:
     """Set every launch count to 0."""
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    for dt in _BWD_LAUNCHES:
+        _BWD_LAUNCHES[dt] = 0
+
+
+def bwd_launches_by_dtype() -> Dict[str, int]:
+    """``flash_attention_bwd``'s launches since the last reset, by kernel:
+    {"float32": n, "bfloat16": m}."""
+    return {str(dt).split(".")[-1]: n for dt, n in _BWD_LAUNCHES.items()}
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -110,12 +130,13 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.flash_attention_fwd.argtypes = (
                 [I, I, P, P, P, P, P] + [I] * 6 + [F, P])
             lib.flash_attention_fwd.restype = I
-        else:
-            lib.flash_attention_bwd.argtypes = (
-                [I] + [P] * 10 + [I] * 6 + [F, P])
-            lib.flash_attention_bwd.restype = I
-            lib.flash_attention_bwd_ctas_per_sm.argtypes = [I]
-            lib.flash_attention_bwd_ctas_per_sm.restype = I
+        else:       # a backward: bf16 takes dq's f32 partials too
+            fn = getattr(lib, name)
+            fn.argtypes = ([I] + [P] * (10 if name == "flash_attention_bwd"
+                                        else 11) + [I] * 6 + [F, P])
+            fn.restype = I
+            occ = getattr(lib, f"{name}_ctas_per_sm")
+            occ.argtypes, occ.restype = [I], I
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = [I], ctypes.c_char_p
         _LIBS[name] = lib
@@ -203,7 +224,7 @@ def flash_attention_fwd_plain(q, k, v, *, groups: int = 1,
     """Plain version of ``flash_attention_fwd`` (same arguments and result):
     the kernel's tile loop over (block_q, block_kv) tiles. With
     ``return_lse`` it returns (out, lse), lse = m + log max(l, 1e-30) in
-    f32 (BH, Sq), as the f32 kernel writes it. ``scale`` defaults to
+    f32 (BH, Sq), as the kernels write it. ``scale`` defaults to
     head_dim ** -0.5."""
     BH, Sq, hd = q.shape
     Skv = k.shape[1]
@@ -291,14 +312,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     With grad mode on and an input that requires grad, the call goes
     through ``FlashAttentionFunction``, whose backward is
-    ``flash_attention_bwd``; on the card that needs f32 (a bf16 input
-    raises RuntimeError: there is no bf16 backward).
+    ``flash_attention_bwd`` (f32 or bf16).
     """
     _check(q, k, v, groups)
     card = _on_card(q)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if card and q.dtype != torch.float32:
-            raise RuntimeError(f"flash_attention_fwd: {_NO_BF16_BWD}")
         return FlashAttentionFunction.apply(q, k, v, groups, causal, window,
                                             block_q, block_kv)
     if not card:
@@ -334,9 +352,12 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, groups: int = 1,
     P^T dout and dk += dS^T q for that kv tile (the GQA group summed inside
     each tile pair), and the tile's dq part dS k stored by the first kv
     tile and added by the others; dq is scaled once its last part is in,
-    dk at the end. f32 throughout; results in the inputs' dtypes. It
-    agrees with the kernel up to the order inside each product and over
-    the group."""
+    dk at the end. f32 throughout; in bf16, P is rounded to bf16 and dS to
+    a sum of two bf16 terms before the products that take them (the bf16
+    kernel's tensor-core operands). Results in the inputs' dtypes. It
+    agrees with the kernels up to the order inside each product and over
+    the group, given the kernel's tiles (64 x 64; the bf16 kernel takes 32
+    keys at head dims above 128)."""
     BH, Sq, hd = q.shape
     BKV, Skv, _ = k.shape
     bq, bkv = min(block_q, Sq), min(block_kv, Skv)
@@ -348,6 +369,7 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, groups: int = 1,
     lsef = lse.float().reshape(BKV, G, Sq, 1)
     delta = (dof * out.float().reshape(BKV, G, Sq, hd)).sum(-1, keepdim=True)
     kf, vf = k.float()[:, None], v.float()[:, None]
+    bf16 = q.dtype == torch.bfloat16
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     dq = torch.zeros_like(qf)
     dk = torch.zeros((BKV, Skv, hd), dtype=torch.float32, device=dev)
@@ -368,6 +390,10 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, groups: int = 1,
             p = torch.where(_mask(q_pos, kv_pos, causal, window),
                             torch.exp(s - lt), zero)
             ds = p * (dot @ vt.transpose(-1, -2) - et)
+            if bf16:        # the tensor cores' operands: P in bf16, dS
+                # as two bf16 terms (hi + lo, exact in f32)
+                p, hi = p.bfloat16().float(), ds.bfloat16().float()
+                ds = hi + (ds - hi).bfloat16().float()
             dv[:, j0:j1] += (p.transpose(-1, -2) @ dot).sum(1)
             dk[:, j0:j1] += (ds.transpose(-1, -2) @ qt).sum(1)
             part = ds @ kt if part is None else part + ds @ kt
@@ -377,12 +403,13 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, groups: int = 1,
             dv.to(v.dtype))
 
 
-def bwd_ctas_per_sm(hd: int) -> int:
-    """CTAs of the backward's main kernel that fit on one SM at the kernel
-    head dim that takes ``hd`` (builds the kernel; needs the card)."""
+def bwd_ctas_per_sm(hd: int, dtype: torch.dtype = torch.float32) -> int:
+    """CTAs of the backward's main kernel (the f32 one, or the bf16 one for
+    ``dtype=torch.bfloat16``) that fit on one SM at the kernel head dim
+    that takes ``hd`` (builds the kernel; needs the card)."""
     hdp = kernel_head_dim(hd, "flash_attention_bwd")
-    return int(_lib("flash_attention_bwd").flash_attention_bwd_ctas_per_sm(
-        hdp))
+    name = BWD_KERNELS[dtype]
+    return int(getattr(_lib(name), f"{name}_ctas_per_sm")(hdp))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -391,10 +418,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
                         block_q: int = 64, block_kv: int = 64):
     """Gradients (dq, dk, dv) of ``flash_attention_fwd`` given its out, the
-    incoming dout (BH, Sq, hd) and its lse (BH, Sq). On the card: f32 only
-    (TypeError otherwise), head_dim <= ``MAX_HEAD_DIM`` (zero-padded as
-    the forward pads it); the kernel's two launches (delta, main) count as
-    one call. ``block_q`` / ``block_kv`` set the plain version's tiles
+    incoming dout (BH, Sq, hd) and its lse (BH, Sq): out and dout in q's
+    dtype (f32 or bf16), lse in f32 (TypeError otherwise). On the card:
+    head_dim <= ``MAX_HEAD_DIM`` (zero-padded as the forward pads it); the
+    f32 or bf16 kernel by the dtype, whose two launches (delta, main) count
+    as one call. ``block_q`` / ``block_kv`` set the plain version's tiles
     only."""
     _check(q, k, v, groups)
     BH, Sq, hd = q.shape
@@ -403,30 +431,39 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
                          f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)} "
                          f"do not match q {tuple(q.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: out {out.dtype}, dout "
+                        f"{dout.dtype} must be q's dtype {q.dtype} and lse "
+                        f"{lse.dtype} float32")
     if not _on_card(q, "flash_attention_bwd"):
         return flash_attention_bwd_plain(
             q, k, v, out, dout, lse, groups=groups, causal=causal,
             window=window, block_q=block_q, block_kv=block_kv)
-    if any(t.dtype != torch.float32 for t in (q, out, dout, lse)):
-        raise TypeError(f"flash_attention_bwd: {_NO_BF16_BWD}")
     if any(t.device != q.device for t in (out, dout, lse)):
         raise ValueError("flash_attention_bwd: inputs on different devices")
     hdp = _card_shape(q, k, "flash_attention_bwd")
     q, k, v, out, dout = (_pad_hd(t, hdp) for t in (q, k, v, out, dout))
     q, k, v, out, dout, lse = _aligned(q, k, v, out, dout, lse)
+    name = BWD_KERNELS[q.dtype]
     # delta (BH * Sq), then a turn counter per (query head, query tile) of
     # at least 32 rows and the work counter
     scratch = torch.empty((BH * Sq + BH * (-(-Sq // 32)) + 1,),
                           dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    rc = _lib("flash_attention_bwd").flash_attention_bwd(
+    # bf16: dq's f32 partial sums between the turns
+    dqacc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+             if q.dtype == torch.bfloat16 else None)
+    rc = getattr(_lib(name), name)(
         hdp, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), BH, Sq, k.shape[1], groups,
-        int(bool(causal)), int(window), hd ** -0.5,
+        dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+        *([] if dqacc is None else [dqacc.data_ptr()]),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq, k.shape[1],
+        groups, int(bool(causal)), int(window), hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_attention_bwd", "flash_attention_bwd")
+    _raise_on(rc, name, name)
     _LAUNCHES["flash_attention_bwd"] += 1
+    _BWD_LAUNCHES[q.dtype] += 1
     if hdp != hd:
         dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv

@@ -16,7 +16,10 @@ beyond the rounding.
 
 The tolerance is a noise floor measured in the same run: a third backward
 on the card, from the params multiplied by (1 + perturb * N(0, 1)) (about
-ten f32 ulps at perturb 1e-6), moves each gradient by its floor. The card
+ten f32 ulps at perturb 1e-6), moves each gradient by its floor. In bf16
+(params, input, memory and upstream gradient all bf16, as a bf16 model
+runs the block) the floor is taken at bf16's scale: perturb 2^-8, about
+one bf16 ulp of each parameter. The card
 and the CPU compute the same sums in other orders, a rounding of the same
 size, so a gradient passes when its card-vs-CPU distance is within
 ``FLOOR_FACTOR`` times its floor; the factor covers the floor's own spread
@@ -31,7 +34,7 @@ reports the smallest gap between a token's k-th and (k+1)-th gate.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -43,9 +46,11 @@ from .param import materialize
 from .transformer import (ArchConfig, _mix_part_apply, _mlp_part_apply,
                           block_layout)
 
-__all__ = ["FLOOR_FACTOR", "block_backward_check", "memory_len"]
+__all__ = ["FLOOR_FACTOR", "PERTURB", "block_backward_check", "memory_len"]
 
 FLOOR_FACTOR = 2.0
+# the noise floor's relative parameter perturbation, by the block's dtype
+PERTURB = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
 
 
 def memory_len(cfg: ArchConfig, kind: str) -> int:
@@ -109,28 +114,32 @@ def _same_routing(a, b) -> bool:
 
 def block_backward_check(cfg: ArchConfig, kind: str, card, *, batch: int = 1,
                          seq: int = 2048, seed: int = 0,
-                         perturb: float = 1e-6) -> Dict[str, Any]:
-    """One ``kind`` block of ``cfg`` (f32), its backward on ``card`` and on
-    the CPU; a cross-attention kind attends to a memory of ``memory_len``
-    positions. Returns {"ok", "leaves": {path:
+                         perturb: Optional[float] = None,
+                         dtype: torch.dtype = torch.float32
+                         ) -> Dict[str, Any]:
+    """One ``kind`` block of ``cfg`` in ``dtype`` (f32 or bf16), its
+    backward on ``card`` and on the CPU; a cross-attention kind attends to
+    a memory of ``memory_len`` positions; ``perturb`` defaults to
+    ``PERTURB[dtype]``. Returns {"ok", "leaves": {path:
     {max_abs_diff, noise_floor, scale, over_floor}}, "failed": [paths],
     "routing_equal", "min_gate_gap"}; the routing must be equal in all
     three runs, and every gradient finite and within ``FLOOR_FACTOR``
     times its noise floor of the CPU's."""
+    perturb = PERTURB[dtype] if perturb is None else perturb
     gen = torch.Generator(device=card).manual_seed(seed)
-    params = materialize(gen, block_layout(cfg, kind), torch.float32, card)
+    params = materialize(gen, block_layout(cfg, kind), dtype, card)
     rng = np.random.default_rng(seed)
     shape = (batch, seq, cfg.d_model)
-    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    draw = lambda s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to(dtype)
+    x, g = draw(shape), draw(shape)
     n_mem = memory_len(cfg, kind)
-    mem = (torch.from_numpy(rng.normal(size=(batch, n_mem, cfg.d_model))
-                            .astype(np.float32)) if n_mem else None)
+    mem = draw((batch, n_mem, cfg.d_model)) if n_mem else None
     on = lambda t: None if t is None else t.to(card)
     on_card, r_card = _grads(params, on(x), on(mem), on(g), kind, cfg)
     noise = torch.Generator(device=card).manual_seed(seed + 1)
-    pert = tree_map(lambda a: a * (1 + perturb * torch.randn(
-        a.shape, generator=noise, device=card)), params)
+    pert = tree_map(lambda a: (a.float() * (1 + perturb * torch.randn(
+        a.shape, generator=noise, device=card))).to(dtype), params)
     moved, r_moved = _grads(pert, on(x), on(mem), on(g), kind, cfg)
     del pert
     host, r_host = _grads(tree_map(lambda a: a.to("cpu"), params), x, mem,
@@ -141,9 +150,9 @@ def block_backward_check(cfg: ArchConfig, kind: str, card, *, batch: int = 1,
             if r is not None and r["min_gap"] is not None]
     rows, failed = {}, []
     for path, got in on_card.items():
-        want = host[path].to(card)
+        got, want = got.float(), host[path].to(card).float()
         diff = float((got - want).abs().max())
-        floor = float((moved[path] - got).abs().max())
+        floor = float((moved[path].float() - got).abs().max())
         finite = bool(torch.isfinite(got).all())
         rows[path] = {"max_abs_diff": diff, "noise_floor": floor,
                       "scale": float(want.abs().max()),

@@ -15,8 +15,8 @@ the depth:
 The MLP part is the MoE MLP (``models/moe.py``) when ``n_experts``; its
 auxiliaries are summed over the layers and ``train_loss`` adds them.
 ``moe_impl="shardmap"`` (manual expert parallelism) waits for the
-distributed layer (ROADMAP queue A item 8); remat "dots", ``ssd_bf16`` and
-a bf16 backward wait for item 6 and raise NotImplementedError.
+distributed layer (ROADMAP queue A item 8); ``ssd_bf16`` waits for item 6
+and raises NotImplementedError.
 
 Parameters and caches are nested dicts with the JAX package's keys and
 layouts (layer-stacked leaves under ``blocks/p{i}_{kind}`` and, for an
@@ -32,8 +32,15 @@ it into a CUDA graph). The cross-attention caches (``ck`` / ``cv``) hold
 the memory's keys and values; decode reads them and never writes them.
 With ``cfg.remat`` and grad mode on, ``forward`` runs each layer cycle
 (and each encoder layer) under ``torch.utils.checkpoint``
-(non-reentrant), which keeps only the cycle's input and recomputes the
-rest in the backward, as ``jax.checkpoint`` does in the reference.
+(non-reentrant). ``remat_policy="full"`` keeps only the cycle's input and
+recomputes the rest in the backward, as ``jax.checkpoint`` does in the
+reference; ``"dots"`` (``jax.checkpoint_policies.checkpoint_dots``) also
+keeps the outputs of the matrix products (``aten.mm``, ``addmm``,
+``bmm``: what ``matmul``, ``linear`` and ``einsum`` lower to) through a
+selective-checkpoint policy and recomputes everything else, the flash and
+SSD kernels' ``Function``s included. The saved products are the values
+the recompute would give, so the loss and gradients are bit-equal under
+either policy and without remat.
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .param import stack_layout
 from . import layers as L
@@ -304,17 +312,33 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+# the matrix products that remat "dots" keeps (checkpoint_dots' dot_general)
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _remat(cfg: ArchConfig):
-    """Whether ``forward`` checkpoints each layer cycle (and ``_encode``
-    each encoder layer)."""
+    """How ``forward`` runs each layer cycle (and ``_encode`` each encoder
+    layer): ``fn(*args)`` directly, or under the checkpoint of
+    ``cfg.remat_policy`` ("full" or "dots"; ValueError otherwise)."""
     if not (cfg.remat and torch.is_grad_enabled()):
-        return False
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported to repro_torch "
-            f"yet (ROADMAP.md queue A item 6); \"full\" stores nothing "
-            f"inside a layer cycle")
-    return True
+        return lambda fn, *args: fn(*args)
+    if cfg.remat_policy == "full":
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                            context_fn=_dots_context)
+    raise ValueError(f"remat_policy {cfg.remat_policy!r}: one of \"full\", "
+                     f"\"dots\"")
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +358,7 @@ def _encode(params, frames, cfg: ArchConfig):
         return block_apply_full(blk, x, "enc", cfg, positions)[0]
 
     for i in range(cfg.n_enc_layers):
-        blk = _layer(params["enc_blocks"], i)
-        x = (checkpoint(layer, x, blk, use_reentrant=False) if remat
-             else layer(x, blk))
+        x = remat(layer, x, _layer(params["enc_blocks"], i))
     return L.norm_apply(params["enc_norm"], x, cfg.norm_kind, cfg.norm_eps)
 
 
@@ -380,8 +402,7 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
                                           aux_acc=aux)
             return x, aux
 
-        x, aux = (checkpoint(cycle, x, aux, use_reentrant=False) if remat
-                  else cycle(x, aux))
+        x, aux = remat(cycle, x, aux)
     for r in range(rem):
         kind = cfg.pattern[r]
         x, aux = block_apply_full(params[f"rem{r}_{kind}"], x, kind, cfg,

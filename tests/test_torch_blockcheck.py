@@ -15,6 +15,11 @@ and mixtral's ``local`` with experts) are checked the same way, the
 memory's gradient and the routing included: a dropped dv in the flash
 backward (MLA's zero-padded v) fails the mla block, and a perturbation
 large enough to move the routing fails the MoE block on "routing".
+
+In bf16 (stablelm-3b's ``global`` block, hd 80, and hymba-1.5b's
+``hybrid`` block: the flash kernels in bf16, the SSD in f32 as the model
+casts it) the check covers every leaf the same way, with its noise floor
+at bf16's scale, and the dropped SSD gradient fails it.
 """
 import dataclasses
 
@@ -29,6 +34,7 @@ from repro_torch.kernels.ssd import kernel as SK
 
 KINDS = [("stablelm-3b", "global"), ("mamba2-370m", "ssm"),
          ("hymba-1.5b", "hybrid")]
+BF16_KINDS = [("stablelm-3b", "global"), ("hymba-1.5b", "hybrid")]
 MEMORY_MOE_KINDS = [("whisper-small", "enc"), ("whisper-small", "dec_cross"),
                     ("llama-3.2-vision-90b", "cross"),
                     ("deepseek-v2-236b", "mla"), ("mixtral-8x7b", "local")]
@@ -64,6 +70,34 @@ def test_check_covers_every_leaf_on_the_cpu(arch, kind):
     for row in rep["leaves"].values():
         assert row["max_abs_diff"] == 0.0 and row["finite"]
         assert row["noise_floor"] > 0.0
+
+
+@pytest.mark.parametrize("arch,kind", BF16_KINDS)
+def test_bf16_check_covers_every_leaf_on_the_cpu(arch, kind):
+    """bf16: every leaf compared (bf16 gradients, distances in f32), card
+    and CPU one computation here, the floor at perturb 2^-8 above 0."""
+    cfg = reduce_config(TC.get_config(arch))
+    rep = block_backward_check(cfg, kind, "cpu", seq=32,
+                               dtype=torch.bfloat16)
+    assert rep["ok"] and not rep["failed"]
+    assert "x" in rep["leaves"]
+    assert any(k.startswith("ssm/") for k in rep["leaves"]) == (
+        kind == "hybrid")
+    for row in rep["leaves"].values():
+        assert row["max_abs_diff"] == 0.0 and row["finite"]
+        assert row["noise_floor"] > 0.0
+
+
+def test_bf16_check_fails_a_fault_on_the_checked_side(monkeypatch):
+    """bf16 hybrid block, ddt dropped on the checked side only: the SSD's
+    dt leaves and the input fail."""
+    cfg = reduce_config(TC.get_config("hymba-1.5b"))
+    calls = _drop_ddt(monkeypatch, lambda dy, n: n <= 2)
+    rep = block_backward_check(cfg, "hybrid", "cpu", seq=32,
+                               dtype=torch.bfloat16)
+    assert len(calls) == 3
+    assert not rep["ok"]
+    assert {"ssm/dt_bias", "ssm/wdt", "x"} <= set(rep["failed"])
 
 
 @pytest.mark.parametrize("arch,kind", KINDS[1:])
@@ -150,6 +184,17 @@ def test_cuda_block_backward_matches_cpu(card, arch, kind):
     """A full-width block, B 1 x S 2048, f32: every gradient within twice
     its noise floor of the CPU's."""
     rep = block_backward_check(TC.get_config(arch), kind, card)
+    assert rep["ok"], rep["failed"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", BF16_KINDS)
+def test_cuda_bf16_block_backward_matches_cpu(card, arch, kind):
+    """A full-width bf16 block, B 1 x S 2048 (the bf16 flash kernels,
+    forward with lse and backward): every gradient within twice its noise
+    floor (perturb 2^-8) of the CPU's."""
+    rep = block_backward_check(TC.get_config(arch), kind, card,
+                               dtype=torch.bfloat16)
     assert rep["ok"], rep["failed"]
 
 

@@ -30,8 +30,11 @@ on the card (the backward at f32 2e-5 of each gradient's scale over
 every kernel head dim and a padded one, GQA 1 and 5, every mask and tail
 lengths; ten reruns bit-equal, one on a second stream beside another
 kernel), check that head dims up to 256 run zero-padded and larger ones
-raise, that an f32 input that requires grad gets its gradient through the
-kernels and that bf16 still refuses, and run reduced stablelm-3b's
+raise, that an input that requires grad gets its gradient through the
+kernels in f32 and in bf16, hold the bf16 backward kernel to its plain
+version (1e-2 of each gradient's scale over every kernel head dim, S 64,
+200 and 520, every mask, GQA 1, 4 and 5; a rerun bit-equal; one launch a
+call, counted under bf16), and run reduced stablelm-3b's
 ``Model.loss`` and gradients on the card against the CPU's, and so
 reduced hymba-1.5b's and mamba2-370m's (their SSD through the SSD
 kernels, forward and backward); they skip here, with the reason,
@@ -379,6 +382,18 @@ def test_bwd_wrapper_checks_shapes():
         K.flash_attention_bwd(q, k, k, q, q, torch.ones(4, 7), groups=2)
 
 
+def test_bwd_wrapper_checks_dtypes():
+    """out and dout in q's dtype, lse in f32, on either device."""
+    q = torch.ones((2, 8, 16), dtype=torch.bfloat16)
+    lse = torch.zeros((2, 8))
+    with pytest.raises(TypeError, match="float32"):
+        K.flash_attention_bwd(q, q, q, q, q, lse.bfloat16())
+    with pytest.raises(TypeError, match="q's dtype"):
+        K.flash_attention_bwd(q, q, q, q.float(), q, lse)
+    dq, dk, dv = K.flash_attention_bwd(q, q, q, q, q, lse)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+
+
 @pytest.mark.parametrize("S,bq,bkv", [(200, 64, 64), (130, 32, 64),
                                       (77, 32, 32), (300, 64, 64)])
 @pytest.mark.parametrize("causal,window", MASKS + [(True, 1), (True, 130)])
@@ -543,10 +558,11 @@ def test_cuda_kernel_refuses_head_dims_above_256(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
 def test_cuda_kernel_refuses_to_drop_gradients(card, needs_grad):
-    """f32: an input that requires grad gets its gradient through the
-    kernels (one forward and one backward launch), equal to the plain
-    versions' within 2e-5 of the gradient's scale; under no_grad the same
-    call runs the forward alone. bf16 (no backward) still raises."""
+    """An input that requires grad gets its gradient through the kernels
+    (one forward and one backward launch), equal to the plain versions'
+    within 2e-5 of the gradient's scale in f32 and 1e-2 in bf16 (the bf16
+    backward kernel, counted under bf16); under no_grad the same call runs
+    the forward alone."""
     g = torch.Generator(device=card).manual_seed(3)
     qkv = {n: torch.randn((4, 64, 64), generator=g, device=card)
            for n in "qkv"}
@@ -569,8 +585,21 @@ def test_cuda_kernel_refuses_to_drop_gradients(card, needs_grad):
     assert out.shape == (4, 64, 64) and not out.requires_grad
     bf = {n: t.detach().bfloat16().requires_grad_(n == needs_grad)
           for n, t in qkv.items()}
-    with pytest.raises(RuntimeError, match="forward-only in bf16"):
-        flash_attention_fwd(bf["q"], bf["k"], bf["v"])
+    reset_launch_counts()
+    out = flash_attention_fwd(bf["q"], bf["k"], bf["v"])
+    (grad,) = torch.autograd.grad(out, bf[needs_grad], dout.bfloat16())
+    assert launch_counts() == {"flash_attention_fwd": 1,
+                               "flash_attention_bwd": 1}
+    assert K.bwd_launches_by_dtype() == {"float32": 0, "bfloat16": 1}
+    assert grad.dtype == torch.bfloat16
+    plain_out, lse = K.flash_attention_fwd_plain(
+        *(t.detach() for t in bf.values()), return_lse=True)
+    want = dict(zip("qkv", K.flash_attention_bwd_plain(
+        *(t.detach() for t in bf.values()), plain_out, dout.bfloat16(),
+        lse)))
+    torch.testing.assert_close(
+        grad.float(), want[needs_grad].float(),
+        atol=1e-2 * float(want[needs_grad].float().abs().max()), rtol=0)
 
 
 @pytest.mark.cuda
@@ -726,10 +755,59 @@ def test_cuda_reduced_ssm_loss_and_grads_match_cpu(card, arch):
 
 @pytest.mark.cuda
 def test_cuda_bwd_refuses_bf16(card):
-    x = torch.ones((2, 64, 64), device=card, dtype=torch.bfloat16)
-    lse = torch.zeros((2, 64), device=card)
-    with pytest.raises(TypeError, match="forward-only in bf16"):
-        K.flash_attention_bwd(x, x, x, x, x, lse)
+    """bf16 runs through both kernels: the bf16 forward's out and lse feed
+    the bf16 backward, whose gradients come back bf16 and finite; an f32
+    lse is required beside bf16 q (an out or dout of another dtype than
+    q's, or a bf16 lse, raises TypeError)."""
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((2, 64, 64), generator=g, device=card).bfloat16()
+    out, lse = K._fwd_kernel(x, x, x, 1, True, 0, True)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    reset_launch_counts()
+    grads = K.flash_attention_bwd(x, x, x, out, out, lse)
+    assert all(t.dtype == torch.bfloat16 and bool(torch.isfinite(t).all())
+               for t in grads)
+    assert K.bwd_launches_by_dtype() == {"float32": 0, "bfloat16": 1}
+    with pytest.raises(TypeError, match="float32"):
+        K.flash_attention_bwd(x, x, x, out, out, lse.bfloat16())
+    with pytest.raises(TypeError, match="q's dtype"):
+        K.flash_attention_bwd(x, x, x, out.float(), out, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 4, 5])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0)])
+@pytest.mark.parametrize("S", [64, 200, 520])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+def test_cuda_bf16_bwd_kernel_vs_plain(card, hd, S, causal, window, groups):
+    """The bf16 backward kernel against its plain version (with the
+    kernel's tiles: 32 keys above hd 128) on the bf16 forward kernel's out
+    and lse (that lse against the plain forward's): dq, dk, dv within 1e-2
+    of each gradient's scale, a rerun bit-equal, one launch a call."""
+    BKV = 2
+    g = torch.Generator(device=card).manual_seed(hd * 7 + S + groups)
+    q, k, v, dout = (torch.randn(s, generator=g, device=card).bfloat16()
+                     for s in ((BKV * groups, S, hd), (BKV, S, hd),
+                               (BKV, S, hd), (BKV * groups, S, hd)))
+    kw = dict(groups=groups, causal=causal, window=window)
+    out, lse = K._fwd_kernel(q, k, v, groups, causal, window, True)
+    _, plain_lse = K.flash_attention_fwd_plain(q, k, v, return_lse=True,
+                                               **kw)
+    torch.testing.assert_close(lse, plain_lse, atol=2e-5, rtol=2e-5)
+    reset_launch_counts()
+    got = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert launch_counts()["flash_attention_bwd"] == 1
+    assert K.bwd_launches_by_dtype()["bfloat16"] == 1
+    want = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw,
+                                       block_kv=32 if hd > 128 else 64)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        torch.testing.assert_close(
+            a.float(), b.float(), atol=1e-2 * float(b.float().abs().max()),
+            rtol=0)
+    again = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 EDGE_MASKS = [(True, 0), (True, 48), (False, 0)]

@@ -19,6 +19,7 @@ from repro_torch.models import build, make_batch
 from repro_torch.core import ProjectionSpec
 from repro_torch.data import LMBatcher, SyntheticLM
 from repro_torch.train import TrainConfig, train
+from repro_torch.launch import train as launch_train
 from repro_torch.sae import (SAEConfig, SAETrainConfig, compact_sae,
                              make_serve_step, sae_init, train_sae)
 
@@ -71,7 +72,9 @@ def test_every_module_listed():
                  "repro_torch.dist", "repro_torch.dist.watchdog",
                  "repro_torch.train", "repro_torch.train.loop",
                  "repro_torch.serve.engine", "repro_torch.train.serve",
-                 "repro_torch.models.moe", "repro_torch.models.blockcheck"):
+                 "repro_torch.models.moe", "repro_torch.models.blockcheck",
+                 "repro_torch.launch", "repro_torch.launch.steps",
+                 "repro_torch.launch.train"):
         assert want in names
 
 
@@ -123,7 +126,7 @@ _TREE = {"enc1": {"w": np.ones((3, 2), np.float32)}}
                                    "params_from_numpy",
                                    "opt_state_from_numpy", "train_sae",
                                    "model_init", "init_cache", "make_batch",
-                                   "train"])
+                                   "train", "launch_train"])
 def test_entry_point_without_device_raises(no_cuda, entry):
     model = build(get_reduced("hymba_15b"))
     calls = {
@@ -143,6 +146,8 @@ def test_entry_point_without_device_raises(no_cuda, entry):
         "train": lambda: train(build(get_reduced("stablelm_3b")),
                                LMBatcher(SyntheticLM(128), 2, 8),
                                TrainConfig(steps=1)),
+        "launch_train": lambda: launch_train.main(
+            ["--arch", "stablelm_3b", "--reduced", "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -21,8 +21,9 @@
   cross-package resume: JAX trains 3 steps and checkpoints, both packages
   resume from that directory to step 6; losses within 1e-4, params within
   3e-4 of each leaf's scale, as the step above.
-* ``remat`` on and off: the same loss and gradients (bit-equal on the
-  CPU), and the "dots" policy refused.
+* ``remat`` off, "full" and "dots": the same loss and gradients (bit-equal
+  on the CPU); "dots" keeps the products' outputs alive from the forward to
+  the backward, so more bytes than "full" and fewer than no remat.
 * The step updates in place bit-equal to the functional update, and the
   host-side every_k gate gives the device gate's params and theta.
 """
@@ -251,27 +252,72 @@ def test_host_gate_equals_device_gate(count):
         assert torch.equal(dev_s[k], host_s[k])
 
 
-def test_remat_matches_no_remat():
-    base = TC.get_reduced("stablelm_3b")
-    tm = TZ.build(base)
-    p = tm.init(torch.Generator().manual_seed(0), device="cpu")
+REMATS = {"none": dict(remat=False), "full": dict(remat=True),
+          "dots": dict(remat=True, remat_policy="dots")}
+
+
+def _remat_case(arch="stablelm_3b"):
+    base = TC.get_reduced(arch)
+    p = TZ.build(base).init(torch.Generator().manual_seed(0), device="cpu")
     tok, labels = _batch(base.vocab, seed=5)
-    batch = {"tokens": torch.from_numpy(tok),
-             "labels": torch.from_numpy(labels)}
+    return base, p, {"tokens": torch.from_numpy(tok),
+                     "labels": torch.from_numpy(labels)}
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "hymba_15b"])
+def test_remat_matches_no_remat(arch):
+    """No remat, "full" and "dots": loss and every gradient bit-equal."""
+    base, p, batch = _remat_case(arch)
     out = []
-    for remat in (False, True):
-        m = TZ.build(dataclasses.replace(base, remat=remat))
+    for over in REMATS.values():
+        m = TZ.build(dataclasses.replace(base, **over))
         q = tree_map(lambda x: x.detach().clone().requires_grad_(), p)
         loss, _ = m.loss(q, batch)
         loss.backward()
         out.append((loss.detach(), [x.grad for x in leaves(q)]))
-    assert torch.equal(out[0][0], out[1][0])
-    for a, b in zip(out[0][1], out[1][1]):
-        assert torch.equal(a, b)
-    dots = TZ.build(dataclasses.replace(base, remat=True,
-                                        remat_policy="dots"))
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        dots.loss(tree_map(lambda x: x.detach().requires_grad_(), p), batch)
+    for loss, grads in out[1:]:
+        assert torch.equal(out[0][0], loss)
+        for a, b in zip(out[0][1], grads):
+            assert torch.equal(a, b)
+
+
+def _kept_bytes(model, params, batch):
+    """Bytes of the storages that the forward's ops made and that are
+    still alive when the loss is out: what the graph keeps for the
+    backward (the checkpoint's saved products included, which saved-
+    tensor hooks outside a checkpoint cannot see)."""
+    import gc
+    from torch.multiprocessing.reductions import StorageWeakRef
+    from torch.utils._python_dispatch import TorchDispatchMode
+    made = {}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else [out]):
+                if isinstance(t, torch.Tensor):
+                    s = t.untyped_storage()
+                    made[s.data_ptr()] = (StorageWeakRef(s), s.nbytes())
+            return out
+
+    with Record():
+        loss, _ = model.loss(params, batch)
+    gc.collect()
+    kept = sum(n for ref, n in made.values() if not ref.expired())
+    del loss
+    return kept
+
+
+def test_remat_dots_keeps_the_products():
+    """Alive between the forward and the backward: "dots" keeps more than
+    "full" (the products' outputs) and less than no remat (everything)."""
+    base, p, batch = _remat_case()
+    kept = {}
+    for name, over in REMATS.items():
+        q = tree_map(lambda x: x.detach().clone().requires_grad_(), p)
+        kept[name] = _kept_bytes(TZ.build(dataclasses.replace(base, **over)),
+                                 q, batch)
+    assert kept["full"] < kept["dots"] < kept["none"], kept
 
 
 def _quiet(**kw):

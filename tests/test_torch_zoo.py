@@ -34,7 +34,10 @@
   ``tests/test_torch_train.py``'s bounds; reduced llama-vision's
   self-attention q / k and norm leaves and its embedding, whose f32
   rounding in the reference exceeds them, held to JAX within a wider cap
-  and to a float64 run of the port.
+  and to a float64 run of the port. Reduced whisper-small, chaotic in f32
+  at the reference's init, has every gradient leaf held to that float64
+  run (``ORACLE_RULE``), and a planted fault (one leaf's gradient scaled
+  by 1.01, or one dropped) fails the rule.
 """
 import dataclasses
 import re
@@ -74,6 +77,15 @@ GRAD_REL = 5e-4
 # port's 3.4e-4 to 8.8e-4, its distance to JAX up to 1.6e-3)
 GRAD_WIDE = {"llama32_vision_90b":
              r"blocks/p\d+_global/(attn/w[qk]|attn_norm/scale)$|embed/table$"}
+# reduced whisper-small at the reference's init is chaotic in f32 (C-5):
+# JAX's own gradient leaves lie up to 5.3e-4 (frame seed 2), 4.8e-4 (5) and
+# 2.4e-3 (7) of their scale from a float64 run, so no direct bound against
+# JAX both holds and means something. Each leaf is held to the float64
+# oracle instead: the port's distance within ORACLE_RULE times the larger
+# of JAX's distance on that leaf and JAX's median distance over the tree.
+# Measured worst ratio: 2.11 (seed 2, enc_blocks/mlp/w1), 0.91 (5), 0.80
+# (7), so 3.5 leaves a margin of 1.66 or more at all three seeds.
+ORACLE_RULE = {"whisper_small": 3.5}
 
 
 def _fields(cfg):
@@ -460,8 +472,54 @@ def _grads(model, params, batch, dtype):
                                     for p, x in flatten_with_path(tp)}
 
 
+def _hold_to_oracle(got, want, oracle, rule):
+    """Every leaf's distance to the float64 ``oracle`` (of the oracle
+    leaf's largest entry): the port's within ``rule`` times the larger of
+    JAX's on that leaf and JAX's median over the tree."""
+    dist = {}
+    for path, g in got.items():
+        scale = max(float(np.abs(oracle[path]).max()), 1e-30)
+        dist[path] = (float(np.abs(g - oracle[path]).max()) / scale,
+                      float(np.abs(want[path] - oracle[path]).max()) / scale)
+    median = float(np.median([ref for _, ref in dist.values()]))
+    for path, (port, ref) in dist.items():
+        assert port <= rule * max(ref, median), (path, port, ref, median)
+
+
+_LOSS_RUNS = {}
+
+
+def _loss_case(arch):
+    """The port's and JAX's ``Model.loss`` and gradients on one batch, and
+    (for GRAD_WIDE and ORACLE_RULE configs) the port's float64 gradients
+    with dense float64 attention; kept for the tests that reuse them."""
+    if arch in _LOSS_RUNS:
+        return _LOSS_RUNS[arch]
+    from repro_torch.models import attention as TA
+    jcfg, tcfg, jp, tp, tokens = _setup(arch)
+    rng = np.random.default_rng(3)
+    labels = rng.integers(0, jcfg.vocab, size=tokens.shape)
+    labels[0, :3] = -1
+    batch = dict(_memory_batch(jcfg, tokens), labels=labels)
+    (jl, jmet), jg = jax.value_and_grad(JZ.build(jcfg).loss, has_aux=True)(
+        jp, _to_jax(batch))
+    model = TZ.build(tcfg)
+    tl, tmet, got = _grads(model, tp, batch, torch.float32)
+    want = dict(flatten_with_path(jax.tree_util.tree_map(np.asarray, jg)))
+    oracle = None
+    if arch in GRAD_WIDE or arch in ORACLE_RULE:
+        flash = TA.flash_attention
+        TA.flash_attention = _dense64(flash)
+        try:
+            _, _, oracle = _grads(model, tp, batch, torch.float64)
+        finally:
+            TA.flash_attention = flash
+    _LOSS_RUNS[arch] = (jl, jmet, tl, tmet, got, want, oracle)
+    return _LOSS_RUNS[arch]
+
+
 @pytest.mark.parametrize("arch", MEMORY_MOE)
-def test_memory_and_moe_loss_and_grads_vs_jax(arch, monkeypatch):
+def test_memory_and_moe_loss_and_grads_vs_jax(arch):
     """``Model.loss`` (with the MoE auxiliaries: 0.01 lb_loss + 1e-3
     z_loss) and its gradients against ``jax.value_and_grad`` of the JAX
     ``Model.loss``: the loss within 2e-5, the auxiliaries at 1e-5, and each
@@ -470,29 +528,18 @@ def test_memory_and_moe_loss_and_grads_vs_jax(arch, monkeypatch):
     the reference is larger than that, are held to JAX within 2e-3 of
     their scale, and to a float64 run of the port (dense float64 attention
     in place of flash): JAX's distance to it within 1e-3 of the scale, the
-    port's within twice JAX's plus 1e-6 of the scale."""
-    from repro_torch.models import attention as TA
-    jcfg, tcfg, jp, tp, tokens = _setup(arch)
-    rng = np.random.default_rng(3)
-    labels = rng.integers(0, jcfg.vocab, size=tokens.shape)
-    labels[0, :3] = -1
-    batch = dict(_memory_batch(jcfg, tokens), labels=labels)
-    jbatch = _to_jax(batch)
-    (jl, jmet), jg = jax.value_and_grad(JZ.build(jcfg).loss, has_aux=True)(
-        jp, jbatch)
-    model = TZ.build(tcfg)
-    tl, tmet, got = _grads(model, tp, batch, torch.float32)
+    port's within twice JAX's plus 1e-6 of the scale. Reduced whisper's
+    leaves are all held to that float64 run by ``ORACLE_RULE`` instead."""
+    jl, jmet, tl, tmet, got, want, oracle = _loss_case(arch)
     assert abs(float(tl) - float(jl)) <= LOSS_ATOL
     assert sorted(tmet) == sorted(jmet)
     _aux_close({k: v for k, v in tmet.items() if k != "ce"},
                {k: v for k, v in jmet.items() if k != "ce"})
-    want = dict(flatten_with_path(jax.tree_util.tree_map(np.asarray, jg)))
     assert sorted(want) == sorted(got)
+    if arch in ORACLE_RULE:
+        _hold_to_oracle(got, want, oracle, ORACLE_RULE[arch])
+        return
     wide = re.compile(GRAD_WIDE.get(arch, r"(?!)"))
-    if arch in GRAD_WIDE:
-        monkeypatch.setattr(TA, "flash_attention",
-                            _dense64(TA.flash_attention))
-        _, _, oracle = _grads(model, tp, batch, torch.float64)
     for path, g in got.items():
         w = want[path]
         scale = max(float(np.abs(w).max()), 1e-30)
@@ -505,3 +552,16 @@ def test_memory_and_moe_loss_and_grads_vs_jax(arch, monkeypatch):
         assert err <= 4 * GRAD_REL * scale, (path, err, scale)
         assert ref <= 2 * GRAD_REL * scale, (path, ref, scale)
         assert port <= 2 * ref + 1e-6 * scale, (path, err, port, ref, scale)
+
+
+@pytest.mark.parametrize("fault", ["scaled", "dropped"])
+def test_whisper_oracle_rule_fails_a_planted_fault(fault):
+    """ORACLE_RULE is sharp: the port's ``cross/wk`` gradient scaled by
+    1.01, or ``enc_norm``'s bias gradient dropped (zeroed), fails it."""
+    _, _, _, _, got, want, oracle = _loss_case("whisper_small")
+    bad = dict(got)
+    path = ("blocks/p0_dec_cross/cross/wk" if fault == "scaled"
+            else "enc_norm/bias")
+    bad[path] = got[path] * 1.01 if fault == "scaled" else 0 * got[path]
+    with pytest.raises(AssertionError, match=path):
+        _hold_to_oracle(bad, want, oracle, ORACLE_RULE["whisper_small"])
