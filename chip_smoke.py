@@ -123,16 +123,21 @@ and prints no result. Phases:
                forward (the kernels line's second flash_attention_fwd
                row).
   6e. attn_bwd_bf16 — the bf16 backward kernel (flash_attention_bwd_bf16,
-               mma.sync on the tensor cores) the same way at stablelm-3b's
-               training shape and hymba-1.5b's (B 1 x S 2048, the shape
-               phase 16 trains at): dq, dk, dv within 1e-2 of each
-               gradient's scale of the plain version, a rerun bit-equal,
-               one launch a call counted under bf16; the bf16 forward's lse
+               wgmma and TMA at these head dims) the same way at
+               stablelm-3b's training shape and hymba-1.5b's (B 1 x S
+               2048, the shape phase 16 trains at): dq, dk, dv within 1e-2
+               of each gradient's scale of the plain version at the
+               kernel's tiles (kernel.bwd_tiles), a rerun bit-equal, one
+               launch a call counted under bf16; the bf16 forward's lse
                against the plain forward's; device ms warm and flushed,
                plain ms, the bound (five products at 989 TFLOP/s), SDPA's
-               bf16 backward, the delta and main launches' device ms, the
-               main kernel's CTAs an SM; the bf16 forward with and without
-               lse at stablelm's shape.
+               bf16 backward, the earlier design's ms (the first,
+               mma.sync kernel, BWD_BF16_EARLIER_MS), the delta and main
+               launches' device ms, the main kernel's registers (at
+               launch and in its consumer warpgroups), local memory,
+               shared memory and CTAs an SM (at every kernel head dim
+               too); the bf16 forward with and without lse at stablelm's
+               shape.
   6c. attn_zoo — the flash kernels at the shapes the new block kinds give
                them, f32: whisper-small's encoder self attention (BH 24,
                1500 x 1500, hd 64, full) and decoder cross attention (448
@@ -463,6 +468,10 @@ BWD_BF16_SHAPES = [BWD_SHAPES[0], ("hymba_train", 1, 25, 5, 2048, 64, True,
 # kernel and the plain version round the same operands to bf16 and sum
 # them in other orders, and each output is rounded to bf16 once (2^-9)
 BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# phase 6e: the first design of the bf16 backward (mma.sync), device ms
+# warm at each shape in this script's last run of it (H100 80GB HBM3,
+# 700 W), beside the redesigned kernel's
+BWD_BF16_EARLIER_MS = {"stablelm_train": 0.8196, "hymba_train": 0.5653}
 # the bf16 backward's device kernels, by name in a profiler trace
 BWD_TRACE_NAMES = {"float32": ("bwd_delta_kernel", "bwd_main_kernel"),
                    "bfloat16": ("bwd_bf16_delta_kernel",
@@ -994,8 +1003,9 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES,
         by_dtype = FA.bwd_launches_by_dtype()
         check(by_dtype[dname] == 1 and sum(by_dtype.values()) == 1,
               f"flash bwd {dname} {name}: launches {by_dtype}")
+        block_q, block_kv = FA.bwd_tiles(hd, dt)
         want = FA.flash_attention_bwd_plain(
-            *args, **kw, block_kv=32 if hd > 128 and esize == 2 else 64)
+            *args, **kw, block_q=block_q, block_kv=block_kv)
         errs = {}
         for gname, a, b in zip(("dq", "dk", "dv"), got, want):
             scale = float(b.float().abs().max())
@@ -1062,12 +1072,29 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES,
                  k.split("_kernel")[0]: v
                  for k, v in trace["kernels_device_ms"].items()},
              "ctas_per_sm": FA.bwd_ctas_per_sm(hd, dt)}
+        extra = {"plain_tiles": [block_q, block_kv]}
+        if esize == 2:
+            # the main kernel at this head dim, and at every kernel head
+            # dim: the kernels row takes what the built kernel reports
+            # (registers at launch, local memory, CTAs an SM); the phase
+            # line also the consumers' setmaxnreg count and the dynamic
+            # shared memory (the source's constants) and the first
+            # design's time (an earlier run's, not this one's)
+            attrs = FA.bwd_kernel_attrs(hd)
+            t["kernel_attrs"] = {a: attrs[a] for a in (
+                "registers", "local_bytes", "ctas_per_sm")}
+            extra.update({
+                "kernel_attrs": attrs,
+                "kernel_attrs_by_head_dim": {
+                    kd: FA.bwd_kernel_attrs(kd)
+                    for kd in FA.KERNEL_HEAD_DIMS},
+                "earlier_design_ms": BWD_BF16_EARLIER_MS.get(name)})
         line = {"phase": "attn_bwd" if esize == 4 else "attn_bwd_bf16",
                 "dtype": dname, "shape": name, "B": B, "H": H,
                 "KV": KV, "S": S, "head_dim": hd, "causal": causal,
                 "window": window, "max_abs_err": errs,
                 "out_max_abs_err": out_err, "out_scale": out_scale,
-                "lse_max_abs_err": lse_err, **t}
+                "lse_max_abs_err": lse_err, **t, **extra}
         rows.append(dict(t, shape=name, max_abs_err=max(errs.values())))
         if fwd_row is None:
             # the forward as training calls it (with lse) at this shape,
@@ -1344,6 +1371,14 @@ def block_bwd_phase(torch, C, FA, SK, dev, blocks=BLOCK_BWD,
                                       for r in rep["leaves"].values()),
               "seconds": seconds,
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              # the CPU side's threads, vector unit and instruction sets
+              # (ROADMAP C-12: which machine a failing run had)
+              "cpu_threads": torch.get_num_threads(),
+              "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+              "cpu_features": {
+                  n[4:-10]: bool(getattr(torch.cpu, n)())
+                  for n in sorted(dir(torch.cpu))
+                  if n.startswith("_is_") and n.endswith("_supported")},
               "leaves": rep["leaves"]})
         del rep
         gc.collect()

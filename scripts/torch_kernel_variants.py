@@ -4,10 +4,12 @@
     python3 scripts/torch_kernel_variants.py [--only NAME ...] [--src DIR]
 
 Each variant is the committed ``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``, ``csrc/ssd.cu``, ``csrc/ssd_bwd.cu`` or
-``csrc/l1inf.cu`` (or the same file under ``--src``: the ``scalar_*``
-variants apply to the first SSD backward's ``ssd_bwd.cu``, whose chunk
-kernel read its operands as scalars) with a few exact text
+``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_bwd_bf16.cu``,
+``csrc/ssd.cu``, ``csrc/ssd_bwd.cu`` or ``csrc/l1inf.cu`` (or the same
+file under ``--src``: the ``scalar_*`` variants apply to the first SSD
+backward's ``ssd_bwd.cu``, whose chunk kernel read its operands as
+scalars, and ``mma_flash_bwd_bf16_phase_clocks`` to the first bf16 flash
+backward's, mma.sync at every head dim) with a few exact text
 substitutions: another tiling or launch bound, or one part of the work cut
 out to see what it costs (a "diagnostic" variant, whose output is wrong by
 design and whose error is reported, not checked). Every variant is
@@ -16,7 +18,9 @@ once, in parallel), loaded with ``ctypes`` through the same C interface as
 the wrappers, run at the main path's shapes (hymba-1.5b's prefill for
 flash in f32 and bf16; the backward at ``chip_smoke.BWD_SHAPES``,
 stablelm-3b's training attention and hymba-1.5b's prefill, with the device
-ms of its two launches from one traced call; hymba-1.5b's and
+ms of its two launches from one traced call; the bf16 backward at
+``chip_smoke.BWD_BF16_SHAPES``, stablelm-3b's and hymba-1.5b's training
+attention, the same way; hymba-1.5b's and
 mamba2-370m's shapes for SSD, and their training shapes for the SSD
 backward (``chip_smoke.SSD_BWD_SHAPES`` with dt in [3, 20]); for the
 l1,inf engine, colstats and mu_solve on ``chip_smoke.py`` phase 2's inputs
@@ -26,7 +30,10 @@ timed as ``chip_smoke.time_ms`` times a kernel (a CUDA graph of
 back-to-back calls between CUDA events, inputs L2-warm). SSD variants also
 get one traced call, for the device ms of each of their launches;
 ``ssd_bwd_phase_clocks`` also reports its chunk kernel's clock64() cycles
-per CTA in each phase, and ``newton_loop_phase_clocks`` (with
+per CTA in each phase, ``flash_bwd_bf16_phase_clocks`` the bf16 flash
+backward's (BWD_BF16_PHASES; ``mma_flash_bwd_bf16_phase_clocks`` the same
+phases of the first design, with ``--src`` on a tree that has it), and
+``newton_loop_phase_clocks`` (with
 ``cold_loop_phase_clocks`` for the first loop kernel's source) the Newton
 loop's, beside its L2-flushed time; the ``*_empty`` variants run the loop
 with nothing solved for as many steps as the plain loop takes. Prints one JSON line per variant, then the card's
@@ -387,6 +394,113 @@ _COLD_LOOP_EMPTY = [
     ("    return __syncthreads_or(moved) != 0;",
      "    return __syncthreads_or(moved) >= 0;")]
 
+# the bf16 flash backward's phase clocks: consumer thread 0 of each CTA
+# adds the clock64() gap since its last stamp to phase k (BWD_BF16_PHASES:
+# 0 items (claim, K and V, dk / dv stores), 1 the wait for a tile's loads,
+# 2 S^T and dP^T, 3 P and dS on the fragments, 4 dv and dk, 5 dS^T to
+# shared memory and the barrier, 6 dq's product, 7 the wait for dq's turn,
+# 8 its read-add-write); the dv / dk products are waited for before the dS
+# stores, so that their time is their own. The variant's
+# flash_attention_bwd_bf16_clocks reads the sums and the CTA count (then
+# zeroes them)
+BWD_BF16_PHASES = ("items", "loads", "s_dp", "p_ds", "dv_dk", "ds_smem",
+                   "dq", "dq_turn_wait", "dq_add")
+_CLOCK_DEFS = (
+    f"constexpr int kClockPhases = {len(BWD_BF16_PHASES)};\n"
+    "__device__ unsigned long long g_bwd_clocks[kClockPhases + 1];\n"
+    "#define CLOCK_START() unsigned long long clk_[kClockPhases] = {}; "
+    "long long clk_last_ = clock64()\n"
+    "#define CLOCK(k) if (threadIdx.x == 0) { const long long now_ = "
+    "clock64(); clk_[k] += (unsigned long long)(now_ - clk_last_); "
+    "clk_last_ = now_; }\n"
+    "#define CLOCK_END() if (threadIdx.x == 0) { for (int k_ = 0; k_ < "
+    "kClockPhases; ++k_) atomicAdd(&g_bwd_clocks[k_], clk_[k_]); "
+    "atomicAdd(&g_bwd_clocks[kClockPhases], 1ull); }\n")
+_CLOCK_READ = (
+    "const char* flash_attention_bwd_bf16_error_string(int code) {",
+    "int flash_attention_bwd_bf16_clocks(unsigned long long* out) {\n"
+    "  cudaMemcpyFromSymbol(out, g_bwd_clocks, sizeof(g_bwd_clocks));\n"
+    "  static const unsigned long long zero[kClockPhases + 1] = {};\n"
+    "  cudaMemcpyToSymbol(g_bwd_clocks, zero, sizeof(zero));\n"
+    "  return (int)cudaGetLastError();\n}\n\n"
+    "const char* flash_attention_bwd_bf16_error_string(int code) {")
+_BWD_BF16_CLOCKS = [
+    ("#include <stdint.h>\n", "#include <stdint.h>\n" + _CLOCK_DEFS),
+    ("\n  for (int ic = 0;; ++ic) {\n",
+     "\n  CLOCK_START();\n  for (int ic = 0;; ++ic) {\n"),
+    ("    mbar_wait(fullKV, ic & 1);\n",
+     "    mbar_wait(fullKV, ic & 1);\n    CLOCK(0);\n"),
+    ("      mbar_wait(fullT + st, (tc >> 1) & 1);\n",
+     "      mbar_wait(fullT + st, (tc >> 1) & 1);\n      CLOCK(1);\n"),
+    ("      if (kPipe && pctr) fetch();  // the last tile's old sums\n",
+     "      if (kPipe && pctr) {\n        CLOCK(2);\n        fetch();\n"
+     "        CLOCK(7);\n      }\n"),
+    ("      reg_fence(s);\n      reg_fence(dp);\n",
+     "      reg_fence(s);\n      reg_fence(dp);\n      CLOCK(2);\n"),
+    ("      if (kPipe && pctr) finish();  // the last tile's add\n",
+     "      CLOCK(3);\n      if (kPipe && pctr) {\n        finish();\n"
+     "        CLOCK(8);\n      }\n"),
+    ("      wgmma_commit();\n\n      // 4. dS^T",
+     "      wgmma_commit();\n      wgmma_wait0();\n      CLOCK(4);\n\n"
+     "      // 4. dS^T"),
+    ("      consumers_sync();            // dS^T of both strips written\n",
+     "      consumers_sync();            // dS^T of both strips written\n"
+     "      CLOCK(5);\n"),
+    ("      reg_fence(dqa);\n      reg_fence(dqr);\n",
+     "      reg_fence(dqa);\n      reg_fence(dqr);\n      CLOCK(6);\n"),
+    ("        fetch();\n        finish();\n",
+     "        fetch();\n        CLOCK(7);\n        finish();\n"
+     "        CLOCK(8);\n"),
+    ("      fetch();\n      finish();\n    }\n",
+     "      fetch();\n      CLOCK(7);\n      finish();\n      CLOCK(8);\n"
+     "    }\n"),
+    ("  if (lane == 0) mbar_arrive(added + (bc & 1));\n}\n",
+     "  if (lane == 0) mbar_arrive(added + (bc & 1));\n  CLOCK(0);\n"
+     "  CLOCK_END();\n}\n"),
+    _CLOCK_READ]
+# the same phases stamped into the first (mma.sync) design's source
+# (run with --src on a tree that has it): thread 0 of each
+# CTA; its phase A is S^T / dP^T (2) and P / dS with their shared-memory
+# stores (3), its barrier and bump 5, phase B dv / dk (4), then dq
+_MMA_CLOCKS = [
+    ("#include <stdint.h>\n", "#include <stdint.h>\n" + _CLOCK_DEFS),
+    ("  if (tid == 0) *item_s = atomicAdd(work, 1);\n  __syncthreads();\n"
+     "  int item = *item_s;\n",
+     "  CLOCK_START();\n"
+     "  if (tid == 0) *item_s = atomicAdd(work, 1);\n  __syncthreads();\n"
+     "  int item = *item_s;\n"),
+    ("    for (int n = 0; n < ntiles; ++n) {\n      cp_async_wait_all();",
+     "    CLOCK(0);\n"
+     "    for (int n = 0; n < ntiles; ++n) {\n      cp_async_wait_all();"),
+    ("      if (n + 1 < ntiles) load_tile(n + 1);\n      cp_async_commit();\n",
+     "      if (n + 1 < ntiles) load_tile(n + 1);\n      cp_async_commit();\n"
+     "      CLOCK(1);\n"),
+    ("        // element e of n8 tile t: key 16 ka + g8",
+     "        CLOCK(2);\n        // element e of n8 tile t: key 16 ka + g8"),
+    ("      __syncthreads();        // P^T, dS^T written; last tile's dq stored",
+     "      CLOCK(3);\n"
+     "      __syncthreads();        // P^T, dS^T written; last tile's dq stored"),
+    ("      pending = ctr;\n", "      pending = ctr;\n      CLOCK(5);\n"),
+    ("      // this tile's dq part dS k: queries",
+     "      CLOCK(4);\n      // this tile's dq part dS k: queries"),
+    ("      // dq rows: the first turn stores, the others add in turn order, the",
+     "      CLOCK(6);\n"
+     "      // dq rows: the first turn stores, the others add in turn order, the"),
+    ("        __syncwarp();\n      }\n#pragma unroll\n"
+     "      for (int half = 0; half < 2; ++half) {\n"
+     "        const int qp = q0 + 16 * qb + g8 + 8 * half;",
+     "        __syncwarp();\n      }\n      CLOCK(7);\n#pragma unroll\n"
+     "      for (int half = 0; half < 2; ++half) {\n"
+     "        const int qp = q0 + 16 * qb + g8 + 8 * half;"),
+    ("            __stcg(acc, o);\n        }\n      }\n    }\n"
+     "    cp_async_wait_all();",
+     "            __stcg(acc, o);\n        }\n      }\n      CLOCK(8);\n    }\n"
+     "    cp_async_wait_all();"),
+    ("    __syncthreads();          // the next item's claim is visible\n"
+     "    item = *item_s;\n  }\n}\n",
+     "    __syncthreads();          // the next item's claim is visible\n"
+     "    item = *item_s;\n  }\n  CLOCK(0);\n  CLOCK_END();\n}\n"),
+    _CLOCK_READ]
 # name -> (source, diagnostic, [(old, new), ...])
 VARIANTS = {
     "l1inf": ("l1inf.cu", False, []),
@@ -467,6 +581,14 @@ VARIANTS = {
     # a scratch buffer (allocated by the launcher here), no turns, and a
     # second pass that sums the slots in ascending kv tile and scales
     "flash_bwd_dq_partials": ("flash_attention_bwd.cu", False, _DQ_PARTIALS),
+    # the bf16 backward as it stands (the source under --src), with its
+    # phase clocks, and the first (mma.sync) design's phase clocks (run
+    # with --src on a tree that has it)
+    "flash_bwd_bf16": ("flash_attention_bwd_bf16.cu", False, []),
+    "flash_bwd_bf16_phase_clocks": ("flash_attention_bwd_bf16.cu", False,
+                                    _BWD_BF16_CLOCKS),
+    "mma_flash_bwd_bf16_phase_clocks": ("flash_attention_bwd_bf16.cu", False,
+                                        _MMA_CLOCKS),
     # the first SSD backward (run with --src on a tree that has it): cuts
     # of its chunk kernel's serial phases and of each of its products
     "scalar_ssd_bwd": ("ssd_bwd.cu", False, []),
@@ -633,6 +755,67 @@ def bwd_runs(torch, CS, FA, lib, dev):
                       "max_err_over_scale_vs_plain": err,
                       "launch_device_ms": launches}
         del q, k, v, dout, out, lse, scratch, grads, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bwd_bf16_runs(torch, CS, FA, lib, dev):
+    """{shape: row} at chip_smoke.BWD_BF16_SHAPES (stablelm-3b's and
+    hymba-1.5b's training attention) in bf16, on the forward kernel's out
+    and lse: max |err| / scale of dq, dk, dv against the plain version at
+    the kernel's tiles, ms, the device ms of each launch and, for a
+    ``*_phase_clocks`` variant, one call's clock64() cycles a CTA in each
+    phase (BWD_BF16_PHASES) and the CTAs that stamped them."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_bf16.argtypes = [I] + [P] * 11 + [I] * 6 + [
+        ctypes.c_float, P]
+    g = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+    for name, B, H, KV, S, hd, causal, window in CS.BWD_BF16_SHAPES:
+        kw = dict(groups=H // KV, causal=causal, window=window)
+        q, k, v, dout = (torch.randn(s, generator=g, device=dev).bfloat16()
+                         for s in ((B * H, S, hd), (B * KV, S, hd),
+                                   (B * KV, S, hd), (B * H, S, hd)))
+        out, lse = FA._fwd_kernel(q, k, v, H // KV, causal, window, True)
+        if hasattr(lib, "flash_attention_bwd_bf16_scratch"):
+            lib.flash_attention_bwd_bf16_scratch.argtypes = [I] * 5
+            lib.flash_attention_bwd_bf16_scratch.restype = ctypes.c_longlong
+            n = lib.flash_attention_bwd_bf16_scratch(hd, B * H, S, S, H // KV)
+        else:           # the first design's layout
+            n = B * H * S + B * H * (-(-S // 32)) + 1
+        scratch = torch.empty((n,), device=dev)
+        dqacc = torch.empty(q.shape, device=dev)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        fn = lambda: lib.flash_attention_bwd_bf16(
+            hd, *(t.data_ptr() for t in (q, k, v, out, dout, lse, scratch,
+                                         dqacc, *grads)),
+            B * H, S, S, H // KV, int(causal), window, hd ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        if fn() != 0:
+            raise SystemExit("flash_bwd_bf16 variant: launch failed")
+        want = FA.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+        err = {gname: float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max())
+               for gname, a, b in zip(("dq", "dk", "dv"), grads, want)}
+        trace = CS._profile(torch, fn)
+        launches = {r["name"].split("::")[-1].split("<")[0].split("(")[0]:
+                    r["device_ms"] for r in trace["top_device"]
+                    if "bwd_" in r["name"]}
+        rows[name] = {"ms": CS.time_ms(torch, fn),
+                      "max_err_over_scale_vs_plain": err,
+                      "launch_device_ms": launches}
+        if hasattr(lib, "flash_attention_bwd_bf16_clocks"):
+            clocks = (ctypes.c_ulonglong * (len(BWD_BF16_PHASES) + 1))()
+            lib.flash_attention_bwd_bf16_clocks(clocks)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            lib.flash_attention_bwd_bf16_clocks(clocks)
+            ctas = max(int(clocks[len(BWD_BF16_PHASES)]), 1)
+            rows[name]["phase_clocks_per_cta"] = {
+                ph: clocks[i] / ctas for i, ph in enumerate(BWD_BF16_PHASES)}
+            rows[name]["clock_ctas"] = ctas
+        del q, k, v, dout, out, lse, scratch, dqacc, grads, want
         torch.cuda.empty_cache()
     return rows
 
@@ -868,6 +1051,8 @@ def main():
                 line[dname] = {"ms": ms, "max_abs_err_vs_plain": err}
         elif src == "flash_attention_bwd.cu":
             line.update(bwd_runs(torch, CS, FA, lib, dev))
+        elif src == "flash_attention_bwd_bf16.cu":
+            line.update(bwd_bf16_runs(torch, CS, FA, lib, dev))
         elif src == "ssd_bwd.cu":
             line.update(ssd_bwd_runs(torch, CS, SK, lib, dev))
         elif src == "l1inf.cu":

@@ -21,21 +21,26 @@ order (ascending kv tile): five products, and a rerun is bit-equal. It
 replaces the jnp autodiff of ``repro.models.attention.chunked_attention``
 that the JAX reference runs in place of a TPU backward (the Pallas kernel
 is forward-only and names "the standard flash backward" as its pair).
-bf16: ``csrc/flash_attention_bwd_bf16.cu``, the same schedule on the
-tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums): P is rounded
-to bf16 as dv's operand (as the forward rounds p before p v), dS to two
-bf16 terms, hi + lo, as dk's and dq's (dS's rows sum to zero, so one bf16
-rounding would cost dq and dk several times JAX's f32 error), dq's parts
-are summed in f32 in a scratch buffer in the same turn order, and dq, dk,
-dv are rounded to bf16 once, at the end.
+bf16: ``csrc/flash_attention_bwd_bf16.cu``, the same item schedule and
+dq turns on the tensor cores (bf16 operands, f32 sums): at head dims 64, 80
+and 128 FlashAttention-3's backward made deterministic (wgmma and TMA, a
+producer warpgroup and two consumers, 128-key kv tiles, P and dS fed to
+dv's and dk's products from registers), at 256 mma.sync m16n8k16 with
+32-key tiles. P is rounded to bf16 as dv's operand (as the forward rounds p
+before p v), dS to two bf16 terms, hi + lo, as dk's and dq's (dS's rows sum
+to zero, so one bf16 rounding would cost dq and dk several times JAX's f32
+error), dq's parts are summed in f32 in a scratch buffer in the same turn
+order (and dk's and dv's over the parts of a GQA group, where an item takes
+one query head), and dq, dk, dv are rounded to bf16 once, at the end.
+``bwd_tiles`` gives each backward kernel's tiles by head dim and dtype.
 
 Bound on the card: operations. The forward at hymba-1.5b's prefill (BH 50,
 S 2048, hd 64, causal, window 1024): 20.1 GFLOP of unmasked pairs, 0.020
 ms at the bf16 tensor cores' peak, 0.30 ms at the f32 CUDA cores'. The
 backward at stablelm-3b's training shape (BH 32, S 2048, hd 80, causal):
 five products over 67.1 M pairs, 53.7 GFLOP, 0.80 ms in f32 and 0.054 ms
-in bf16. bf16 runs both directions on the tensor cores (the forward on
-wgmma and TMA, the backward on mma.sync), with p rounded to bf16 before
+in bf16. bf16 runs both directions on the tensor cores (wgmma and TMA;
+the backward at head dim 256 on mma.sync), with p rounded to bf16 before
 the product with v; f32 runs both directions on the CUDA cores in full f32.
 
 Head dims: the kernels are built for ``KERNEL_HEAD_DIMS``; on the card a
@@ -59,8 +64,9 @@ set its tiles only (the kernels pick their own, by head_dim), and tails
 that are not a multiple of a tile are bounds-masked in both. The
 backward's plain version takes the kernel's dq order: each
 query tile's parts are summed from its first kv tile up to its last, then
-scaled. ``scale`` (default ``head_dim ** -0.5``) lets a test run the
-plain versions on zero-padded inputs as the card runs the kernels.
+scaled; its tiles default to the kernel's (``bwd_tiles``). ``scale``
+(default ``head_dim ** -0.5``) lets a test run the plain versions on
+zero-padded inputs as the card runs the kernels.
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (building it at first use) or
 the call raises. The wrappers check device, dtype, shape and
@@ -84,9 +90,9 @@ from ... import _build
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "FlashAttentionFunction", "KERNEL_HEAD_DIMS", "MAX_HEAD_DIM",
-           "bwd_ctas_per_sm", "kernel_head_dim", "launch_counts",
-           "BWD_KERNELS", "bwd_launches_by_dtype",
-           "reset_launch_counts"]
+           "bwd_ctas_per_sm", "bwd_kernel_attrs", "bwd_tiles",
+           "kernel_head_dim", "launch_counts", "BWD_KERNELS",
+           "bwd_launches_by_dtype", "reset_launch_counts"]
 
 _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                              "flash_attention_bwd": 0}
@@ -137,6 +143,12 @@ def _lib(name: str) -> ctypes.CDLL:
             fn.restype = I
             occ = getattr(lib, f"{name}_ctas_per_sm")
             occ.argtypes, occ.restype = [I], I
+            if name == "flash_attention_bwd_bf16":
+                lib.flash_attention_bwd_bf16_scratch.argtypes = [I] * 5
+                lib.flash_attention_bwd_bf16_scratch.restype = \
+                    ctypes.c_longlong
+                lib.flash_attention_bwd_bf16_attrs.argtypes = [I, P]
+                lib.flash_attention_bwd_bf16_attrs.restype = I
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = [I], ctypes.c_char_p
         _LIBS[name] = lib
@@ -328,6 +340,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ------------------------------- backward ------------------------------------
 
+def bwd_tiles(hd: int, dtype: torch.dtype = torch.float32):
+    """(query rows, keys) of the backward kernel's tiles for a head_dim of
+    ``hd`` (at the kernel head dim that runs it) and inputs of ``dtype``:
+    64 x 64 in f32; in bf16 64 x 128 at kernel head dims 64, 80 and 128 (two
+    64-key strips, one a consumer warpgroup) and 64 x 32 at 256."""
+    if dtype == torch.bfloat16:
+        return (64, 32) if kernel_head_dim(hd, "flash_attention_bwd") > 128 \
+            else (64, 128)
+    return 64, 64
+
+
 def _kv_tiles(i0: int, bq: int, bkv: int, nkv: int, causal: bool,
               window: int):
     """(j_lo, j_hi): the kv tiles that the forward's tile test pairs with
@@ -341,11 +364,13 @@ def _kv_tiles(i0: int, bq: int, bkv: int, nkv: int, causal: bool,
 
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, groups: int = 1,
                               causal: bool = True, window: int = 0,
-                              block_q: int = 64, block_kv: int = 64,
+                              block_q: Optional[int] = None,
+                              block_kv: Optional[int] = None,
                               scale: Optional[float] = None):
     """Plain version of ``flash_attention_bwd`` (same arguments and
-    results), in the kernel's order: delta = rowsum(dout * out); then for
-    each query tile, from the last down to the first (the order in which a
+    results), in the kernel's order, over (block_q, block_kv) tiles (by
+    default the kernel's, ``bwd_tiles``): delta = rowsum(dout * out); then
+    for each query tile, from the last down to the first (the order in which a
     kernel CTA walks them), the kv tiles that the forward's tile test pairs
     with it, ascending (the kernel's dq turn order): P = exp(s * scale -
     lse) with masked entries 0, dP = dout v^T, dS = P (dP - delta), dv +=
@@ -356,11 +381,12 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, groups: int = 1,
     a sum of two bf16 terms before the products that take them (the bf16
     kernel's tensor-core operands). Results in the inputs' dtypes. It
     agrees with the kernels up to the order inside each product and over
-    the group, given the kernel's tiles (64 x 64; the bf16 kernel takes 32
-    keys at head dims above 128)."""
+    the group, given the kernel's tiles."""
     BH, Sq, hd = q.shape
     BKV, Skv, _ = k.shape
-    bq, bkv = min(block_q, Sq), min(block_kv, Skv)
+    tq, tkv = bwd_tiles(hd, q.dtype)
+    bq = min(tq if block_q is None else block_q, Sq)
+    bkv = min(tkv if block_kv is None else block_kv, Skv)
     scale = hd ** -0.5 if scale is None else scale
     dev = q.device
     G = BH // BKV
@@ -412,18 +438,34 @@ def bwd_ctas_per_sm(hd: int, dtype: torch.dtype = torch.float32) -> int:
     return int(getattr(_lib(name), f"{name}_ctas_per_sm")(hdp))
 
 
+def bwd_kernel_attrs(hd: int) -> Dict[str, int]:
+    """The bf16 backward's main kernel at the kernel head dim that takes
+    ``hd``, on the current card: registers a thread at launch and in its
+    consumer warpgroups (after setmaxnreg; the launch count at hd 256),
+    local memory a thread (spills), dynamic shared memory and CTAs an SM
+    (builds the kernel; needs the card)."""
+    hdp = kernel_head_dim(hd, "flash_attention_bwd")
+    out = (ctypes.c_int * 5)()
+    rc = _lib("flash_attention_bwd_bf16").flash_attention_bwd_bf16_attrs(
+        hdp, out)
+    _raise_on(rc, "flash_attention_bwd_bf16", "flash_attention_bwd_bf16")
+    return dict(zip(("registers", "consumer_registers", "local_bytes",
+                     "shared_bytes", "ctas_per_sm"), out))
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, *, groups: int = 1,
                         causal: bool = True, window: int = 0,
-                        block_q: int = 64, block_kv: int = 64):
+                        block_q: Optional[int] = None,
+                        block_kv: Optional[int] = None):
     """Gradients (dq, dk, dv) of ``flash_attention_fwd`` given its out, the
     incoming dout (BH, Sq, hd) and its lse (BH, Sq): out and dout in q's
     dtype (f32 or bf16), lse in f32 (TypeError otherwise). On the card:
     head_dim <= ``MAX_HEAD_DIM`` (zero-padded as the forward pads it); the
     f32 or bf16 kernel by the dtype, whose two launches (delta, main) count
     as one call. ``block_q`` / ``block_kv`` set the plain version's tiles
-    only."""
+    only (by default the kernel's, ``bwd_tiles``)."""
     _check(q, k, v, groups)
     BH, Sq, hd = q.shape
     if tuple(out.shape) != (BH, Sq, hd) or tuple(dout.shape) != (BH, Sq, hd) \
@@ -446,10 +488,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, out, dout = (_pad_hd(t, hdp) for t in (q, k, v, out, dout))
     q, k, v, out, dout, lse = _aligned(q, k, v, out, dout, lse)
     name = BWD_KERNELS[q.dtype]
-    # delta (BH * Sq), then a turn counter per (query head, query tile) of
-    # at least 32 rows and the work counter
-    scratch = torch.empty((BH * Sq + BH * (-(-Sq // 32)) + 1,),
-                          dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        # delta, the turn counters and the work counter, then dk's and dv's
+        # f32 partials where an item takes one query head of a group
+        n = _lib(name).flash_attention_bwd_bf16_scratch(
+            hdp, BH, Sq, k.shape[1], groups)
+        if n < 0:
+            raise RuntimeError("flash_attention_bwd: no CUDA device")
+    else:
+        # delta (BH * Sq), then a turn counter per (query head, query tile)
+        # of at least 32 rows and the work counter
+        n = BH * Sq + BH * (-(-Sq // 32)) + 1
+    scratch = torch.empty((n,), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # bf16: dq's f32 partial sums between the turns
     dqacc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)

@@ -13,6 +13,9 @@
   JAX's plus 1e-3 of the scale. The port rounds P and dS to bf16 (the
   tensor cores' operands) where JAX keeps them in f32, and JAX rounds
   nothing but its outputs.
+* The same rule at the bf16 backward kernel's tiles (64 query rows x 128
+  keys at these head dims, ``kernel.bwd_tiles``), the plain version's dq
+  then summed over 128-key tiles in the kernel's turn order.
 * The plain bf16 forward's lse: the f32 logsumexp of the same scaled,
   masked logits (q k^T of the bf16 values, summed in f32).
 * ``Model.loss`` gradients with bf16 params (reduced hymba-1.5b,
@@ -88,13 +91,25 @@ CASES = [(B, 200, H, KV, hd, hd_v, causal, window)
 
 @pytest.mark.parametrize("case", CASES)
 def test_plain_bf16_bwd_vs_jax_vjp_and_float64(case):
+    _check_plain_bf16_bwd(case, 64, 64)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_bf16_bwd_at_kernel_tiles_vs_jax_vjp_and_float64(case):
+    """The same rule with the plain version at the bf16 kernel's tiles
+    (``bwd_tiles``: 64 query rows x 128 keys at these head dims), in the
+    kernel's dq turn order over them."""
+    _check_plain_bf16_bwd(case, *K.bwd_tiles(case[4], torch.bfloat16))
+
+
+def _check_plain_bf16_bwd(case, block_q, block_kv):
     B, S, H, KV, hd, hd_v, causal, window = case
     rng = np.random.default_rng(hd * 7 + H + hd_v)
     q, k = _bf16(rng, (B, S, H, hd)), _bf16(rng, (B, S, KV, hd))
     v, dout = _bf16(rng, (B, S, KV, hd_v)), _bf16(rng, (B, S, H, hd_v))
     ts = [torch.from_numpy(x).bfloat16().requires_grad_() for x in (q, k, v)]
-    out = flash_attention(*ts, causal=causal, window=window, block_q=64,
-                          block_kv=64)
+    out = flash_attention(*ts, causal=causal, window=window, block_q=block_q,
+                          block_kv=block_kv)
     assert out.dtype == torch.bfloat16
     out.backward(torch.from_numpy(dout).bfloat16())
     got = [t.grad.float().numpy() for t in ts]

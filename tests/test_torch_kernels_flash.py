@@ -32,9 +32,12 @@ lengths; ten reruns bit-equal, one on a second stream beside another
 kernel), check that head dims up to 256 run zero-padded and larger ones
 raise, that an input that requires grad gets its gradient through the
 kernels in f32 and in bf16, hold the bf16 backward kernel to its plain
-version (1e-2 of each gradient's scale over every kernel head dim, S 64,
-200 and 520, every mask, GQA 1, 4 and 5; a rerun bit-equal; one launch a
-call, counted under bf16), and run reduced stablelm-3b's
+version at the kernel's tiles (1e-2 of each gradient's scale over every
+kernel head dim, S 64, 200, 300 and 520, every mask and a window that
+starts inside a 128-key tile, GQA 1, 4 and 5, query and key lengths that
+differ; a rerun bit-equal; one launch a call, counted under bf16; ten
+reruns bit-equal at stablelm-3b's and hymba-1.5b's training attention,
+one on a second stream), and run reduced stablelm-3b's
 ``Model.loss`` and gradients on the card against the CPU's, and so
 reduced hymba-1.5b's and mamba2-370m's (their SSD through the SSD
 kernels, forward and backward); they skip here, with the reason,
@@ -442,6 +445,74 @@ def test_bwd_plain_sums_dq_in_turn_order():
         assert torch.equal(dq[:, i0:i1], part * scale), i0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64, 80, 96, 128, 192, 256])
+def test_bwd_tiles_by_head_dim_and_dtype(hd, dtype):
+    """The backward kernels' tiles (query rows, keys) at the kernel head dim
+    that runs hd: the f32 kernel 64 x 64 at every head dim; the bf16 one 64
+    x 128 (two 64-key strips) up to 128 and 64 x 32 at 256. The plain
+    version takes them by default."""
+    want = (64, 64) if dtype == torch.float32 else \
+        (64, 32) if K.kernel_head_dim(hd) > 128 else (64, 128)
+    assert K.bwd_tiles(hd, dtype) == want
+    q, k, v = (_torch(_flat(a)).to(dtype)
+               for a in _mk(1, 150, 150, 2, 1, hd, seed=hd))
+    kw = dict(groups=2, causal=True, window=90)
+    out, lse = K.flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(3))
+    dout = dout.to(dtype)
+    got = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    tiled = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw,
+                                        block_q=want[0], block_kv=want[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, tiled))
+
+
+@pytest.mark.parametrize("hd,causal,window", [(64, True, 70), (64, False, 0),
+                                              (80, True, 0),
+                                              (256, True, 100)])
+def test_bwd_plain_bf16_sums_dq_in_turn_order_at_kernel_tiles(hd, causal,
+                                                             window):
+    """The bf16 plain backward at the bf16 kernel's tiles (64 x 128, or 64 x
+    32 at hd 256): dq of each query tile = (part of its first kv tile + ...
+    + part of its last) * scale, with P and dS rounded as the tensor cores'
+    operands (dS as hi + lo), then rounded to bf16 once, bit for bit."""
+    B, S, H, KV = 1, 300, 4, 2
+    bq, bkv = K.bwd_tiles(hd, torch.bfloat16)
+    q, k, v = (_torch(_flat(a)).bfloat16()
+               for a in _mk(B, S, S, H, KV, hd, seed=hd + window))
+    kw = dict(groups=2, causal=causal, window=window)
+    out, lse = K.flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(5))
+    dout = dout.bfloat16()
+    dq = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)[0]
+    scale = hd ** -0.5
+    qf, doutf = q.float(), dout.float()
+    kr = k.float().repeat_interleave(2, 0)
+    vr = v.float().repeat_interleave(2, 0)
+    delta = (doutf * out.float()).sum(-1, keepdim=True)
+    nkv = -(-S // bkv)
+    for i0 in range(0, S, bq):
+        i1 = min(i0 + bq, S)
+        j_lo, j_hi = K._kv_tiles(i0, bq, bkv, nkv, causal, window)
+        part = None
+        for j in range(j_lo, j_hi + 1):
+            j0, j1 = j * bkv, min(j * bkv + bkv, S)
+            s = (qf[:, i0:i1] @ kr[:, j0:j1].transpose(1, 2)) * scale
+            mask = K._mask(torch.arange(i0, i1)[:, None],
+                           torch.arange(j0, j1)[None, :], causal, window)
+            p = torch.where(mask, torch.exp(s - lse[:, i0:i1, None]),
+                            torch.zeros(()))
+            ds = p * (doutf[:, i0:i1] @ vr[:, j0:j1].transpose(1, 2)
+                      - delta[:, i0:i1])
+            hi = ds.bfloat16().float()
+            ds = hi + (ds - hi).bfloat16().float()
+            part = ds @ kr[:, j0:j1] if part is None else \
+                part + ds @ kr[:, j0:j1]
+        want = (part * scale).bfloat16() if part is not None else \
+            torch.zeros_like(dq[:, i0:i1])
+        assert torch.equal(dq[:, i0:i1], want), i0
+
+
 def test_kernel_head_dim_pads_to_the_next_kernel():
     got = {hd: K.kernel_head_dim(hd) for hd in (1, 16, 64, 65, 80, 81, 96,
                                                  128, 129, 192, 256)}
@@ -638,17 +709,23 @@ def test_cuda_bwd_kernel_vs_plain(card, hd, S, causal, window, groups):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,groups,window", [(80, 1, 0), (64, 5, 256)])
-def test_cuda_bwd_ten_reruns_bit_equal(card, hd, groups, window):
+@pytest.mark.parametrize("hd,groups,window,dtype", [
+    (80, 1, 0, torch.float32), (64, 5, 256, torch.float32),
+    (80, 1, 0, torch.bfloat16), (64, 5, 1024, torch.bfloat16)])
+def test_cuda_bwd_ten_reruns_bit_equal(card, hd, groups, window, dtype):
     """The dq adds run in the turn counters' order, not the scheduler's:
     ten reruns at a size that fills the card are bit-equal, one of them on
-    a second stream while matrix products run on the first."""
-    S, BKV = 1024, 8
+    a second stream while matrix products run on the first. In bf16 at
+    stablelm-3b's training attention (16 heads) and hymba-1.5b's (5 kv
+    heads of 5 queries each, window 1024, so its items take one query head
+    each and dk, dv sum over the parts), S 2048, within 1e-2 of each
+    gradient's scale of the plain version."""
+    S, BKV = (1024, 8) if dtype == torch.float32 else \
+        (2048, 16 if groups == 1 else 5)
     g = torch.Generator(device=card).manual_seed(hd)
-    q = torch.randn((BKV * groups, S, hd), generator=g, device=card)
-    k = torch.randn((BKV, S, hd), generator=g, device=card)
-    v = torch.randn((BKV, S, hd), generator=g, device=card)
-    dout = torch.randn(q.shape, generator=g, device=card)
+    q, k, v, dout = (torch.randn(s, generator=g, device=card).to(dtype)
+                     for s in ((BKV * groups, S, hd), (BKV, S, hd),
+                               (BKV, S, hd), (BKV * groups, S, hd)))
     kw = dict(groups=groups, causal=True, window=window)
     out, lse = K._fwd_kernel(q, k, v, groups, True, window, True)
     args = (q, k, v, out, dout, lse)
@@ -664,9 +741,11 @@ def test_cuda_bwd_ten_reruns_bit_equal(card, hd, groups, window):
     del busy
     runs.append(beside)
     want = K.flash_attention_bwd_plain(*args, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
     for a, b in zip(first, want):
-        torch.testing.assert_close(a, b, atol=2e-5 * float(b.abs().max()),
-                                   rtol=0)
+        torch.testing.assert_close(
+            a.float(), b.float(), atol=tol * float(b.float().abs().max()),
+            rtol=0)
     for run in runs:
         assert all(torch.equal(a, b) for a, b in zip(first, run))
 
@@ -777,14 +856,18 @@ def test_cuda_bwd_refuses_bf16(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("groups", [1, 4, 5])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
-                                           (False, 0)])
-@pytest.mark.parametrize("S", [64, 200, 520])
+                                           (True, 200), (False, 0)])
+@pytest.mark.parametrize("S", [64, 200, 300, 520])
 @pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_cuda_bf16_bwd_kernel_vs_plain(card, hd, S, causal, window, groups):
     """The bf16 backward kernel against its plain version (with the
-    kernel's tiles: 32 keys above hd 128) on the bf16 forward kernel's out
-    and lse (that lse against the plain forward's): dq, dk, dv within 1e-2
-    of each gradient's scale, a rerun bit-equal, one launch a call."""
+    kernel's tiles, ``bwd_tiles``: 64 x 128 up to hd 128, 64 x 32 at 256)
+    on the bf16 forward kernel's out and lse (that lse against the plain
+    forward's): dq, dk, dv within 1e-2 of each gradient's scale, a rerun
+    bit-equal, one launch a call. S not a multiple of 128 (200, 300, 520),
+    windows that start inside a 128-key tile (48, 200), GQA 1, 4 and 5
+    (with few items an item takes one query head: dk and dv summed over
+    the parts), every head dim."""
     BKV = 2
     g = torch.Generator(device=card).manual_seed(hd * 7 + S + groups)
     q, k, v, dout = (torch.randn(s, generator=g, device=card).bfloat16()
@@ -799,8 +882,39 @@ def test_cuda_bf16_bwd_kernel_vs_plain(card, hd, S, causal, window, groups):
     got = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
     assert launch_counts()["flash_attention_bwd"] == 1
     assert K.bwd_launches_by_dtype()["bfloat16"] == 1
+    bq, bkv = K.bwd_tiles(hd, torch.bfloat16)
     want = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw,
-                                       block_kv=32 if hd > 128 else 64)
+                                       block_q=bq, block_kv=bkv)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        torch.testing.assert_close(
+            a.float(), b.float(), atol=1e-2 * float(b.float().abs().max()),
+            rtol=0)
+    again = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,causal,groups", [
+    (448, 1500, False, 1), (200, 64, True, 4), (64, 520, True, 5),
+    (300, 700, False, 5)])
+@pytest.mark.parametrize("hd", [64, 80])
+def test_cuda_bf16_bwd_kernel_vs_plain_at_other_lengths(card, hd, Sq, Skv,
+                                                        causal, groups):
+    """The bf16 backward kernel with query and key lengths that differ (a
+    decoder's cross attention over an encoder's positions, 448 x 1500, and
+    other pairs, causal and not, GQA 1, 4 and 5) against its plain version
+    at the kernel's tiles: 1e-2 of each gradient's scale, a rerun
+    bit-equal."""
+    BKV = 2
+    g = torch.Generator(device=card).manual_seed(hd + Sq + Skv)
+    q, k, v, dout = (torch.randn(s, generator=g, device=card).bfloat16()
+                     for s in ((BKV * groups, Sq, hd), (BKV, Skv, hd),
+                               (BKV, Skv, hd), (BKV * groups, Sq, hd)))
+    kw = dict(groups=groups, causal=causal, window=0)
+    out, lse = K._fwd_kernel(q, k, v, groups, causal, 0, True)
+    got = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    want = K.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
         torch.testing.assert_close(
