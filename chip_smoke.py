@@ -383,7 +383,39 @@ and prints no result. Phases:
                Newton evaluations a step, launches); four in f32 at the
                same shape. Step ms, peak memory, and of one traced step
                more the idle share and flash's share of the device time.
- 17. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+ 17. dist_projection — the distributed l1,inf projection, D ranks spawned
+               on this one card in a gloo group (NCCL refuses two ranks on
+               a GPU; gloo stages CUDA tensors through host memory, so no
+               time here says anything of an interconnect), D 2 on a (2,
+               1) and D 4 on a (2, 2) ("data", "model") mesh, over
+               hymba-1.5b's projected leaves at full size (32 layers of
+               mlp/w1 1600 x 5504 and ssm/wx 1600 x 3200, random from a
+               seed), held against the single-device solves run here
+               first and shared with the ranks (CUDA IPC): (a) the
+               config's spec (l1,inf, radius 32, every_k 10) through
+               solver="sharded" at step 10, the leaves row-sharded (FSDP):
+               params within 1e-5, theta within 1e-6 of solver="newton",
+               the Newton counts at most one apart; (b) bilevel and l1,2
+               at every_k 1 (radius 0.05 x the first matrix's l1,inf
+               norm), one projected_update through solver="fused_sharded"
+               on column-sharded leaves against solver="fused": the same
+               tolerances, Adam moments bit-equal, adam_colstats and
+               adam_clip_apply launched on every rank; (c) the row-sharded
+               leaves moved by one all-to-all each way, no all-gather
+               (CommDebugMode); (d) per solve one (3, G) SUM, one (2, G)
+               SUM per evaluation and one (G,) MAX (the phase's own record
+               of dist.all_reduce); (e) compressed_psum of per-rank
+               gradients the size of mlp/w1: "none" within (D - 1) eps of
+               the magnitudes' sum of the exact sum, "int8" within D
+               scale / 2, "topk" bit-equal to the rank-ordered
+               index_add_, and the "none" sum as grad_reduce of a
+               fused_sharded step bit-equal to the step on the summed
+               gradient; (f) every run of (a)-(e) twice, bit-equal; (g)
+               each rank's wall ms of the sharded solve and the fused
+               step and the ms inside gloo collectives (the card
+               synchronised around each), the two kernels' device ms on
+               each rank's column block (ranks in turn).
+ 18. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
@@ -394,6 +426,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3641,6 +3674,597 @@ def attn_zoo_phase(torch, FA, dev, flush, shapes=None):
     return rows
 
 
+# phase 17: the distributed l1,inf projection, ranks sharing the card over
+# gloo: hymba-1.5b's projected leaves at full size (every layer's mlp/w1
+# and ssm/wx), meshes (2, 1) and (2, 2) over ("data", "model")
+DIST = dict(arch="hymba-1.5b", meshes=((2, 1), (2, 2)), seed=17, step=10,
+            fused_frac=0.05, k_frac=0.05, timeout=420)
+DIST_TOL = dict(params=1e-5, theta=1e-6)
+
+
+def _hymba_leaves(torch, cfg, dev, seed):
+    """hymba-1.5b's projected leaves (the config's spec pattern), random
+    from a seed: params ~ 0.02 N(0, 1), gradients ~ 1e-3 N(0, 1), Adam
+    moments m ~ 1e-3 N(0, 1), v ~ 1e-6 U(0, 1)."""
+    L, d = cfg.n_layers, cfg.d_model
+    shapes = {"mlp": {"w1": (L, d, cfg.d_ff)},
+              "ssm": {"wx": (L, d, cfg.ssm_expand * d)}}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def tree(fn):
+        return {"blocks": {"p0_hybrid": {k: {kk: fn(s) for kk, s in v.items()}
+                                         for k, v in shapes.items()}}}
+    return {"params": tree(lambda s: 0.02 * torch.randn(
+                s, generator=gen, device=dev)),
+            "grads": tree(lambda s: 1e-3 * torch.randn(
+                s, generator=gen, device=dev)),
+            "mu": tree(lambda s: 1e-3 * torch.randn(
+                s, generator=gen, device=dev)),
+            "nu": tree(lambda s: 1e-6 * torch.rand(
+                s, generator=gen, device=dev))}
+
+
+def _dist_specs(ProjectionSpec, cfg, params, leaves):
+    """The config's own spec (l1,inf, every_k 10), and bilevel and l1,2 at
+    every_k 1 with radius 0.05 x the l1,inf norm of the first mlp/w1
+    matrix (``tests/test_multidevice.py``'s rule)."""
+    from repro_torch.core.l1inf import l1inf_norm
+    w1 = leaves(params)[0]
+    radius = DIST["fused_frac"] * float(l1inf_norm(w1[0], axis=0))
+    (spec,) = cfg.projection_specs
+    fused = {norm: dataclasses.replace(spec, norm=norm, radius=radius,
+                                       every_k=1)
+             for norm in ("bilevel", "l12")}
+    return spec, fused
+
+
+def dist_projection_phase(torch, C, dev, card, dist_cfg=DIST):
+    """Phase 17: the sharded and fused_sharded solvers and compressed
+    gradient reduction, D ranks spawned on this one card in a gloo group
+    (NCCL refuses two ranks on one GPU), against the single-device solves
+    run here first. Gloo stages CUDA tensors through host memory, so the
+    times say nothing of an interconnect. ``card``: the nvidia-smi name
+    and power limit printed beside the times. Returns {D: per-rank
+    results}."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch._tree import leaves
+    from repro_torch.core import ProjectionEngine, ProjectionSpec
+    from repro_torch.optim import AdamConfig
+    from repro_torch.optim.adam import AdamState
+
+    cfg = C.get_config(dist_cfg["arch"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = _hymba_leaves(torch, cfg, dev, dist_cfg["seed"])
+    params = data["params"]
+    spec, fused_specs = _dist_specs(ProjectionSpec, cfg, params, leaves)
+    acfg = AdamConfig(lr=1e-3, clip_norm=None)
+    step = dist_cfg["step"]
+    # (a) the single-device solve at a projecting step
+    eng = ProjectionEngine((spec,), solver="newton")
+    X, st, stats = eng.apply(params, step=step, state=eng.init_state(params),
+                             with_stats=True)
+    (key,) = st
+    shared = {"data": data, "proj_ref": X, "proj_theta": st[key]}
+    meta = {"spec": spec, "proj_key": key, "proj_iters": int(stats[key]),
+            "fused": {}, "step": step, "k_frac": dist_cfg["k_frac"],
+            "radius": fused_specs["bilevel"].radius}
+    # (b) the single-device fused step, each norm
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    for norm, fspec in fused_specs.items():
+        feng = ProjectionEngine((fspec,), solver="fused")
+        p, o, s, it = feng.projected_update(
+            data["grads"], AdamState(count=zero, mu=data["mu"],
+                                     nu=data["nu"]),
+            params, acfg, state=feng.init_state(params), with_stats=True)
+        (fkey,) = s
+        shared[f"fused_{norm}"] = {"params": p, "mu": o.mu, "nu": o.nu,
+                                   "theta": s[fkey]}
+        meta["fused"][norm] = {"key": fkey, "iters": int(it[fkey]),
+                               "spec": fspec}
+    del X, p, o
+    torch.cuda.synchronize()
+    results = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    for shape in dist_cfg["meshes"]:
+        D = shape[0] * shape[1]
+        # (e) per-rank partial gradients the size of mlp/w1, their sum and
+        # the sum of their magnitudes (for the summation-order bound)
+        w1 = leaves(params)[0]
+        gen = torch.Generator(device=dev).manual_seed(dist_cfg["seed"] + D)
+        parts = torch.stack([1e-3 * torch.randn(w1.shape, generator=gen,
+                                                device=dev)
+                             for _ in range(D)])
+        shared["partials"] = parts
+        shared["exact"] = parts.sum(0)
+        shared["abs_sum"] = parts.abs().sum(0)
+        shared["absmax"] = parts.abs().max()
+        torch.cuda.synchronize()
+        work = tempfile.mkdtemp(dir=os.path.join(root, "build"))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            _dist_rank, args=(D, shape, work, root, shared, meta),
+            nprocs=D, join=False, start_method="spawn")
+        failed = None
+        deadline = time.monotonic() + dist_cfg["timeout"]
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    failed = f"timed out after {dist_cfg['timeout']} s"
+                    break
+        except Exception as e:             # a rank raised: its traceback
+            failed = f"{type(e).__name__}: {str(e)[-2000:]}"
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(D):
+            path = os.path.join(work, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+        shutil.rmtree(work, ignore_errors=True)
+        check(failed is None and len(ranks) == D,
+              f"dist_projection D={D}: {failed or 'missing rank results'}")
+        for r in ranks:
+            for what, ok in r["checks"].items():
+                check(ok, f"dist_projection D={D} rank {r['rank']}: {what}")
+            for k in FUSED_REPLACES:
+                check(r["launches"].get(k, 0) > 0,
+                      f"dist_projection D={D} rank {r['rank']}: the "
+                      f"fused_sharded step never launched {k}")
+        results[D] = ranks
+        emit({"phase": "dist_projection", "mesh": list(shape), "ranks": D,
+              "arch": cfg.name, "leaves": {
+                  k: list(v.shape) for k, v in
+                  zip(("mlp/w1", "ssm/wx"), leaves(params))},
+              "card": card,
+              "times": "gloo through host memory, D ranks sharing one card",
+              "run_s": wall, "single_device_iters": meta["proj_iters"],
+              "fused_radius": meta["radius"],
+              # of the rerun's wall, each rank: the share inside gloo
+              "gloo_share": {"sharded_solve": [_share(r["a"]) for r in ranks],
+                             **{f"fused_step_{n}": [_share(r["b"][n])
+                                                    for r in ranks]
+                                for n in meta["fused"]}},
+              "per_rank": ranks})
+        for k in ("partials", "exact", "abs_sum", "absmax"):
+            del shared[k]
+        del parts
+        torch.cuda.empty_cache()
+    return results
+
+
+def _share(row):
+    """The share of a rerun's wall ms spent inside gloo collectives."""
+    return row["gloo_ms"][1] / row["wall_ms"][1]
+
+
+def _dist_rank(rank, world, shape, work, root, shared, meta):
+    """One rank of phase 17 (a spawned process): joins the gloo group, runs
+    (a)-(e) twice (the rerun is (f)) and writes its results. The
+    collectives are recorded and counted by the port's test helpers
+    (``tests/_dist_ranks.py``), not by the package."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(root, "src"))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import _dist_ranks as R
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            init_method="file://" + os.path.join(work, "rdv"))
+    try:
+        out = _dist_rank_work(torch, dist, R, shape, shared, meta)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _dist_rank_work(torch, dist, R, shape, shared, meta):
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch._tree import flatten_with_path, leaves, unflatten_like
+    from repro_torch.core import ProjectionEngine
+    from repro_torch.dist.compression import compressed_psum, topk_compress
+    from repro_torch.dist.layout import MeshLayout, _box, local_of, wrap
+    from repro_torch.kernels.fused_step import kernel as FK
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import AdamConfig
+    from repro_torch.optim.adam import AdamState, adam_scalars
+
+    data = shared["data"]
+    dev = leaves(data["params"])[0].device         # the card
+    sync = torch.cuda.synchronize
+    mesh = make_local_mesh(*shape, device=dev)
+    lay = MeshLayout(mesh)
+    acfg = AdamConfig(lr=1e-3, clip_norm=None)
+    checks, res = {}, {"rank": dist.get_rank(), "mesh_index": lay.rank}
+
+    def sharded(full, dim):
+        """``full`` as a DTensor sharded on tensor dim ``dim`` over every
+        mesh dim, and this rank's box of it."""
+        pl = (Shard(dim),) * len(lay.shape)
+        box = _box(full.shape, pl, lay.shape, lay.coords[lay.me])
+        idx = tuple(slice(lo, hi) for lo, hi in box)
+        return wrap(full[idx].contiguous(), full.shape, pl, lay), idx
+
+    def tree(t, dim):
+        flat = [sharded(v, dim)[0] for _, v in flatten_with_path(t)]
+        return unflatten_like(t, flat)
+
+    def box_err(got_tree, want_tree):
+        """(max |got - want|, allclose at the params' 1e-5, bit-equal)
+        over this rank's pieces of the leaves."""
+        worst, close, same = 0.0, True, True
+        tol = DIST_TOL["params"]
+        for (_, g), (_, w) in zip(flatten_with_path(got_tree),
+                                  flatten_with_path(want_tree)):
+            box = _box(w.shape, g.placements, lay.shape,
+                       lay.coords[lay.me])
+            want = w[tuple(slice(lo, hi) for lo, hi in box)]
+            got = local_of(g)
+            worst = max(worst, float((got - want).abs().max()))
+            close = close and bool(torch.allclose(got, want, atol=tol,
+                                                  rtol=tol))
+            same = same and bool(torch.equal(got.view(torch.int32),
+                                             want.view(torch.int32)))
+        return worst, close, same
+
+    def theta_close(got, want):
+        tol = DIST_TOL["theta"]
+        return (bool(torch.allclose(got, want, atol=tol, rtol=tol)),
+                float((got - want).abs().max()))
+
+    def newton_ok(calls, G, iters, tail=False):
+        """``calls`` (or their tail) are one solve's all-reduces."""
+        return any((calls[-len(w):] if tail else calls) == w
+                   for w in R.newton_calls([("k", G)], {"k": iters}))
+
+    def locals_of(tree_):
+        return [local_of(x).clone() for x in leaves(tree_)]
+
+    def same_bits(a, b):
+        return all(bool(torch.equal(x.view(torch.int32), y.view(torch.int32)))
+                   for x, y in zip(a, b))
+
+    def wall(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # (a) + (c) + (d): the config's spec through the sharded engine, the
+    # leaves entering row-sharded (FSDP)
+    step = meta["step"]
+    params_rows = tree(data["params"], 1)
+    eng = ProjectionEngine((meta["spec"],), solver="sharded", mesh=mesh)
+    key = meta["proj_key"]
+    runs = []
+    for _ in range(2):
+        state0 = eng.init_state(params_rows)
+        with CommDebugMode() as cdm, R.recorded_collectives(sync) as log:
+            (X, st, stats), ms = wall(lambda: eng.apply(
+                params_rows, step=step, state=state0, with_stats=True))
+        runs.append({"X": X, "theta": st[key].clone(), "iters": stats[key],
+                     "ms": ms, "gloo_ms": log.seconds * 1e3,
+                     "comm": R.comm_counts(cdm), "reduces": log.reduces})
+    a, a2 = runs
+    err, close, _ = box_err(a["X"], shared["proj_ref"])
+    th_ok, dth = theta_close(a["theta"], shared["proj_theta"])
+    checks.update({
+        "a_params_within_1e-5": close,
+        "a_theta_within_1e-6": th_ok,
+        "a_iters_within_one": abs(a["iters"] - meta["proj_iters"]) <= 1,
+        "c_zero_all_gathers": a["comm"]["all_gather"] == 0,
+        "c_one_all_to_all_each_way_per_leaf": a["comm"]["all_to_all"] == 4,
+        "d_collectives": newton_ok(a["reduces"], a["theta"].numel(),
+                                   a["iters"]),
+        "f_a_rerun_bit_equal": same_bits(locals_of(a["X"]),
+                                         locals_of(a2["X"])) and
+        bool(torch.equal(a["theta"], a2["theta"]))})
+    res["a"] = {"max_abs_err": err, "theta_max_abs_err": dth,
+                "iters": a["iters"],
+                "single_device_iters": meta["proj_iters"],
+                "comm": a["comm"], "all_reduces": len(a["reduces"]),
+                "wall_ms": [a["ms"], a2["ms"]],
+                "gloo_ms": [a["gloo_ms"], a2["gloo_ms"]]}
+    del runs, a, a2, X, params_rows
+    torch.cuda.empty_cache()
+
+    # (b): bilevel and l1,2 through fused_sharded, leaves column-sharded,
+    # against the single-device fused step; the kernels' launches
+    cols = {k: tree(data[k], 2) for k in ("params", "grads", "mu", "nu")}
+    res["b"], launches = {}, {k: 0 for k in FUSED_REPLACES}
+    kernel_errs = {k: 0.0 for k in FUSED_REPLACES}
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    for norm, fm in meta["fused"].items():
+        feng = ProjectionEngine((fm["spec"],), solver="fused_sharded",
+                                mesh=mesh)
+        ref = shared[f"fused_{norm}"]
+        runs = []
+        for rerun in (False, True):
+            opt = AdamState(count=zero, mu=cols["mu"], nu=cols["nu"])
+            FK.reset_launch_counts()
+            with CommDebugMode() as cdm, R.recorded_collectives(sync) as log, \
+                    _kernel_calls(FK, record=not rerun) as kcalls:
+                (p, o, s, it), ms = wall(lambda: feng.projected_update(
+                    cols["grads"], opt, cols["params"], acfg,
+                    state=feng.init_state(cols["params"]), with_stats=True))
+            runs.append({"p": p, "o": o, "theta": s[fm["key"]].clone(),
+                         "iters": it[fm["key"]], "ms": ms,
+                         "gloo_ms": log.seconds * 1e3,
+                         "launches": FK.launch_counts(),
+                         "comm": R.comm_counts(cdm), "reduces": log.reduces})
+            if not rerun:
+                # every launch of the step against its plain version on
+                # the inputs the step gave it (these launches are not
+                # counted), the references dropped before the rerun
+                kchecks, kerrs = _against_plain(torch, FK, kcalls)
+                kcalls.clear()
+                checks.update({f"b_{norm}_{k}": ok
+                               for k, ok in kchecks.items()})
+                for k, e in kerrs.items():
+                    kernel_errs[k] = max(kernel_errs[k], e)
+        b, b2 = runs
+        for k, n in b["launches"].items():
+            launches[k] += n
+        perr, close, _ = box_err(b["p"], ref["params"])
+        th_ok, dth = theta_close(b["theta"], ref["theta"])
+        checks.update({
+            f"b_{norm}_params_within_1e-5": close,
+            f"b_{norm}_theta_within_1e-6": th_ok,
+            f"b_{norm}_iters": abs(b["iters"] - fm["iters"]) <= 1,
+            f"b_{norm}_moments_bit_equal": box_err(b["o"].mu, ref["mu"])[2]
+            and box_err(b["o"].nu, ref["nu"])[2],
+            f"b_{norm}_kernels_launched": all(
+                n == 2 for n in b["launches"].values()),
+            f"b_{norm}_no_moves_no_gathers": b["comm"]["all_gather"] == 0
+            and b["comm"]["all_to_all"] == 0,
+            f"b_{norm}_collectives": newton_ok(
+                b["reduces"], b["theta"].numel(), b["iters"]),
+            f"f_b_{norm}_rerun_bit_equal": same_bits(
+                locals_of(b["p"]) + locals_of(b["o"].mu) +
+                locals_of(b["o"].nu), locals_of(b2["p"]) +
+                locals_of(b2["o"].mu) + locals_of(b2["o"].nu))
+            and bool(torch.equal(b["theta"], b2["theta"]))})
+        res["b"][norm] = {"params_max_abs_err": perr,
+                          "theta_max_abs_err": dth,
+                          "iters": b["iters"],
+                          "single_device_iters": fm["iters"],
+                          "launches": b["launches"],
+                          "wall_ms": [b["ms"], b2["ms"]],
+                          "gloo_ms": [b["gloo_ms"], b2["gloo_ms"]]}
+        del runs, b, b2, p, o
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["kernel_max_abs_err"] = kernel_errs
+
+    # the two kernels on this rank's mlp/w1 column block, device ms, the
+    # ranks taking turns (comparison launches: not counted above)
+    res["kernels"] = _rank_kernel_times(torch, dist, FK, lay, cols, acfg,
+                                        adam_scalars, zero)
+    del cols
+    torch.cuda.empty_cache()
+
+    # (e): compressed_psum of this rank's partial gradient (mlp/w1's size)
+    # in each mode, then fed to the fused_sharded step through grad_reduce
+    P = lay.size
+    g = shared["partials"][lay.me]
+    exact, abs_sum = shared["exact"], shared["abs_sum"]
+    eps = float(torch.finfo(torch.float32).eps)
+    res["e"] = {}
+    outs = {}
+    for mode in ("none", "int8", "topk"):
+        runs = []
+        for _ in range(2):
+            with CommDebugMode() as cdm, R.recorded_collectives(sync) as log:
+                got, ms = wall(lambda: compressed_psum(
+                    {"g": g}, mesh, mode=mode, k_frac=meta["k_frac"])["g"])
+            runs.append((got, ms, log.seconds * 1e3, R.comm_counts(cdm)))
+        (got, ms, gms, comm), (got2, ms2, gms2, _) = runs
+        checks[f"f_e_{mode}_rerun_bit_equal"] = same_bits([got], [got2])
+        del got2, runs
+        if mode == "none":
+            # any summation order: within (P - 1) eps sum |partials|
+            ok = bool(((got - exact).abs()
+                       <= (P - 1) * eps * abs_sum + 1e-30).all())
+            err = float((got - exact).abs().max())
+        elif mode == "int8":
+            scale = float(shared["absmax"]) / 127.0
+            err = float((got - exact).abs().max())
+            ok = err <= P * scale / 2 * (1 + 1e-5)
+        else:
+            ref = torch.zeros(g.numel(), dtype=g.dtype, device=dev)
+            for r in range(P):                    # rank order
+                v, i = topk_compress(shared["partials"][r], meta["k_frac"])
+                ref.index_add_(0, i.to(torch.int64), v)
+            ok = bool(torch.equal(got.reshape(-1).view(torch.int32),
+                                  ref.view(torch.int32)))
+            err = float((got.reshape(-1) - ref).abs().max())
+            del ref
+        checks[f"e_{mode}"] = ok
+        res["e"][mode] = {"max_abs_err": err, "comm": comm,
+                          "wall_ms": [ms, ms2], "gloo_ms": [gms, gms2]}
+        if mode == "none":
+            outs["none"] = got
+        else:
+            del got
+        torch.cuda.empty_cache()
+    # grad_reduce composed with the fused_sharded step on mlp/w1 (bilevel)
+    w1 = lambda t: {"blocks": {"p0_hybrid": {"mlp": {
+        "w1": t["blocks"]["p0_hybrid"]["mlp"]["w1"]}}}}
+    cols = {k: tree(w1(data[k]), 2) for k in ("params", "mu", "nu")}
+    feng = ProjectionEngine((meta["fused"]["bilevel"]["spec"],),
+                            solver="fused_sharded", mesh=mesh)
+    partial = {"blocks": {"p0_hybrid": {"mlp": {"w1": g}}}}
+    summed = {"blocks": {"p0_hybrid": {"mlp": {"w1": outs.pop("none")}}}}
+    runs = []
+    for grads_, reduce_ in ((partial, lambda t: compressed_psum(t, mesh,
+                                                                "none")),
+                            (partial, lambda t: compressed_psum(t, mesh,
+                                                                "none")),
+                            (summed, None)):
+        opt = AdamState(count=zero, mu=cols["mu"], nu=cols["nu"])
+        with R.recorded_collectives() as log:
+            p, o, s, it = feng.projected_update(
+                grads_, opt, cols["params"], acfg, with_stats=True,
+                state=feng.init_state(cols["params"]), grad_reduce=reduce_)
+        (k,) = s
+        runs.append((locals_of(p) + locals_of(o.mu) + locals_of(o.nu),
+                     s[k].clone(), it[k], log.reduces))
+    (c1, t1, i1, r1), (c2, t2, _, _), (c3, t3, _, _) = runs
+    checks.update({
+        "e_grad_reduce_feeds_the_step_unchanged": same_bits(c1, c3)
+        and bool(torch.equal(t1, t3)),
+        "f_e_grad_reduce_rerun_bit_equal": same_bits(c1, c2)
+        and bool(torch.equal(t1, t2)),
+        "e_grad_reduce_keeps_one_sum_per_eval": newton_ok(
+            r1, t1.numel(), i1, tail=True)})
+    res["e"]["grad_reduce_iters"] = i1
+    res["checks"] = checks
+    return _jsonable(res)
+
+
+@contextlib.contextmanager
+def _kernel_calls(FK, record=True):
+    """With ``record``, every ``adam_colstats`` / ``adam_clip_apply``
+    launch made meanwhile, as (name, args, kwargs, result), so that each
+    can be held against its plain version on the inputs it was given."""
+    calls = []
+    if not record:
+        yield calls
+        return
+    real = {k: getattr(FK, k) for k in FUSED_REPLACES}
+
+    def wrap(name):
+        def call(*a, **kw):
+            out = real[name](*a, **kw)
+            calls.append((name, a, kw, out))
+            return out
+        return call
+
+    for k in real:
+        setattr(FK, k, wrap(k))
+    try:
+        yield calls
+    finally:
+        for k, fn in real.items():
+            setattr(FK, k, fn)
+
+
+def _against_plain(torch, FK, calls):
+    """Each recorded launch against its plain version on the same inputs,
+    held as phase 2b holds them: moments and colmax bit-equal, colsum
+    within rel 1e-6, the clipped or scaled params bit-equal. Returns
+    ({what: ok}, {kernel: max abs err}); ``what`` names the kernel, the
+    block and the stat or mode."""
+    checks, errs = {}, {k: 0.0 for k in FUSED_REPLACES}
+    for name, a, kw, out in calls:
+        p = a[4] if name == "adam_colstats" else a[3]
+        what = (f"{name}_vs_plain_{'x'.join(map(str, p.shape))}_"
+                f"{kw.get('stat', kw.get('mode'))}")
+        want = getattr(FK, name + "_plain")(*a, **kw)
+        if name == "adam_colstats":
+            rel = float(((out[2] - want[2]).abs()
+                         / want[2].clamp(min=1e-30)).max())
+            ok = (bits_equal(torch, out[0], want[0])
+                  and bits_equal(torch, out[1], want[1])
+                  and bool(torch.equal(out[3], want[3])) and rel <= 1e-6)
+            err = float((out[2] - want[2]).abs().max())
+        else:
+            ok = bits_equal(torch, out, want)
+            err = float((out.float() - want.float()).abs().max())
+        checks[what] = checks.get(what, True) and bool(ok)
+        errs[name] = max(errs[name], err)
+        del want
+    return checks, errs
+
+
+def _jsonable(x):
+    if isinstance(x, dict):
+        return {str(k): _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, (bool, int, float, str)) or x is None:
+        return x
+    return float(x)
+
+
+def _rank_kernel_times(torch, dist, FK, lay, cols, acfg, adam_scalars,
+                       zero):
+    """Device ms of adam_colstats and adam_clip_apply (and their plain
+    versions) on this rank's mlp/w1 column block, CUDA events around 10
+    back-to-back calls after 2 warm ones, the ranks taking turns so no
+    other rank's work shares the card meanwhile; the bound from the bytes
+    moved (each input read once, each output written once) and the f32
+    operations, as phase 2b counts them."""
+    from repro_torch.dist.layout import local_of
+    pick = lambda t: local_of(t["blocks"]["p0_hybrid"]["mlp"]["w1"])
+    g, m, v, p = (pick(cols[k]) for k in ("grads", "mu", "nu", "params"))
+    lr_t, b1c, b2c = adam_scalars(acfg, zero + 1)
+    sc = torch.stack([torch.ones((), device=p.device),
+                      torch.full((), lr_t, device=p.device),
+                      b1c.reshape(()), b2c.reshape(())]).float()
+    kw = dict(b1=acfg.b1, b2=acfg.b2, eps=acfg.eps, wd=0.0, transpose=False)
+    a = FK.adam_colstats(sc, g, m, v, p, None, stat="abs", **kw)
+    mu = (a[3] * 0.5).contiguous()
+    fns = {"adam_colstats": (
+               lambda: FK.adam_colstats(sc, g, m, v, p, None, stat="abs",
+                                        **kw),
+               lambda: FK.adam_colstats_plain(sc, g, m, v, p, None,
+                                              stat="abs", **kw)),
+           "adam_clip_apply": (
+               lambda: FK.adam_clip_apply(sc, a[0], a[1], p, mu, None,
+                                          mode="clip", **kw),
+               lambda: FK.adam_clip_apply_plain(sc, a[0], a[1], p, mu, None,
+                                                mode="clip", **kw))}
+    L, R, Cc = p.shape
+    n_el = L * R * Cc
+    bound = {"adam_colstats": max(
+                 ((6 * n_el * 4 + 2 * L * Cc * 4 + 16) / HBM_BYTES_PER_S
+                  * 1e3, "bytes"),
+                 (20 * n_el / F32_OPS_PER_S * 1e3, "operations")),
+             "adam_clip_apply": max(
+                 ((4 * n_el * 4 + L * Cc * 4 + 16) / HBM_BYTES_PER_S * 1e3,
+                  "bytes"),
+                 (14 * n_el / F32_OPS_PER_S * 1e3, "operations"))}
+    out = {}
+    for q in range(lay.size):
+        torch.cuda.synchronize()
+        dist.barrier()
+        if q != lay.me:
+            continue
+        for name, (kern, plain) in fns.items():
+            out[name] = {"ms": _event_ms(torch, kern),
+                         "plain_ms": _event_ms(torch, plain),
+                         "bound_ms": bound[name][0],
+                         "bound_by": bound[name][1],
+                         "block": [L, R, Cc]}
+    torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+def _event_ms(torch, fn, reps=10):
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def main():
     import torch
 
@@ -4203,6 +4827,10 @@ def main():
     bf16_launches, bf16_by_dtype = lm_train_bf16_phase(
         torch, Z, C, FA, SK, K, FK, dev)
 
+    # -- 17. this slice: the sharded and fused_sharded solvers and the
+    # compressed gradient sum, 2 and 4 ranks sharing the card over gloo
+    dist_ranks = dist_projection_phase(torch, C, dev, smi)
+
     # -- result ------------------------------------------------------------
     if FAILURES:
         print(json.dumps({"failures": FAILURES}), file=sys.stderr)
@@ -4272,7 +4900,21 @@ def main():
          "source": LM_SOURCE["flash_attention_bwd_bf16"],
          "replaces": LM_REPLACES["flash_attention_bwd_bf16"],
          "launches": bf16_by_dtype["bfloat16"], **row}
-        for row in bf16_bwd_rows]})
+        for row in bf16_bwd_rows] + [
+        # this slice: the fused step's kernels on one rank's mlp/w1
+        # column block of phase 17's fused_sharded step (rank 0's device
+        # ms, the ranks timed in turn), launches summed over the ranks of
+        # the step's run (bilevel and l1,2, both leaves)
+        {"name": k, "route": "cuda", "source": FUSED_SOURCE,
+         "replaces": FUSED_REPLACES[k],
+         "launches": sum(r["launches"][k] for r in ranks),
+         "launches_by_rank": [r["launches"][k] for r in ranks],
+         "shape": f"hymba_mlp_w1_rank_block_D{D}",
+         "path": "dist_projection", "library_ms": None,
+         "max_abs_err": max(r["kernel_max_abs_err"][k] for r in ranks),
+         **ranks[0]["kernels"][k]}
+        for D, ranks in sorted(dist_ranks.items())
+        for k in FUSED_REPLACES]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,15 @@
         (``from_colstats``: ``bilevel``, ``l12``) at ``every_k == 1`` take
         the two-pass fused optimizer+projection step on the
         ``kernels/fused_step`` kernels (counter ``<plan>/fused``); every
-        other plan, and ``apply``, solves as ``newton``.
-    ``sharded`` and ``fused_sharded`` are not ported yet and raise
-    NotImplementedError.
+        other plan, and ``apply``, solves as ``newton``;
+      - ``sharded`` — the mesh-resident solve (``dist.projection``): each
+        plan solves on column blocks split over the ranks of ``mesh``,
+        leaves move there by one all-to-all (never an all-gather), and the
+        per-segment statistics cross the ranks as one (2, num_segments)
+        all-reduce per Newton evaluation;
+      - ``fused_sharded`` — ``fused`` on a mesh: the fused passes run on
+        each rank's column block, and every plan they cannot take solves
+        exactly as ``sharded``.
   * ``engine.apply(params, step=, state=)`` projects a parameter tree.
   * ``engine.projected_update(grads, opt_state, params, acfg, ...)`` is the
     shared step core: optimizer update, projection gated on the NEW
@@ -38,11 +44,8 @@ from .l1inf import _segmented_newton
 __all__ = ["ProjectionEngine", "apply_constraints_packed",
            "init_projection_state"]
 
-_SOLVERS = ("newton", "kernel", "fused")
-_NOT_PORTED = {
-    "sharded": "ROADMAP.md queue A item 8 (distributed)",
-    "fused_sharded": "ROADMAP.md queue A item 8 (distributed)",
-}
+_SOLVERS = ("newton", "kernel", "fused", "sharded", "fused_sharded")
+_MESH_SOLVERS = ("sharded", "fused_sharded")
 
 # the JAX package's solver names that the port calls otherwise
 _JAX_SOLVER_NAMES = {"pallas": "kernel"}
@@ -52,25 +55,44 @@ _JAX_SOLVER_NAMES = {"pallas": "kernel"}
 _MU_INF = 1e30
 
 
+def _fused_level(fam, aux, mu, inside_seg, zero_seg, sids):
+    """Pass 2's per-column level with the identity/zero segment gating
+    folded in, so the pass is one min() or multiply: clip families gate
+    with the 1e30 sentinel, scale families (l1,2) turn mu into the column
+    multiplier with identity 1.0."""
+    if getattr(fam.seg_ops, "fused_mode", "clip") == "scale":
+        lvl = fam.seg_ops.fused_scale(aux, mu)
+        ident = torch.ones((), dtype=lvl.dtype, device=lvl.device)
+    else:
+        lvl = mu
+        ident = torch.full((), _MU_INF, dtype=mu.dtype, device=mu.device)
+    return torch.where(zero_seg[sids], torch.zeros_like(lvl),
+                       torch.where(inside_seg[sids], ident, lvl))
+
+
 class ProjectionEngine:
     """Plan building + theta state + solver dispatch for projection specs.
 
-    ``solver`` is "newton" | "kernel" | "fused" (see the module
-    docstring). The engine is stateless: the theta warm-start dict from
+    ``solver`` is "newton" | "kernel" | "fused" | "sharded" |
+    "fused_sharded" (see the module docstring); the last two need
+    ``mesh``, a ``DeviceMesh`` over the caller's process group, and take
+    leaves as ``DTensor``s on it (or plain tensors, which every rank holds
+    whole). On a mesh every rank calls the engine with the same tree and
+    step. The engine is stateless: the theta warm-start dict from
     ``init_state`` threads through the caller's train state.
 
     >>> engine = ProjectionEngine((spec,)); state = engine.init_state(params)
     """
 
     def __init__(self, specs: Sequence[ProjectionSpec], *,
-                 solver: str = "newton"):
-        if solver in _NOT_PORTED:
-            raise NotImplementedError(
-                f"solver={solver!r} is not ported: {_NOT_PORTED[solver]}")
+                 solver: str = "newton", mesh=None):
         if solver not in _SOLVERS:
             raise ValueError(f"unknown solver {solver!r} (one of {_SOLVERS})")
+        if solver in _MESH_SOLVERS and mesh is None:
+            raise ValueError(f"solver={solver!r} needs a mesh")
         self.specs = tuple(specs or ())
         self.solver = solver
+        self.mesh = mesh if solver in _MESH_SOLVERS else None
 
     def plans(self, params: Any):
         """(packed plans, per-leaf remainder) for this parameter tree."""
@@ -90,9 +112,18 @@ class ProjectionEngine:
     def _solve_plan(self, plan, leaves, theta0):
         """One packed solve of one family sub-buffer. Returns
         (projected-by-leaf-index dict, theta, iters); iters is -1 under
-        the kernel solver, which keeps its own counters."""
-        eff = "newton" if self.solver == "fused" else self.solver
+        the kernel solver, which keeps its own counters. Under
+        ``fused_sharded`` a plan solves exactly as under ``sharded``."""
+        eff = {"fused": "newton",
+               "fused_sharded": "sharded"}.get(self.solver, self.solver)
         engine_count(f"{plan.key}/{eff}")
+        if eff == "sharded":
+            from ..dist.projection import project_plan_sharded
+            outs, theta, iters = project_plan_sharded(
+                [leaves[e.index] for e in plan.entries], plan, self.mesh,
+                theta0=theta0)
+            return (dict(zip((e.index for e in plan.entries), outs)),
+                    theta, iters)
         fam = get_family(plan.family)
         pieces = [_pack_entry(leaves[e.index], e, plan.n_max)
                   for e in plan.entries]
@@ -127,6 +158,9 @@ class ProjectionEngine:
         iters})."""
         new_state: Dict[str, torch.Tensor] = {}
         stats: Dict[str, Any] = {}
+        if self.mesh is not None and isinstance(step, torch.Tensor):
+            # every rank must take the same solves: gate on the host
+            step = int(step)
         off = lambda every_k: isinstance(step, int) and step % every_k != 0
         for plan in plans:
             if plan.key in skip:
@@ -152,8 +186,12 @@ class ProjectionEngine:
             if off(spec.every_k):
                 continue
             engine_count("per_leaf")
-            projected = _apply_2d(_project_fn(spec), leaves[i], spec.radius,
-                                  spec.axis)
+            if self.mesh is not None:
+                from ..dist.projection import project_leaf_sharded
+                projected = project_leaf_sharded(leaves[i], spec, self.mesh)
+            else:
+                projected = _apply_2d(_project_fn(spec), leaves[i],
+                                      spec.radius, spec.axis)
             leaves[i] = _gated(projected, leaves[i], step, spec.every_k)
         return new_state, stats
 
@@ -189,7 +227,8 @@ class ProjectionEngine:
                          state: Optional[Dict[str, torch.Tensor]] = None,
                          with_stats: bool = False,
                          count: Optional[int] = None,
-                         inplace: bool = False):
+                         inplace: bool = False,
+                         grad_reduce: Optional[Any] = None):
         """Optimizer update + projection + gating: the step core of the
         port's train loops.
 
@@ -202,6 +241,14 @@ class ProjectionEngine:
         statistics (``from_colstats``) at ``every_k == 1`` take the
         two-pass fused step instead (``_projected_update_fused``); every
         other plan and per-leaf spec replays this unfused path.
+        On a mesh (``sharded``, ``fused_sharded``) the whole step is
+        ``dist.projection.projected_update_sharded``: the same passes on
+        each rank's pieces and column blocks.
+
+        ``grad_reduce``: optional callable applied to ``grads`` first: the
+        hook for data-parallel callers whose gradients are still per-rank
+        partials (e.g. ``dist.compression.compressed_psum``). It leaves the
+        projection's one all-reduce per evaluation untouched.
 
         ``count`` is the NEW optimizer count as a host int, when the
         caller tracks it: the ``every_k`` gates then run on the host and a
@@ -209,15 +256,22 @@ class ProjectionEngine:
         unfused Adam update write into the tensors of ``params`` and
         ``opt_state`` (``adam_update``), so a full-size train step holds
         no second copy of its state; projected leaves, and every leaf of
-        the fused step, come back as new tensors.
+        the fused step, come back as new tensors (on a mesh every leaf
+        does).
 
         Returns (params, opt_state, proj_state), plus {plan.key: Eq.-(19)
         evaluation count} when ``with_stats``.
         """
+        if grad_reduce is not None:
+            grads = grad_reduce(grads)
+        if self.mesh is not None:
+            from ..dist.projection import projected_update_sharded
+            return projected_update_sharded(
+                self, grads, opt_state, params, acfg, lr=lr, mask=mask,
+                state=state, with_stats=with_stats, count=count)
         if self.solver == "fused" and self.specs:
             plans, per_leaf = self.plans(params)
-            fused_plans = [p for p in plans if p.every_k == 1 and hasattr(
-                get_family(p.family).seg_ops, "from_colstats")]
+            fused_plans = self._fused_plans(plans)
             if fused_plans:
                 return self._projected_update_fused(
                     grads, opt_state, params, acfg, lr=lr, mask=mask,
@@ -239,6 +293,13 @@ class ProjectionEngine:
         if with_stats:
             return new_params, new_opt, state, stats
         return new_params, new_opt, state
+
+    @staticmethod
+    def _fused_plans(plans):
+        """The plans the fused passes take: families that stream their
+        Newton statistics (``from_colstats``), at ``every_k == 1``."""
+        return [p for p in plans if p.every_k == 1 and hasattr(
+            get_family(p.family).seg_ops, "from_colstats")]
 
     def _projected_update_fused(self, grads, opt_state, params: Any, acfg, *,
                                 lr, mask, state, plans, per_leaf,
@@ -306,19 +367,7 @@ class ProjectionEngine:
             mu, theta, iters, inside_seg, zero_seg = _segmented_newton(
                 aux, sids, C_seg, plan.num_segments, theta0, 32,
                 ops=fam.seg_ops)
-            # fold the identity/zero segment gating into the per-column
-            # level, so pass 2 is one min() or multiply: clip families
-            # gate with the 1e30 sentinel, scale families (l1,2) turn mu
-            # into the column multiplier with identity 1.0
-            zero_col, inside_col = zero_seg[sids], inside_seg[sids]
-            if mode == "scale":
-                lvl = fam.seg_ops.fused_scale(aux, mu)
-                ident = torch.ones((), dtype=lvl.dtype, device=dev)
-            else:
-                lvl = mu
-                ident = torch.full((), _MU_INF, dtype=mu.dtype, device=dev)
-            mu_eff = torch.where(zero_col, torch.zeros_like(lvl),
-                                 torch.where(inside_col, ident, lvl))
+            mu_eff = _fused_level(fam, aux, mu, inside_seg, zero_seg, sids)
             # pass 2: the update recomputed from the stored moments,
             # clipped or scaled and written: the step's only param write
             off = 0
@@ -374,18 +423,18 @@ def init_projection_state(params: Any, specs: Sequence[ProjectionSpec]
 def apply_constraints_packed(params: Any, specs: Sequence[ProjectionSpec],
                              step: Optional[torch.Tensor] = None,
                              state: Optional[Dict[str, torch.Tensor]] = None,
-                             engine: str = "newton"):
+                             engine: str = "newton", mesh=None):
     """Project matching leaves with packed multi-tensor batching.
 
     Functional form of ``ProjectionEngine.apply``: ``engine`` names the
-    solver ("newton" | "kernel" | "fused"; the JAX name "pallas" means
-    "kernel", and "sharded" raises NotImplementedError until the
-    distributed layer is ported). ``step``: optional scalar int (every_k
-    gating); ``state``: the dict from ``init_projection_state`` or a
-    previous call. Returns (projected params, new_state).
+    solver ("newton" | "kernel" | "fused" | "sharded"; the JAX name
+    "pallas" means "kernel"; "sharded" needs ``mesh``). ``step``: optional
+    scalar int (every_k gating); ``state``: the dict from
+    ``init_projection_state`` or a previous call. Returns (projected
+    params, new_state).
 
     >>> params, state = apply_constraints_packed(params, specs, state=state)
     """
     solver = _JAX_SOLVER_NAMES.get(engine, engine)
-    return ProjectionEngine(specs, solver=solver).apply(
+    return ProjectionEngine(specs, solver=solver, mesh=mesh).apply(
         params, step=step, state=state)

@@ -41,6 +41,7 @@ __all__ = [
     "packable_norms",
     "registered_norms",
     "project_segmented_family",
+    "project_segmented_family_sharded",
 ]
 
 
@@ -159,6 +160,34 @@ def project_segmented_family(Y: torch.Tensor, seg_ids, C_seg, *,
     return _segmented_solve(Y, seg_ids, C_seg, num_segments, theta0,
                             max_iter, ops=fam.seg_ops,
                             w_col=w_col if fam.uses_weights else None)
+
+
+def project_segmented_family_sharded(Y: torch.Tensor, seg_ids, C_seg, *,
+                                     num_segments: int, group,
+                                     family: str = "l1inf",
+                                     w_col: Optional[torch.Tensor] = None,
+                                     theta0: Optional[torch.Tensor] = None,
+                                     contrib: Optional[torch.Tensor] = None,
+                                     max_iter: int = 32):
+    """Sharded twin of ``project_segmented_family``: ``Y``, ``seg_ids``,
+    ``w_col`` and ``contrib`` are this rank's column block, ``group`` the
+    process group the columns are split over. Every
+    family keeps one (2, num_segments) all-reduce per Eq.-(19)
+    evaluation; a weight-aware family's ``w_col`` is the rank's own slice
+    and never crosses the group.
+
+    Returns (X block, theta_seg (num_segments,), iters int).
+
+    >>> X, th, it = project_segmented_family_sharded(
+    ...     Yl, sidl, C, num_segments=3, group=lay.group)
+    """
+    fam = get_family(family)
+    if fam.seg_ops is None:
+        raise ValueError(f"family {family!r} is per-leaf only (seg_ops=None)")
+    return _segmented_solve(Y, seg_ids, C_seg, num_segments, theta0,
+                            max_iter, ops=fam.seg_ops,
+                            w_col=w_col if fam.uses_weights else None,
+                            group=group, contrib=contrib)
 
 
 def _load_plain_kernel():

@@ -28,6 +28,13 @@ prev)``), with the JAX package's stopping rule kept exactly: ascend while
 any segment moves, stop at ``max_iter``, and re-evaluate the water level
 once on a cap exit, so ``iters`` matches the reference.
 
+``project_l1inf_segmented_sharded`` is the segmented solve on one rank's
+column block of a buffer whose columns are split over a process group:
+every per-segment reduction is all-reduced over the group (one stacked
+(3, G) SUM before the loop, one stacked (2, G) SUM per Eq.-(19)
+evaluation, one (G,) MAX for the C <= 0 threshold), so the theta vector,
+and with it every loop exit, is the same on every rank.
+
 Warm start (``theta0=``): any value >= 0 is safe; an overshooting guess is
 repaired by the first unclamped Eq.-(19) step.
 """
@@ -37,6 +44,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .simplex import cumsum_in_order
 
@@ -47,6 +55,7 @@ __all__ = [
     "project_l1inf_newton",
     "project_l1inf_newton_stats",
     "project_l1inf_segmented",
+    "project_l1inf_segmented_sharded",
     "theta_l1inf",
     "column_support",
     "active_compaction",
@@ -413,8 +422,20 @@ class _PlainSegOps:
 
 def _segmented_newton(aux, seg_ids: torch.Tensor, C_seg, num_segments: int,
                       theta0: Optional[torch.Tensor], max_iter: int,
-                      *, ops, dt=torch.float32):
+                      *, ops, dt=torch.float32, group=None,
+                      contrib: Optional[torch.Tensor] = None):
     """Segmented Newton on PREPARED per-column statistics.
+
+    With ``group`` (a process group) the columns are this rank's block of
+    a buffer split over the group: each per-segment reduction is
+    all-reduced, one stacked (3, G) SUM before the loop, one stacked
+    (2, G) SUM per Eq.-(19) evaluation and one (G,) MAX after it. A cap
+    exit whose theta still moves re-evaluates once, as the reference
+    does: one more (2, G) SUM than ``iters``. The loop's exit tests read
+    only all-reduced values, so every rank takes the same exits.
+    ``contrib`` (M,) bool marks the columns this rank counts in the sums
+    (a column replicated on every rank counts on one only); the water
+    level is computed for every column.
 
     Returns (mu (M,), theta_out (G,), iters, inside_seg (G,), zero_seg (G,))
     — mu is the water level at theta* before inside/zero gating.
@@ -425,16 +446,27 @@ def _segmented_newton(aux, seg_ids: torch.Tensor, C_seg, num_segments: int,
     tiny = torch.finfo(dt).tiny
     zero = torch.zeros((), dtype=dt, device=dev)
 
+    def summed(*sums):
+        """Per-segment sums, stacked and all-reduced over ``group`` in one
+        call when there is one."""
+        if group is None:
+            return sums
+        v = torch.stack(sums)
+        dist.all_reduce(v, group=group)
+        return v.unbind(0)
+
     valid = seg_ids < G
+    own = valid if contrib is None else valid & contrib
     summer = _segment_summer(seg_ids, G + 1)
 
     def sum_seg(v):
         return summer(v)[:G]
 
     a0, b0 = ops.stats0(aux)
-    norm_seg = sum_seg(torch.where(valid, ops.colnorm(aux), zero))
-    num0 = sum_seg(torch.where(valid, a0, zero))
-    den0 = sum_seg(torch.where(valid, b0, zero))
+    norm_seg, num0, den0 = summed(
+        sum_seg(torch.where(own, ops.colnorm(aux), zero)),
+        sum_seg(torch.where(own, a0, zero)),
+        sum_seg(torch.where(own, b0, zero)))
 
     Csafe = torch.where(C_seg > 0, C_seg, torch.ones_like(C_seg))
     cold = torch.clamp((num0 - Csafe) / torch.clamp(den0, min=1.0), min=0.0)
@@ -451,9 +483,12 @@ def _segmented_newton(aux, seg_ids: torch.Tensor, C_seg, num_segments: int,
         th_col = torch.cat([th_seg, pad])[col_seg]
         a, b_, active, mu = ops.stats(aux, th_col)
         active = active & valid
-        new = ((sum_seg(torch.where(active, a, zero)) - Csafe)
-               / torch.clamp(sum_seg(torch.where(active, b_, zero)),
-                             min=tiny))
+        counted = active if contrib is None else active & contrib
+        # the numerator and denominator sums cross the group together,
+        # one (2, G) all-reduce per evaluation
+        num, den = summed(sum_seg(torch.where(counted, a, zero)),
+                          sum_seg(torch.where(counted, b_, zero)))
+        new = (num - Csafe) / torch.clamp(den, min=tiny)
         return new, torch.where(active, mu, zero)
 
     # the host twin of the kernel engine's loop in kernels/l1inf/ops.py:
@@ -473,6 +508,9 @@ def _segmented_newton(aux, seg_ids: torch.Tensor, C_seg, num_segments: int,
     zero_seg = C_seg <= 0
     seg_max = _segment_max(torch.where(valid, ops.death(aux), zero),
                            seg_ids, G + 1)[:G]
+    if group is not None:
+        # max is idempotent: replicated columns need no ownership mask
+        dist.all_reduce(seg_max, op=dist.ReduceOp.MAX, group=group)
     theta_out = torch.where(zero_seg, seg_max,
                             torch.where(inside_seg, zero, theta))
     return mu, theta_out, iters, inside_seg, zero_seg
@@ -480,10 +518,14 @@ def _segmented_newton(aux, seg_ids: torch.Tensor, C_seg, num_segments: int,
 
 def _segmented_solve(Y: torch.Tensor, seg_ids, C_seg, num_segments: int,
                      theta0: Optional[torch.Tensor], max_iter: int,
-                     ops=None, w_col: Optional[torch.Tensor] = None):
-    """Single-buffer segmented Newton solve, family-parametric through
-    ``ops`` (default: plain l1,inf); ``w_col`` (M,) carries the per-column
-    weights of weight-aware families. Returns (X, theta_seg, iters)."""
+                     ops=None, w_col: Optional[torch.Tensor] = None,
+                     group=None, contrib: Optional[torch.Tensor] = None):
+    """Segmented Newton solve of one packed buffer, family-parametric
+    through ``ops`` (default: plain l1,inf); ``w_col`` (M,) carries the
+    per-column weights of weight-aware families. With ``group``, ``Y``,
+    ``seg_ids``, ``w_col`` and ``contrib`` are this rank's column block
+    and the per-segment sums cross the group (``_segmented_newton``).
+    Returns (X, theta_seg, iters)."""
     if Y.ndim != 2:
         raise ValueError("packed buffer must be 2-D")
     if ops is None:
@@ -496,10 +538,13 @@ def _segmented_solve(Y: torch.Tensor, seg_ids, C_seg, num_segments: int,
     seg_ids = torch.as_tensor(seg_ids, dtype=torch.int32, device=dev)
     if w_col is not None:
         w_col = torch.as_tensor(w_col, dtype=dt, device=dev)
+    if contrib is not None:
+        contrib = torch.as_tensor(contrib, dtype=torch.bool, device=dev)
 
     aux = ops.prepare(A, w_col)
     mu, theta_out, iters, inside_seg, zero_seg = _segmented_newton(
-        aux, seg_ids, C_seg, G, theta0, max_iter, ops=ops, dt=dt)
+        aux, seg_ids, C_seg, G, theta0, max_iter, ops=ops, dt=dt,
+        group=group, contrib=contrib)
 
     X = ops.finalize(Ydt, A, mu)
     col_seg = torch.clamp(seg_ids, max=G)
@@ -526,6 +571,26 @@ def project_l1inf_segmented(Y: torch.Tensor, seg_ids, C_seg, *,
     """
     return _segmented_solve(Y, seg_ids, C_seg, num_segments, theta0,
                             max_iter)
+
+
+def project_l1inf_segmented_sharded(Y: torch.Tensor, seg_ids, C_seg, *,
+                                    num_segments: int, group,
+                                    theta0: Optional[torch.Tensor] = None,
+                                    contrib: Optional[torch.Tensor] = None,
+                                    max_iter: int = 32):
+    """Sharded twin of ``project_l1inf_segmented``: ``Y``, ``seg_ids`` and
+    ``contrib`` are this rank's column block of the packed buffer (rows
+    resident, columns split over the process group ``group``). The
+    per-segment statistics cross the group as one (2, num_segments)
+    all-reduce per Eq.-(19) evaluation (plus the pre-loop (3, G) SUM and
+    one (G,) MAX), so theta is the same on every
+    rank and equal to the gathered solve up to summation order; no column
+    leaves its rank. ``dist.projection`` packs the blocks.
+
+    Returns (X block, theta_seg, iters).
+    """
+    return _segmented_solve(Y, seg_ids, C_seg, num_segments, theta0,
+                            max_iter, group=group, contrib=contrib)
 
 
 def theta_l1inf(Y: torch.Tensor, C, axis: int = 0) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""The production step builders and the training launcher (port of
-``repro.launch``, one device): ``launch/steps.py`` builds the train,
-prefill and decode steps, ``launch/train.py`` is the CLI
-(``python -m repro_torch.launch.train``). What needs a mesh (the sharding
-rules, ``lower_cell``, ``dryrun``, ``mesh``) waits for the distributed
-layer (ROADMAP.md queue A item 8)."""
+"""The production step builders, meshes and the training launcher (port of
+``repro.launch``): ``launch/steps.py`` builds the train, prefill and
+decode steps and picks the projection engine (``fused_sharded`` on a mesh),
+``launch/mesh.py`` builds meshes over the caller's process group,
+``launch/train.py`` is the CLI (``python -m repro_torch.launch.train``).
+The sharding rules, the steps over a mesh, ``lower_cell`` and ``dryrun``
+wait for ROADMAP.md queue A item 8b."""
 from .steps import (build_decode_step, build_prefill_step, build_train_step,
                     projection_engine_for)
 

@@ -23,9 +23,11 @@ jitted step donates them), so callers keep only the returned trees. Its
 ``every_k`` gates run on the host: it reads the optimizer count once a
 step, and a plan off its step is not solved.
 
-``mesh`` must be None: the sharded engine, ``rules_for_cell`` and
-``lower_cell`` wait for the distributed layer (ROADMAP.md queue A item 8)
-and raise NotImplementedError. ``rules`` name mesh axes and change nothing
+``projection_engine_for`` takes a mesh (``launch.mesh``): on more than one
+rank it gives the mesh-resident ``solver="fused_sharded"``. The step
+builders' ``mesh``, ``rules_for_cell`` and ``lower_cell`` wait for the
+sharding rules and the FSDP/TP steps (ROADMAP.md queue A item 8b) and
+raise NotImplementedError. ``rules`` name mesh axes and change nothing
 without a mesh, as in the reference.
 """
 from __future__ import annotations
@@ -43,8 +45,8 @@ from ..train.loop import _grad_tree
 __all__ = ["projection_engine_for", "build_train_step", "build_prefill_step",
            "build_decode_step", "rules_for_cell", "lower_cell"]
 
-_NO_MESH = ("the distributed layer is not ported to repro_torch yet "
-            "(ROADMAP.md queue A item 8)")
+_NO_MESH = ("sharding rules and the FSDP/TP steps are not ported to "
+            "repro_torch yet (ROADMAP.md queue A item 8b)")
 
 
 def _one_device(mesh, what: str):
@@ -64,11 +66,16 @@ def lower_cell(*args, **kwargs):
 
 def projection_engine_for(cfg, mesh=None,
                           with_projection: bool = True) -> ProjectionEngine:
-    """The production engine policy on one device: ``solver="fused"``, the
-    two-pass fused step for plans that stream their statistics at
-    ``every_k == 1`` and the single-buffer Newton for the rest."""
-    _one_device(mesh, "projection_engine_for")
+    """The production engine policy: the fused two-pass step wherever it
+    exists. On a mesh of more than one rank that is
+    ``solver="fused_sharded"``: the fused passes on each rank's column
+    block, one (2, num_segments) all-reduce per Newton evaluation, and the
+    mesh-resident Newton of ``solver="sharded"`` for plans the fused step
+    cannot take. With no mesh, or one rank, it is ``solver="fused"`` with
+    the single-buffer Newton as the fallback."""
     specs = cfg.projection_specs if with_projection else ()
+    if mesh is not None and mesh.size() > 1:
+        return ProjectionEngine(specs, solver="fused_sharded", mesh=mesh)
     return ProjectionEngine(specs, solver="fused")
 
 
@@ -89,7 +96,7 @@ def build_train_step(model: Model, mesh=None, rules: Optional[dict] = None,
     with ``metrics["proj_newton_extra_evals"]`` beside the loss's own
     metrics. ``params`` and ``opt_state`` are updated in place."""
     _one_device(mesh, "build_train_step")
-    engine = projection_engine_for(model.cfg, mesh, with_projection)
+    engine = projection_engine_for(model.cfg, None, with_projection)
 
     def train_step(params, opt_state, proj_state, batch):
         grads = tree_map(torch.zeros_like, params)

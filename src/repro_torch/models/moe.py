@@ -33,7 +33,7 @@ serving step that runs it can be captured into a CUDA graph.
 
 Expert sharding ("ep" / "tp") only places the weights on a mesh; on one
 card it selects nothing. ``models/moe_shardmap.py`` (manual expert
-parallelism) waits for the distributed layer (ROADMAP queue A item 8).
+parallelism) waits for ROADMAP queue A item 8b.
 
 Aux outputs: switch-style load-balance loss + router z-loss, and the
 fraction of assignments dropped.

@@ -14,8 +14,8 @@ the depth:
 
 The MLP part is the MoE MLP (``models/moe.py``) when ``n_experts``; its
 auxiliaries are summed over the layers and ``train_loss`` adds them.
-``moe_impl="shardmap"`` (manual expert parallelism) waits for the
-distributed layer (ROADMAP queue A item 8); ``ssd_bf16`` waits for item 6
+``moe_impl="shardmap"`` (manual expert parallelism) waits for ROADMAP
+queue A item 8b; ``ssd_bf16`` waits for item 6
 and raises NotImplementedError.
 
 Parameters and caches are nested dicts with the JAX package's keys and
@@ -211,7 +211,7 @@ def _mlp_part_apply(params, x, cfg: ArchConfig, aux_acc):
     if cfg.moe_impl == "shardmap" and cfg.expert_sharding == "ep":
         raise NotImplementedError(
             "moe_impl 'shardmap' (manual expert parallelism) is not ported "
-            "to repro_torch yet (ROADMAP.md queue A item 8)")
+            "to repro_torch yet (ROADMAP.md queue A item 8b)")
     y, aux = MOE.moe_apply(
         params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
         capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_kind,

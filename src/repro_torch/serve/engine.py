@@ -56,8 +56,8 @@ generator state and depends only on the request's own key and position, so
 continuous == solo holds by construction. The stream differs from JAX's;
 the distribution, ``softmax(logits / T)``, is the same.
 
-Not ported: ``mesh`` / ``rules`` (the distributed layer, ROADMAP.md queue
-A item 8) and ``step_hlo`` (XLA text, no torch counterpart; item 9).
+Not ported: ``mesh`` / ``rules`` (the sharded serve step, ROADMAP.md
+queue A item 8b) and ``step_hlo`` (XLA text, no torch counterpart; item 9).
 """
 from __future__ import annotations
 
@@ -331,7 +331,7 @@ class FleetEngine:
 
     ``model``: a zoo ``Model``; ``batch_slots``: fixed decode width B;
     ``cfg``: ``EngineConfig``; ``mesh`` / ``rules``: must be None (the
-    distributed layer is not ported).
+    sharded serve step is not ported, ROADMAP.md queue A item 8b).
 
     Lifecycle: ``load`` / ``load_compact`` a checkpoint, ``submit``
     requests, call ``step`` per decode step (or ``drain`` to run the
@@ -350,8 +350,8 @@ class FleetEngine:
                  scheduler: Optional[RecompactScheduler] = None):
         if mesh is not None or rules is not None:
             raise NotImplementedError(
-                "mesh / rules: the distributed layer is not ported to "
-                "repro_torch yet (ROADMAP.md queue A item 8)")
+                "mesh / rules: the sharded serve step is not ported to "
+                "repro_torch yet (ROADMAP.md queue A item 8b)")
         if model.cfg.encdec or model.cfg.n_img_tokens:
             raise ValueError(
                 "FleetEngine serves decoder-only archs; enc-dec / vision "

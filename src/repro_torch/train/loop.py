@@ -17,7 +17,8 @@ the Adam update writes the params and moments in place (``inplace`` of
 ``ProjectionEngine.projected_update``), so a full-size step holds params,
 gradients and moments once each (and a projected leaf twice, briefly).
 ``mesh`` and ``rules`` are accepted for the reference's signature and must
-be None until the distributed layer is ported (ROADMAP.md queue A item 8).
+be None until the sharding rules and the FSDP/TP step are ported
+(ROADMAP.md queue A item 8b).
 """
 from __future__ import annotations
 
@@ -59,8 +60,8 @@ class TrainConfig:
 def _no_mesh(mesh, rules):
     if mesh is not None or rules is not None:
         raise NotImplementedError(
-            "mesh / rules: the distributed layer is not ported to "
-            "repro_torch yet (ROADMAP.md queue A item 8)")
+            "mesh / rules: sharding rules and the FSDP/TP train step are "
+            "not ported to repro_torch yet (ROADMAP.md queue A item 8b)")
 
 
 def _grad_leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -44,7 +44,8 @@ class ServeConfig:
 class BatchServer:
     """Fixed B decode slots; requests are prompts (lists of token ids).
 
-    ``mesh`` / ``rules`` must be None (the distributed layer is not ported).
+    ``mesh`` / ``rules`` must be None (the sharded serve step waits for
+    ROADMAP.md queue A item 8b).
     ``scheduler`` (optional ``serve.RecompactScheduler``) lets ``refresh``
     upgrade itself to a live re-compaction when the live/slot ratio of a
     new checkpoint decays past the scheduler's threshold.

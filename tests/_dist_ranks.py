@@ -1,0 +1,493 @@
+"""Spawned gloo rank groups for the port's distributed tests (CPU).
+
+``run_ranks(case, world, mesh_shape, workdir)`` starts ``world`` processes
+(``spawn``), each joining a gloo group through a file under ``workdir``
+(never a fixed port: test files run side by side), builds
+``make_local_mesh(*mesh_shape, device=...)`` (the CPU unless the card is
+asked for: its ranks then share it), runs the function ``case``
+of this module and pickles what it returns; the parent gets the list, rank
+by rank. This module imports torch and repro_torch only, so the ranks
+start without JAX.
+
+The case functions build every input from numpy seeds on every rank, lay
+it out as DTensors (``place``), and return numpy pieces with their boxes
+(``piece``), so the parent can hold the assembled result against the
+port's single-device solve and against JAX.
+"""
+import contextlib
+import itertools
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def run_ranks(case, world, mesh_shape, workdir, timeout=300,
+              device="cpu", **kw):
+    """Run ``case`` on ``world`` spawned ranks; returns their results."""
+    import torch.multiprocessing as mp
+    workdir = str(workdir)
+    ctx = mp.start_processes(_entry, args=(case, world, tuple(mesh_shape),
+                                           workdir, device, kw),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{case} on {world} ranks: {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"{case}.rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _entry(rank, case, world, mesh_shape, workdir, device, kw):
+    from repro_torch.launch.mesh import make_local_mesh
+    torch.set_num_threads(1)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(workdir, f"{case}.rdv"),
+        rank=rank, world_size=world)
+    try:
+        mesh = make_local_mesh(*mesh_shape, device=device)
+        out = globals()[case](mesh, **kw)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"{case}.rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+# -- layouts -----------------------------------------------------------------
+
+def place(full, placements, mesh):
+    """A DTensor over ``mesh`` holding the numpy array ``full`` laid out as
+    ``placements`` (a tuple of ("S", dim) / ("R",) per mesh dim), or the
+    plain tensor when ``placements`` is None (every rank holds it)."""
+    from torch.distributed.tensor import distribute_tensor
+    t = torch.from_numpy(np.ascontiguousarray(full)).to(mesh.device_type)
+    if placements is None:
+        return t.clone()
+    # every rank holds ``full``: each keeps its own chunk, no collective
+    return distribute_tensor(t, mesh, to_placements(placements),
+                             src_data_rank=None)
+
+
+def to_placements(spec):
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(p[1]) if p[0] == "S" else Replicate() for p in spec)
+
+
+def piece(x, mesh):
+    """(box, numpy piece, placement names) of this rank's part of ``x``."""
+    from repro_torch.dist.layout import (MeshLayout, _box, local_of,
+                                         placements_of)
+    lay = MeshLayout(mesh)
+    pl = placements_of(x, lay)
+    box = _box(tuple(x.shape), pl, lay.shape, lay.coords[lay.me])
+    return (box, local_of(x).detach().float().cpu().numpy(),
+            tuple(type(p).__name__ for p in pl))
+
+
+def assemble(pieces, shape):
+    """The full array from every rank's ``piece`` (replicated pieces
+    overlap with equal values)."""
+    out = np.full(shape, np.nan, np.float32)
+    for box, arr, _ in pieces:
+        out[tuple(slice(lo, hi) for lo, hi in box)] = arr
+    assert not np.isnan(out).any(), "pieces do not cover the tensor"
+    return out
+
+
+class CollectiveLog:
+    """What ``recorded_collectives`` saw: ``reduces``, the (shape, op) of
+    every all_reduce in call order; ``seconds``, the wall time spent in
+    all_reduce, all_to_all_single and all_gather."""
+
+    def __init__(self):
+        self.reduces, self.seconds = [], 0.0
+
+
+_TIMED = ("all_reduce", "all_to_all_single", "all_gather")
+
+
+@contextlib.contextmanager
+def recorded_collectives(sync=None):
+    """Record the ``torch.distributed`` collectives called meanwhile into
+    a ``CollectiveLog``. ``sync`` (e.g. ``torch.cuda.synchronize``) runs
+    before and after each call, so its time is the collective's alone,
+    host staging included."""
+    log, real = CollectiveLog(), {n: getattr(dist, n) for n in _TIMED}
+
+    def wrap(name):
+        def call(*a, **kw):
+            if name == "all_reduce":
+                op = kw.get("op", a[1] if len(a) > 1 else dist.ReduceOp.SUM)
+                log.reduces.append((tuple(a[0].shape), "MAX" if op ==
+                                    dist.ReduceOp.MAX else "SUM"))
+            if sync is not None:
+                sync()
+            t = time.perf_counter()
+            out = real[name](*a, **kw)
+            if sync is not None:
+                sync()
+            log.seconds += time.perf_counter() - t
+            return out
+        return call
+
+    for n in _TIMED:
+        setattr(dist, n, wrap(n))
+    try:
+        yield log
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+
+
+def newton_calls(plans, iters, max_iter=32):
+    """The all-reduces of one solve of each plan, in plan order: a (3, G)
+    SUM, a (2, G) SUM per Eq.-(19) evaluation and a (G,) MAX. ``plans``:
+    (key, G) pairs; ``iters``: {key: evaluation count}. A solve stopped at
+    ``max_iter`` re-evaluates once when its theta still moves, one more
+    SUM, so such a plan has two candidates. Returns every candidate."""
+    per_plan = []
+    for key, G in plans:
+        n = iters[key]
+        per_plan.append([[((3, G), "SUM")] + [((2, G), "SUM")] * k
+                         + [((G,), "MAX")]
+                         for k in ((n,) if n < max_iter else (n, n + 1))])
+    return [sum(c, []) for c in itertools.product(*per_plan)]
+
+
+def comm_counts(cdm):
+    """{"all_reduce": n, "all_to_all": n, "all_gather": n} of a
+    ``CommDebugMode``."""
+    out = {"all_reduce": 0, "all_to_all": 0, "all_gather": 0}
+    for op, n in cdm.get_comm_counts().items():
+        name = str(op)
+        for key, words in (("all_reduce", ("allreduce", "all_reduce")),
+                           ("all_to_all", ("alltoall", "all_to_all")),
+                           ("all_gather", ("allgather", "all_gather"))):
+            if any(w in name for w in words):
+                out[key] += n
+    return out
+
+
+def _tree_pieces(tree, mesh):
+    from repro_torch._tree import flatten_with_path
+    return {k: piece(v, mesh) for k, v in flatten_with_path(tree)}
+
+
+def _np_state(state):
+    return {k: v.cpu().numpy() for k, v in state.items()}
+
+
+# -- the cases -----------------------------------------------------------------
+
+def projection_np(seed=0):
+    """Leaves of the sharded-projection cases: a stacked FSDP leaf, a
+    row-sharded and a column-sharded matrix, a replicated one, one whose
+    27 columns no mesh here divides, a leaf projected over its trailing
+    dim, and a column-sharded Hoyer leaf."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    return {"blocks": {"w1": f(4, 16, 64)}, "enc": {"w": f(32, 128)},
+            "dec": {"w": f(16, 64)}, "rep": {"w": f(24, 32)},
+            "odd": {"w": f(16, 27)}, "tr": {"w": f(48, 20)},
+            "hoy": {"w": f(16, 64)}}
+
+
+def projection_specs(mod):
+    """Every packable family of the registry, plus per-leaf Hoyer."""
+    S = mod.ProjectionSpec
+    return (S(pattern=r"blocks/w1", norm="bilevel", radius=16.0),
+            S(pattern=r"enc/w", norm="l1inf", radius=8.0),
+            S(pattern=r"dec/w", norm="l1inf_weighted", radius=8.0,
+              weights=tuple(1.0 + 0.01 * i for i in range(64))),
+            S(pattern=r"rep/w", norm="l12", radius=3.0),
+            S(pattern=r"odd/w", norm="l1inf_masked", radius=6.0),
+            S(pattern=r"tr/w", norm="l1inf", radius=5.0, axis=1),
+            S(pattern=r"hoy/w", norm="hoyer", radius=0.75))
+
+
+# placements per leaf on the (2, 1) and (2, 2) meshes
+PLACEMENTS = {
+    (2, 1): {"blocks/w1": (("S", 1), ("R",)), "enc/w": (("S", 0), ("R",)),
+             "dec/w": (("S", 1), ("R",)), "rep/w": None, "odd/w": None,
+             "tr/w": (("S", 1), ("R",)), "hoy/w": (("S", 1), ("R",))},
+    (2, 2): {"blocks/w1": (("S", 1), ("S", 1)),
+             "enc/w": (("S", 0), ("S", 1)),
+             "dec/w": (("S", 1), ("S", 1)), "rep/w": None, "odd/w": None,
+             "tr/w": (("S", 1), ("R",)), "hoy/w": (("S", 1), ("S", 1))},
+}
+
+
+def _placed_tree(np_tree, mesh, placements):
+    from repro_torch._tree import flatten_with_path, unflatten_like
+    flat = flatten_with_path(np_tree)
+    return unflatten_like(np_tree, [place(v, placements.get(k), mesh)
+                                    for k, v in flat])
+
+
+def sharded_projection(mesh):
+    """The sharded engine's ``apply`` over every family, cold and then
+    warm-started from its own theta: pieces, theta, iterations, the
+    all-reduce calls of the cold solve, and its collectives by kind."""
+    import warnings
+    from torch.distributed.tensor.debug import CommDebugMode
+    import repro_torch.core as TC
+    shape = tuple(mesh.mesh.shape)
+    params = _placed_tree(projection_np(), mesh, PLACEMENTS[shape])
+    eng = TC.ProjectionEngine(projection_specs(TC), solver="sharded",
+                              mesh=mesh)
+    state0 = eng.init_state(params)
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        with recorded_collectives() as log, CommDebugMode() as cdm:
+            out, st, stats = eng.apply(params, state=state0, with_stats=True)
+    out2, st2, stats2 = eng.apply(params, state=st, with_stats=True)
+    plans, _ = eng.plans(params)
+    return {"pieces": _tree_pieces(out, mesh), "theta": _np_state(st),
+            "iters": dict(stats), "theta_warm": _np_state(st2),
+            "iters_warm": dict(stats2), "allreduces": log.reduces,
+            "comm": comm_counts(cdm),
+            "plans": [(p.key, p.num_segments) for p in plans],
+            "warnings": [str(w.message) for w in warned]}
+
+
+def fused_np(seed=0):
+    """The fused-step cases' params and gradients (the reference's
+    enc1 + stacked blocks, ``tests/test_multidevice.py`` fused_sharded)."""
+    rng = np.random.default_rng(seed)
+    params = {"enc1": {"w": rng.normal(size=(64, 256)).astype(np.float32)},
+              "blocks": {"w": rng.normal(size=(3, 64, 256)).astype(
+                  np.float32)},
+              "bias": {"b": rng.normal(size=(256,)).astype(np.float32)}}
+    grads = {k: {kk: (0.01 * rng.normal(size=vv.shape)).astype(np.float32)
+                 for kk, vv in v.items()} for k, v in params.items()}
+    return params, grads
+
+
+FUSED_PLACEMENTS = {
+    (2, 1): {"enc1/w": (("S", 0), ("R",)), "blocks/w": (("S", 2), ("R",)),
+             "bias/b": None},
+    (2, 2): {"enc1/w": (("S", 0), ("S", 1)),
+             "blocks/w": (("S", 2), ("S", 1)), "bias/b": None},
+}
+
+
+def fused_specs(mod, norm, params):
+    norm0 = float(np.abs(params["enc1"]["w"]).max(axis=0).sum())
+    S = mod.ProjectionSpec
+    return (S(pattern=r"enc1/w", norm=norm, radius=0.1 * norm0),
+            S(pattern=r"blocks/w", norm=norm, radius=0.05 * norm0, axis=1))
+
+
+def _opt_placed(opt, mesh, placements):
+    from repro_torch.optim.adam import AdamState
+    to_np = lambda t: {k: {kk: vv.cpu().numpy() for kk, vv in v.items()}
+                       for k, v in t.items()}
+    return AdamState(count=opt.count.clone(),
+                     mu=_placed_tree(to_np(opt.mu), mesh, placements),
+                     nu=_placed_tree(to_np(opt.nu), mesh, placements))
+
+
+def _max_diff(tree_s, tree_r, mesh):
+    """max |sharded - single-device| over the leaves, on this rank's
+    pieces, and whether every piece is bit-equal."""
+    from repro_torch._tree import flatten_with_path
+    worst, same = 0.0, True
+    ref = dict(flatten_with_path(tree_r))
+    for k, v in flatten_with_path(tree_s):
+        box, arr, _ = piece(v, mesh)
+        want = ref[k].detach().cpu().numpy()[tuple(slice(lo, hi)
+                                                   for lo, hi in box)]
+        worst = max(worst, float(np.abs(arr - want).max()))
+        same = same and np.array_equal(arr.view(np.int32),
+                                       want.astype(np.float32).view(
+                                           np.int32))
+    return worst, same
+
+
+def fused_sharded(mesh, clip_norm=None):
+    """``fused_sharded`` against ``fused`` (bilevel and l12), two steps with
+    the theta warm start crossing between the two solvers; the plain-l1,inf
+    fallback against ``sharded``; ``projection_engine_for``'s choice; the
+    ``grad_reduce`` composition with ``compressed_psum``."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    import repro_torch.core as TC
+    from repro_torch.configs import get_reduced
+    from repro_torch.dist.compression import compressed_psum
+    from repro_torch.kernels.fused_step import kernel as FK
+    from repro_torch.launch.steps import projection_engine_for
+    from repro_torch.optim import AdamConfig, adam_init
+    shape = tuple(mesh.mesh.shape)
+    pl = FUSED_PLACEMENTS[shape]
+    P, Gr = fused_np()
+    params_r, grads_r = (_placed_tree(t, mesh, {}) for t in (P, Gr))
+    params_s, grads_s = (_placed_tree(t, mesh, pl) for t in (P, Gr))
+    acfg = AdamConfig(lr=1e-3, clip_norm=clip_norm)
+    out = {}
+    for norm in ("bilevel", "l12"):
+        specs = fused_specs(TC, norm, P)
+        ref = TC.ProjectionEngine(specs, solver="fused")
+        shd = TC.ProjectionEngine(specs, solver="fused_sharded", mesh=mesh)
+        opt_r = adam_init(params_r, acfg)
+        opt_s = _opt_placed(opt_r, mesh, pl)
+        state0 = ref.init_state(params_r)
+        TC.engine_counters_reset()
+        FK.reset_launch_counts()
+        with recorded_collectives() as log, CommDebugMode() as cdm:
+            p_s, o_s, s_s, it_s = shd.projected_update(
+                grads_s, opt_s, params_s, acfg, state=state0,
+                with_stats=True)
+        counters, launches = TC.engine_counters(), FK.launch_counts()
+        p_r, o_r, s_r, it_r = ref.projected_update(
+            grads_r, opt_r, params_r, acfg, state=state0, with_stats=True)
+        # step 2 warm-started across the switch: the single-device
+        # solver's state into the sharded engine
+        p_x, o_x, s_x, it_x = shd.projected_update(
+            grads_s, _opt_placed(o_r, mesh, pl),
+            _placed_tree({k: {kk: vv.cpu().numpy() for kk, vv in v.items()}
+                          for k, v in p_r.items()}, mesh, pl),
+            acfg, state=s_r, with_stats=True)
+        p_r2, o_r2, s_r2, it_r2 = ref.projected_update(
+            grads_r, o_r, p_r, acfg, state=s_r, with_stats=True)
+        out[norm] = {
+            "params": _max_diff(p_s, p_r, mesh),
+            "mu": _max_diff(o_s.mu, o_r.mu, mesh),
+            "nu": _max_diff(o_s.nu, o_r.nu, mesh),
+            "theta": (_np_state(s_s), _np_state(s_r)),
+            "iters": (dict(it_s), dict(it_r)),
+            "step2_params": _max_diff(p_x, p_r2, mesh),
+            "step2_theta": (_np_state(s_x), _np_state(s_r2)),
+            "step2_iters": (dict(it_x), dict(it_r2)),
+            "pieces": _tree_pieces(p_s, mesh),
+            "allreduces": log.reduces, "comm": comm_counts(cdm),
+            "counters": counters, "launches": launches,
+            "num_segments": [p.num_segments for p in ref.plans(P)[0]]}
+
+    # plain l1,inf has no streaming hook: fused_sharded solves it exactly
+    # as sharded
+    specs = fused_specs(TC, "l1inf", P)
+    runs = {}
+    for solver in ("fused_sharded", "sharded"):
+        eng = TC.ProjectionEngine(specs, solver=solver, mesh=mesh)
+        opt = _opt_placed(adam_init(params_r, acfg), mesh, pl)
+        runs[solver] = eng.projected_update(grads_s, opt, params_s, acfg,
+                                            state=eng.init_state(params_r))
+    same = True
+    for a, b in zip(_leaves_of(runs["fused_sharded"]),
+                    _leaves_of(runs["sharded"])):
+        a = a.to_local() if hasattr(a, "to_local") else a
+        b = b.to_local() if hasattr(b, "to_local") else b
+        same = same and torch.equal(a, b)
+    out["fallback_bit_equal"] = bool(same)
+    cfg = get_reduced("gemma_7b")
+    out["engine_for"] = (projection_engine_for(cfg, mesh).solver,
+                         projection_engine_for(cfg, mesh).mesh is mesh,
+                         projection_engine_for(cfg, None).solver)
+
+    # grad_reduce: per-rank partial gradients summed by compressed_psum
+    # inside the fused_sharded step, against the step on the summed
+    # gradient
+    specs = fused_specs(TC, "bilevel", P)
+    shd = TC.ProjectionEngine(specs, solver="fused_sharded", mesh=mesh)
+    lay_rank = dist.get_rank()
+    rng = np.random.default_rng(100 + lay_rank)
+    partial = {k: {kk: torch.from_numpy(
+        (0.01 * rng.normal(size=vv.shape)).astype(np.float32)).to(
+            mesh.device_type)
+        for kk, vv in v.items()} for k, v in P.items()}
+    composed = {}
+    for mode in ("none", "int8"):
+        opt = _opt_placed(adam_init(params_r, acfg), mesh, pl)
+        with recorded_collectives() as log:
+            res = shd.projected_update(
+                partial, opt, params_s, acfg,
+                state=shd.init_state(params_r), with_stats=True,
+                grad_reduce=lambda g, mode=mode: compressed_psum(g, mesh,
+                                                                 mode))
+        composed[mode] = {"pieces": _tree_pieces(res[0], mesh),
+                          "theta": _np_state(res[2]),
+                          "iters": dict(res[3]), "allreduces": log.reduces}
+    summed = compressed_psum(partial, mesh, "none")
+    opt = _opt_placed(adam_init(params_r, acfg), mesh, pl)
+    direct = shd.projected_update(summed, opt, params_s, acfg,
+                                  state=shd.init_state(params_r))
+    composed["direct_pieces"] = _tree_pieces(direct[0], mesh)
+    composed["summed"] = {k: {kk: vv.cpu().numpy() for kk, vv in v.items()}
+                          for k, v in summed.items()}
+    out["composed"] = composed
+    return out
+
+
+def _leaves_of(result):
+    from repro_torch._tree import leaves
+    p, o, s = result
+    return leaves(p) + leaves(o.mu) + leaves(o.nu) + [s[k] for k in sorted(s)]
+
+
+def compression(mesh, n=4096, k_frac=0.05):
+    """``compressed_psum`` of two leaves in each mode, every rank with its
+    own partial; the partials and the results, with the collectives."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.dist.compression import compressed_psum
+    rank = dist.get_rank()
+    rng = np.random.default_rng(10 + rank)
+    tree = {"a": rng.normal(size=(n,)).astype(np.float32),
+            "b": (rng.normal(size=(8, 33)) * 1e-3).astype(np.float32)}
+    tt = {k: torch.from_numpy(v) for k, v in tree.items()}
+    out = {"partial": tree}
+    for mode in ("none", "int8", "topk"):
+        with CommDebugMode() as cdm:
+            res = compressed_psum(tt, mesh, mode=mode, k_frac=k_frac)
+        out[mode] = ({k: v.numpy() for k, v in res.items()},
+                     comm_counts(cdm))
+    return out
+
+
+def capped_np(seed=5):
+    """A (32, 64) buffer in two segments of 32 columns, and their radii:
+    from a cold start theta still moves after two evaluations."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(32, 64)).astype(np.float32),
+            np.repeat(np.arange(2, dtype=np.int32), 32),
+            np.array([4.0, 2.0], np.float32))
+
+
+def capped_solve(mesh, max_iter=2):
+    """``project_l1inf_segmented_sharded`` of this rank's column block of
+    ``capped_np``, stopped at ``max_iter`` evaluations: its block, theta,
+    iterations and all-reduces."""
+    from repro_torch.core.l1inf import project_l1inf_segmented_sharded
+    from repro_torch.dist.layout import MeshLayout
+    Y, sids, C = capped_np()
+    lay = MeshLayout(mesh)
+    w = Y.shape[1] // lay.size
+    lo, hi = lay.rank * w, (lay.rank + 1) * w
+    with recorded_collectives() as log:
+        X, th, it = project_l1inf_segmented_sharded(
+            torch.from_numpy(Y[:, lo:hi].copy()), torch.from_numpy(sids[lo:hi]),
+            torch.from_numpy(C), num_segments=2, group=lay.group,
+            max_iter=max_iter)
+    return {"cols": (lo, hi), "X": X.numpy(), "theta": th.numpy(),
+            "iters": it, "allreduces": log.reduces}
+
+
+def all_cases(mesh):
+    """The projection file's cases in one group."""
+    return {"projection": sharded_projection(mesh),
+            "capped": capped_solve(mesh),
+            "fused": fused_sharded(mesh),
+            "fused_clip": fused_sharded(mesh, clip_norm=1.0)}

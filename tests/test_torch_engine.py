@@ -176,8 +176,11 @@ def test_counters_per_plan():
 def test_solver_validation():
     with pytest.raises(ValueError):
         TC.ProjectionEngine(_specs(TC), solver="magic")
+    # the mesh solvers need a mesh, in both packages
     for solver in ("sharded", "fused_sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="needs a mesh"):
+            JC.ProjectionEngine(_specs(JC), solver=solver)
+        with pytest.raises(ValueError, match="needs a mesh"):
             TC.ProjectionEngine(_specs(TC), solver=solver)
     with pytest.raises(ValueError):
         TC.ProjectionSpec(pattern="x", norm="nonsense")   # unregistered
@@ -309,7 +312,10 @@ def test_packed_shim_solver_names():
     TC.apply_constraints_packed(pt, _specs(TC), engine="pallas")
     assert TC.engine_counters() == {"l1inf_packed/k1/kernel": 1}
     TC.engine_counters_reset()
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    pj, _ = _both(_np_params(12))
+    with pytest.raises(ValueError, match="needs a mesh"):
+        JC.apply_constraints_packed(pj, _specs(JC), engine="sharded")
+    with pytest.raises(ValueError, match="needs a mesh"):
         TC.apply_constraints_packed(pt, _specs(TC), engine="sharded")
     with pytest.raises(ValueError):
         TC.apply_constraints_packed(pt, _specs(TC), engine="magic")

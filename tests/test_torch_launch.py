@@ -266,20 +266,38 @@ def test_prefill_and_decode_steps_match_reference(arch):
             atol=1e-4 * max(1.0, float(np.abs(w).max())), err_msg=path)
 
 
-@pytest.mark.parametrize("call", ["engine", "train", "prefill", "decode",
-                                  "rules", "lower"])
+@pytest.mark.parametrize("call", ["train", "prefill", "decode", "rules",
+                                  "lower"])
 def test_mesh_raises_naming_item_8(call):
     cfg = TC.get_reduced("stablelm_3b")
     model = TZ.build(cfg)
     mesh = object()
-    fn = {"engine": lambda: TS.projection_engine_for(cfg, mesh),
-          "train": lambda: TS.build_train_step(model, mesh, None),
+    fn = {"train": lambda: TS.build_train_step(model, mesh, None),
           "prefill": lambda: TS.build_prefill_step(model, mesh, None),
           "decode": lambda: TS.build_decode_step(model, mesh, None),
           "rules": lambda: TS.rules_for_cell(cfg, "train_4k", False),
           "lower": lambda: TS.lower_cell(model, "train_4k", mesh, False)}
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         fn[call]()
+
+
+def test_projection_engine_for_matches_jax_policy():
+    """The engine policy beside the reference's: "fused" with no mesh or a
+    one-rank mesh, "fused_sharded" holding the mesh on more ranks (a
+    stand-in with ``size()`` here; tests/test_torch_dist_projection.py
+    runs it on real 2- and 4-rank meshes)."""
+    import types
+    jcfg, cfg = JC.get_reduced("stablelm_3b"), TC.get_reduced("stablelm_3b")
+    one = jax.make_mesh((1,), ("data",))
+    for jmesh, n in ((None, None), (one, 1)):
+        mesh = None if n is None else types.SimpleNamespace(size=lambda: n)
+        assert TS.projection_engine_for(cfg, mesh).solver == \
+            JS.projection_engine_for(jcfg, jmesh).solver == "fused"
+    four = types.SimpleNamespace(size=lambda: 4)
+    eng = TS.projection_engine_for(cfg, four)
+    assert (eng.solver, eng.mesh) == ("fused_sharded", four)
+    assert eng.specs == cfg.projection_specs
+    assert TS.projection_engine_for(cfg, four, False).specs == ()
 
 
 def _lines(text):

@@ -70,6 +70,8 @@ def test_every_module_listed():
                  "repro_torch.data", "repro_torch.data.pipeline",
                  "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
                  "repro_torch.dist", "repro_torch.dist.watchdog",
+                 "repro_torch.dist.projection", "repro_torch.dist.layout",
+                 "repro_torch.dist.compression", "repro_torch.launch.mesh",
                  "repro_torch.train", "repro_torch.train.loop",
                  "repro_torch.serve.engine", "repro_torch.train.serve",
                  "repro_torch.models.moe", "repro_torch.models.blockcheck",
