@@ -415,7 +415,31 @@ and prints no result. Phases:
                step and the ms inside gloo collectives (the card
                synchronised around each), the two kernels' device ms on
                each rank's column block (ranks in turn).
- 18. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+ 18. lm_train_mesh — the sharded production step: hymba-1.5b at full
+               size in bf16 with f32 Adam moments (its leaves under the
+               l1,2 ball at every_k 1, so fused_sharded launches its
+               kernels) through launch.steps.build_train_step(model, mesh,
+               rules) on a (2, 2) data x model mesh of 4 gloo ranks
+               sharing the card, B 2 x S 2048, two steps: losses and every
+               param piece within twice the same-run noise floor of the
+               one-device step run here first (the larger of its distance
+               from params x (1 + 2^-8 N(0, 1)) and from the batch as two
+               microbatches), reruns bit-equal, every adam_colstats /
+               adam_clip_apply launch against its plain version, the
+               collectives by kind (dist.sharding's counts; every
+               all_gather an FSDP gather; per plan one (3, G) SUM, one
+               (2, G) SUM per Newton evaluation, one (G,) MAX), one
+               prefill over the mesh within twice its floor; each rank's
+               step ms, its share inside gloo, peak memory. deepseek-v2
+               at depth 2 (B 1 x S 512, bf16) on (1, 2): moe_impl
+               "shardmap" within 2e-2 of "gspmd" and of one device. The
+               GPipe ring (dist.pipeline) over 2 ranks, one full-width
+               hymba MLP stage each, against the stages in order. Phases
+               7 / 7b also hold the bf16-tile SSD kernels (ssd_bf16) to
+               their plain versions at hymba-1.5b's and mamba2-370m's
+               training shapes and run a depth-2 ssd_bf16 hymba-1.5b loss
+               backward that launches them.
+ 19. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
@@ -430,6 +454,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -4265,6 +4290,713 @@ def _event_ms(torch, fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
+# phase 7 / 7b's bf16-tile rows: the variant at hymba-1.5b's and
+# mamba2-370m's training shapes (name, B, heads per group, S, P, N, chunk,
+# dt range), and the model run that drives it (hymba-1.5b at full width,
+# depth 2, ssd_bf16, one loss backward)
+SSD_TILE_SHAPES = [("hymba_train", 1, 50, 2048, 64, 16, 64, (3.0, 20.0)),
+                   ("mamba2_train", 1, 32, 2048, 64, 128, 64, (0.05, 0.6))]
+SSD_TILE_TOL = 1e-3
+SSD_TILE_MODEL = dict(arch="hymba-1.5b", depth=2, seq=2048)
+
+
+def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
+                        shapes=SSD_TILE_SHAPES, run=SSD_TILE_MODEL):
+    """Phases 7 / 7b, the bf16-tile rows: ``ssd_fwd(tile_bf16=True)`` and
+    its backward against their plain versions (within SSD_TILE_TOL of each
+    output's scale: the plain products run on cuBLAS, the kernels' in fmaf
+    order, and a bf16 rounding can land on the other side of a tie),
+    reruns bit-equal, device ms warm and L2-flushed, the plain version's,
+    the f32-tile kernel's on the same inputs, and the bound (the f32
+    kernels' work: the inputs are f32, the tiles round in registers); then ``run``'s loss backward with ``ssd_bf16``
+    (the path that launches the variant, counted), its loss within 1e-2
+    of the f32 tiles' and every gradient finite. Returns ({kernel: row}
+    of the first shape, {kernel: launches})."""
+    from repro_torch._tree import leaves
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    for name, BG, groups, S, P, N, Q, (lo, hi) in shapes:
+        BH = BG * groups
+        x = torch.randn((BH, S, P), generator=g, device=dev)
+        dt = torch.rand((BH, S), generator=g, device=dev) * (hi - lo) + lo
+        a = -torch.exp(torch.rand((BH,), generator=g, device=dev) - 0.5)
+        d = torch.ones((BH,), device=dev)
+        Bm = torch.randn((BG, S, N), generator=g, device=dev) * 2
+        Cm = torch.randn((BG, S, N), generator=g, device=dev) * 2
+        dy = torch.randn((BH, S, P), generator=g, device=dev)
+        args = (x, dt, a, d, Bm, Cm)
+        kw = dict(chunk=Q, groups=groups, tile_bf16=True)
+        y, st, saved = SK._fwd_kernel(*args, Q, groups, True)
+        yp, stp, psaved = SK.ssd_fwd_plain(*args, return_saved=True, **kw)
+        rel = lambda u, v: float((u.float() - v.float()).abs().max()) / max(
+            float(v.float().abs().max()), 1e-30)
+        fwd_rel = max(rel(y, yp), rel(st, stp))
+        y2, st2, _ = SK._fwd_kernel(*args, Q, groups, True)
+        check(bool(torch.isfinite(y).all()) and fwd_rel <= SSD_TILE_TOL,
+              f"ssd_fwd_tile_bf16 {name}: kernel vs plain, relative "
+              f"{fwd_rel}")
+        check(bits_equal(torch, y, y2) and bits_equal(torch, st, st2),
+              f"ssd_fwd_tile_bf16 {name}: rerun not bit-equal")
+        got = SK.ssd_bwd(*args, dy, None, saved, **kw)
+        want = SK.ssd_bwd_plain(*args, dy, None, psaved, **kw)
+        bwd_rel = {n: rel(u, v) for n, u, v in zip(
+            ("dx", "ddt", "da", "dd", "dB", "dC"), got, want)}
+        again = SK.ssd_bwd(*args, dy, None, saved, **kw)
+        check(all(bool(torch.isfinite(t).all()) for t in got)
+              and max(bwd_rel.values()) <= SSD_TILE_TOL,
+              f"ssd_bwd_tile_bf16 {name}: kernel vs plain, relative "
+              f"{bwd_rel}")
+        check(all(bits_equal(torch, u, v) for u, v in zip(got, again)),
+              f"ssd_bwd_tile_bf16 {name}: rerun not bit-equal")
+        nc, tri = S // Q, Q * (Q + 1) // 2
+        f_ops = nc * BH * (2 * tri * (N + P) + 4 * Q * P * N)
+        f_bytes = (2 * x.numel() + dt.numel() + 2 * Bm.numel()) * 4 \
+            + (2 * BH + BH * P * N) * 4
+        b_ops = nc * BH * (2 * tri * (2 * P + 2 * N) + 8 * Q * P * N)
+        hst, _, G = saved
+        b_bytes = 4 * (3 * x.numel() + 3 * dt.numel() + 4 * Bm.numel()
+                       + hst.numel() + G.numel() + 4 * BH)
+        f32kw = dict(chunk=Q, groups=groups)
+        _, _, saved32 = SK._fwd_kernel(*args, Q, groups)
+        for kname, kern, plain, f32, ops, nbytes, err in (
+                ("ssd_fwd_tile_bf16",
+                 lambda: SK._fwd_kernel(*args, Q, groups, True),
+                 lambda: SK.ssd_fwd_plain(*args, **kw),
+                 lambda: SK._fwd_kernel(*args, Q, groups), f_ops, f_bytes,
+                 float((y - yp).abs().max())),
+                ("ssd_bwd_tile_bf16",
+                 lambda: SK.ssd_bwd(*args, dy, None, saved, **kw),
+                 lambda: SK.ssd_bwd_plain(*args, dy, None, psaved, **kw),
+                 lambda: SK.ssd_bwd(*args, dy, None, saved32, **f32kw),
+                 b_ops, b_bytes,
+                 max(float((u - v).abs().max()) for u, v in zip(got,
+                                                                want)))):
+            bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (ops / F32_OPS_PER_S * 1e3, "operations"))
+            line = {"ms": time_ms(torch, kern),
+                    "ms_l2_flushed": time_cold_ms(torch, kern, flush),
+                    "plain_ms": time_ms(torch, plain, budget_ms=300.0),
+                    "f32_tiles_ms": time_ms(torch, f32),
+                    "bound_ms": bound[0], "bound_by": bound[1],
+                    "library_ms": None, "max_abs_err": err,
+                    "shape": name}
+            emit({"phase": "ssd_tile_bf16", "kernel": kname, "BH": BH,
+                  "S": S, "P": P, "N": N, "chunk": Q, "dt_range": [lo, hi],
+                  "rel_err_vs_plain": fwd_rel if "fwd" in kname else bwd_rel,
+                  **line})
+            rows.setdefault(kname, line)
+        del got, want, again, saved, psaved, saved32
+        torch.cuda.empty_cache()
+    # the path: a depth-2 hymba-1.5b loss backward with ssd_bf16
+    base = dataclasses.replace(C.get_config(run["arch"]),
+                               n_layers=run["depth"])
+    tok = torch.randint(0, base.vocab, (1, run["seq"] + 1), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    losses = {}
+    for tile in (False, True):
+        model = Z.build(dataclasses.replace(base, ssd_bf16=tile))
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        for p in leaves(params):
+            p.requires_grad_()
+        SK.reset_launch_counts()
+        loss, _ = model.loss(params, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = dict(SK.launch_counts(), **SK.tile_launch_counts())
+        finite = all(bool(torch.isfinite(p.grad).all())
+                     for p in leaves(params))
+        losses[tile] = float(loss)
+        check(finite, f"ssd_bf16 {base.name}: a gradient is not finite")
+        del params, model, loss
+        torch.cuda.empty_cache()
+    want = {"ssd_fwd_tile_bf16": 2 * base.n_layers,
+            "ssd_bwd_tile_bf16": base.n_layers}
+    check(all(launches[k] == v for k, v in want.items())
+          and launches["ssd_fwd"] == 0 and launches["ssd_bwd"] == 0,
+          f"ssd_bf16 {base.name}: launches {launches}, want {want}")
+    check(abs(losses[True] - losses[False]) <= 1e-2,
+          f"ssd_bf16 {base.name}: loss {losses[True]} vs f32 tiles "
+          f"{losses[False]}")
+    emit({"phase": "ssd_tile_bf16", "model": base.name,
+          "n_layers": base.n_layers, "seq": run["seq"], "loss": losses,
+          "launches": launches})
+    return rows, {k: launches[k] for k in want}
+
+
+# phase 18: the sharded production step. hymba-1.5b in bf16 with f32 Adam
+# moments on a (data 2, model 2) mesh of 4 gloo ranks sharing the card, B 2
+# (1 a data rank) x S 2048, its spec at every_k 1 so both steps project
+# (fused_sharded); deepseek-v2 at depth 2, B 1 x S 512, on (1, 2) with
+# moe_impl "shardmap" and "gspmd"; a two-stage pipeline of hymba-1.5b's
+# full-width MLP
+MESH = dict(arch="hymba-1.5b", mesh=(2, 2), seq=2048, steps=2, depth=None,
+            perturb=2.0 ** -8, moe_arch="deepseek-v2-236b", moe_depth=2,
+            moe_seq=512, moe_tol=2e-2, pipe_micro=4, pipe_seq=512,
+            timeout=900)
+
+
+def _spawn(target, world, args, timeout):
+    """``target(rank, world, work, *args)`` on ``world`` spawned ranks; the
+    ranks' JSON results (``rank{r}.json`` under ``work``), or the failure."""
+    import tempfile
+    import torch.multiprocessing as mp
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(dir=os.path.join(root, "build"))
+    # the ranks' allocators grow segments in place: four of them share the
+    # card's 80 GB with the parent
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(target, args=(world, work, *args),
+                             nprocs=world, join=False, start_method="spawn")
+    failed = None
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                failed = f"timed out after {timeout} s"
+                break
+    except Exception as e:                 # a rank raised: its traceback
+        failed = f"{type(e).__name__}: {str(e)[-3000:]}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    ranks = []
+    for r in range(world):
+        path = os.path.join(work, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                ranks.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    import torch
+    torch.cuda.ipc_collect()
+    return ranks, failed, time.perf_counter() - t0
+
+
+def _rank_setup(rank, world, work, shape):
+    """Join the gloo group (a file rendezvous under ``work``) and build the
+    (data, model) mesh on the card."""
+    import torch
+    import torch.distributed as dist
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            init_method="file://" + os.path.join(work, "rdv"))
+    from repro_torch.launch.mesh import make_local_mesh
+    return torch, dist, make_local_mesh(*shape, device="cuda")
+
+
+def _rank_done(dist, work, rank, out, shared=None):
+    """Write the rank's results; first drop its references to the
+    parent's tensors (``shared``), so that the parent can free them."""
+    import torch
+    if shared is not None:
+        shared.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(_jsonable(out), f)
+
+
+def _box_of(x, lay):
+    from repro_torch.dist.layout import _box, placements_of
+    box = _box(tuple(x.shape), placements_of(x, lay), lay.shape,
+               lay.coords[lay.me])
+    return tuple(slice(lo, hi) for lo, hi in box)
+
+
+def _first_calls(torch, calls):
+    """The first recorded launch of each fused kernel, its tensors copied
+    to the host (the card's copies are freed with the step), with the
+    bytes its tensors move and its element count."""
+    first = {}
+    for name, a, kw, out in calls:
+        if name in first:
+            continue
+        outs = out if isinstance(out, tuple) else (out,)
+        ts = [t for t in list(a) + list(outs) if isinstance(t, torch.Tensor)]
+        host = tuple(t.cpu() if isinstance(t, torch.Tensor) else t for t in a)
+        n_el = (a[4] if name == "adam_colstats" else a[3]).numel()
+        first[name] = (host, kw, sum(t.numel() * t.element_size()
+                                     for t in ts), n_el)
+    return first
+
+
+def _time_recorded(torch, dist, FK, first, lay):
+    """Device ms of each fused kernel's first recorded launch (this rank's
+    block of the step's first projected leaf, its inputs back on the card)
+    and of its plain version, CUDA events, the ranks taking turns; the
+    bound from the bytes its tensors move (each read once, each written
+    once) and phase 2b's f32 operation counts."""
+    res = {}
+    for q in range(lay.size):
+        torch.cuda.synchronize()
+        dist.barrier()
+        if q != lay.me:
+            continue
+        for name, (host, kw, nbytes, n_el) in first.items():
+            a = tuple(t.cuda() if isinstance(t, torch.Tensor) else t
+                      for t in host)
+            ops = (20 if name == "adam_colstats" else 14) * n_el
+            bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (ops / F32_OPS_PER_S * 1e3, "operations"))
+            kern = getattr(FK, name)
+            plain = getattr(FK, name + "_plain")
+            res[name] = {"ms": _event_ms(torch, lambda: kern(*a, **kw)),
+                         "plain_ms": _event_ms(torch,
+                                               lambda: plain(*a, **kw)),
+                         "bound_ms": bound[0], "bound_by": bound[1],
+                         "block": list((a[4] if name == "adam_colstats"
+                                        else a[3]).shape)}
+            del a
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return res
+
+
+def _mesh_rank(rank, world, work, shape, shared, meta):
+    """One rank of phase 18's train step (a spawned process): two steps of
+    ``build_train_step(model, mesh, rules)`` from the shared params with
+    its fused kernels' launches recorded and held against their plain
+    versions, the collectives by kind, a rerun, one prefill; its pieces
+    held against the same boxes of the one-device results."""
+    torch, dist, mesh = _rank_setup(rank, world, work, shape)
+    import _dist_ranks as R
+    from repro_torch._tree import flatten_with_path, leaves
+    from repro_torch.convert import params_to_mesh
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.layout import MeshLayout, local_of
+    from repro_torch.kernels.fused_step import kernel as FK
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import zoo as Z
+    from repro_torch.optim import AdamConfig
+    cfg = meta["cfg"]
+    model = Z.build(cfg)
+    lay = MeshLayout(mesh)
+    rules = TS.rules_for_cell(cfg, "train_4k", False)
+    specs = TS.param_shardings(model, mesh, rules)
+    acfg = AdamConfig(moment_dtype=torch.float32)
+    batch = shared["batch"]
+    step = TS.build_train_step(model, mesh, rules, acfg)
+    dev = torch.device("cuda")
+
+    def run(record):
+        params = params_to_mesh(shared["params"], mesh, specs, dev)
+        opt = TS.shard_opt_state(params, acfg)
+        proj = TS.projection_engine_for(cfg, mesh).init_state(params)
+        losses, counts, ms, gloo_s, launches = [], [], [], [], []
+        checks, errs, first = {}, {}, {}
+        with _kernel_calls(FK, record) as calls:
+            for i in range(meta["steps"]):
+                SH.reset_collective_counts()
+                FK.reset_launch_counts()
+                gathers = R._count_calls("all_gather")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with R.recorded_collectives(torch.cuda.synchronize) as log, \
+                        gathers:
+                    loss, met, params, opt, proj = step(params, opt, proj,
+                                                        batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                gloo_s.append(log.seconds)
+                losses.append(float(loss))
+                launches.append(FK.launch_counts())
+                c = SH.collective_counts()
+                c["all_gather_calls"] = gathers.n
+                c["all_reduce_calls"] = len(log.reduces)
+                c["newton_evals"] = int(met["proj_newton_extra_evals"]) + 2
+                c["projection_reduces"] = [
+                    [list(s), op] for s, op in log.reduces
+                    if len(s) in (1, 2) and s[-1] == meta["G"]
+                    and (len(s) == 1 or s[0] in (2, 3))]
+                counts.append(c)
+                if record:      # each launch against its plain version,
+                    # then dropped (the inputs it keeps are a block each)
+                    ok, err = _against_plain(torch, FK, calls)
+                    for k, v in ok.items():
+                        checks[k] = checks.get(k, True) and v
+                    for k, v in err.items():
+                        errs[k] = max(errs.get(k, 0.0), v)
+                    if i == 0:
+                        first = _first_calls(torch, calls)
+                    calls.clear()
+        return (params, losses, counts, ms, gloo_s, launches, checks, errs,
+                first)
+
+    torch.cuda.reset_peak_memory_stats()
+    (params, losses, counts, ms, gloo_s, launches, checks, errs,
+     first) = run(True)
+    peak = torch.cuda.max_memory_allocated()
+    p2, l2, *_ = run(False)
+    rerun = l2 == losses and all(
+        torch.equal(local_of(u), local_of(v))
+        for u, v in zip(leaves(params), leaves(p2)))
+    del p2
+    # pieces against the one-device result (the parent's file, mapped: each
+    # rank reads its boxes) and the floor of this rank's box
+    one = torch.load(meta["one_file"], mmap=True)
+    floors = meta["floors"][dist.get_rank()]
+    leaves_out = {}
+    for path, x in flatten_with_path(params):
+        box = _box_of(x, lay)
+        mine = local_of(x).float().cpu()
+        o = one[path][box].float()
+        leaves_out[path] = {
+            "max_abs_diff": float((mine - o).abs().max()),
+            "noise_floor": floors[path], "scale": float(o.abs().max())}
+    del params, one
+    torch.cuda.empty_cache()
+    times = _time_recorded(torch, dist, FK, first, lay)
+    del first
+    start = params_to_mesh(shared["params"], mesh, specs, dev)
+    pre = TS.build_prefill_step(model, mesh, rules)(
+        start, {"tokens": batch["tokens"]})
+    pre_diff = float((pre.float() - shared["prefill"].float()).abs().max())
+    del start, pre
+    out = {"rank": dist.get_rank(), "losses": losses, "counts": counts,
+           "step_ms": ms, "gloo_s": gloo_s, "launches": launches,
+           "checks": dict(checks, rerun_bit_equal=bool(rerun)),
+           "kernel_max_abs_err": errs, "kernels": times,
+           "leaves": leaves_out, "prefill_max_abs_diff": pre_diff,
+           "peak_bytes": peak}
+    del batch
+    _rank_done(dist, work, rank, out, shared)
+
+
+def _moe_rank(rank, world, work, shape, shared, meta):
+    """One rank of phase 18's MoE check: Model.loss under the (1, 2) mesh
+    with moe_impl "shardmap" and "gspmd" (no gradient)."""
+    torch, dist, mesh = _rank_setup(rank, world, work, shape)
+    from repro_torch.convert import params_to_mesh
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import zoo as Z
+    from repro_torch.train.loop import local_batch, mesh_weights
+    out = {"rank": dist.get_rank()}
+    for impl in ("shardmap", "gspmd"):
+        cfg = dataclasses.replace(meta["cfg"], moe_impl=impl)
+        model = Z.build(cfg)
+        rules = TS.rules_for_cell(cfg, "train_4k", False)
+        specs = TS.param_shardings(model, mesh, rules)
+        params = params_to_mesh(shared["params"], mesh, specs, "cuda")
+        SH.reset_collective_counts()
+        with torch.no_grad(), SH.axis_rules(mesh, rules):
+            _, tree = mesh_weights(params, specs, grad=False)
+            loss, _ = model.loss(tree, local_batch(shared["batch"]))
+            loss = SH.data_sum(loss, "dp_loss")
+        out[impl] = {"loss": float(loss), "counts": SH.collective_counts()}
+        del params, tree
+        torch.cuda.empty_cache()
+    _rank_done(dist, work, rank, out, shared)
+
+
+def _pipe_rank(rank, world, work, shape, shared, meta):
+    """One rank of phase 18's pipeline check: ``build_pipeline_fn`` over
+    the data axis, one full-width MLP stage a rank."""
+    torch, dist, mesh = _rank_setup(rank, world, work, shape)
+    from repro_torch.dist.pipeline import build_pipeline_fn
+    from repro_torch.models.layers import mlp_apply
+    pipe = build_pipeline_fn(lambda W, h: h + mlp_apply(W, h), shape[0],
+                             meta["n_micro"], mesh, "data")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y = pipe(shared["stages"], shared["x"])
+    torch.cuda.synchronize()
+    out = {"rank": dist.get_rank(), "ms": (time.perf_counter() - t) * 1e3,
+           "max_abs_diff": float((y - shared["want"]).abs().max()),
+           "scale": float(shared["want"].abs().max())}
+    del y, pipe
+    _rank_done(dist, work, rank, out, shared)
+
+
+def lm_train_mesh_phase(torch, Z, C, FK, dev, card, mesh_cfg=MESH):
+    """Phase 18 (lm_train_mesh): the sharded production step.
+
+    * hymba-1.5b at full width (``depth`` cuts it when set) in bf16 with
+      f32 moments through ``build_train_step(model, mesh, rules)`` on a
+      (2, 2) data x model mesh of 4 gloo ranks sharing the card (the
+      parent's params, batch and one-device results reach them by CUDA
+      IPC), two steps at every_k 1: the losses within twice the noise
+      floor of the one-device step run here (the same two steps from the
+      params multiplied by 1 + ``perturb`` N(0, 1)), every param piece
+      within twice its leaf's floor (plus one bf16 rounding of its
+      scale); reruns bit-equal; every fused-kernel launch against its
+      plain version; the collectives by kind: no all-gather but the FSDP
+      weight gathers, and per plan one (3, G) SUM, one (2, G) SUM per
+      Newton evaluation and one (G,) MAX; one prefill over the mesh
+      within twice the prefill's floor;
+    * deepseek-v2 at depth 2 on (1, 2): moe_impl "shardmap" against
+      "gspmd" and the one-device loss within ``moe_tol`` (the reference's
+      2e-2);
+    * ``build_pipeline_fn`` over 2 ranks, one full-width hymba MLP stage a
+      rank (plus its residual), against the stages in order.
+
+    Times are gloo ranks sharing one card, through host memory: they say
+    nothing of an interconnect. Returns {kernel: row} for the kernels
+    line (rank 0's times, launches summed over the ranks' first step)."""
+    from repro_torch._tree import flatten_with_path, leaves, tree_map
+    from repro_torch.launch import steps as TS
+    from repro_torch.optim import AdamConfig, adam_init
+    from repro_torch.core import ProjectionEngine
+    from repro_torch.train import loop as TL
+    m = mesh_cfg
+    base = C.get_config(m["arch"])
+    # the config's leaves under the l1,2 ball at every_k 1: a family the
+    # fused step takes, so fused_sharded launches its kernels every step
+    cfg = dataclasses.replace(base, projection_specs=tuple(
+        dataclasses.replace(s, every_k=1, norm="l12")
+        for s in base.projection_specs))
+    if m["depth"]:
+        cfg = dataclasses.replace(cfg, n_layers=m["depth"])
+    model = Z.build(cfg)
+    gc.collect()
+    # tensors earlier phases shared with their ranks by CUDA IPC stay
+    # allocated here until collected once the ranks are gone
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    data, mdl = m["mesh"]
+    params = _cast(torch, model.init(torch.Generator(device=dev).manual_seed(
+        0), device=dev), torch.bfloat16)
+    tok = torch.randint(0, cfg.vocab, (data, m["seq"] + 1), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(4))
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    acfg = AdamConfig(moment_dtype=torch.float32)
+    step = TS.build_train_step(model, None, None, acfg)
+
+    def one_device(p):
+        p = tree_map(lambda a: a.clone(), p)
+        opt = adam_init(p, acfg)
+        proj = TS.projection_engine_for(cfg).init_state(p)
+        losses, ms = [], []
+        for _ in range(m["steps"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, _, p, opt, proj = step(p, opt, proj, batch)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        del opt
+        return p, losses, ms
+
+    def accumulated(p):
+        """The one-device step with the batch as ``data`` microbatches of
+        one row, their bf16 gradients summed: the data axis's sum."""
+        p = tree_map(lambda a: a.clone(), p)
+        opt = adam_init(p, acfg)
+        eng = ProjectionEngine(cfg.projection_specs, solver="fused")
+        proj = eng.init_state(p)
+        acc = TL.build_accum_step(model, acfg, TL.TrainConfig(
+            microbatches=data), engine=eng)
+        losses = []
+        for i in range(m["steps"]):
+            p, opt, proj, loss = acc(p, opt, proj, batch, acfg.lr,
+                                     count=i + 1)
+            losses.append(float(loss))
+        del opt
+        return p, losses
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    pert = tree_map(lambda a: (a.float() * (1 + m["perturb"] * torch.randn(
+        a.shape, generator=g, device=dev))).to(a.dtype), params)
+    prefill = TS.build_prefill_step(model)(params, {"tokens": batch[
+        "tokens"]})
+    prefill_floor = float((TS.build_prefill_step(model)(
+        pert, {"tokens": batch["tokens"]}).float() - prefill.float())
+        .abs().max())
+    one, one_losses, one_ms = one_device(params)
+    # each rank's floor, leaf by leaf, over the box it holds (rank r sits
+    # at mesh coordinate divmod(r, model)); only these numbers reach it.
+    # The floor is the larger of two same-run distances from the
+    # one-device step: params moved by one bf16 rounding, and the batch's
+    # gradient summed from its data-parallel halves in bf16; one run is
+    # kept at a time
+    from repro_torch.dist.layout import _box
+    from repro_torch.dist.sharding import placements
+    grid = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 mesh=torch.zeros((data, mdl)))
+    spec_of = dict(flatten_with_path(TS.param_shardings(
+        model, grid, TS.rules_for_cell(cfg, "train_4k", False))))
+    floors = [{} for _ in range(data * mdl)]
+
+    def widen(other):
+        for (path, o), f in zip(flatten_with_path(one), leaves(other)):
+            d = (f.float() - o.float()).abs()
+            pl = placements(grid, spec_of[path])
+            for r in range(data * mdl):
+                box = _box(tuple(o.shape), pl, (data, mdl), divmod(r, mdl))
+                floors[r][path] = max(floors[r].get(path, 0.0), float(d[
+                    tuple(slice(lo, hi) for lo, hi in box)].max()))
+            del d
+
+    floor, floor_losses, _ = one_device(pert)
+    del pert
+    widen(floor)
+    del floor
+    gc.collect()
+    torch.cuda.empty_cache()
+    micro, micro_losses = accumulated(params)
+    widen(micro)
+    del micro
+    floor_losses = [b if abs(b - a) >= abs(c - a) else c
+                    for a, b, c in zip(one_losses, floor_losses,
+                                       micro_losses)]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    G = sum(p.num_segments for p in TS.projection_engine_for(cfg).plans(
+        params)[0])
+    # the one-device result goes to the ranks as a file they map (not on
+    # the card: four ranks' state and the parent's params fill it)
+    root = os.path.dirname(os.path.abspath(__file__))
+    one_file = os.path.join(root, "build", "lm_train_mesh_one.pt")
+    torch.save({p: t.cpu() for p, t in flatten_with_path(one)}, one_file)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    shared = {"params": params, "batch": batch, "prefill": prefill}
+    ranks, failed, wall = _spawn(
+        _mesh_rank, data * mdl,
+        ((data, mdl), shared, {"cfg": cfg, "steps": m["steps"], "G": G,
+                               "floors": floors, "one_file": one_file}),
+        m["timeout"])
+    os.remove(one_file)
+    check(failed is None and len(ranks) == data * mdl,
+          f"lm_train_mesh: {failed or 'missing rank results'}")
+    if not ranks:
+        return {}
+    loss_floor = max(abs(a - b) for a, b in zip(floor_losses, one_losses))
+    bf16_half_ulp = 2.0 ** -9
+    for r in ranks:
+        for what, ok in r["checks"].items():
+            check(ok, f"lm_train_mesh rank {r['rank']}: {what}")
+        for k in FUSED_REPLACES:
+            check(r["launches"][0].get(k, 0) > 0,
+                  f"lm_train_mesh rank {r['rank']}: the step never "
+                  f"launched {k}")
+        loss_diff = max(abs(a - b) for a, b in zip(r["losses"], one_losses))
+        check(loss_diff <= FLOOR_FACTOR * loss_floor,
+              f"lm_train_mesh rank {r['rank']}: losses {r['losses']} vs "
+              f"one-device {one_losses}, floor {loss_floor}")
+        for path, lf in r["leaves"].items():
+            check(lf["max_abs_diff"] <= FLOOR_FACTOR * lf["noise_floor"]
+                  + bf16_half_ulp * lf["scale"],
+                  f"lm_train_mesh rank {r['rank']} {path}: {lf}")
+        check(r["prefill_max_abs_diff"] <= FLOOR_FACTOR * prefill_floor,
+              f"lm_train_mesh rank {r['rank']}: prefill "
+              f"{r['prefill_max_abs_diff']} vs floor {prefill_floor}")
+        for c in r["counts"]:
+            check(c["all_gather_calls"] == c.get("fsdp_gather", 0),
+                  f"lm_train_mesh rank {r['rank']}: an all_gather that is "
+                  f"no FSDP weight gather: {c}")
+            want = ([[[3, G], "SUM"]] + [[[2, G], "SUM"]] * c["newton_evals"]
+                    + [[[G], "MAX"]])
+            check(c["projection_reduces"] == want,
+                  f"lm_train_mesh rank {r['rank']}: projection all-reduces "
+                  f"{c['projection_reduces']}, want {want}")
+    emit({"phase": "lm_train_mesh", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "n_params": model.n_params(),
+          "mesh": [data, mdl], "ranks": data * mdl, "batch": data,
+          "seq": m["seq"], "dtype": "bfloat16", "moments": "float32",
+          "card": card,
+          "times": "gloo through host memory, 4 ranks sharing one card",
+          "run_s": wall, "one_device_losses": one_losses,
+          "one_device_step_ms": one_ms, "loss_noise_floor": loss_floor,
+          "prefill_noise_floor": prefill_floor, "perturb": m["perturb"],
+          "G": G, "parent_allocated_bytes_after": torch.cuda.memory_allocated(),
+          "per_rank": [{k: r[k] for k in (
+              "rank", "losses", "counts", "step_ms", "gloo_s", "launches",
+              "kernel_max_abs_err", "kernels", "prefill_max_abs_diff",
+              "peak_bytes", "checks")} for r in ranks],
+          "worst_leaf": max(
+              ({"path": p, **lf, "rank": r["rank"]} for r in ranks
+               for p, lf in r["leaves"].items()),
+              key=lambda e: e["max_abs_diff"] / max(e["noise_floor"], 1e-30))
+          if ranks else None})
+    del shared, params, prefill, batch, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the MoE: deepseek-v2 at depth 2 on (1, 2)
+    mcfg = dataclasses.replace(C.get_config(m["moe_arch"]),
+                               n_layers=m["moe_depth"])
+    mmodel = Z.build(mcfg)
+    mparams = _cast(torch, mmodel.init(torch.Generator(device=dev)
+                                       .manual_seed(0), device=dev),
+                    torch.bfloat16)
+    mtok = torch.randint(0, mcfg.vocab, (1, m["moe_seq"] + 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    mbatch = {"tokens": mtok[:, :-1].contiguous(),
+              "labels": mtok[:, 1:].contiguous()}
+    with torch.no_grad():
+        mone = float(mmodel.loss(mparams, mbatch)[0])
+    torch.cuda.empty_cache()
+    mranks, mfailed, mwall = _spawn(
+        _moe_rank, 2, ((1, 2), {"params": mparams, "batch": mbatch},
+                       {"cfg": mcfg}), m["timeout"])
+    check(mfailed is None and len(mranks) == 2,
+          f"lm_train_mesh moe: {mfailed or 'missing rank results'}")
+    for r in mranks:
+        sm, gs = r["shardmap"]["loss"], r["gspmd"]["loss"]
+        check(abs(sm - gs) <= m["moe_tol"] and abs(sm - mone) <= m["moe_tol"]
+              and np.isfinite(sm),
+              f"lm_train_mesh moe rank {r['rank']}: shardmap {sm}, gspmd "
+              f"{gs}, one-device {mone}")
+    emit({"phase": "lm_train_mesh", "check": "moe_shardmap",
+          "arch": mcfg.name, "n_layers": mcfg.n_layers, "mesh": [1, 2],
+          "seq": m["moe_seq"], "one_device_loss": mone, "run_s": mwall,
+          "card": card, "per_rank": mranks})
+    del mparams, mbatch, mtok, mmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the pipeline: two full-width hymba MLP stages
+    d, ff = base.d_model, base.d_ff
+    g = torch.Generator(device=dev).manual_seed(7)
+    stages = {"w1": torch.randn((2, d, ff), generator=g, device=dev) * d ** -.5,
+              "w3": torch.randn((2, d, ff), generator=g, device=dev) * d ** -.5,
+              "w2": torch.randn((2, ff, d), generator=g, device=dev) * ff ** -.5}
+    x = torch.randn((m["pipe_micro"], 1, m["pipe_seq"], d), generator=g,
+                    device=dev)
+    from repro_torch.models.layers import mlp_apply
+    want = x.clone()
+    with torch.no_grad():
+        for s in range(2):
+            W = {k: v[s] for k, v in stages.items()}
+            want = torch.stack([h + mlp_apply(W, h) for h in want])
+    pranks, pfailed, pwall = _spawn(
+        _pipe_rank, 2, ((2, 1), {"stages": stages, "x": x, "want": want},
+                        {"n_micro": m["pipe_micro"]}), m["timeout"])
+    check(pfailed is None and len(pranks) == 2,
+          f"lm_train_mesh pipeline: {pfailed or 'missing rank results'}")
+    for r in pranks:
+        check(r["max_abs_diff"] <= 1e-5 * max(1.0, r["scale"]),
+              f"lm_train_mesh pipeline rank {r['rank']}: {r}")
+    emit({"phase": "lm_train_mesh", "check": "pipeline", "stages": 2,
+          "microbatches": m["pipe_micro"], "d_model": d, "d_ff": ff,
+          "seq": m["pipe_seq"], "run_s": pwall, "card": card,
+          "per_rank": pranks})
+    del stages, x, want
+    torch.cuda.empty_cache()
+    return {k: {"launches": sum(r["launches"][0].get(k, 0) for r in ranks),
+                "launches_by_rank": [r["launches"][0].get(k, 0)
+                                     for r in ranks],
+                "max_abs_err": max(r["kernel_max_abs_err"].get(k, 0.0)
+                                   for r in ranks),
+                **(ranks[0]["kernels"].get(k, {}) if ranks else {})}
+            for k in FUSED_REPLACES}
+
+
 def main():
     import torch
 
@@ -4794,6 +5526,9 @@ def main():
     zoo_rows = attn_zoo_phase(torch, FA, dev, flush)
     ssd_row = ssd_kernel_phase(torch, SK, Sref, dev, flush)
     ssd_bwd_row = ssd_bwd_phase(torch, SK, Sref, dev, flush)
+    # this slice: the bf16-tile variant of both SSD kernels (ssd_bf16)
+    tile_rows, tile_launches = ssd_tile_bf16_phase(torch, SK, Z, C, dev,
+                                                   flush)
     block_launches = block_bwd_phase(torch, C, FA, SK, dev)
     # this slice's bf16 rows: stablelm-3b's global and hymba-1.5b's hybrid
     block_bwd_phase(torch, C, FA, SK, dev, blocks=BLOCK_BWD_BF16,
@@ -4827,8 +5562,16 @@ def main():
     bf16_launches, bf16_by_dtype = lm_train_bf16_phase(
         torch, Z, C, FA, SK, K, FK, dev)
 
-    # -- 17. this slice: the sharded and fused_sharded solvers and the
-    # compressed gradient sum, 2 and 4 ranks sharing the card over gloo
+    # -- 18. this slice: the sharded production step on a (data, model)
+    # mesh of 4 ranks sharing the card, the MoE's expert parallelism and the
+    # pipeline. It runs before 17: phase 17's parent keeps about 31 GB on
+    # the card after its ranks exit (CUDA IPC memory that
+    # torch.cuda.ipc_collect does not release), and hymba-1.5b's four
+    # ranks need that room
+    mesh_rows = lm_train_mesh_phase(torch, Z, C, FK, dev, smi)
+
+    # -- 17. the sharded and fused_sharded solvers and the compressed
+    # gradient sum, 2 and 4 ranks sharing the card over gloo
     dist_ranks = dist_projection_phase(torch, C, dev, smi)
 
     # -- result ------------------------------------------------------------
@@ -4914,7 +5657,22 @@ def main():
          "max_abs_err": max(r["kernel_max_abs_err"][k] for r in ranks),
          **ranks[0]["kernels"][k]}
         for D, ranks in sorted(dist_ranks.items())
-        for k in FUSED_REPLACES]})
+        for k in FUSED_REPLACES] + [
+        # this slice: the bf16-tile SSD variants at hymba-1.5b's training
+        # shape (phases 7 / 7b), launches in the depth-2 ssd_bf16 loss
+        # backward that drives them
+        {"name": k, "route": "cuda", "source": LM_SOURCE[
+            "ssd_fwd" if "fwd" in k else "ssd_bwd"],
+         "replaces": LM_REPLACES["ssd_fwd" if "fwd" in k else "ssd_bwd"],
+         "launches": tile_launches[k], **row}
+        for k, row in tile_rows.items()] + [
+        # this slice: the fused step's kernels on one rank's block of
+        # phase 18's sharded bf16 train step (rank 0's device ms, the ranks
+        # timed in turn), launches summed over the ranks' first step
+        {"name": k, "route": "cuda", "source": FUSED_SOURCE,
+         "replaces": FUSED_REPLACES[k], "shape": "hymba_bf16_mesh_2x2_block",
+         "path": "lm_train_mesh", "library_ms": None, **row}
+        for k, row in mesh_rows.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

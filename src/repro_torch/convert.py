@@ -9,6 +9,9 @@ the JAX arrays over as numpy:
 
 Nested dicts keep their keys, so a parameter path (``enc1/w``) names the
 same tensor in both packages, and layouts are unchanged (no transposes).
+Over a mesh, ``params_to_mesh`` keeps each rank's piece of every full
+leaf under its ``Spec`` (``launch.steps.param_shardings``), and
+``params_from_mesh`` puts the full leaves back on every rank.
 bfloat16 arrays (numpy's ``ml_dtypes`` extension type, which torch cannot
 read directly) go through float32, which holds every bfloat16 value
 exactly, and come out as ``torch.bfloat16``.
@@ -24,7 +27,8 @@ from ._device import resolve_device
 from ._tree import tree_map
 from .optim.adam import AdamState
 
-__all__ = ["params_from_numpy", "opt_state_from_numpy"]
+__all__ = ["params_from_numpy", "opt_state_from_numpy", "params_to_mesh",
+           "params_from_mesh"]
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
@@ -58,3 +62,42 @@ def opt_state_from_numpy(state: Any,
         count=torch.tensor(int(np.asarray(count)), dtype=torch.int32,
                            device=dev),
         mu=params_from_numpy(mu, dev), nu=params_from_numpy(nu, dev))
+
+
+def params_to_mesh(tree: Any, mesh, specs: Any,
+                   device: Optional[str] = None) -> Any:
+    """Full leaves (numpy arrays or tensors, the same on every rank, e.g.
+    JAX's draw) -> ``DTensor``s over ``mesh`` holding this rank's piece
+    of each under the tree of ``dist.sharding.Spec`` ``specs``: a local
+    slice, no collective. ``device``: where the pieces live (the card when
+    None)."""
+    from .dist.layout import MeshLayout, _box, wrap
+    from .dist.sharding import placements
+    dev = resolve_device(device)
+    lay = MeshLayout(mesh)
+
+    def one(x, spec):
+        t = x.to(dev) if isinstance(x, torch.Tensor) else _tensor(x, dev)
+        pl = placements(mesh, spec)
+        box = _box(tuple(t.shape), pl, lay.shape, lay.coords[lay.me])
+        piece = t[tuple(slice(lo, hi) for lo, hi in box)].contiguous()
+        return wrap(piece, t.shape, pl, lay)
+
+    return tree_map(one, tree, specs)
+
+
+def params_from_mesh(tree: Any, mesh) -> Any:
+    """``DTensor`` leaves over ``mesh`` -> the full tensors on every rank
+    (each leaf moved to replicated by ``dist.layout.move``: one
+    all-to-all). Plain tensors pass through."""
+    from .dist.layout import (MeshLayout, local_of, move, placements_of,
+                              replicated_placements)
+    lay = MeshLayout(mesh)
+
+    def one(x):
+        if not hasattr(x, "placements"):
+            return x
+        return move(local_of(x), x.shape, placements_of(x, lay),
+                    replicated_placements(lay), lay)
+
+    return tree_map(one, tree)

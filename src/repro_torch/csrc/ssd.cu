@@ -63,6 +63,16 @@
 // as described above; below 64 (reduced configs only) G and y are formed
 // one output a thread at a time, with the same sums in the same order.
 //
+// The bf16-tile variant (TB, ssd_fwd_tile_bf16; the reference's
+// ssd_apply(tile_bf16=True)) rounds to bf16 where the reference computes in
+// bf16: G from bf16 C and B (products exact in f32, summed in f32 in the
+// same order, rounded), L = exp(cum_i - cum_j), M = G L, dt_j's factor of
+// M and x inside the intra sum, and the intra sum itself; cum, exp(cum),
+// the states, the scan and the C h term stay f32, as there. The f32 path's
+// code and numbers do not change (TB is a template constant). Built for
+// f32 inputs at chunk 64 and 8 and N 16 and 128 only (the zoo's shapes,
+// eight kernels), so the build stays near its f32 time.
+//
 // Plain C interface (loaded with ctypes): pointers, sizes and the stream;
 // dtype code 0 = f32, 1 = bf16 for x, dt, B and C (a and d are f32); the
 // caller allocates the four scratch buffers. Returns the first
@@ -85,6 +95,10 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
 __device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
+}
+// x rounded to bf16 and back (the bf16-tile variant's rounding)
+__device__ __forceinline__ float rb(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 __device__ __forceinline__ float comp(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
@@ -151,7 +165,7 @@ constexpr size_t state_smem_bytes() {
   return sizeof(float) * (a > b ? a : b);
 }
 
-template <typename T, int Q, int P, int N>
+template <typename T, int Q, int P, int N, bool TB>
 __global__ void __launch_bounds__(kThreads)
 ssd_chunk_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                        const float* __restrict__ a, const T* __restrict__ Bm,
@@ -245,20 +259,24 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         for (int r = 0; r < RQ; ++r)
 #pragma unroll
           for (int c = 0; c < CQ; ++c)
-            g[r][c] = fmaf(comp(cv[r], k), comp(bv[c], k), g[r][c]);
+            g[r][c] = TB ? fmaf(rb(comp(cv[r], k)), rb(comp(bv[c], k)),
+                                g[r][c])
+                         : fmaf(comp(cv[r], k), comp(bv[c], k), g[r][c]);
     }
 #pragma unroll
     for (int r = 0; r < RQ; ++r)
 #pragma unroll
       for (int c = 0; c < CQ; ++c)
-        gb[(4 * ty + r) * Q + tx + 16 * c] = g[r][c];
+        gb[(4 * ty + r) * Q + tx + 16 * c] = TB ? rb(g[r][c]) : g[r][c];
   } else {
     // one output a thread: the same sum over n, ascending from 0
     for (int e = tid; e < Q * Q; e += kThreads) {
       const int i = e / Q, j = e % Q;
       float g = 0.f;
-      for (int n = 0; n < N; ++n) g = fmaf(Cs[i * NS + n], Bs[j * NS + n], g);
-      gb[e] = g;
+      for (int n = 0; n < N; ++n)
+        g = TB ? fmaf(rb(Cs[i * NS + n]), rb(Bs[j * NS + n]), g)
+               : fmaf(Cs[i * NS + n], Bs[j * NS + n], g);
+      gb[e] = TB ? rb(g) : g;
     }
   }
 }
@@ -311,7 +329,17 @@ constexpr size_t output_smem_bytes() {
                           3 * (size_t)Q);
 }
 
-template <typename T, int Q, int P, int N>
+// M[i][j] for i >= j: G * exp(cum_i - cum_j) * dt_j in f32, or with bf16
+// tiles (TB) rb(rb(G * rb(L)) * rb(dt_j)), G already rounded
+template <bool TB>
+__device__ __forceinline__ float m_entry(float g, float ci, float cj,
+                                         float dtj) {
+  const float L = expf(__fsub_rn(ci, cj));
+  return TB ? rb(__fmul_rn(rb(__fmul_rn(g, rb(L))), rb(dtj)))
+            : __fmul_rn(__fmul_rn(g, L), dtj);
+}
+
+template <typename T, int Q, int P, int N, bool TB>
 __global__ void __launch_bounds__(kThreads, N <= 32 ? 3 : 2)
 ssd_chunk_output_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                         const float* __restrict__ d,
@@ -373,10 +401,8 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         const int j = tx + 16 * c;
         // exp only where i >= j: for i < j the exponent is positive and
         // may be +inf, which a 0/1 product would turn into NaN
-        Ms[i * MS + j] = i >= j
-            ? __fmul_rn(__fmul_rn(g[r][c], expf(__fsub_rn(cum[i], cum[j]))),
-                        dts[j])
-            : 0.f;
+        Ms[i * MS + j] = i >= j ? m_entry<TB>(g[r][c], cum[i], cum[j], dts[j])
+                                : 0.f;
       }
     }
     __syncthreads();
@@ -399,7 +425,9 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         for (int r = 0; r < RQ; ++r)
 #pragma unroll
           for (int c = 0; c < CP; ++c)
-            intra[r][c] = fmaf(comp(mv[r], k), comp(xv[c], k), intra[r][c]);
+            intra[r][c] = fmaf(comp(mv[r], k),
+                               TB ? rb(comp(xv[c], k)) : comp(xv[c], k),
+                               intra[r][c]);
     }
     for (; j < Q - 2 * ty; j += 4) {
       float4 mv[2], xv[CP];
@@ -414,7 +442,8 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 #pragma unroll
           for (int c = 0; c < CP; ++c)
             intra[r + 2][c] =
-                fmaf(comp(mv[r], k), comp(xv[c], k), intra[r + 2][c]);
+                fmaf(comp(mv[r], k), TB ? rb(comp(xv[c], k)) : comp(xv[c], k),
+                     intra[r + 2][c]);
     }
     float eci[RQ];
 #pragma unroll
@@ -442,7 +471,8 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       for (int c = 0; c < CP; ++c) {
         const int p = tx + 16 * c;
         st(yb, (size_t)i * P + p,
-           __fadd_rn(__fadd_rn(intra[r][c], inter[r][c]),
+           __fadd_rn(__fadd_rn(TB ? rb(intra[r][c]) : intra[r][c],
+                               inter[r][c]),
                      __fmul_rn(dv, xT[p * XS + i])));
       }
     }
@@ -453,21 +483,21 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     for (int e = tid; e < Q * Q; e += kThreads) {
       const int i = e / Q, j = e % Q;
       // exp only where i >= j (see above)
-      Ms[i * MS + j] = i >= j
-          ? __fmul_rn(__fmul_rn(gb[e], expf(__fsub_rn(cum[i], cum[j]))),
-                      dts[j])
-          : 0.f;
+      Ms[i * MS + j] = i >= j ? m_entry<TB>(gb[e], cum[i], cum[j], dts[j])
+                              : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < Q * P; e += kThreads) {
       const int i = e / P, p = e % P;
       float intra = 0.f, inter = 0.f;
       for (int j = 0; j < Q; ++j)
-        intra = fmaf(Ms[i * MS + j], xT[p * XS + j], intra);
+        intra = fmaf(Ms[i * MS + j], TB ? rb(xT[p * XS + j]) : xT[p * XS + j],
+                     intra);
       for (int n = 0; n < N; ++n)
         inter = fmaf(__fmul_rn(Cs[i * NS + n], ec[i]), hs[p * NS + n], inter);
       st(yb, (size_t)i * P + p,
-         __fadd_rn(__fadd_rn(intra, inter), __fmul_rn(dv, xT[p * XS + i])));
+         __fadd_rn(__fadd_rn(TB ? rb(intra) : intra, inter),
+                   __fmul_rn(dv, xT[p * XS + i])));
     }
   }
 }
@@ -485,13 +515,13 @@ struct Scratch {
   float* G;      // (BG, nc, Q, Q): C B^T per group and chunk
 };
 
-template <typename T, int Q, int N>
+template <typename T, int Q, int N, bool TB>
 int launch(const void* x, const void* dt, const float* a, const float* d,
            const void* B, const void* C, void* y, float* state,
            const Scratch& w, int BH, int S, int groups,
            cudaStream_t stream) {
-  auto k1 = ssd_chunk_state_kernel<T, Q, kP, N>;
-  auto k3 = ssd_chunk_output_kernel<T, Q, kP, N>;
+  auto k1 = ssd_chunk_state_kernel<T, Q, kP, N, TB>;
+  auto k3 = ssd_chunk_output_kernel<T, Q, kP, N, TB>;
   constexpr size_t smem1 = state_smem_bytes<Q, kP, N>();
   constexpr size_t smem3 = output_smem_bytes<Q, kP, N>();
   // opt in once per instantiation (thread-safe static init), so a launch
@@ -532,8 +562,8 @@ struct Args {
 template <typename T, int Q>
 int dispatch_n(int N, const Args& r) {
 #define SSD_LAUNCH(NN)                                                      \
-  launch<T, Q, NN>(r.x, r.dt, r.a, r.d, r.B, r.C, r.y, r.state, r.w, r.BH, \
-                   r.S, r.groups, r.s)
+  launch<T, Q, NN, false>(r.x, r.dt, r.a, r.d, r.B, r.C, r.y, r.state, \
+                          r.w, r.BH, r.S, r.groups, r.s)
   switch (N) {
     case 16: return SSD_LAUNCH(16);
     case 32: return SSD_LAUNCH(32);
@@ -555,6 +585,21 @@ int dispatch_q(int Q, int N, const Args& r) {
   }
 }
 
+// the bf16-tile variant, built for the zoo's shapes only: f32 inputs (the
+// model casts x, B and C to f32), chunk 64 (the full configs) or 8 (the
+// reduced ones), N 16 (hymba-1.5b, reduced configs) or 128 (mamba2-370m)
+int dispatch_tile_bf16(int Q, int N, const Args& r) {
+#define SSD_LAUNCH_TB(QQ, NN)                                                \
+  launch<float, QQ, NN, true>(r.x, r.dt, r.a, r.d, r.B, r.C, r.y, r.state, \
+                              r.w, r.BH, r.S, r.groups, r.s)
+  if (Q == 64 && N == 16) return SSD_LAUNCH_TB(64, 16);
+  if (Q == 64 && N == 128) return SSD_LAUNCH_TB(64, 128);
+  if (Q == 8 && N == 16) return SSD_LAUNCH_TB(8, 16);
+  if (Q == 8 && N == 128) return SSD_LAUNCH_TB(8, 128);
+  return (int)cudaErrorInvalidValue;
+#undef SSD_LAUNCH_TB
+}
+
 }  // namespace
 
 extern "C" {
@@ -572,6 +617,22 @@ int ssd_fwd(int dtype, const void* x, const void* dt, const float* a,
   if (dtype == 0) return dispatch_q<float>(Q, N, r);
   if (dtype == 1) return dispatch_q<__nv_bfloat16>(Q, N, r);
   return (int)cudaErrorInvalidValue;
+}
+
+// ssd_fwd with bf16 tiles (f32 inputs only; the shapes dispatch_tile_bf16
+// takes): G from bf16 C and B rounded to bf16, L, M and dt_j's factor
+// rounded, the intra sum over bf16 x rounded; cum, the states, the scan
+// and the C h term stay f32
+int ssd_fwd_tile_bf16(const float* x, const float* dt, const float* a,
+                      const float* d, const float* B, const float* C,
+                      float* y, float* state, float* hst, float* eseg,
+                      float* cum, float* G, int BH, int S, int P, int N,
+                      int Q, int groups, void* stream) {
+  if (P != kP || Q < 1 || S % Q != 0 || S / Q > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Args r{x, dt, a, d, B, C, y, state, Scratch{hst, eseg, cum, G},
+               BH, S, groups, (cudaStream_t)stream};
+  return dispatch_tile_bf16(Q, N, r);
 }
 
 const char* ssd_error_string(int code) {

@@ -86,6 +86,17 @@
 // 16, 32, 64, 128 and Q one of 8, 16, 32, 64, as the forward; the wrapper
 // zero-pads P and N as it does there, which adds exact zeros to every sum.
 //
+// bf16 tiles (ssd_bwd_tile_bf16, the gradient of ssd_fwd_tile_bf16): the
+// forward rounds G, L, M, dt_j's factor, x inside the intra sum and that
+// sum to bf16. This backward rounds where a tile enters a product: G comes
+// rounded from the forward's saved state and the chunk launch rounds L
+// (put_dm, a template constant TB), so M = G L dt_j, W = dM L and Z = W G
+// are formed from the bf16 tiles; the other roundings pass their gradient
+// through unchanged (the derivative of a rounding taken as 1), and every
+// cotangent and sum stays f32. JAX's autodiff of the bf16 reference rounds
+// its cotangents of L, G, M and intra to bf16 as well; the two differ by
+// bf16 rounding, and both are held to a float64 oracle at bf16 tolerance.
+//
 // Plain C interface (loaded with ctypes): pointers, sizes and the stream;
 // the caller allocates outputs and scratch. Returns the first
 // cudaGetLastError() that is not cudaSuccess after the launches, or
@@ -93,6 +104,7 @@
 // and CTAs an SM.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 
 namespace {
 
@@ -273,14 +285,17 @@ struct ChunkSmem {
 };
 
 // M, dG, Z at (i, j) from dM and G: zero where i < j, the only exp of a
-// cum difference where i >= j
+// cum difference where i >= j; with bf16 tiles (TB) L is rounded to bf16
+// as the forward rounds it (G comes rounded from the forward)
+template <bool TB>
 __device__ __forceinline__ void put_dm(int i, int j, float dm, float g,
                                        const float* cum, const float* dts,
                                        float* MT, float* dG, float* Z,
                                        int QS) {
   float mv = 0.f, dg = 0.f, z = 0.f;
   if (i >= j) {
-    const float L = expf(__fsub_rn(cum[i], cum[j]));
+    const float e = expf(__fsub_rn(cum[i], cum[j]));
+    const float L = TB ? __bfloat162float(__float2bfloat16_rn(e)) : e;
     mv = __fmul_rn(__fmul_rn(g, L), dts[j]);
     const float w = __fmul_rn(dm, L);
     dg = __fmul_rn(w, dts[j]);
@@ -323,7 +338,7 @@ __device__ __forceinline__ void warp_scan(const float* v, float* out,
   }
 }
 
-template <int Q, int N>
+template <int Q, int N, bool TB>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ a, const float* __restrict__ d,
@@ -458,7 +473,7 @@ ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     // upper triangle only inside the diagonal block of its segment)
 #pragma unroll
     for (int o = 0; o < 10; ++o)
-      put_dm(oi[o], oj[o], acc[o], g[o], cum, dts, MT, dGs, Zs, QS);
+      put_dm<TB>(oi[o], oj[o], acc[o], g[o], cum, dts, MT, dGs, Zs, QS);
   } else {
     __syncthreads();
     for (int e = tid; e < Q * Q; e += kThreads) {
@@ -469,7 +484,7 @@ ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
           dm = fmaf(dys[i * XS + p], xs[j * XS + p], dm);
         g = gb[e];
       }
-      put_dm(i, j, dm, g, cum, dts, MT, dGs, Zs, QS);
+      put_dm<TB>(i, j, dm, g, cum, dts, MT, dGs, Zs, QS);
     }
   }
   {
@@ -926,7 +941,7 @@ struct Args {
   cudaStream_t s;
 };
 
-template <int Q, int N>
+template <int Q, int N, bool TB = false>
 struct Launcher {
   static constexpr size_t smem1 = state_smem_bytes<Q, N>();
   static constexpr size_t smem2 = ChunkSmem<Q, N>::bytes;
@@ -936,7 +951,7 @@ struct Launcher {
     static const cudaError_t err = [] {
       const cudaError_t e1 = opt_in(ssd_bwd_state_kernel<Q, N>, smem1);
       return e1 != cudaSuccess
-          ? e1 : opt_in(ssd_bwd_chunk_kernel<Q, N>, smem2);
+          ? e1 : opt_in(ssd_bwd_chunk_kernel<Q, N, TB>, smem2);
     }();
     return err;
   }
@@ -953,7 +968,7 @@ struct Launcher {
         r.dH, r.cum, r.dstate, PN, nc, Q, r.S, bpb);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    ssd_bwd_chunk_kernel<Q, N><<<dim3(r.BH, nc), kThreads, smem2, r.s>>>(
+    ssd_bwd_chunk_kernel<Q, N, TB><<<dim3(r.BH, nc), kThreads, smem2, r.s>>>(
         r.x, r.dt, r.a, r.d, r.B, r.C, r.dy, r.cum, r.G, r.hst, r.dH, r.dx,
         r.ddt, r.dBp, r.dCp, r.dad, r.S, r.groups);
     err = cudaGetLastError();
@@ -980,10 +995,10 @@ struct Launcher {
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             ctas, ssd_bwd_state_kernel<Q, N>, kThreads, smem1);
     } else {
-      err = cudaFuncGetAttributes(&fa, ssd_bwd_chunk_kernel<Q, N>);
+      err = cudaFuncGetAttributes(&fa, ssd_bwd_chunk_kernel<Q, N, TB>);
       if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            ctas, ssd_bwd_chunk_kernel<Q, N>, kThreads, smem2);
+            ctas, ssd_bwd_chunk_kernel<Q, N, TB>, kThreads, smem2);
     }
     if (err == cudaSuccess) *regs = fa.numRegs;
     return (int)err;
@@ -1035,6 +1050,29 @@ int ssd_bwd(const float* x, const float* dt, const float* a, const float* d,
                dx,  ddt, da, dd, dB,  dC,  dH,  dBp,    dCp, dad,
                BH,  S,  groups, (cudaStream_t)stream};
   return with_shape(Q, N, [&](auto l) { return decltype(l)::run(r); });
+}
+
+// ssd_bwd of the bf16-tile forward (ssd_fwd_tile_bf16): the chunk launch
+// rounds L to bf16, G is the forward's rounded one; built at chunk 64 and
+// 8 and N 16 and 128 only, as the forward
+int ssd_bwd_tile_bf16(const float* x, const float* dt, const float* a,
+                      const float* d, const float* B, const float* C,
+                      const float* dy, const float* dstate, const float* cum,
+                      const float* G, const float* hst, float* dx, float* ddt,
+                      float* da, float* dd, float* dB, float* dC, float* dH,
+                      float* dBp, float* dCp, float* dad, int BH, int S,
+                      int P, int N, int Q, int groups, void* stream) {
+  if (P != kP || Q < 1 || S % Q != 0 || S / Q > 65535 || groups < 1 ||
+      BH % groups != 0)
+    return (int)cudaErrorInvalidValue;
+  const Args r{x,   dt, a,  d,  B,   C,   dy,  dstate, cum, G,  hst,
+               dx,  ddt, da, dd, dB,  dC,  dH,  dBp,    dCp, dad,
+               BH,  S,  groups, (cudaStream_t)stream};
+  if (Q == 64 && N == 16) return Launcher<64, 16, true>::run(r);
+  if (Q == 64 && N == 128) return Launcher<64, 128, true>::run(r);
+  if (Q == 8 && N == 16) return Launcher<8, 16, true>::run(r);
+  if (Q == 8 && N == 128) return Launcher<8, 128, true>::run(r);
+  return (int)cudaErrorInvalidValue;
 }
 
 // the registers a thread (*regs) and resident CTAs an SM (*ctas) of the

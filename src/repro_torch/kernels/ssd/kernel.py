@@ -82,28 +82,42 @@ import torch.nn.functional as F
 from ... import _build
 
 __all__ = ["ssd_fwd", "ssd_fwd_plain", "ssd_bwd", "ssd_bwd_plain",
-           "SSDFunction", "KERNEL_SHAPES", "kernel_shape", "launch_counts",
+           "SSDFunction", "KERNEL_SHAPES", "TILE_BF16_SHAPES", "kernel_shape",
+           "launch_counts", "tile_launch_counts",
            "reset_launch_counts", "bwd_kernel_attrs"]
 
 _LAUNCHES: Dict[str, int] = {"ssd_fwd": 0, "ssd_bwd": 0}
+_TILE_LAUNCHES: Dict[str, int] = {"ssd_fwd_tile_bf16": 0,
+                                  "ssd_bwd_tile_bf16": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_SHAPES = dict(chunk=(8, 16, 32, 64), P=(64,), N=(16, 32, 64, 128))
+# the bf16-tile variant's instantiations (f32 inputs): the zoo's chunks, and
+# an N up to 128 padded to 16 or 128
+TILE_BF16_SHAPES = dict(chunk=(8, 64), P=(64,), N=(16, 128))
 _NO_BF16_BWD = ("the SSD kernels are forward-only in bf16: there is no bf16 "
                 "backward, and no ported path runs SSD in bf16; train in f32 "
                 "or call under torch.no_grad()")
 
 
 def launch_counts() -> Dict[str, int]:
-    """Snapshot {kernel name: launches since the last reset}."""
+    """Snapshot {kernel name: launches since the last reset} of the f32
+    kernels (the bf16-tile variant's: ``tile_launch_counts``)."""
     return dict(_LAUNCHES)
 
 
+def tile_launch_counts() -> Dict[str, int]:
+    """Snapshot {kernel name: launches since the last reset} of the
+    bf16-tile variant (``ssd_fwd_tile_bf16``, ``ssd_bwd_tile_bf16``)."""
+    return dict(_TILE_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
-    """Set every launch count to 0."""
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    """Set every launch count to 0, the bf16-tile variant's too."""
+    for counts in (_LAUNCHES, _TILE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -114,9 +128,12 @@ def _lib(name: str) -> ctypes.CDLL:
         if name == "ssd":
             lib.ssd_fwd.argtypes = [I] + [P] * 12 + [I] * 6 + [P]
             lib.ssd_fwd.restype = I
+            lib.ssd_fwd_tile_bf16.argtypes = [P] * 12 + [I] * 6 + [P]
+            lib.ssd_fwd_tile_bf16.restype = I
         else:
-            lib.ssd_bwd.argtypes = [P] * 21 + [I] * 6 + [P]
-            lib.ssd_bwd.restype = I
+            for fn in (lib.ssd_bwd, lib.ssd_bwd_tile_bf16):
+                fn.argtypes = [P] * 21 + [I] * 6 + [P]
+                fn.restype = I
             IP = ctypes.POINTER(I)
             lib.ssd_bwd_kernel_attrs.argtypes = [I, I, I, IP, IP]
             lib.ssd_bwd_kernel_attrs.restype = I
@@ -173,18 +190,20 @@ def _on_card(x: torch.Tensor, what: str = "ssd_fwd") -> bool:
                      f"{x.device}")
 
 
-def kernel_shape(P: int, N: int, chunk: int, what: str = "ssd_fwd"
-                 ) -> Tuple[int, int]:
+def kernel_shape(P: int, N: int, chunk: int, what: str = "ssd_fwd",
+                 tile_bf16: bool = False) -> Tuple[int, int]:
     """(P, N) as the kernels take them: each zero-padded to the next of
-    ``KERNEL_SHAPES``; ValueError for a chunk the kernels are not built for,
-    or a P or N above the largest."""
-    if (chunk not in KERNEL_SHAPES["chunk"] or P > max(KERNEL_SHAPES["P"])
-            or N > max(KERNEL_SHAPES["N"])):
+    ``KERNEL_SHAPES`` (``TILE_BF16_SHAPES`` for the bf16-tile variant);
+    ValueError for a chunk the kernels are not built for, or a P or N above
+    the largest."""
+    shapes = TILE_BF16_SHAPES if tile_bf16 else KERNEL_SHAPES
+    if (chunk not in shapes["chunk"] or P > max(shapes["P"])
+            or N > max(shapes["N"])):
         raise ValueError(f"{what}: chunk {chunk}, P {P}, N {N} not taken by "
-                         f"the kernel ({KERNEL_SHAPES}; P and N are padded "
-                         f"up to the next)")
-    return (min(k for k in KERNEL_SHAPES["P"] if k >= P),
-            min(k for k in KERNEL_SHAPES["N"] if k >= N))
+                         f"the kernel ({shapes}; P and N are padded up to "
+                         f"the next)")
+    return (min(k for k in shapes["P"] if k >= P),
+            min(k for k in shapes["N"] if k >= N))
 
 
 def _pad(t: torch.Tensor, *sizes: int) -> torch.Tensor:
@@ -217,6 +236,11 @@ def _cumsum_in_order(da: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
+def _rb(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest even), in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def _decay(cum: torch.Tensor) -> torch.Tensor:
     """L[..., i, j] = exp(cum_i - cum_j) for i >= j, else 0; the exponent
     is masked to -inf before the exp, so no exp of a positive difference
@@ -230,12 +254,15 @@ def _decay(cum: torch.Tensor) -> torch.Tensor:
 # ------------------------------- forward -------------------------------------
 
 def ssd_fwd_plain(x, dt, a, d, B, C, *, chunk: int = 64, groups: int = 1,
-                  return_saved: bool = False):
+                  return_saved: bool = False, tile_bf16: bool = False):
     """Plain version of ``ssd_fwd`` (same arguments and results): the
     kernels' three stages, batched over heads and chunks. With
     ``return_saved`` also the forward's saved state for ``ssd_bwd``: (the
     state entering each chunk (BH, nc, P, N), cum (BH, S), G = C B^T
-    (BG, nc, Q, Q)), all f32."""
+    (BG, nc, Q, Q)), all f32. ``tile_bf16``: round to bf16 where the
+    bf16-tile kernels do: G = rb(rb(C) rb(B)^T), M = rb(rb(G rb(L))
+    rb(dt_j)) and the intra term rb(M rb(x)); the saved G is the rounded
+    one."""
     BH, S, P = x.shape
     N = B.shape[-1]
     Q = chunk
@@ -259,10 +286,16 @@ def ssd_fwd_plain(x, dt, a, d, B, C, *, chunk: int = 64, groups: int = 1,
         h = eseg[:, c, None, None] * h + upd[:, c]
     h_in = torch.stack(h_in, dim=1)                          # (BH, nc, P, N)
     # 3. outputs from the state entering each chunk
-    G = Cf @ Bf.transpose(-1, -2)
-    M = (G * _decay(cum)) * dtf[..., None, :]
     ec = torch.exp(cum)
-    y = M @ xf + (Cf * ec[..., None]) @ h_in.transpose(-1, -2)
+    if tile_bf16:
+        G = _rb(_rb(Cf) @ _rb(Bf).transpose(-1, -2))
+        M = _rb(_rb(G * _rb(_decay(cum))) * _rb(dtf)[..., None, :])
+        intra = _rb(M @ _rb(xf))
+    else:
+        G = Cf @ Bf.transpose(-1, -2)
+        M = (G * _decay(cum)) * dtf[..., None, :]
+        intra = M @ xf
+    y = intra + (Cf * ec[..., None]) @ h_in.transpose(-1, -2)
     y = y + d.float()[:, None, None, None] * xf
     y = y.reshape(BH, S, P).to(x.dtype)
     if not return_saved:
@@ -270,14 +303,18 @@ def ssd_fwd_plain(x, dt, a, d, B, C, *, chunk: int = 64, groups: int = 1,
     return y, h, (h_in, cum.reshape(BH, S), G[::groups].contiguous())
 
 
-def _fwd_kernel(x, dt, a, d, B, C, chunk: int, groups: int):
+def _fwd_kernel(x, dt, a, d, B, C, chunk: int, groups: int,
+                tile_bf16: bool = False):
     """Launch the forward kernels on contiguous CUDA inputs; returns (y,
     final state, saved) with saved at the kernels' padded P and N."""
     if not all(t.is_contiguous() for t in (x, dt, a, d, B, C)):
         raise ValueError("ssd_fwd: inputs must be contiguous")
+    if tile_bf16 and x.dtype != torch.float32:
+        raise TypeError(f"ssd_fwd: tile_bf16 takes f32 inputs (the model's), "
+                        f"got {x.dtype}")
     BH, S, P = x.shape
     BG, _, N = B.shape
-    Pk, Nk = kernel_shape(P, N, chunk)
+    Pk, Nk = kernel_shape(P, N, chunk, tile_bf16=tile_bf16)
     nc = S // chunk
     if nc > 65535:
         raise ValueError(f"ssd_fwd: S / chunk = {nc} > 65535")
@@ -294,14 +331,20 @@ def _fwd_kernel(x, dt, a, d, B, C, chunk: int, groups: int):
     eseg = torch.empty((BH, nc), **f32)
     cum = torch.empty((BH, S), **f32)
     G = torch.empty((BG, nc, chunk, chunk), **f32)
-    rc = _lib("ssd").ssd_fwd(
-        _CODE[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-        d.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-        state.data_ptr(), hst.data_ptr(), eseg.data_ptr(), cum.data_ptr(),
-        G.data_ptr(), BH, S, Pk, Nk, chunk, groups,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), d.data_ptr(),
+            B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
+            hst.data_ptr(), eseg.data_ptr(), cum.data_ptr(), G.data_ptr(),
+            BH, S, Pk, Nk, chunk, groups,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if tile_bf16:
+        rc = _lib("ssd").ssd_fwd_tile_bf16(*ptrs)
+    else:
+        rc = _lib("ssd").ssd_fwd(_CODE[x.dtype], *ptrs)
     _raise_on(rc, "ssd")
-    _LAUNCHES["ssd_fwd"] += 1
+    if tile_bf16:
+        _TILE_LAUNCHES["ssd_fwd_tile_bf16"] += 1
+    else:
+        _LAUNCHES["ssd_fwd"] += 1
     if (Pk, Nk) != (P, N):
         y = y[..., :P].contiguous()
         state = state[:, :P, :N].contiguous()
@@ -310,7 +353,7 @@ def _fwd_kernel(x, dt, a, d, B, C, chunk: int, groups: int):
 
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             d: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
-            chunk: int = 64, groups: int = 1
+            chunk: int = 64, groups: int = 1, tile_bf16: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (BH, S, P); dt: (BH, S); a/d: (BH,) f32; B/C: (BG, S, N) with
     BH = BG * groups; x, dt, B, C share one dtype (f32 or bf16); S a
@@ -322,17 +365,24 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     With grad mode on and an input that requires grad, the call goes
     through ``SSDFunction``, whose backward is ``ssd_bwd``; on the card
     that needs f32 (a bf16 input raises RuntimeError: there is no bf16
-    backward)."""
+    backward).
+
+    ``tile_bf16``: the bf16-tile variant (the reference's
+    ``ssd_apply(tile_bf16=True)``): f32 inputs, G, L, M and the intra term
+    rounded to bf16 (``ssd_fwd_plain``), chunk 8 or 64 on the card
+    (``TILE_BF16_SHAPES``); its launches count in ``tile_launch_counts``
+    (``ssd_fwd_tile_bf16``, ``ssd_bwd_tile_bf16``)."""
     _check(x, dt, a, d, B, C, chunk, groups)
     card = _on_card(x)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, a, d, B, C)):
         if card and x.dtype != torch.float32:
             raise RuntimeError(f"ssd_fwd: {_NO_BF16_BWD}")
-        return SSDFunction.apply(x, dt, a, d, B, C, chunk, groups)
+        return SSDFunction.apply(x, dt, a, d, B, C, chunk, groups, tile_bf16)
     if not card:
-        return ssd_fwd_plain(x, dt, a, d, B, C, chunk=chunk, groups=groups)
-    return _fwd_kernel(x, dt, a, d, B, C, chunk, groups)[:2]
+        return ssd_fwd_plain(x, dt, a, d, B, C, chunk=chunk, groups=groups,
+                             tile_bf16=tile_bf16)
+    return _fwd_kernel(x, dt, a, d, B, C, chunk, groups, tile_bf16)[:2]
 
 
 # ------------------------------- backward ------------------------------------
@@ -478,7 +528,7 @@ def _suffix_sums(Z: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_bwd_plain(x, dt, a, d, B, C, dy, dstate, saved, *, chunk: int = 64,
-                  groups: int = 1):
+                  groups: int = 1, tile_bf16: bool = False):
     """Plain version of ``ssd_bwd`` (same arguments and results): the
     kernels' stages and formulas, batched over heads and chunks, written
     out (no autograd), never an exp of a positive cum difference. P and N
@@ -490,7 +540,9 @@ def ssd_bwd_plain(x, dt, a, d, B, C, dy, dstate, saved, *, chunk: int = 64,
     dy * x as its threads and warps take them (``_block_sum``), the scans
     of dda as a warp runs them (``_warp_scan``), da over a warp
     (``_lane_sum``), and the chunks and the heads of a group one at a
-    time."""
+    time. ``tile_bf16``: the gradient of the bf16-tile forward as the
+    kernel takes it: L rounded to bf16 (G comes rounded in ``saved``), the
+    other roundings passed through, every cotangent f32."""
     BH, S, P = x.shape
     N = B.shape[-1]
     Q = chunk
@@ -524,7 +576,7 @@ def ssd_bwd_plain(x, dt, a, d, B, C, dy, dstate, saved, *, chunk: int = 64,
         dh = eseg[:, c, None, None] * dh + dupd[:, c]
     dhn = torch.stack(dhn, dim=1)                            # (BH, nc, Pk, Nk)
     # 2. per chunk
-    L = _decay(cum)
+    L = _rb(_decay(cum)) if tile_bf16 else _decay(cum)
     tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()
     dM = (dyf @ xf.transpose(-1, -2)).masked_fill(~tri, 0.0)
     dtj = dtf[..., None, :]
@@ -564,25 +616,26 @@ def ssd_bwd_plain(x, dt, a, d, B, C, dy, dstate, saved, *, chunk: int = 64,
 def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             d: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
             dy: torch.Tensor, dstate: Optional[torch.Tensor], saved, *,
-            chunk: int = 64, groups: int = 1):
+            chunk: int = 64, groups: int = 1, tile_bf16: bool = False):
     """Gradients (dx, ddt, da, dd, dB, dC) of ``ssd_fwd``'s (y, final
     state) given dy (BH, S, P), the final state's gradient dstate (BH, P,
     N) or None for zero, and the forward's saved state (the state entering
     each chunk, cum, G; from ``ssd_fwd_plain(..., return_saved=True)`` or
     the forward kernels, whose P and N may be padded). On the card: f32
     only (TypeError otherwise), the shapes ``ssd_fwd`` takes; the four
-    launches count as one call."""
+    launches count as one call. ``tile_bf16``: the gradient of the
+    bf16-tile forward (``ssd_bwd_plain``), whose ``saved`` it takes."""
     _check(x, dt, a, d, B, C, chunk, groups, "ssd_bwd")
     _check_bwd(x, dy, dstate, saved, chunk, groups)
     if not _on_card(x, "ssd_bwd"):
         return ssd_bwd_plain(x, dt, a, d, B, C, dy, dstate, saved,
-                             chunk=chunk, groups=groups)
+                             chunk=chunk, groups=groups, tile_bf16=tile_bf16)
     if any(t.dtype != torch.float32 for t in (x, dy)) or (
             dstate is not None and dstate.dtype != torch.float32):
         raise TypeError(f"ssd_bwd: {_NO_BF16_BWD}")
     BH, S, P = x.shape
     BG, _, N = B.shape
-    Pk, Nk = kernel_shape(P, N, chunk, "ssd_bwd")
+    Pk, Nk = kernel_shape(P, N, chunk, "ssd_bwd", tile_bf16)
     nc = S // chunk
     if nc > 65535:
         raise ValueError(f"ssd_bwd: S / chunk = {nc} > 65535")
@@ -605,13 +658,17 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dBp, dCp = (torch.empty((BH, S, Nk), **f32) for _ in range(2))
     dad = torch.empty((BH, nc, 2), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = _lib("ssd_bwd").ssd_bwd(
+    lib = _lib("ssd_bwd")
+    rc = (lib.ssd_bwd_tile_bf16 if tile_bf16 else lib.ssd_bwd)(
         *(ptr(t) for t in (x, dt, a, d, B, C, dy, dstate, cum, G, hst, dx,
                            ddt, da, dd, dB, dC, dH, dBp, dCp, dad)),
         BH, S, Pk, Nk, chunk, groups,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "ssd_bwd")
-    _LAUNCHES["ssd_bwd"] += 1
+    if tile_bf16:
+        _TILE_LAUNCHES["ssd_bwd_tile_bf16"] += 1
+    else:
+        _LAUNCHES["ssd_bwd"] += 1
     if Pk != P:
         dx = dx[..., :P].contiguous()
     if Nk != N:
@@ -642,14 +699,16 @@ class SSDFunction(torch.autograd.Function):
     zero. Once differentiable."""
 
     @staticmethod
-    def forward(ctx, x, dt, a, d, B, C, chunk, groups):
+    def forward(ctx, x, dt, a, d, B, C, chunk, groups, tile_bf16=False):
         if _on_card(x):
-            y, state, saved = _fwd_kernel(x, dt, a, d, B, C, chunk, groups)
+            y, state, saved = _fwd_kernel(x, dt, a, d, B, C, chunk, groups,
+                                          tile_bf16)
         else:
             y, state, saved = ssd_fwd_plain(x, dt, a, d, B, C, chunk=chunk,
-                                            groups=groups, return_saved=True)
+                                            groups=groups, return_saved=True,
+                                            tile_bf16=tile_bf16)
         ctx.save_for_backward(x, dt, a, d, B, C, *saved)
-        ctx.kw = dict(chunk=chunk, groups=groups)
+        ctx.kw = dict(chunk=chunk, groups=groups, tile_bf16=tile_bf16)
         ctx.set_materialize_grads(False)
         return y, state
 
@@ -661,4 +720,4 @@ class SSDFunction(torch.autograd.Function):
             dy = torch.zeros_like(x)
         grads = ssd_bwd(x, dt, a, d, B, C, dy.contiguous(), dstate,
                         tuple(saved), **ctx.kw)
-        return (*grads, None, None)
+        return (*grads, None, None, None)

@@ -19,14 +19,15 @@ __all__ = ["ssd_attention"]
 
 def ssd_attention(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
                   D: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, *,
-                  chunk: int = 64) -> torch.Tensor:
+                  chunk: int = 64, tile_bf16: bool = False) -> torch.Tensor:
     """x: (B, S, H, P); dt: (B, S, H); A_log/D: (H,); Bm/Cm: (B, S, N).
-    Returns y (B, S, H, P) in x's dtype (the final state is discarded)."""
+    Returns y (B, S, H, P) in x's dtype (the final state is discarded).
+    ``tile_bf16``: the bf16-tile kernels (``ssd_fwd``)."""
     Bb, S, H, P = x.shape
     xf = x.transpose(1, 2).reshape(Bb * H, S, P).contiguous()
     dtf = dt.transpose(1, 2).reshape(Bb * H, S).contiguous()
     a = (-torch.exp(A_log.float())).repeat(Bb)
     d = D.float().repeat(Bb)
     y, _ = ssd_fwd(xf, dtf, a, d, Bm.contiguous(), Cm.contiguous(),
-                   chunk=chunk, groups=H)
+                   chunk=chunk, groups=H, tile_bf16=tile_bf16)
     return y.reshape(Bb, H, S, P).transpose(1, 2)

@@ -3,10 +3,11 @@
 decode steps and picks the projection engine (``fused_sharded`` on a mesh),
 ``launch/mesh.py`` builds meshes over the caller's process group,
 ``launch/train.py`` is the CLI (``python -m repro_torch.launch.train``).
-The sharding rules, the steps over a mesh, ``lower_cell`` and ``dryrun``
-wait for ROADMAP.md queue A item 8b."""
+The steps take a (data, model) mesh and per-cell rules
+(``rules_for_cell``, ``param_shardings``); ``lower_cell`` and ``dryrun``
+wait for ROADMAP.md queue A item 9."""
 from .steps import (build_decode_step, build_prefill_step, build_train_step,
-                    projection_engine_for)
+                    param_shardings, projection_engine_for, rules_for_cell)
 
 __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
-           "projection_engine_for"]
+           "projection_engine_for", "rules_for_cell", "param_shardings"]

@@ -1,4 +1,5 @@
-"""Production step builders (port of ``repro.launch.steps``, one device).
+"""Production step builders and per-cell sharding rules (port of
+``repro.launch.steps``).
 
 ``build_train_step``  — loss + gradients + the engine's projected-update
                         core (Adam + the l1,inf family projections,
@@ -12,23 +13,36 @@
 
 On the card a step runs every kernel of its path: the flash-attention and
 SSD kernels forward and backward (bf16 or f32, the params' dtype), and,
-under the engine's ``solver="fused"``, the fused Adam+projection kernels
-for plans that stream their statistics at ``every_k == 1`` and the Newton
-for the rest. Params may be bf16 with f32 Adam moments
-(``AdamConfig(moment_dtype=torch.float32)``), the reference's production
-setting (``lower_cell``); gradients take the params' dtype, as JAX's do.
+under the engine's ``solver="fused"`` (``"fused_sharded"`` on a mesh), the
+fused Adam+projection kernels for plans that stream their statistics at
+``every_k == 1`` and the Newton for the rest. Params may be bf16 with f32
+Adam moments (``AdamConfig(moment_dtype=torch.float32)``), the
+reference's production setting; gradients take the params' dtype.
 
-The train step updates ``params`` and ``opt`` in place (the reference's
-jitted step donates them), so callers keep only the returned trees. Its
-``every_k`` gates run on the host: it reads the optimizer count once a
-step, and a plan off its step is not solved.
+One device (``mesh=None``): the step updates ``params`` and ``opt`` in
+place (the reference's jitted step donates them), so callers keep only
+the returned trees. Its ``every_k`` gates run on the host: it reads the
+optimizer count once a step, and a plan off its step is not solved.
 
-``projection_engine_for`` takes a mesh (``launch.mesh``): on more than one
-rank it gives the mesh-resident ``solver="fused_sharded"``. The step
-builders' ``mesh``, ``rules_for_cell`` and ``lower_cell`` wait for the
-sharding rules and the FSDP/TP steps (ROADMAP.md queue A item 8b) and
-raise NotImplementedError. ``rules`` name mesh axes and change nothing
-without a mesh, as in the reference.
+On a (data, model) mesh (``launch.mesh``; every rank calls the step with
+the same arguments): params and moments are ``DTensor``s holding each
+rank's piece under ``param_shardings`` (FSDP over data, tensor parallel
+over model; ``convert.params_to_mesh``, ``shard_opt_state``) and the
+batch is the global one, every rank's copy the same. Each rank takes its
+rows of the batch (``shard``), gathers each weight over data
+(``dist.sharding.gather_over``), runs the model on its heads, hidden
+units and vocab columns with the explicit collectives of
+``dist.sharding`` (counted by kind), and the engine's ``fused_sharded``
+update runs on the gradients' pieces, so the weights never gather for the
+projection: one (2, G) all-reduce per Newton evaluation; a leaf the
+projection returns in its column layout moves back to its spec's by one
+all-to-all (``train.loop.to_specs``). The loss is the
+global one on every rank. Regions of the model that have no
+tensor-parallel path here (MLA, cross attention, the dense MoE),
+attention whose heads or kv heads the model axis does not divide and an
+SSM whose heads it does not divide run replicated over model (their
+weights split over data only): see ``param_shardings``. ``lower_cell`` (the dry-run) waits for ROADMAP.md
+queue A item 9.
 """
 from __future__ import annotations
 
@@ -36,32 +50,179 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .._tree import tree_map
+from .._tree import flatten_with_path, leaves, tree_map, unflatten_like
 from ..core import ProjectionEngine
-from ..models.zoo import Model
+from ..dist.sharding import (Spec, axis_rules, default_rules, fit_spec,
+                             placements)
+from ..models.param import PM
+from ..models.zoo import SHAPES, Model
 from ..optim import AdamConfig
-from ..train.loop import _grad_tree
+from ..optim.adam import AdamState
+from ..train.loop import (_grad_tree, local_batch, mesh_loss_and_grads,
+                          mesh_weights, to_specs_state)
 
 __all__ = ["projection_engine_for", "build_train_step", "build_prefill_step",
-           "build_decode_step", "rules_for_cell", "lower_cell"]
+           "build_decode_step", "rules_for_cell", "batch_shardings",
+           "cache_shardings", "param_shardings", "opt_shardings",
+           "shard_opt_state", "lower_cell"]
 
-_NO_MESH = ("sharding rules and the FSDP/TP steps are not ported to "
-            "repro_torch yet (ROADMAP.md queue A item 8b)")
 
-
-def _one_device(mesh, what: str):
-    if mesh is not None:
-        raise NotImplementedError(f"{what}: mesh {mesh!r}: {_NO_MESH}")
-
+# ---------------------------------------------------------------------------
+# rules and shardings
+# ---------------------------------------------------------------------------
 
 def rules_for_cell(cfg, shape_name: str, multi_pod: bool) -> dict:
-    """The per-cell sharding rules: they need a mesh (NotImplementedError)."""
-    raise NotImplementedError(f"rules_for_cell: {_NO_MESH}")
+    """The reference's per-cell rules: train / prefill take
+    ``default_rules``; decode moves the model axis onto the KV-cache
+    sequence (batch 1: every axis); then ``cfg.rules_overrides``."""
+    sh = SHAPES[shape_name]
+    rules = default_rules(multi_pod=multi_pod)
+    if sh["kind"] == "decode":
+        if sh["batch"] == 1:
+            rules["batch"] = None
+            rules["cache_batch"] = None
+            rules["cache_seq"] = (("pod", "data", "model") if multi_pod
+                                  else ("data", "model"))
+            rules["kv_heads"] = None
+        else:
+            rules["cache_seq"] = "model"
+            rules["kv_heads"] = None
+    rules.update(dict(cfg.rules_overrides))
+    return rules
+
+
+def batch_shardings(batch: Dict[str, Any], mesh, rules: dict):
+    """The ``Spec`` of each batch leaf: tokens / labels (B, S), frames /
+    image_embeds (B, S, d); batch over ``rules["batch"]`` fit to the
+    mesh."""
+    b = rules["batch"]
+    return {k: fit_spec(mesh, (b,) + (None,) * (v.ndim - 1), tuple(v.shape))
+            for k, v in batch.items()}
+
+
+def cache_shardings(cache, mesh, rules: dict):
+    """The ``Spec`` of each decode-cache leaf, by leaf name (stacked leaves
+    under ``blocks`` carry a leading layer dim, never sharded); every dim
+    fit to the mesh."""
+    cb, cs = rules["cache_batch"], rules["cache_seq"]
+
+    def one(path, leaf):
+        name = path.rsplit("/", 1)[-1]
+        if name in ("k", "v"):
+            axes = [cb, cs, rules.get("kv_heads"), None]
+        elif name in ("ck", "cv"):
+            axes = [cb, None, rules.get("heads"), None]
+        elif name in ("c", "kr"):
+            axes = [cb, cs, None]
+        elif name == "state":
+            axes = [cb, rules.get("mlp"), None, None]
+        elif name.startswith("conv"):
+            axes = [cb, None, None]
+        else:
+            axes = [None] * leaf.ndim
+        if leaf.ndim == len(axes) + 1:
+            axes = [None] + axes
+        return fit_spec(mesh, axes, tuple(leaf.shape))
+
+    flat = flatten_with_path(cache)
+    return unflatten_like(cache, [one(p, l) for p, l in flat])
+
+
+# the regions (a block's param dicts) with a tensor-parallel path in the
+# port's model: their model-axis dims may stay split; in any other region
+# the model axis replicates
+_TP_REGIONS = ("attn", "mlp", "embed", "unembed", "ssm")
+_MODEL_NAMES = ("heads", "kv_heads", "mlp", "vocab", "experts")
+
+
+def _region_specs(cfg, layout, rules, mesh, region: str):
+    """The fitted specs of one region's PM leaves ({key: PM}), with the
+    model axis dropped from all of them unless the region is tensor
+    parallel here and every dim the rules give to model stays split."""
+    def has_model(axes):
+        return axes is not None and (axes == "model" if isinstance(
+            axes, str) else "model" in axes)
+
+    tp = region in _TP_REGIONS or (
+        region == "moe" and cfg.moe_impl == "shardmap"
+        and cfg.expert_sharding == "ep")
+    out = {}
+    for k, pm in layout.items():
+        raw = [rules.get(a) if a is not None else None for a in pm.axes]
+        fit = fit_spec(mesh, raw, pm.shape)
+        # a dim whose logical axis is a model name must split over model
+        # for the region's local arithmetic to hold (a GQA group's q and
+        # kv heads on one rank)
+        for a, r, f in zip(pm.axes, raw, fit):
+            if a in _MODEL_NAMES and has_model(r) != has_model(f):
+                tp = False
+        if any(a in ("heads", "kv_heads") and not has_model(f)
+               for a, f in zip(pm.axes, fit)):
+            tp = False
+        out[k] = fit
+    # the SSM splits its inner width over model by whole heads
+    if region == "ssm" and layout["A_log"].shape[-1] % max(
+            1, dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)).get(
+                "model", 1)):
+        tp = False
+    if tp:
+        return out
+    drop = lambda axes: (None if has_model(axes) and isinstance(axes, str)
+                         else tuple(a for a in axes if a != "model")
+                         if isinstance(axes, tuple) else axes)
+    return {k: Spec(*(drop(a) for a in f)) for k, f in out.items()}
+
+
+def param_shardings(model: Model, mesh, rules: dict):
+    """The ``Spec`` of every param leaf on ``mesh``: ``model.param_specs``
+    fit to the mesh (``fit_spec``: a dim an axis does not divide
+    replicates), and, region by region (a block's attention, MLP, SSM,
+    MoE, ...), the model axis dropped where the region has no
+    tensor-parallel path in the port (MLA, cross attention, the dense
+    MoE) or some head dim does not split over it, so that region
+    runs replicated over model with its weights split over data; the SSM
+    splits over model only by whole heads."""
+    def walk(layout, name):
+        if all(isinstance(v, PM) for v in layout.values()):
+            return _region_specs(model.cfg, layout, rules, mesh, name)
+        return {k: (walk(v, k) if isinstance(v, dict) else
+                    _region_specs(model.cfg, {k: v}, rules, mesh, name)[k])
+                for k, v in layout.items()}
+
+    return walk(model.layout, "")
+
+
+def opt_shardings(param_sh, mesh):
+    """``AdamState`` of specs: the count replicated, the moments as their
+    params."""
+    return AdamState(count=Spec(), mu=param_sh, nu=param_sh)
+
+
+def shard_opt_state(params, acfg: AdamConfig = AdamConfig()) -> AdamState:
+    """Zero Adam moments (``acfg.moment_dtype``) laid out as ``params``
+    (``DTensor``s over one mesh, each rank's piece zeroed); the count on
+    the pieces' device."""
+    from ..dist.layout import MeshLayout, wrap
+
+    def zeros(p):
+        local = torch.zeros(p.to_local().shape, dtype=acfg.moment_dtype,
+                            device=p.to_local().device)
+        return wrap(local, p.shape, tuple(p.placements),
+                    MeshLayout(p.device_mesh))
+
+    first = leaves(params)[0].to_local()
+    return AdamState(count=torch.zeros((), dtype=torch.int32,
+                                       device=first.device),
+                     mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
 def lower_cell(*args, **kwargs):
-    """The dry-run lowering over a mesh (NotImplementedError)."""
-    raise NotImplementedError(f"lower_cell: {_NO_MESH}")
+    """The dry-run's lowering of one (arch, shape, mesh) cell: waits for
+    ROADMAP.md queue A item 9 (the dry-run and analysis)."""
+    raise NotImplementedError(
+        "lower_cell: the dry-run (launch/dryrun.py, lower_cell, "
+        "LoweredCell) is not ported to repro_torch yet (ROADMAP.md queue A "
+        "item 9)")
 
 
 def projection_engine_for(cfg, mesh=None,
@@ -88,14 +249,55 @@ def _extra_evals(stats: Dict[str, Any], device) -> torch.Tensor:
                         for v in stats.values()]).max()
 
 
+# ---------------------------------------------------------------------------
+# the steps over a mesh
+# ---------------------------------------------------------------------------
+
+def _whole(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The full tensor on every rank from this rank's piece under ``spec``
+    (one ``layout.move`` to replicated)."""
+    from ..dist.layout import MeshLayout, move, replicated_placements
+    from ..dist.sharding import _global_shape
+    lay = MeshLayout(mesh)
+    return move(x.contiguous(), _global_shape(x.shape, spec, mesh),
+                placements(mesh, spec), replicated_placements(lay), lay)
+
+
+def _mesh_train_step(model: Model, mesh, rules: dict, acfg: AdamConfig,
+                     with_projection: bool):
+    engine = projection_engine_for(model.cfg, mesh, with_projection)
+    specs = param_shardings(model, mesh, rules)
+
+    def train_step(params, opt_state, proj_state, batch):
+        with axis_rules(mesh, rules):
+            loss, metrics, grads = mesh_loss_and_grads(model, params, specs,
+                                                       batch, mesh)
+            with torch.no_grad():
+                new_params, new_opt, new_proj, stats = \
+                    engine.projected_update(
+                        grads, opt_state, params, acfg, state=proj_state,
+                        with_stats=True, count=int(opt_state.count) + 1)
+                new_params, new_opt = to_specs_state(new_params, new_opt,
+                                                     specs, mesh)
+        metrics["proj_newton_extra_evals"] = _extra_evals(stats, loss.device)
+        return loss, metrics, new_params, new_opt, new_proj
+
+    return train_step
+
+
 def build_train_step(model: Model, mesh=None, rules: Optional[dict] = None,
                      acfg: AdamConfig = AdamConfig(),
                      with_projection: bool = True):
     """The production train step: ``train_step(params, opt_state,
     proj_state, batch) -> (loss, metrics, params, opt_state, proj_state)``
     with ``metrics["proj_newton_extra_evals"]`` beside the loss's own
-    metrics. ``params`` and ``opt_state`` are updated in place."""
-    _one_device(mesh, "build_train_step")
+    metrics. With no mesh ``params`` and ``opt_state`` are updated in
+    place; on a mesh (``rules``: e.g. ``rules_for_cell``) they are
+    ``DTensor``s under ``param_shardings`` and come back as new ones, and
+    the loss is the global one on every rank."""
+    if mesh is not None:
+        return _mesh_train_step(model, mesh, rules or default_rules(), acfg,
+                                with_projection)
     engine = projection_engine_for(model.cfg, None, with_projection)
 
     def train_step(params, opt_state, proj_state, batch):
@@ -119,26 +321,71 @@ def build_train_step(model: Model, mesh=None, rules: Optional[dict] = None,
 
 def build_prefill_step(model: Model, mesh=None,
                        rules: Optional[dict] = None):
-    """``prefill_step(params, batch) -> logits (B, V)`` of the last token."""
-    _one_device(mesh, "build_prefill_step")
+    """``prefill_step(params, batch) -> logits (B, V)`` of the last token.
+    On a mesh: params as ``build_train_step``'s, the global batch; each
+    rank runs the forward on its rows, heads and vocab columns, and the
+    logits come back whole on every rank (one ``layout.move``)."""
+    if mesh is None:
+        @torch.no_grad()
+        def prefill_step(params, batch):
+            logits, _ = model.forward(params, batch)
+            return logits[:, -1, :]
+
+        return prefill_step
+    rules = rules or default_rules()
+    specs = param_shardings(model, mesh, rules)
+    vocab = specs["embed"]["table"][0]
 
     @torch.no_grad()
-    def prefill_step(params, batch):
-        logits, _ = model.forward(params, batch)
-        return logits[:, -1, :]
+    def mesh_prefill_step(params, batch):
+        with axis_rules(mesh, rules):
+            _, tree = mesh_weights(params, specs, grad=False)
+            local = local_batch(batch)
+            logits, _ = model.forward(tree, local)
+            b = batch_shardings(batch, mesh, rules)["tokens"][0]
+            return _whole(logits[:, -1, :], Spec(b, vocab), mesh)
 
-    return prefill_step
+    return mesh_prefill_step
 
 
 def build_decode_step(model: Model, mesh=None,
                       rules: Optional[dict] = None):
     """``serve_step(params, cache, tokens, pos) -> (logits (B, V), new
-    cache)``; the cache passed in is left as it was."""
-    _one_device(mesh, "build_decode_step")
+    cache)``; the cache passed in is left as it was. On a mesh: params as
+    ``build_train_step``'s, the global cache and tokens; each rank decodes
+    its rows of the batch over ``rules["cache_batch"]`` with the weights
+    whole (gathered once a call; the sequence- and head-sharded cache of
+    the reference's decode rules waits for serving over a mesh, ROADMAP.md
+    queue A item 8c), and the logits and new cache come back whole on
+    every rank."""
+    if mesh is None:
+        @torch.no_grad()
+        def serve_step(params, cache, tokens, pos):
+            logits, new_cache = model.decode(params, cache, tokens, pos)
+            return logits[:, -1, :], new_cache
+
+        return serve_step
+    rules = dict(rules or default_rules())
+    rows = dict(rules, cache_seq=None, kv_heads=None, heads=None, mlp=None)
 
     @torch.no_grad()
-    def serve_step(params, cache, tokens, pos):
-        logits, new_cache = model.decode(params, cache, tokens, pos)
-        return logits[:, -1, :], new_cache
+    def mesh_serve_step(params, cache, tokens, pos):
+        from ..convert import params_from_mesh
+        from ..dist.layout import MeshLayout, move, replicated_placements
+        lay = MeshLayout(mesh)
+        whole = params_from_mesh(params, mesh)
+        c_specs = cache_shardings(cache, mesh, rows)
+        b = batch_shardings({"tokens": tokens}, mesh, rules)["tokens"]
+        take = lambda x, spec: move(x.contiguous(), x.shape,
+                                    replicated_placements(lay),
+                                    placements(mesh, spec), lay)
+        local_cache = tree_map(take, cache, c_specs)
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            pos = take(pos, Spec(b[0]))
+        logits, new_cache = model.decode(whole, local_cache,
+                                         take(tokens, b), pos)
+        return (_whole(logits[:, -1, :], Spec(b[0], None), mesh),
+                tree_map(lambda x, s: _whole(x, s, mesh), new_cache,
+                         c_specs))
 
-    return serve_step
+    return mesh_serve_step

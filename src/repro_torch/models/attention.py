@@ -30,6 +30,7 @@ import torch
 
 from .param import PM
 from .layers import apply_rope, rmsnorm_apply
+from ..dist.sharding import shard, tp_enter, tp_exit
 from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = ["attn_layout", "attn_apply", "attn_prefill_cache",
@@ -198,12 +199,25 @@ def attn_apply(params, x, *, n_heads: int, n_kv: int, head_dim: int,
     kernel picks its own). ``sliced_window`` is the reference's lever for
     how local attention is lowered (O(S * window) slices); it does not
     change the function, and the flash kernel already skips tiles that the
-    window masks out, so it is accepted and has nothing to select here."""
+    window masks out, so it is accepted and has nothing to select here.
+
+    Under a mesh whose "model" axis splits the heads (``wq`` holds fewer
+    than ``n_heads``), this is the rank's share of a tensor-parallel
+    block: its query and kv heads (``wq`` / ``wk`` / ``wv`` column
+    pieces), ``tp_enter`` on x and ``tp_exit`` (the sum over model) after
+    the row piece of ``wo``."""
+    tp = params["wq"].shape[1] < n_heads
+    x = shard(tp_enter(x) if tp else x, "batch", "attn_seq", "embed")
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions,
                            rope_theta, rope_frac)
+    q = shard(q, "batch", "attn_seq", "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     out = flash_attention(q, k, v, causal=causal, window=window,
                           block_q=q_chunk, block_kv=kv_chunk)
-    return _out_proj(out, params["wo"])
+    out = shard(out, "batch", "attn_seq", "heads", None)
+    y = _out_proj(out, params["wo"])
+    return shard(tp_exit(y) if tp else y, "batch", "seq", "embed")
 
 
 def attn_prefill_cache(params, x, *, n_heads, n_kv, head_dim, positions,

@@ -14,12 +14,15 @@ import torch
 import torch.nn.functional as F
 
 from .param import PM
+from ..dist.sharding import (axis_index, active_axis, model_max, model_sum,
+                             shard, tp_enter, tp_exit)
 
 __all__ = ["rmsnorm_layout", "rmsnorm_apply", "layernorm_layout",
            "layernorm_apply", "norm_layout", "norm_apply", "rope_freqs",
            "apply_rope", "sinusoidal_positions", "scatter_residual",
            "mlp_layout", "mlp_apply",
-           "embed_layout", "embed_apply", "unembed_apply"]
+           "embed_layout", "embed_apply", "unembed_apply",
+           "vocab_parallel_ce"]
 
 
 # ----------------------------- norms ---------------------------------------
@@ -153,7 +156,7 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")       # jax.nn.gelu's default
 
 
-def mlp_apply(params, x, kind: str = "swiglu"):
+def mlp_apply(params, x, kind: str = "swiglu", ff: Optional[int] = None):
     """The MLP; a compacted tree (``serve.compact``) runs as it stands: a
     ``w1`` with dead hidden units gathered out has matching ``w3`` columns
     and ``w2`` rows (its ``w1_sel`` leaf is not read), and a ``w2`` with
@@ -161,7 +164,15 @@ def mlp_apply(params, x, kind: str = "swiglu"):
     ``scatter_residual`` places back at full width through ``w2_sel``.
     Every ``w2`` with a ``w2_sel`` leaf scatters, whatever its width: a
     recompacted ``w2`` whose slot width equals the residual width is still
-    a permutation (live columns first, padded slots after)."""
+    a permutation (live columns first, padded slots after).
+
+    ``ff``: the full hidden width. Under a mesh whose "model" axis splits
+    it (``w1`` holds fewer columns), this is the rank's share of a
+    tensor-parallel MLP: ``tp_enter`` on x, its hidden columns, and
+    ``tp_exit`` (the sum over model) after its rows of ``w2``."""
+    tp = ff is not None and params["w1"].shape[-1] < ff
+    if tp:
+        x = tp_enter(x)
     if kind in ("swiglu", "geglu"):
         gate = x @ params["w1"]
         up = x @ params["w3"]
@@ -169,10 +180,11 @@ def mlp_apply(params, x, kind: str = "swiglu"):
         h = act * up
     else:
         h = _gelu(x @ params["w1"])
+    h = shard(h, "batch", "seq", "mlp")
     out = h @ params["w2"]
     if "w2_sel" in params:
         out = scatter_residual(out, params["w2_sel"], x.shape[-1])
-    return out
+    return shard(tp_exit(out) if tp else out, "batch", "seq", "embed")
 
 
 # ----------------------------- embeddings -----------------------------------
@@ -181,25 +193,70 @@ def embed_layout(vocab: int, d: int):
     return {"table": PM((vocab, d), ("vocab", "embed"), init="normal")}
 
 
-def embed_apply(params, tokens: torch.Tensor, scale: Optional[float] = None):
-    out = params["table"][tokens]
+def _vocab_piece(table: torch.Tensor, vocab: Optional[int]):
+    """(first row, rows) of the vocab rows this rank holds, or None when
+    it holds them all (no mesh, or vocab not split over "model")."""
+    rows = table.shape[0]
+    if vocab is None or rows == vocab or active_axis("model") is None:
+        return None
+    return axis_index(active_axis("model"), "model") * rows, rows
+
+
+def embed_apply(params, tokens: torch.Tensor, scale: Optional[float] = None,
+                vocab: Optional[int] = None):
+    """Token embeddings. ``vocab``: the full (padded) vocab; where the
+    table holds fewer rows (vocab split over "model") each rank looks up
+    the tokens in its rows, zeros the rest and ``tp_exit`` sums them."""
+    piece = _vocab_piece(params["table"], vocab)
+    if piece is None:
+        out = params["table"][tokens]
+    else:
+        lo, rows = piece
+        mine = (tokens >= lo) & (tokens < lo + rows)
+        out = params["table"][(tokens - lo).clamp(0, rows - 1)]
+        out = tp_exit(out * mine[..., None].to(out.dtype))
     if scale:           # the scale is rounded to the activation dtype first
         out = out * torch.full((), scale, dtype=out.dtype, device=out.device)
     return out
 
 
 def unembed_apply(params, x: torch.Tensor,
-                  true_vocab: Optional[int] = None) -> torch.Tensor:
+                  true_vocab: Optional[int] = None,
+                  vocab: Optional[int] = None) -> torch.Tensor:
     """Logits in the activation dtype (f32 accumulation); padded vocab
     columns (>= true_vocab) are masked to -1e30 so CE and sampling are
-    exact."""
+    exact. ``vocab``: the full (padded) vocab; where the table holds fewer
+    rows (vocab split over "model") these are this rank's columns of the
+    logits, x entering through ``tp_enter``."""
     table = params["table"]
+    piece = _vocab_piece(table, vocab)
+    if piece is not None:
+        x = tp_enter(x)
     if x.dtype == torch.float32:
         logits = x @ table.t()
     else:
         logits = (x.float() @ table.float().t()).to(x.dtype)
-    vp = table.shape[0]
-    if true_vocab is not None and true_vocab < vp:
-        pad = torch.arange(vp, device=x.device) >= true_vocab
+    lo, vp = (0, table.shape[0]) if piece is None else piece
+    if true_vocab is not None and true_vocab < lo + vp:
+        pad = torch.arange(lo, lo + vp, device=x.device) >= true_vocab
         logits = logits.masked_fill(pad, -1e30)
-    return logits
+    return shard(logits, "batch", "seq", "vocab")
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor
+                      ) -> torch.Tensor:
+    """Per-token logsumexp(logits) - logits[label] in f32 where the vocab
+    is split over "model" (``logits``: this rank's columns): the row max
+    by one MAX over model (``ce_max``, no gradient), then the sum of
+    exp(logits - max) and the label's logit (zero on ranks not holding
+    it) by one stacked SUM over model (``ce_stats``)."""
+    lf = logits.float()
+    rows = lf.shape[-1]
+    lo = axis_index(active_axis("model"), "model") * rows
+    m = model_max(lf.max(dim=-1).values, "ce_max")
+    se = torch.exp(lf - m[..., None]).sum(dim=-1)
+    mine = (labels >= lo) & (labels < lo + rows)
+    idx = (labels - lo).clamp(0, rows - 1).long()
+    take = lf.gather(-1, idx[..., None])[..., 0] * mine.float()
+    stats = model_sum(torch.stack([se, take]), "ce_stats")
+    return m + torch.log(stats[0]) - stats[1]

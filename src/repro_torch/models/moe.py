@@ -32,8 +32,10 @@ masks, ``nonzero`` or ``.item()``; every shape follows from B * S), so a
 serving step that runs it can be captured into a CUDA graph.
 
 Expert sharding ("ep" / "tp") only places the weights on a mesh; on one
-card it selects nothing. ``models/moe_shardmap.py`` (manual expert
-parallelism) waits for ROADMAP queue A item 8b.
+card it selects nothing. ``models/moe_shardmap.py`` is the manual
+expert parallelism over a mesh's "model" axis (``moe_impl="shardmap"``);
+over a mesh this dense MoE runs replicated over "model"
+(``launch.steps.param_shardings``).
 
 Aux outputs: switch-style load-balance loss + router z-loss, and the
 fraction of assignments dropped.

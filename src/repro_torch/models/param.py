@@ -2,9 +2,9 @@
 and logical sharding axes (the axes are kept for the distributed slice).
 
 ``model_layout(cfg)`` (transformer.py) builds a nested dict of ``PM``
-leaves; ``materialize`` turns it into initialized tensors. The JAX
-package's ``abstract`` (dry-run) and ``partition_specs`` (mesh rules) have
-no counterpart here yet.
+leaves; ``materialize`` turns it into initialized tensors and
+``partition_specs`` into the mesh rules' ``Spec`` per leaf. The JAX
+package's ``abstract`` (the dry-run's) waits for ROADMAP queue A item 9.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["PM", "is_pm", "materialize", "stack_layout", "count_params"]
+__all__ = ["PM", "is_pm", "materialize", "partition_specs", "stack_layout",
+           "count_params"]
 
 
 class PM(NamedTuple):
@@ -76,6 +77,14 @@ def materialize(generator: torch.Generator, layout,
         return (z * pm.scale).to(dt)
 
     return _map_pm(one, layout)
+
+
+def partition_specs(layout, rules: dict):
+    """Logical axes -> ``dist.sharding.Spec`` via ``rules`` (name -> mesh
+    axes or None), with no divisibility check (the reference's
+    ``PartitionSpec`` per leaf). Unknown names map to None (replicated)."""
+    from ..dist.sharding import logical_spec
+    return _map_pm(lambda pm: logical_spec(pm.axes, rules), layout)
 
 
 def stack_layout(layout, n: int, axis_name: Optional[str] = None):

@@ -14,9 +14,9 @@ the depth:
 
 The MLP part is the MoE MLP (``models/moe.py``) when ``n_experts``; its
 auxiliaries are summed over the layers and ``train_loss`` adds them.
-``moe_impl="shardmap"`` (manual expert parallelism) waits for ROADMAP
-queue A item 8b; ``ssd_bf16`` waits for item 6
-and raises NotImplementedError.
+``moe_impl="shardmap"`` runs ``models/moe_shardmap.py`` (manual expert
+parallelism over "model"; the dense MoE on one device); ``ssd_bf16``
+takes the SSD kernels' bf16-tile variant.
 
 Parameters and caches are nested dicts with the JAX package's keys and
 layouts (layer-stacked leaves under ``blocks/p{i}_{kind}`` and, for an
@@ -58,6 +58,8 @@ from . import layers as L
 from . import attention as A
 from . import ssm as SSMOD
 from . import moe as MOE
+from ..dist.sharding import (active_axis, axis_rules, axis_size,
+                             current_rules, data_sum, shard)
 from .._device import resolve_device
 from .._tree import tree_map
 
@@ -207,15 +209,18 @@ def _mlp_part_apply(params, x, cfg: ArchConfig, aux_acc):
         return x, aux_acc
     h = L.norm_apply(params["mlp_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if not cfg.n_experts:
-        return x + L.mlp_apply(params["mlp"], h, cfg.mlp_kind), aux_acc
+        return x + L.mlp_apply(params["mlp"], h, cfg.mlp_kind,
+                               ff=cfg.d_ff), aux_acc
     if cfg.moe_impl == "shardmap" and cfg.expert_sharding == "ep":
-        raise NotImplementedError(
-            "moe_impl 'shardmap' (manual expert parallelism) is not ported "
-            "to repro_torch yet (ROADMAP.md queue A item 8b)")
-    y, aux = MOE.moe_apply(
-        params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
-        capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_kind,
-        expert_sharding=cfg.expert_sharding)
+        from .moe_shardmap import moe_apply_shardmap
+        y, aux = moe_apply_shardmap(
+            params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_kind)
+    else:
+        y, aux = MOE.moe_apply(
+            params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_kind,
+            expert_sharding=cfg.expert_sharding)
     aux_acc = {k: aux_acc.get(k, 0.0) + v for k, v in aux.items()}
     return x + y, aux_acc
 
@@ -332,13 +337,26 @@ def _remat(cfg: ArchConfig):
     ``cfg.remat_policy`` ("full" or "dots"; ValueError otherwise)."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return lambda fn, *args: fn(*args)
-    if cfg.remat_policy == "full":
-        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
-    if cfg.remat_policy == "dots":
-        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
-                                            context_fn=_dots_context)
-    raise ValueError(f"remat_policy {cfg.remat_policy!r}: one of \"full\", "
-                     f"\"dots\"")
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: one of "
+                         f"\"full\", \"dots\"")
+    kw = {} if cfg.remat_policy == "full" else {"context_fn": _dots_context}
+    # the recompute runs where the backward runs (on the card, autograd's
+    # device thread), so it re-enters the forward's mesh rules: its
+    # collectives are the forward's, on every rank
+    state = current_rules()
+
+    def under_rules(fn):
+        if state is None:
+            return fn
+
+        def run(*args):
+            with axis_rules(*state):
+                return fn(*args)
+        return run
+
+    return lambda fn, *args: checkpoint(under_rules(fn), *args,
+                                        use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +396,8 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed_apply(params["embed"], tokens,
-                      scale=np.sqrt(cfg.d_model) if cfg.embed_scale else None)
+                      scale=np.sqrt(cfg.d_model) if cfg.embed_scale else None,
+                      vocab=cfg.vocab_padded)
     if not cfg.rope_theta:  # absolute sinusoidal positions
         x = x + L.sinusoidal_positions(S, cfg.d_model,
                                        device=x.device).to(x.dtype)
@@ -388,6 +407,7 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
         memory = _encode(params, batch["frames"], cfg)
     elif cfg.n_img_tokens:
         memory = batch["image_embeds"]
+    x = shard(x, "batch", "seq", "embed")
     aux = _zero_aux(cfg, x.device)
     cycles, rem = _split_pattern(cfg)
     remat = _remat(cfg)
@@ -409,7 +429,8 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
                                   positions, memory=memory, aux_acc=aux)
     x = L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed_apply(table, x, true_vocab=cfg.vocab), aux
+    return L.unembed_apply(table, x, true_vocab=cfg.vocab,
+                           vocab=cfg.vocab_padded), aux
 
 
 def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
@@ -417,19 +438,37 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     logit, labels (B, S) of -1 ignored; with experts, plus 0.01 lb_loss +
     1e-3 z_loss. Returns (loss, metrics): {"ce": ce} and, with experts, the
     MoE auxiliaries. The label logit is a gather where the reference takes
-    a one-hot product (the same function)."""
+    a one-hot product (the same function).
+
+    Under a mesh (``dist.sharding.axis_rules``) each rank holds its rows
+    of the batch: the loss is this rank's part of the global one (its
+    tokens' CE over the global label count, one no-gradient SUM over data,
+    ``dp_count``; the MoE auxiliaries over the data size), which the
+    sharded step sums over data; with the vocab split over "model" the CE
+    is ``layers.vocab_parallel_ce``."""
     logits, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    take = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    if lf.shape[-1] < cfg.vocab_padded:
+        tok_ce = L.vocab_parallel_ce(lf, labels)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        take = lf.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+        tok_ce = lse - take
     mask = (labels >= 0).float()
-    ce = ((lse - take) * mask).sum() / mask.sum().clamp(min=1.0)
+    count = data_sum(mask.sum(), "dp_count")
+    ce = (tok_ce * mask).sum() / count.clamp(min=1.0)
     loss, metrics = ce, {"ce": ce}
     if cfg.n_experts:
-        loss = loss + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+        dp = _data_ways()
+        loss = loss + (0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]) / dp
         metrics.update(aux)
     return loss, metrics
+
+
+def _data_ways() -> int:
+    mesh = active_axis("data")
+    return 1 if mesh is None else axis_size(mesh, "data")
 
 
 # ---------------------------------------------------------------------------

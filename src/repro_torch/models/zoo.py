@@ -15,7 +15,7 @@ import torch
 from .._device import resolve_device
 from .transformer import (ArchConfig, model_layout, forward, train_loss,
                           init_cache, decode_step, decode_step_)
-from .param import materialize, count_params
+from .param import materialize, count_params, partition_specs
 
 __all__ = ["SHAPES", "cell_supported", "make_batch", "Model", "build",
            "reduce_config"]
@@ -69,6 +69,11 @@ class Model:
              device=None):
         """Initialized params on ``device`` (the card when None)."""
         return materialize(generator, self.layout, dtype, device)
+
+    def param_specs(self, rules: dict):
+        """The ``Spec`` of every leaf under ``rules`` (no divisibility
+        check; ``launch.steps.param_shardings`` fits them to a mesh)."""
+        return partition_specs(self.layout, rules)
 
     def n_params(self) -> int:
         return count_params(self.layout)

@@ -148,14 +148,14 @@ def make_serve_step(compact: CompactSAE, *, mesh=None, rules=None):
     so a refreshed ``CompactSAE`` with a DIFFERENT surviving set serves
     correctly through an old step. ``mesh=`` / ``rules=`` (the JAX
     package's batch-sharded step) raise NotImplementedError until ROADMAP.md
-    queue A item 8b ports it.
+    queue A item 8c ports it.
 
     >>> step = make_serve_step(compact)   # then: z, xr = step(compact.params, x)
     """
     if mesh is not None or rules is not None:
         raise NotImplementedError(
             "make_serve_step(mesh=...) is not ported: ROADMAP.md queue A "
-            "item 8b (the batch-sharded serve step)")
+            "item 8c (the batch-sharded serve step)")
 
     def step(params, x):
         x_sel = torch.index_select(x, x.ndim - 1, params["sel"])

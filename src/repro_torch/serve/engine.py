@@ -57,7 +57,7 @@ continuous == solo holds by construction. The stream differs from JAX's;
 the distribution, ``softmax(logits / T)``, is the same.
 
 Not ported: ``mesh`` / ``rules`` (the sharded serve step, ROADMAP.md
-queue A item 8b) and ``step_hlo`` (XLA text, no torch counterpart; item 9).
+queue A item 8c) and ``step_hlo`` (XLA text, no torch counterpart; item 9).
 """
 from __future__ import annotations
 
@@ -331,7 +331,7 @@ class FleetEngine:
 
     ``model``: a zoo ``Model``; ``batch_slots``: fixed decode width B;
     ``cfg``: ``EngineConfig``; ``mesh`` / ``rules``: must be None (the
-    sharded serve step is not ported, ROADMAP.md queue A item 8b).
+    sharded serve step is not ported, ROADMAP.md queue A item 8c).
 
     Lifecycle: ``load`` / ``load_compact`` a checkpoint, ``submit``
     requests, call ``step`` per decode step (or ``drain`` to run the
@@ -351,7 +351,7 @@ class FleetEngine:
         if mesh is not None or rules is not None:
             raise NotImplementedError(
                 "mesh / rules: the sharded serve step is not ported to "
-                "repro_torch yet (ROADMAP.md queue A item 8b)")
+                "repro_torch yet (ROADMAP.md queue A item 8c)")
         if model.cfg.encdec or model.cfg.n_img_tokens:
             raise ValueError(
                 "FleetEngine serves decoder-only archs; enc-dec / vision "

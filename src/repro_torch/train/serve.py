@@ -45,7 +45,7 @@ class BatchServer:
     """Fixed B decode slots; requests are prompts (lists of token ids).
 
     ``mesh`` / ``rules`` must be None (the sharded serve step waits for
-    ROADMAP.md queue A item 8b).
+    ROADMAP.md queue A item 8c).
     ``scheduler`` (optional ``serve.RecompactScheduler``) lets ``refresh``
     upgrade itself to a live re-compaction when the live/slot ratio of a
     new checkpoint decays past the scheduler's threshold.

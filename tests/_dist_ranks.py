@@ -154,6 +154,26 @@ def recorded_collectives(sync=None):
             setattr(dist, n, fn)
 
 
+class _count_calls:
+    """Count the calls of ``torch.distributed.<name>`` inside the block
+    (``.n``)."""
+
+    def __init__(self, name):
+        self.name, self.n = name, 0
+
+    def __enter__(self):
+        self.real = getattr(dist, self.name)
+
+        def call(*a, **kw):
+            self.n += 1
+            return self.real(*a, **kw)
+        setattr(dist, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(dist, self.name, self.real)
+
+
 def newton_calls(plans, iters, max_iter=32):
     """The all-reduces of one solve of each plan, in plan order: a (3, G)
     SUM, a (2, G) SUM per Eq.-(19) evaluation and a (G,) MAX. ``plans``:
@@ -491,3 +511,203 @@ def all_cases(mesh):
             "capped": capped_solve(mesh),
             "fused": fused_sharded(mesh),
             "fused_clip": fused_sharded(mesh, clip_norm=1.0)}
+
+
+# -- the sharded production step (launch/steps.py, train/loop.py) -------------
+
+def _step_inputs(arch, seed=0, B=4, S=16, every_k=None):
+    """(port model, numpy params drawn by the port, tokens, labels) of a
+    reduced config (its projection specs at ``every_k`` when given);
+    every rank draws the same."""
+    import dataclasses
+    from repro_torch import configs as TC
+    from repro_torch._tree import tree_map
+    from repro_torch.models import zoo as TZ
+    cfg = TC.get_reduced(arch)
+    if every_k is not None:
+        cfg = dataclasses.replace(cfg, projection_specs=tuple(
+            dataclasses.replace(s, every_k=every_k)
+            for s in cfg.projection_specs))
+    model = TZ.build(cfg)
+    params = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    rng = np.random.default_rng(seed + 1)
+    tok = rng.integers(0, cfg.vocab, size=(B, S))
+    labels = rng.integers(0, cfg.vocab, size=(B, S))
+    labels[0, :2] = -1
+    return model, tree_map(lambda p: p.numpy(), params), tok, labels
+
+
+def _full_np(tree, mesh):
+    """Every leaf of a ``DTensor`` tree whole, as numpy (rank 0 keeps it,
+    the others return None: every rank takes part in the moves)."""
+    from repro_torch._tree import flatten_with_path
+    from repro_torch.convert import params_from_mesh
+    whole = params_from_mesh(tree, mesh)
+    if dist.get_rank() != 0:
+        return None
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in flatten_with_path(whole)}
+
+
+def mesh_train_step(mesh, model_cfg, params_np, tok, labels, steps=2,
+                    rerun=True):
+    """``build_train_step(model, mesh, rules)`` for ``steps`` steps from
+    ``params_np`` on the global batch (tok, labels): per step the loss and
+    the collectives by kind (``dist.sharding``, the engine's all-reduces
+    and all-to-alls), then the params and moments whole; a rerun from the
+    same start (bit-equal flag); one prefill and one decode step over the
+    mesh, logits whole."""
+    from repro_torch._tree import flatten_with_path, leaves, tree_map
+    from repro_torch.convert import params_to_mesh
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import zoo as TZ
+    from repro_torch.optim import AdamConfig
+    cfg = model_cfg
+    model = TZ.build(cfg)
+    dev = mesh.device_type
+    rules = ST.rules_for_cell(cfg, "train_4k", False)
+    specs = ST.param_shardings(model, mesh, rules)
+    acfg = AdamConfig(moment_dtype=torch.float32)
+    batch = {"tokens": torch.from_numpy(tok).long().to(dev),
+             "labels": torch.from_numpy(labels).long().to(dev)}
+    step = ST.build_train_step(model, mesh, rules, acfg)
+
+    def run():
+        full = tree_map(torch.from_numpy, params_np)
+        params = params_to_mesh(full, mesh, specs, dev)
+        opt = ST.shard_opt_state(params, acfg)
+        eng = ST.projection_engine_for(cfg, mesh)
+        proj = eng.init_state(params)
+        losses, counts, evals = [], [], []
+        for _ in range(steps):
+            SH.reset_collective_counts()
+            gathers = _count_calls("all_gather")
+            with recorded_collectives() as log, gathers:
+                loss, met, params, opt, proj = step(params, opt, proj, batch)
+            c = SH.collective_counts()
+            c["all_reduce_shapes"] = log.reduces
+            c["all_gather_calls"] = gathers.n
+            counts.append(c)
+            losses.append(float(loss))
+            evals.append(int(met["proj_newton_extra_evals"]))
+        return losses, counts, evals, params, opt, proj
+
+    losses, counts, evals, params, opt, proj = run()
+    out = {"losses": losses, "counts": counts, "evals": evals,
+           "params": _full_np(params, mesh),
+           "mu": _full_np(opt.mu, mesh), "nu": _full_np(opt.nu, mesh),
+           "specs": {k: tuple(v) for k, v in flatten_with_path(specs)}}
+    if rerun:
+        l2, _, _, p2, _, _ = run()
+        out["rerun_equal"] = l2 == losses and all(
+            torch.equal(a.to_local(), b.to_local())
+            for a, b in zip(leaves(params), leaves(p2)))
+    full = tree_map(torch.from_numpy, params_np)
+    start = params_to_mesh(full, mesh, specs, dev)
+    pre = ST.build_prefill_step(model, mesh, rules)
+    out["prefill"] = pre(start, {"tokens": batch["tokens"]}).float(
+        ).cpu().numpy()
+    dec = ST.build_decode_step(model, mesh, rules)
+    cache = model.init_cache(tok.shape[0], 8, dtype=torch.float32,
+                             device=dev)
+    lg, new_cache = dec(start, cache, batch["tokens"][:, :1], 0)
+    lg2, _ = dec(start, new_cache, batch["tokens"][:, 1:2], 1)
+    out["decode"] = [lg.float().cpu().numpy(), lg2.float().cpu().numpy()]
+    return out
+
+
+def moe_shardmap_loss(mesh, model_cfg, params_np, tok, labels):
+    """Model.loss of a MoE config under the mesh (``axis_rules``) with the
+    batch's rows split over data: the global loss (this rank's part summed
+    over data) and the collectives by kind, for ``moe_impl`` "shardmap"
+    and "gspmd" (experts split over model, resp. replicated)."""
+    import dataclasses
+    from repro_torch._tree import tree_map
+    from repro_torch.convert import params_to_mesh
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import zoo as TZ
+    from repro_torch.train.loop import mesh_loss_and_grads
+    dev = mesh.device_type
+    batch = {"tokens": torch.from_numpy(tok).long().to(dev),
+             "labels": torch.from_numpy(labels).long().to(dev)}
+    out = {}
+    for impl in ("shardmap", "gspmd"):
+        cfg = dataclasses.replace(model_cfg, moe_impl=impl)
+        model = TZ.build(cfg)
+        rules = ST.rules_for_cell(cfg, "train_4k", False)
+        specs = ST.param_shardings(model, mesh, rules)
+        params = params_to_mesh(tree_map(torch.from_numpy, params_np), mesh,
+                                specs, dev)
+        SH.reset_collective_counts()
+        with SH.axis_rules(mesh, rules):
+            loss, met, grads = mesh_loss_and_grads(model, params, specs,
+                                                   batch, mesh)
+        out[impl] = {"loss": float(loss),
+                     "counts": SH.collective_counts(),
+                     "w1_spec": tuple(specs["blocks"][
+                         next(iter(specs["blocks"]))]["moe"]["w1"]),
+                     "grads": _full_np(grads, mesh)}
+    return out
+
+
+def pipeline_run(mesh, n_micro=3, d=16, seed=0, axis="data"):
+    """``build_pipeline_fn`` over ``axis`` of ``mesh`` with a tanh-linear
+    stage: the output (every rank) and the input and stage weights."""
+    from repro_torch.dist.pipeline import build_pipeline_fn
+    S = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))[axis]
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=(S, d, d)) / np.sqrt(d)).astype(np.float32)
+    x = rng.normal(size=(n_micro, 4, d)).astype(np.float32)
+    dev = mesh.device_type
+    pipe = build_pipeline_fn(lambda W, h: torch.tanh(h @ W["w"]), S, n_micro,
+                             mesh, axis)
+    y = pipe({"w": torch.from_numpy(w).to(dev)}, torch.from_numpy(x).to(dev))
+    return {"y": y.cpu().numpy(), "w": w, "x": x}
+
+
+def pipeline_wrong_axis(mesh):
+    """The ValueError of a pipeline whose axis size is not n_stages."""
+    from repro_torch.dist.pipeline import build_pipeline_fn
+    try:
+        build_pipeline_fn(lambda W, h: h, 3, 2, mesh, "data")
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def mesh_cases(mesh, inputs, train_dir=None):
+    """``mesh_train_step`` for each (arch, (cfg, params, tok, labels)) of
+    ``inputs`` (reruns only for the first), and, with ``train_dir``, two
+    steps of ``train(mesh=)`` on reduced stablelm-3b checkpointing there:
+    its losses and params whole."""
+    out = {}
+    for i, (arch, (cfg, params_np, tok, labels)) in enumerate(
+            sorted(inputs.items())):
+        out[arch] = mesh_train_step(mesh, cfg, params_np, tok, labels,
+                                    rerun=i == 0)
+    if train_dir is not None:
+        out["train"] = mesh_train_loop(mesh, train_dir)
+    return out
+
+
+def train_loop_config(train_dir):
+    """(model, batcher, TrainConfig) of the ``train(mesh=)`` case."""
+    from repro_torch import configs as TC
+    from repro_torch.data import LMBatcher, SyntheticLM
+    from repro_torch.models import zoo as TZ
+    from repro_torch.train import TrainConfig
+    cfg = TC.get_reduced("stablelm_3b")
+    tcfg = TrainConfig(steps=2, log_every=100, ckpt_every=100,
+                       ckpt_dir=train_dir, warmup=1, seed=3)
+    return TZ.build(cfg), LMBatcher(SyntheticLM(cfg.vocab, seed=0), 4, 16), \
+        tcfg
+
+
+def mesh_train_loop(mesh, train_dir):
+    from repro_torch.train import train
+    model, batcher, tcfg = train_loop_config(train_dir)
+    res = train(model, batcher, tcfg, mesh=mesh, resume=False,
+                device=mesh.device_type)
+    return {"losses": res["losses"], "params": _full_np(res["params"], mesh)}

@@ -352,9 +352,11 @@ def _ssm_params(d, d_inner, N, H, dt_bias, seed=0):
             "wo": f(d_inner, d, s=d_inner ** -0.5)}
 
 
-def _f64_ssd_attention(x, dt, A_log, D, Bm, Cm, *, chunk=64):
-    """``ssd_attention`` through the naive recurrence in float64, returned
-    in x's dtype."""
+def _f64_ssd_attention(x, dt, A_log, D, Bm, Cm, *, chunk=64,
+                       tile_bf16=False):
+    """``ssd_attention`` (f32 tiles) through the naive recurrence in
+    float64, returned in x's dtype."""
+    assert not tile_bf16
     Bb, S, H, P = x.shape
     y, _ = ref.ssd_ref(
         x.transpose(1, 2).reshape(Bb * H, S, P).double(),

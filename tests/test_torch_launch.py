@@ -30,8 +30,9 @@
     slice within its ball.
 * ``build_prefill_step`` and ``build_decode_step`` against the
   reference's (logits at the zoo's forward tolerance, the new cache).
-* ``mesh`` not None raises NotImplementedError naming queue A item 8, and
-  so do ``rules_for_cell`` and ``lower_cell``.
+* ``rules_for_cell`` equal to the reference's; ``lower_cell`` (the
+  dry-run) raises NotImplementedError naming queue A item 9. The steps
+  over a mesh are held in ``tests/test_torch_mesh_step.py``.
 * ``launch/train.py``'s ``main`` on reduced stablelm-3b for 2 steps on
   ``--device cpu`` prints the reference's lines (numbers aside: the two
   packages draw their initial params from different generators).
@@ -266,19 +267,24 @@ def test_prefill_and_decode_steps_match_reference(arch):
             atol=1e-4 * max(1.0, float(np.abs(w).max())), err_msg=path)
 
 
-@pytest.mark.parametrize("call", ["train", "prefill", "decode", "rules",
-                                  "lower"])
-def test_mesh_raises_naming_item_8(call):
-    cfg = TC.get_reduced("stablelm_3b")
-    model = TZ.build(cfg)
-    mesh = object()
-    fn = {"train": lambda: TS.build_train_step(model, mesh, None),
-          "prefill": lambda: TS.build_prefill_step(model, mesh, None),
-          "decode": lambda: TS.build_decode_step(model, mesh, None),
-          "rules": lambda: TS.rules_for_cell(cfg, "train_4k", False),
-          "lower": lambda: TS.lower_cell(model, "train_4k", mesh, False)}
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        fn[call]()
+@pytest.mark.parametrize("arch", ["stablelm_3b", "hymba_15b", "gemma_7b",
+                                  "deepseek_v2_236b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k"])
+def test_rules_for_cell_matches_reference(arch, shape):
+    """The per-cell rules equal the reference's (decode moves the model
+    axis onto the cache sequence; batch 1 takes every axis; the config's
+    overrides last), single-pod and multi-pod."""
+    for multi_pod in (False, True):
+        assert TS.rules_for_cell(TC.get_reduced(arch), shape, multi_pod) \
+            == JS.rules_for_cell(JC.get_reduced(arch), shape, multi_pod)
+
+
+def test_lower_cell_raises_naming_item_9():
+    """The dry-run's lowering is not ported: it names ROADMAP item 9."""
+    model = TZ.build(TC.get_reduced("stablelm_3b"))
+    with pytest.raises(NotImplementedError, match="queue A item 9"):
+        TS.lower_cell(model, "train_4k", object(), False)
 
 
 def test_projection_engine_for_matches_jax_policy():

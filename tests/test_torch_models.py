@@ -359,10 +359,3 @@ def test_ssd_decode_steps_vs_jax_and_full():
     full = TS.ssd_apply(tp, tu, headdim=8, chunk=8)
     torch.testing.assert_close(full, torch.cat(ys, dim=1), atol=3e-4,
                                rtol=3e-3)
-
-
-def test_ssd_bf16_tiles_are_not_ported():
-    _, tp = _ssm_params()
-    with pytest.raises(NotImplementedError, match="ssd_bf16"):
-        TS.ssd_apply(tp, torch.zeros(1, 8, 32), headdim=8, chunk=8,
-                     tile_bf16=True)

@@ -294,17 +294,6 @@ def test_moe_expert_compact_exact():
         assert torch.equal(daux[k], caux[k])
 
 
-def test_shardmap_refused():
-    """Manual expert parallelism waits for the distributed layer."""
-    cfg = dataclasses.replace(get_reduced("deepseek_v2_236b"),
-                              moe_impl="shardmap")
-    model = build(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        model.forward(params, {"tokens": torch.zeros((1, 8),
-                                                     dtype=torch.long)})
-
-
 # ------------------------------ on the card -----------------------------------
 
 @pytest.fixture

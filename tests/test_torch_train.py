@@ -444,17 +444,16 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
 
 
 def test_train_refuses_unported_on_the_card():
-    """mesh / rules raise before any step (the distributed layer is not
-    ported). SSD blocks no longer refuse: hymba-1.5b trains on the card
+    """Nothing refuses any more: SSD blocks train on the card
     (``tests/test_torch_kernels_flash.py`` holds reduced hymba-1.5b's and
-    mamba2-370m's loss and gradients on the card to the CPU's), so on a
+    mamba2-370m's loss and gradients on the card to the CPU's) and the
+    sharded loop is ported (``tests/test_torch_mesh_step.py``). So on a
     machine without CUDA ``train`` on the card, its default device, fails
-    in ``resolve_device`` and not with a refusal naming queue A item 6."""
+    in ``resolve_device``, with or without a mesh, before any step, and
+    never falls back to the CPU."""
     hymba = TZ.build(TC.get_reduced("hymba_15b"))
     batcher = LMBatcher(SyntheticLM(128, seed=1), 2, 16)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            train(hymba, batcher, TrainConfig(steps=1))
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        train(hymba, batcher, TrainConfig(steps=1), mesh=object(),
-              device="cpu")
+        for mesh in (None, object()):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                train(hymba, batcher, TrainConfig(steps=1), mesh=mesh)
