@@ -244,7 +244,7 @@ and prints no result. Phases:
                beside the floor, not checked. Compaction ratio, wall ms of
                compact and dense, peak memory.
  10b. fleet_serve — the serving loop: ``FleetEngine`` (``serve/engine.py``)
-               serving hymba-1.5b at full width and depth (32 layers, f32,
+               serving hymba-1.5b at full width, 8 of its 32 layers (f32,
                the reference's init) with 8 slots and max_seq 256, its
                decode step captured once into a CUDA graph over a cache
                written in place. (a) The dense engine under churn: 24
@@ -270,9 +270,9 @@ and prints no result. Phases:
                profiler window (idle share, device calls, top ops), tokens
                a second, TTFT and per-token p50 / p99.
  11. lm_train — this slice's main path: ``train`` (``train/loop.py``) of
-               stablelm-3b at full width and depth (32 layers, 2.80 B
-               params), f32, B 1 x S 2048 from ``LMBatcher(SyntheticLM(
-               vocab, seed=1), 1, 2049)``, ten steps with
+               stablelm-3b at full width, 8 of its 32 layers, f32,
+               B 1 x S 2048 from ``LMBatcher(SyntheticLM(vocab,
+               seed=1), 1, 2049)``, ten steps with
                ``proj_solver="kernel"``; the config's every_k 10 fires the
                projection at the tenth. Every loss finite; the flash
                forward launched twice a layer a step (remat recomputes
@@ -308,10 +308,10 @@ and prints no result. Phases:
                size, save and restore seconds. The checkpoints live in a
                temporary directory under build/, removed at the end.
  13. lm_train_ssm — this slice's main path: ``train`` of hymba-1.5b at
-               full width and depth (32 layers, 1.59 B params), f32, remat,
+               full width, 8 of its 32 layers, f32, remat,
                B 1 x S 2048, ten steps with ``proj_solver="kernel"`` (every_k
                10: the projection of mlp/w1 and ssm/wx fires at the tenth),
-               then mamba2-370m at full size (48 layers, N 128) the same
+               then mamba2-370m at full width (8 of 48 layers, N 128) the same
                way. Every loss finite; each step launches the SSD and flash
                forwards twice a layer (remat), their backwards once, the
                l1,inf kernels once in the run; every projected slice within
@@ -325,7 +325,7 @@ and prints no result. Phases:
                the flash forward launched 12 times at each of 1500 x 1500
                (full), 448 x 448 (causal) and 448 x 1500 (cross); prefill
                ms, peak memory, a one-forward trace (flash share). B 1,
-               whole and cut to 2 + 2 layers, f32: every block of the
+               cut to 6 + 6 and to 2 + 2 layers, f32: every block of the
                forward fed the card's input to it on the CPU too, within
                FLOOR_FACTOR times its own noise floor (PERTURB), and what
                lies between the blocks (positions, norms, the memory,
@@ -368,7 +368,7 @@ and prints no result. Phases:
                ``FleetEngine`` (3 slots, 7 requests, a refresh
                mid-flight): one capture, replays equal to steps, tokens
                equal to the CPU engine's.
- 16. lm_train_bf16 — hymba-1.5b at full size (1.59 B params) trained in
+ 16. lm_train_bf16 — hymba-1.5b at full width (8 of 32 layers) trained in
                bf16 with f32 Adam moments through the production step
                (``launch.steps.build_train_step``), B 1 x S 2048, from the
                seed-0 init in each run: two steps under remat "dots", then
@@ -388,7 +388,7 @@ and prints no result. Phases:
                a GPU; gloo stages CUDA tensors through host memory, so no
                time here says anything of an interconnect), D 2 on a (2,
                1) and D 4 on a (2, 2) ("data", "model") mesh, over
-               hymba-1.5b's projected leaves at full size (32 layers of
+               hymba-1.5b's projected leaves at full width (8 layers of
                mlp/w1 1600 x 5504 and ssm/wx 1600 x 3200, random from a
                seed), held against the single-device solves run here
                first and shared with the ranks (CUDA IPC): (a) the
@@ -416,9 +416,9 @@ and prints no result. Phases:
                synchronised around each), the two kernels' device ms on
                each rank's column block (ranks in turn).
  18. lm_train_mesh — the sharded production step: hymba-1.5b at full
-               size in bf16 with f32 Adam moments (its leaves under the
-               l1,2 ball at every_k 1, so fused_sharded launches its
-               kernels) through launch.steps.build_train_step(model, mesh,
+               width, 8 of its 32 layers, in bf16 with f32 Adam moments
+               (its leaves under the l1,2 ball at every_k 1, so
+               fused_sharded launches its kernels) through launch.steps.build_train_step(model, mesh,
                rules) on a (2, 2) data x model mesh of 4 gloo ranks
                sharing the card, B 2 x S 2048, two steps: losses and every
                param piece within twice the same-run noise floor of the
@@ -570,29 +570,33 @@ BLOCK_ATTN = {"global": 1, "local": 1, "hybrid": 1, "enc": 1, "cross": 1,
 # the LM phases: models, batch and the cuts of the comparison phases
 LM = dict(arch="hymba-1.5b", ssm_arch="mamba2-370m", batch=2, seq=2048,
           cut_depth=2, decode_prompt=1152, full_prompt=64, greedy=8)
-# the training phases: stablelm-3b at full width and depth, B 1, S 2048,
-# ten steps (the config's every_k 10 fires the projection at the tenth);
-# the resume check at depth 1, S 512, every_k 2 (the projection fires in
-# both halves, so theta rides in the checkpoint)
-TRAIN = dict(arch="stablelm-3b", seq=2048, steps=10, resume_seq=512,
-             resume_steps=6, resume_every_k=2,
+# the training phases: stablelm-3b at full width, ``depth`` of its 32
+# layers (hymba-1.5b's 32 and mamba2-370m's 48 in phase 13 likewise; the
+# cut keeps the run inside its time limit), B 1, S 2048, ten steps (the
+# config's every_k 10 fires the projection at the tenth); the resume check
+# at depth 1, S 512, every_k 2 (the projection fires in both halves, so
+# theta rides in the checkpoint)
+TRAIN = dict(arch="stablelm-3b", seq=2048, steps=10, depth=8,
+             resume_seq=512, resume_steps=6, resume_every_k=2,
              ssm_archs=("hymba-1.5b", "mamba2-370m"))
-# phase 10b: the serving loop at hymba-1.5b's full size, B 8, Smax 256; 24
+# phase 10b: the serving loop at hymba-1.5b's full width, ``depth`` of its
+# 32 layers (the cut keeps the run inside its time limit), B 8, Smax 256; 24
 # requests in three waves of ``wave_steps`` steps each (prompts 4-48
 # tokens, budgets 4-40, heavy-tailed), the three shortest also through an
 # eager decode_step loop; 8 short requests on the compacted engine with a
 # refresh and a recompact mid-flight; 50 steady steps per engine
-FLEET = dict(arch="hymba-1.5b", slots=8, max_seq=256, requests=24,
+FLEET = dict(arch="hymba-1.5b", depth=8, slots=8, max_seq=256, requests=24,
              prompt=(4, 48), budget=(4, 40), waves=3, wave_steps=12,
              eager_requests=3, steady=50, compact_prompt=(4, 12),
              compact_budget=(6, 16), refresh_at=5, recompact_at=10)
-# phase 16: hymba-1.5b at full size trained in bf16 (f32 Adam moments)
+# phase 16: hymba-1.5b at full width, ``depth`` of its 32 layers (the cut
+# keeps the run inside its time limit), trained in bf16 (f32 Adam moments)
 # through launch/steps.build_train_step, B 1 x S 2048 (phase 13's shape):
 # ten steps under remat "full" (every_k 10: the projection at the tenth),
 # two under "dots" from the same init (bit-equal to "full"'s first two),
 # three at every_k 1, and f32 steps at the same shape to compare with
-TRAIN_BF16 = dict(arch="hymba-1.5b", seq=2048, steps=10, dots_steps=2,
-                  every1_steps=3, f32_steps=4)
+TRAIN_BF16 = dict(arch="hymba-1.5b", depth=8, seq=2048, steps=10,
+                  dots_steps=2, every1_steps=3, f32_steps=4)
 # phases 14 and 15: the rest of the zoo at full width. whisper-small whole
 # (B 2, its 1500 encoder positions, 448 decoder tokens); llama-3.2-vision-
 # 90b cut to one cycle of its pattern (4 global + 1 cross), B 1 x S 2048,
@@ -601,6 +605,7 @@ TRAIN_BF16 = dict(arch="hymba-1.5b", seq=2048, steps=10, dots_steps=2,
 # tenth); deepseek-v2-236b at depth 2; decode against forward over the
 # first ``decode_prompt`` positions; reduced MoE models behind FleetEngine
 ZOO = dict(encdec="whisper-small", encdec_batch=2, encdec_seq=448,
+           encdec_cpu_depth=6,
            vision="llama-3.2-vision-90b", vision_seq=2048, decode_prompt=64,
            moe="mixtral-8x7b", moe_fwd_depth=4, moe_train_depth=2,
            moe_train_steps=10, moe_seq=2048, mla="deepseek-v2-236b",
@@ -642,7 +647,22 @@ SERVE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 FAILURES = []
 
 
+# the wall clock between phase lines: each line's seconds since the line
+# before it (the build's since the start) go to standard error as it is
+# printed, and their sums by phase into the "timing" line before the result
+_CLOCK = [time.perf_counter()]
+PHASE_SECONDS = {}
+
+
 def emit(obj):
+    phase = obj.get("phase")
+    if phase is not None:
+        now = time.perf_counter()
+        PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + now - _CLOCK[-1]
+        print(f"chip_smoke: {phase} {obj.get('arch', obj.get('shape', ''))} "
+              f"+{now - _CLOCK[-1]:.1f} s, at {now - _CLOCK[0]:.1f} s",
+              file=sys.stderr, flush=True)
+        _CLOCK.append(now)
     print(json.dumps(obj), flush=True)
 
 
@@ -1273,7 +1293,8 @@ def ssd_kernel_phase(torch, SK, Sref, dev, flush, shapes=SSD_SHAPES):
     want = SK.ssd_bwd_plain(x, dt1, -ad, ad, B1, B1, torch.ones_like(x), None,
                             saved)[0]
     grad_err = float((xg.grad - want).abs().max())
-    check(launched == {"ssd_fwd": 1, "ssd_bwd": 1}
+    check(launched == {"ssd_fwd": 1, "ssd_bwd": 1, "ssd_fwd_tile_bf16": 0,
+                       "ssd_bwd_tile_bf16": 0}
           and grad_err <= SSD_BWD_TOL * float(want.abs().max()),
           f"ssd f32 gradient: launches {launched}, max err {grad_err}")
     bf = lambda t: t.to(torch.bfloat16)
@@ -1405,7 +1426,8 @@ def block_bwd_phase(torch, C, FA, SK, dev, blocks=BLOCK_BWD,
         launched = _lm_counts(FA, SK)
         attn, ssm = BLOCK_ATTN[kind], kind in ("ssm", "hybrid")
         want = {"flash_attention_fwd": 2 * attn, "flash_attention_bwd":
-                2 * attn, "ssd_fwd": 2 * ssm, "ssd_bwd": 2 * ssm}
+                2 * attn, "ssd_fwd": 2 * ssm, "ssd_bwd": 2 * ssm,
+                "ssd_fwd_tile_bf16": 0, "ssd_bwd_tile_bf16": 0}
         by_dtype = FA.bwd_launches_by_dtype()
         check(by_dtype[dname] == 2 * attn, f"block_bwd {arch} {kind} "
               f"{dname}: flash backward launches by dtype {by_dtype}")
@@ -1471,7 +1493,8 @@ def _lm_counts(FA, SK):
 def _fwd_counts(flash, ssd):
     """The LM counts of a forward with no gradient: no backward launch."""
     return {"flash_attention_fwd": flash, "flash_attention_bwd": 0,
-            "ssd_fwd": ssd, "ssd_bwd": 0}
+            "ssd_fwd": ssd, "ssd_bwd": 0, "ssd_fwd_tile_bf16": 0,
+            "ssd_bwd_tile_bf16": 0}
 
 
 def _has_ssd(cfg):
@@ -1494,10 +1517,13 @@ def _step_counts(cfg):
     fwd = (2 if cfg.remat else 1) * cfg.n_layers
     attn = any(k in ("global", "local", "hybrid") for k in cfg.pattern)
     ssd = _has_ssd(cfg)
+    tile = "_tile_bf16" if cfg.ssd_bf16 else ""
     return {"flash_attention_fwd": fwd if attn else 0,
             "flash_attention_bwd": cfg.n_layers if attn else 0,
-            "ssd_fwd": fwd if ssd else 0,
-            "ssd_bwd": cfg.n_layers if ssd else 0}
+            "ssd_fwd": 0, "ssd_bwd": 0, "ssd_fwd_tile_bf16": 0,
+            "ssd_bwd_tile_bf16": 0,
+            "ssd_fwd" + tile: fwd if ssd else 0,
+            "ssd_bwd" + tile: cfg.n_layers if ssd else 0}
 
 
 def _lm_reset(FA, SK):
@@ -1790,7 +1816,7 @@ def _compact_vs_dense(torch, model, dense, compact, batch, V, FA, SK,
     return line, ld
 
 
-def lm_compact_params(torch, Z, C, dev, lm=LM):
+def lm_compact_params(torch, Z, C, dev, lm=LM, depth=None):
     """Phase 10's model: hymba-1.5b's config and its full-size params from
     seed 6, each hidden unit's ``mlp/w1`` column scaled by one U(0, 1)
     factor shared by every layer. At the plain init every hidden unit's w1
@@ -1799,8 +1825,10 @@ def lm_compact_params(torch, Z, C, dev, lm=LM):
     the 32 layers keeps every unit; with the shared factor, as in a
     checkpoint whose weak units are weak throughout, the layers share most
     of their dead units. ``scripts/torch_lm_compact_probe.py`` starts from
-    the same params."""
+    the same params. ``depth`` cuts the model to its first layers."""
     cfg = C.get_config(lm["arch"])
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     gen = torch.Generator(device=dev).manual_seed(6)
     params = Z.build(cfg).init(generator=gen, device=dev)
     unit = torch.rand((cfg.d_ff,), generator=gen, device=dev)
@@ -2137,7 +2165,7 @@ def _engine_report(torch, eng, model, params, name, first_ptrs, steady,
 
 
 def fleet_serve_phase(torch, Z, C, K, dev, fleet=FLEET, seed=11):
-    """Phase 10b: the serving loop. hymba-1.5b at full width and depth
+    """Phase 10b: the serving loop. hymba-1.5b at full width, FLEET's depth
     (f32, the reference's init) behind ``FleetEngine``: (a) the dense
     engine under churn, (b) the compacted engine through a mid-flight
     refresh and recompact."""
@@ -2145,7 +2173,8 @@ def fleet_serve_phase(torch, Z, C, K, dev, fleet=FLEET, seed=11):
     from repro_torch.core import ProjectionEngine
     from repro_torch.serve import (EngineConfig, FleetEngine,
                                    compact_model)
-    cfg = C.get_config(fleet["arch"])
+    cfg = dataclasses.replace(C.get_config(fleet["arch"]),
+                              n_layers=fleet["depth"])
     model = Z.build(cfg)
     V, B, smax = cfg.vocab, fleet["slots"], fleet["max_seq"]
     ecfg = EngineConfig(max_seq=smax)
@@ -2234,7 +2263,7 @@ def fleet_serve_phase(torch, Z, C, K, dev, fleet=FLEET, seed=11):
     # (b) the compacted engine: refresh (values x 1.25) and recompact (one
     # more column dead) mid-flight, against solo runs switching at the
     # same local depth
-    _, raw = lm_compact_params(torch, Z, C, dev)
+    _, raw = lm_compact_params(torch, Z, C, dev, depth=cfg.n_layers)
     dense, _ = ProjectionEngine(cfg.projection_specs,
                                 solver="kernel").apply(raw)
     del raw
@@ -2332,7 +2361,7 @@ def lm_train_phase(torch, Z, C, FA, K, dev, tr=TRAIN):
     from repro_torch.data import LMBatcher, SyntheticLM
     from repro_torch.optim import AdamConfig
     from repro_torch.train import loop as TL
-    cfg = C.get_config(tr["arch"])
+    cfg = dataclasses.replace(C.get_config(tr["arch"]), n_layers=tr["depth"])
     model = Z.build(cfg)
     batcher = LMBatcher(SyntheticLM(cfg.vocab, seed=1), 1, tr["seq"] + 1)
     tcfg = TL.TrainConfig(steps=tr["steps"], proj_solver="kernel",
@@ -2627,7 +2656,7 @@ def lm_resume_phase(torch, Z, C, root, tr=TRAIN):
 
 def lm_train_ssm_phase(torch, Z, C, FA, SK, K, dev, tr=TRAIN):
     """Phase 13, this slice's main path: ``train`` of hymba-1.5b and then
-    mamba2-370m at full width and depth, f32, B 1 x S 2048, ten steps with
+    mamba2-370m at full width, TRAIN's depth, f32, B 1 x S 2048, ten steps with
     ``proj_solver="kernel"`` (every_k 10: the projection fires at the
     tenth); then a traced step more of each. Returns hymba-1.5b's launches
     in its run."""
@@ -2637,7 +2666,7 @@ def lm_train_ssm_phase(torch, Z, C, FA, SK, K, dev, tr=TRAIN):
     from repro_torch.train import loop as TL
     first = None
     for arch in tr["ssm_archs"]:
-        cfg = C.get_config(arch)
+        cfg = dataclasses.replace(C.get_config(arch), n_layers=tr["depth"])
         model = Z.build(cfg)
         batcher = _lm_batcher(cfg, tr)
         steps = tr["steps"]
@@ -2722,7 +2751,8 @@ def _hymba_ball(params):
 
 
 def lm_train_bf16_phase(torch, Z, C, FA, SK, K, FK, dev, tr=TRAIN_BF16):
-    """Phase 16, this slice's main path: hymba-1.5b at full size trained
+    """Phase 16, this slice's main path: hymba-1.5b at full width
+    (TRAIN_BF16's depth) trained
     in bf16 with f32 Adam moments (``AdamConfig(moment_dtype=float32)``)
     through ``launch.steps.build_train_step``, B 1 x S 2048, from the
     seed-0 init in each run:
@@ -2749,7 +2779,8 @@ def lm_train_bf16_phase(torch, Z, C, FA, SK, K, FK, dev, tr=TRAIN_BF16):
     from repro_torch.launch.steps import (build_train_step,
                                           projection_engine_for)
     from repro_torch.optim import AdamConfig, adam_init
-    base = C.get_config(tr["arch"])
+    base = dataclasses.replace(C.get_config(tr["arch"]),
+                               n_layers=tr["depth"])
     batcher = _lm_batcher(base, tr)
     acfg = AdamConfig(moment_dtype=torch.float32)
     flash_names = ("flash_bf16_kernel", "flash_f32_kernel",
@@ -3259,10 +3290,17 @@ def zoo_encdec_phase(torch, Z, C, FA, dev, zoo=None):
             out["encdec_forward"] = line["flash_launches_by_shape"]
         emit({"phase": "zoo_encdec", "check": "forward", **line})
         del p
-    # the whole model's f32 forward on the card against the CPU, B 1, and
-    # decode against forward, at full depth and cut to 2 + 2 layers
+    # the model's f32 forward on the card against the CPU, B 1, and
+    # decode against forward, cut to ``encdec_cpu_depth`` + as many layers
+    # (the cut keeps the run inside its time limit) and to 2 + 2
     one = {k: v[:1] for k, v in batch.items()}
-    _encdec_vs_cpu(torch, Z, FA, model, params, one, zoo, strict=False)
+    d = zoo["encdec_cpu_depth"]
+    mid = dataclasses.replace(cfg, n_layers=d, n_enc_layers=d)
+    mmodel = Z.build(mid)
+    mparams = mmodel.init(torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    _encdec_vs_cpu(torch, Z, FA, mmodel, mparams, one, zoo, strict=False)
+    del mparams
     cut = dataclasses.replace(cfg, n_layers=2, n_enc_layers=2)
     cmodel = Z.build(cut)
     cparams = cmodel.init(torch.Generator(device=dev).manual_seed(1),
@@ -3700,18 +3738,20 @@ def attn_zoo_phase(torch, FA, dev, flush, shapes=None):
 
 
 # phase 17: the distributed l1,inf projection, ranks sharing the card over
-# gloo: hymba-1.5b's projected leaves at full size (every layer's mlp/w1
-# and ssm/wx), meshes (2, 1) and (2, 2) over ("data", "model")
+# gloo: hymba-1.5b's projected leaves at full width (mlp/w1 and ssm/wx)
+# for ``layers`` of its 32 layers (the cut keeps the run inside its time
+# limit), meshes (2, 1) and (2, 2) over ("data", "model")
 DIST = dict(arch="hymba-1.5b", meshes=((2, 1), (2, 2)), seed=17, step=10,
+            layers=8,
             fused_frac=0.05, k_frac=0.05, timeout=420)
 DIST_TOL = dict(params=1e-5, theta=1e-6)
 
 
-def _hymba_leaves(torch, cfg, dev, seed):
+def _hymba_leaves(torch, cfg, dev, seed, layers):
     """hymba-1.5b's projected leaves (the config's spec pattern), random
     from a seed: params ~ 0.02 N(0, 1), gradients ~ 1e-3 N(0, 1), Adam
     moments m ~ 1e-3 N(0, 1), v ~ 1e-6 U(0, 1)."""
-    L, d = cfg.n_layers, cfg.d_model
+    L, d = layers, cfg.d_model
     shapes = {"mlp": {"w1": (L, d, cfg.d_ff)},
               "ssm": {"wx": (L, d, cfg.ssm_expand * d)}}
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3761,7 +3801,8 @@ def dist_projection_phase(torch, C, dev, card, dist_cfg=DIST):
     cfg = C.get_config(dist_cfg["arch"])
     gc.collect()
     torch.cuda.empty_cache()
-    data = _hymba_leaves(torch, cfg, dev, dist_cfg["seed"])
+    data = _hymba_leaves(torch, cfg, dev, dist_cfg["seed"],
+                         dist_cfg["layers"])
     params = data["params"]
     spec, fused_specs = _dist_specs(ProjectionSpec, cfg, params, leaves)
     acfg = AdamConfig(lr=1e-3, clip_norm=None)
@@ -4296,7 +4337,11 @@ def _event_ms(torch, fn, reps=10):
 # depth 2, ssd_bf16, one loss backward)
 SSD_TILE_SHAPES = [("hymba_train", 1, 50, 2048, 64, 16, 64, (3.0, 20.0)),
                    ("mamba2_train", 1, 32, 2048, 64, 128, 64, (0.05, 0.6))]
-SSD_TILE_TOL = 1e-3
+# the bf16-tile kernels against their plain versions, as a fraction of
+# each output's largest entry: the forward read bit-equal and the backward
+# within 2.1e-7 at both shapes (H100 80GB HBM3, 700 W; PERF.md section 6);
+# the f32-tile kernels on the same inputs must land outside the limit
+SSD_TILE_TOL = 1e-6
 SSD_TILE_MODEL = dict(arch="hymba-1.5b", depth=2, seq=2048)
 
 
@@ -4304,11 +4349,12 @@ def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
                         shapes=SSD_TILE_SHAPES, run=SSD_TILE_MODEL):
     """Phases 7 / 7b, the bf16-tile rows: ``ssd_fwd(tile_bf16=True)`` and
     its backward against their plain versions (within SSD_TILE_TOL of each
-    output's scale: the plain products run on cuBLAS, the kernels' in fmaf
-    order, and a bf16 rounding can land on the other side of a tie),
-    reruns bit-equal, device ms warm and L2-flushed, the plain version's,
-    the f32-tile kernel's on the same inputs, and the bound (the f32
-    kernels' work: the inputs are f32, the tiles round in registers); then ``run``'s loss backward with ``ssd_bf16``
+    output's scale), and the control: the f32-tile kernels on the same
+    inputs, held the same way, fall outside that limit; reruns
+    bit-equal, device ms warm and L2-flushed, the plain version's, the
+    f32-tile kernel's on the same inputs, and the bound (the f32 kernels'
+    work: the inputs are f32, the tiles round in registers); then
+    ``run``'s loss backward with ``ssd_bf16``
     (the path that launches the variant, counted), its loss within 1e-2
     of the f32 tiles' and every gradient finite. Returns ({kernel: row}
     of the first shape, {kernel: launches})."""
@@ -4328,13 +4374,17 @@ def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
         kw = dict(chunk=Q, groups=groups, tile_bf16=True)
         y, st, saved = SK._fwd_kernel(*args, Q, groups, True)
         yp, stp, psaved = SK.ssd_fwd_plain(*args, return_saved=True, **kw)
-        rel = lambda u, v: float((u.float() - v.float()).abs().max()) / max(
-            float(v.float().abs().max()), 1e-30)
+        rel = _rel_err
         fwd_rel = max(rel(y, yp), rel(st, stp))
         y2, st2, _ = SK._fwd_kernel(*args, Q, groups, True)
         check(bool(torch.isfinite(y).all()) and fwd_rel <= SSD_TILE_TOL,
               f"ssd_fwd_tile_bf16 {name}: kernel vs plain, relative "
               f"{fwd_rel}")
+        y32, st32, saved32 = SK._fwd_kernel(*args, Q, groups)
+        ctl_fwd = max(rel(y32, yp), rel(st32, stp))
+        check(ctl_fwd > SSD_TILE_TOL, f"ssd_fwd_tile_bf16 {name}: the "
+              f"f32-tile kernel passes as bf16-tile, relative {ctl_fwd}")
+        del y32, st32
         check(bits_equal(torch, y, y2) and bits_equal(torch, st, st2),
               f"ssd_fwd_tile_bf16 {name}: rerun not bit-equal")
         got = SK.ssd_bwd(*args, dy, None, saved, **kw)
@@ -4348,6 +4398,13 @@ def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
               f"{bwd_rel}")
         check(all(bits_equal(torch, u, v) for u, v in zip(got, again)),
               f"ssd_bwd_tile_bf16 {name}: rerun not bit-equal")
+        ctl_bwd = {n: rel(u, v) for n, u, v in zip(
+            ("dx", "ddt", "da", "dd", "dB", "dC"),
+            SK.ssd_bwd(*args, dy, None, saved32, chunk=Q, groups=groups),
+            want)}
+        check(max(ctl_bwd.values()) > SSD_TILE_TOL, f"ssd_bwd_tile_bf16 "
+              f"{name}: the f32-tile kernel passes as bf16-tile, relative "
+              f"{ctl_bwd}")
         nc, tri = S // Q, Q * (Q + 1) // 2
         f_ops = nc * BH * (2 * tri * (N + P) + 4 * Q * P * N)
         f_bytes = (2 * x.numel() + dt.numel() + 2 * Bm.numel()) * 4 \
@@ -4357,7 +4414,6 @@ def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
         b_bytes = 4 * (3 * x.numel() + 3 * dt.numel() + 4 * Bm.numel()
                        + hst.numel() + G.numel() + 4 * BH)
         f32kw = dict(chunk=Q, groups=groups)
-        _, _, saved32 = SK._fwd_kernel(*args, Q, groups)
         for kname, kern, plain, f32, ops, nbytes, err in (
                 ("ssd_fwd_tile_bf16",
                  lambda: SK._fwd_kernel(*args, Q, groups, True),
@@ -4383,6 +4439,8 @@ def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
             emit({"phase": "ssd_tile_bf16", "kernel": kname, "BH": BH,
                   "S": S, "P": P, "N": N, "chunk": Q, "dt_range": [lo, hi],
                   "rel_err_vs_plain": fwd_rel if "fwd" in kname else bwd_rel,
+                  "tol": SSD_TILE_TOL, "f32_tiles_rel_vs_plain":
+                  ctl_fwd if "fwd" in kname else ctl_bwd,
                   **line})
             rows.setdefault(kname, line)
         del got, want, again, saved, psaved, saved32
@@ -4404,7 +4462,7 @@ def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
         loss, _ = model.loss(params, batch)
         loss.backward()
         torch.cuda.synchronize()
-        launches = dict(SK.launch_counts(), **SK.tile_launch_counts())
+        launches = SK.launch_counts()
         finite = all(bool(torch.isfinite(p.grad).all())
                      for p in leaves(params))
         losses[tile] = float(loss)
@@ -4430,11 +4488,15 @@ def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
 # (1 a data rank) x S 2048, its spec at every_k 1 so both steps project
 # (fused_sharded); deepseek-v2 at depth 2, B 1 x S 512, on (1, 2) with
 # moe_impl "shardmap" and "gspmd"; a two-stage pipeline of hymba-1.5b's
-# full-width MLP
-MESH = dict(arch="hymba-1.5b", mesh=(2, 2), seq=2048, steps=2, depth=None,
-            perturb=2.0 ** -8, moe_arch="deepseek-v2-236b", moe_depth=2,
-            moe_seq=512, moe_tol=2e-2, pipe_micro=4, pipe_seq=512,
-            timeout=900)
+# full-width MLP. The update check runs the same step in f32 at
+# ``check_depth`` layers for one step (perturbed by PERTURB): in bf16 the
+# whole model's update floor is as large as the update, and in f32 after a
+# second step about half of it. The main path is cut to ``depth`` of the
+# model's 32 layers to keep the run inside its time limit
+MESH = dict(arch="hymba-1.5b", mesh=(2, 2), seq=2048, steps=2, depth=8,
+            perturb=2.0 ** -8, check_depth=2, moe_arch="deepseek-v2-236b",
+            moe_depth=2, moe_seq=512, moe_tol=2e-2, pipe_micro=4,
+            pipe_seq=512, timeout=900)
 
 
 def _spawn(target, world, args, timeout):
@@ -4563,19 +4625,224 @@ def _time_recorded(torch, dist, FK, first, lay):
     return res
 
 
+# phase 18's LM kernels and the module function that launches each (FA:
+# kernels.flash_attention.kernel, SK: kernels.ssd.kernel); the step runs
+# bf16 attention (its backward is the bf16 kernel) and f32 SSD
+LM_MESH_KERNELS = {"flash_attention_fwd": ("FA", "_fwd_kernel"),
+                   "flash_attention_bwd_bf16": ("FA", "flash_attention_bwd"),
+                   "ssd_fwd": ("SK", "_fwd_kernel"),
+                   "ssd_bwd": ("SK", "ssd_bwd")}
+
+
+@contextlib.contextmanager
+def _lm_first_calls(torch, mods):
+    """The first launch of each of ``LM_MESH_KERNELS`` made meanwhile
+    (``mods``: {"FA": module, "SK": module}), its inputs and result
+    cloned: {kernel: (args, kwargs, result)}."""
+    first = {}
+    real = {k: getattr(mods[m], f) for k, (m, f) in LM_MESH_KERNELS.items()}
+
+    def clone(t):
+        if isinstance(t, torch.Tensor):
+            return t.detach().clone()
+        return tuple(map(clone, t)) if isinstance(t, tuple) else t
+
+    def wrap(name):
+        def call(*a, **kw):
+            out = real[name](*a, **kw)
+            if name not in first:
+                first[name] = (clone(a), dict(kw), clone(out))
+            return out
+        return call
+
+    for k, (m, f) in LM_MESH_KERNELS.items():
+        setattr(mods[m], f, wrap(k))
+    try:
+        yield first
+    finally:
+        for k, (m, f) in LM_MESH_KERNELS.items():
+            setattr(mods[m], f, real[k])
+
+
+def _rel_err(u, v):
+    return float((u.float() - v.float()).abs().max()) / max(
+        float(v.float().abs().max()), 1e-30)
+
+
+def _lm_hold(torch, F, FA, SK, name, a, kw, out):
+    """One recorded LM launch of phase 18 against its plain version on the
+    same inputs, as phases 6 / 6e / 7 / 7b hold them: the flash forward's
+    out within FLASH_TOL and its lse within 2e-5 of their scales, the
+    backward's dq, dk, dv within BWD_TOL (the kernel's tiles in the plain
+    version), the SSD forward bit-equal, its backward within SSD_BWD_TOL of
+    each gradient's scale. Returns (ok, max abs err, {what: relative err},
+    the kernel, the plain version, the library call or None, bytes,
+    operations, the peak rate)."""
+    if name == "flash_attention_fwd":
+        q, k, v, groups, causal, window, want_lse = a
+        o, lse = out
+        pkw = dict(groups=groups, causal=causal, window=window)
+        po, plse = FA.flash_attention_fwd_plain(q, k, v, return_lse=True,
+                                                **pkw)
+        dname = str(q.dtype).split(".")[-1]
+        rel = {"out": _rel_err(o, po)}
+        if lse is not None:
+            rel["lse"] = _rel_err(lse, plse)
+        ok = rel["out"] <= FLASH_TOL[dname] and rel.get("lse", 0) <= 2e-5
+        err = float((o.float() - po.float()).abs().max())
+        BH, S, hd = q.shape
+        pairs, mask = _pairs(S, causal, window)
+        ops = 4 * hd * pairs * BH
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel()) \
+            + (4 * BH * S if want_lse else 0)
+        kern = lambda: FA._fwd_kernel(*a)
+        plain = lambda: FA.flash_attention_fwd_plain(
+            q, k, v, return_lse=want_lse, **pkw)
+        mk = torch.from_numpy(mask).to(q.device) if window else None
+        qs, ks, vs = (t.view(-1, n, S, hd) for t, n in ((q, groups), (k, 1),
+                                                         (v, 1)))
+
+        def lib():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mk, is_causal=causal and mk is None,
+                    enable_gqa=True)
+    elif name == "flash_attention_bwd_bf16":
+        q, k, v, o, do, lse = a
+        BH, S, hd = q.shape
+        block_q, block_kv = FA.bwd_tiles(hd, q.dtype)
+        pkw = dict(kw, block_q=block_q, block_kv=block_kv)
+        want = FA.flash_attention_bwd_plain(*a, **pkw)
+        rel = {g: _rel_err(u, w) for g, u, w in zip(("dq", "dk", "dv"), out,
+                                                    want)}
+        ok = q.dtype == torch.bfloat16 and max(rel.values()) <= \
+            BWD_TOL["bfloat16"]
+        err = max(float((u.float() - w.float()).abs().max())
+                  for u, w in zip(out, want))
+        pairs, mask = _pairs(S, kw["causal"], kw["window"])
+        ops = 10 * hd * pairs * BH
+        nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel()
+                                     + 2 * v.numel()) + 4 * lse.numel()
+        kern = lambda: FA.flash_attention_bwd(*a, **kw)
+        plain = lambda: FA.flash_attention_bwd_plain(*a, **pkw)
+        mk = torch.from_numpy(mask).to(q.device) if kw["window"] else None
+        g = kw["groups"]
+        qs, ks, vs = (t.view(-1, n, S, hd).clone().requires_grad_(True)
+                      for t, n in ((q, g), (k, 1), (v, 1)))
+        ds = do.view(qs.shape)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mk, is_causal=kw["causal"] and mk is None,
+            enable_gqa=True)
+
+        def lib():
+            with torch.no_grad():
+                sdpa()
+
+        lib_both = lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), ds)
+        lib = (lib, lib_both)
+    elif name == "ssd_fwd":
+        x, dt, A, D, Bm, Cm, Q, groups = a[:8]
+        tile = a[8] if len(a) > 8 else False
+        y, st, _ = out
+        pkw = dict(chunk=Q, groups=groups, tile_bf16=tile)
+        yp, stp = SK.ssd_fwd_plain(x, dt, A, D, Bm, Cm, **pkw)
+        rel = {"y": _rel_err(y, yp), "state": _rel_err(st, stp)}
+        ok = bits_equal(torch, y, yp) and bits_equal(torch, st, stp)
+        err = max(float((y - yp).abs().max()), float((st - stp).abs().max()))
+        BH, S, P = x.shape
+        N = Bm.shape[-1]
+        nbytes = (2 * x.numel() + dt.numel() + 2 * Bm.numel()) \
+            * x.element_size() + (2 * BH + BH * P * N) * 4
+        ops = (S // Q) * BH * (2 * (Q * (Q + 1) // 2) * (N + P)
+                               + 4 * Q * P * N)
+        kern = lambda: SK._fwd_kernel(*a)
+        plain = lambda: SK.ssd_fwd_plain(x, dt, A, D, Bm, Cm, **pkw)
+        lib = None
+    else:
+        x, dt, A, D, Bm, Cm, dy, dstate, saved = a
+        _, _, psaved = SK.ssd_fwd_plain(x, dt, A, D, Bm, Cm,
+                                        return_saved=True, **kw)
+        want = SK.ssd_bwd_plain(x, dt, A, D, Bm, Cm, dy, dstate, psaved,
+                                **kw)
+        rel = {g: _rel_err(u, w) for g, u, w in zip(
+            ("dx", "ddt", "da", "dd", "dB", "dC"), out, want)}
+        ok = max(rel.values()) <= SSD_BWD_TOL
+        err = max(float((u - w).abs().max()) for u, w in zip(out, want))
+        BH, S, P = x.shape
+        N, Q = Bm.shape[-1], kw["chunk"]
+        hst, _, G = saved
+        ops = (S // Q) * BH * (2 * (Q * (Q + 1) // 2) * (2 * P + 2 * N)
+                               + 8 * Q * P * N)
+        nbytes = 4 * (3 * x.numel() + 3 * dt.numel() + 4 * Bm.numel()
+                      + hst.numel() + G.numel() + 4 * BH)
+        kern = lambda: SK.ssd_bwd(*a, **kw)
+        plain = lambda: SK.ssd_bwd_plain(x, dt, A, D, Bm, Cm, dy, dstate,
+                                         psaved, **kw)
+        lib = None
+    peak = BF16_OPS_PER_S if a[0].dtype == torch.bfloat16 else F32_OPS_PER_S
+    return ok, err, rel, kern, plain, lib, nbytes, ops, peak
+
+
+def _lm_hold_and_time(torch, dist, FA, SK, first, lay):
+    """Phase 18's recorded LM launches (``_lm_first_calls``), the ranks
+    taking turns: each held against its plain version (``_lm_hold``), then
+    its device ms, its plain version's and the library call's
+    (``scaled_dot_product_attention`` for flash, its backward as forward +
+    backward less forward; none for SSD), CUDA events; the bound from this
+    launch's bytes (each input read once, each output written once) and
+    operations. Returns ({what: ok}, {kernel: row})."""
+    import torch.nn.functional as F
+    checks, rows = {}, {}
+    for turn in range(lay.size):
+        torch.cuda.synchronize()
+        dist.barrier()
+        if turn != lay.me:
+            continue
+        for name, (a, kw, out) in first.items():
+            ok, err, rel, kern, plain, lib, nbytes, ops, peak = _lm_hold(
+                torch, F, FA, SK, name, a, kw, out)
+            checks[f"{name}_vs_plain"] = bool(ok)
+            bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (ops / peak * 1e3, "operations"))
+            if isinstance(lib, tuple):
+                fwd_ms = _event_ms(torch, lib[0])
+                lib_ms = _event_ms(torch, lib[1]) - fwd_ms
+            else:
+                lib_ms = None if lib is None else _event_ms(torch, lib)
+            rows[name] = {"ms": _event_ms(torch, kern),
+                          "plain_ms": _event_ms(torch, plain, reps=3),
+                          "library_ms": lib_ms, "bound_ms": bound[0],
+                          "bound_by": bound[1], "max_abs_err": err,
+                          "rel_err_vs_plain": rel,
+                          "input_shapes": [list(t.shape) for t in a
+                                           if isinstance(t, torch.Tensor)]}
+        first.clear()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return checks, rows
+
+
 def _mesh_rank(rank, world, work, shape, shared, meta):
     """One rank of phase 18's train step (a spawned process): two steps of
     ``build_train_step(model, mesh, rules)`` from the shared params with
     its fused kernels' launches recorded and held against their plain
-    versions, the collectives by kind, a rerun, one prefill; its pieces
-    held against the same boxes of the one-device results."""
+    versions, the launches of every kernel counted each step, the first
+    launch of each LM kernel (flash forward and bf16 backward, SSD forward
+    and backward) held against its plain version and timed, the
+    collectives by kind, a rerun, one prefill; its updates held against
+    the same boxes of the one-device update, and a control (its pieces
+    left at their start) held the same way. Without ``meta["main"]`` (the
+    f32 update check), the two steps, the counts and the updates only."""
     torch, dist, mesh = _rank_setup(rank, world, work, shape)
     import _dist_ranks as R
     from repro_torch._tree import flatten_with_path, leaves
     from repro_torch.convert import params_to_mesh
     from repro_torch.dist import sharding as SH
     from repro_torch.dist.layout import MeshLayout, local_of
+    from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.fused_step import kernel as FK
+    from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.launch import steps as TS
     from repro_torch.models import zoo as Z
     from repro_torch.optim import AdamConfig
@@ -4595,10 +4862,13 @@ def _mesh_rank(rank, world, work, shape, shared, meta):
         proj = TS.projection_engine_for(cfg, mesh).init_state(params)
         losses, counts, ms, gloo_s, launches = [], [], [], [], []
         checks, errs, first = {}, {}, {}
-        with _kernel_calls(FK, record) as calls:
+        lm_first = (_lm_first_calls(torch, {"FA": FA, "SK": SK}) if record
+                    else contextlib.nullcontext({}))
+        with _kernel_calls(FK, record) as calls, lm_first as lm_calls:
             for i in range(meta["steps"]):
                 SH.reset_collective_counts()
-                FK.reset_launch_counts()
+                for mod in (FK, FA, SK):
+                    mod.reset_launch_counts()
                 gathers = R._count_calls("all_gather")
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -4610,7 +4880,10 @@ def _mesh_rank(rank, world, work, shape, shared, meta):
                 ms.append((time.perf_counter() - t) * 1e3)
                 gloo_s.append(log.seconds)
                 losses.append(float(loss))
-                launches.append(FK.launch_counts())
+                launches.append({
+                    **FK.launch_counts(), **FA.launch_counts(),
+                    **SK.launch_counts(), "flash_attention_bwd_bf16":
+                    FA.bwd_launches_by_dtype()["bfloat16"]})
                 c = SH.collective_counts()
                 c["all_gather_calls"] = gathers.n
                 c["all_reduce_calls"] = len(log.reduces)
@@ -4631,44 +4904,58 @@ def _mesh_rank(rank, world, work, shape, shared, meta):
                         first = _first_calls(torch, calls)
                     calls.clear()
         return (params, losses, counts, ms, gloo_s, launches, checks, errs,
-                first)
+                first, dict(lm_calls))
 
+    main = meta["main"]
     torch.cuda.reset_peak_memory_stats()
     (params, losses, counts, ms, gloo_s, launches, checks, errs,
-     first) = run(True)
+     first, lm_first) = run(main)
     peak = torch.cuda.max_memory_allocated()
-    p2, l2, *_ = run(False)
-    rerun = l2 == losses and all(
-        torch.equal(local_of(u), local_of(v))
-        for u, v in zip(leaves(params), leaves(p2)))
-    del p2
-    # pieces against the one-device result (the parent's file, mapped: each
-    # rank reads its boxes) and the floor of this rank's box
+    if main:
+        p2, l2, *_ = run(False)
+        checks["rerun_bit_equal"] = l2 == losses and all(
+            torch.equal(local_of(u), local_of(v))
+            for u, v in zip(leaves(params), leaves(p2)))
+        del p2
+    # the update against the one-device update over this rank's box (the
+    # parent's file, mapped: each rank reads its boxes), as Frobenius norms
+    # of their difference; both start from the shared params, so that is
+    # the distance of the pieces. The control: the pieces left at their
+    # start, whose distance is the one-device update's norm
     one = torch.load(meta["one_file"], mmap=True)
     floors = meta["floors"][dist.get_rank()]
+    start = dict(flatten_with_path(shared["params"]))
     leaves_out = {}
     for path, x in flatten_with_path(params):
         box = _box_of(x, lay)
         mine = local_of(x).float().cpu()
         o = one[path][box].float()
+        s0 = start[path][box].float().cpu()
         leaves_out[path] = {
+            "diff_norm": float(torch.linalg.vector_norm(mine - o)),
+            "control_norm": float(torch.linalg.vector_norm(s0 - o)),
             "max_abs_diff": float((mine - o).abs().max()),
-            "noise_floor": floors[path], "scale": float(o.abs().max())}
-    del params, one
+            "scale": float(o.abs().max()), **floors[path]}
+    del params, one, start
     torch.cuda.empty_cache()
-    times = _time_recorded(torch, dist, FK, first, lay)
-    del first
-    start = params_to_mesh(shared["params"], mesh, specs, dev)
-    pre = TS.build_prefill_step(model, mesh, rules)(
-        start, {"tokens": batch["tokens"]})
-    pre_diff = float((pre.float() - shared["prefill"].float()).abs().max())
-    del start, pre
     out = {"rank": dist.get_rank(), "losses": losses, "counts": counts,
            "step_ms": ms, "gloo_s": gloo_s, "launches": launches,
-           "checks": dict(checks, rerun_bit_equal=bool(rerun)),
-           "kernel_max_abs_err": errs, "kernels": times,
-           "leaves": leaves_out, "prefill_max_abs_diff": pre_diff,
+           "checks": checks, "kernel_max_abs_err": errs, "kernels": {},
+           "leaves": leaves_out, "prefill_max_abs_diff": None,
            "peak_bytes": peak}
+    if main:
+        out["kernels"] = _time_recorded(torch, dist, FK, first, lay)
+        del first
+        lm_checks, lm_times = _lm_hold_and_time(torch, dist, FA, SK,
+                                                lm_first, lay)
+        checks.update(lm_checks)
+        out["kernels"].update(lm_times)
+        start = params_to_mesh(shared["params"], mesh, specs, dev)
+        pre = TS.build_prefill_step(model, mesh, rules)(
+            start, {"tokens": batch["tokens"]})
+        out["prefill_max_abs_diff"] = float(
+            (pre.float() - shared["prefill"].float()).abs().max())
+        del start, pre
     del batch
     _rank_done(dist, work, rank, out, shared)
 
@@ -4728,13 +5015,20 @@ def lm_train_mesh_phase(torch, Z, C, FK, dev, card, mesh_cfg=MESH):
       parent's params, batch and one-device results reach them by CUDA
       IPC), two steps at every_k 1: the losses within twice the noise
       floor of the one-device step run here (the same two steps from the
-      params multiplied by 1 + ``perturb`` N(0, 1)), every param piece
-      within twice its leaf's floor (plus one bf16 rounding of its
-      scale); reruns bit-equal; every fused-kernel launch against its
-      plain version; the collectives by kind: no all-gather but the FSDP
-      weight gathers, and per plan one (3, G) SUM, one (2, G) SUM per
-      Newton evaluation and one (G,) MAX; one prefill over the mesh
-      within twice the prefill's floor;
+      params multiplied by 1 + ``perturb`` N(0, 1), and the batch's
+      gradient summed from its data halves), every piece's update within
+      twice its leaf's update floor (Frobenius norms over the rank's box);
+      reruns bit-equal; each rank's launches of the LM kernels those of
+      the one-device step, every fused-kernel launch and the first launch
+      of each LM kernel against its plain version; the collectives by
+      kind: no all-gather but the FSDP weight gathers, and per plan one
+      (3, G) SUM, one (2, G) SUM per Newton evaluation and one (G,) MAX;
+      one prefill over the mesh within twice the prefill's floor;
+    * one step in f32 at ``check_depth`` layers (perturbed by PERTURB),
+      where the floor is far below the update: the loss
+      within atol 1e-5 + rtol 1e-5 (tests/test_torch_mesh_step.py's),
+      every update within twice its floor, and the control, a piece left
+      at its start, outside it;
     * deepseek-v2 at depth 2 on (1, 2): moe_impl "shardmap" against
       "gspmd" and the one-device loss within ``moe_tol`` (the reference's
       2e-2);
@@ -4751,181 +5045,251 @@ def lm_train_mesh_phase(torch, Z, C, FK, dev, card, mesh_cfg=MESH):
     from repro_torch.train import loop as TL
     m = mesh_cfg
     base = C.get_config(m["arch"])
-    # the config's leaves under the l1,2 ball at every_k 1: a family the
-    # fused step takes, so fused_sharded launches its kernels every step
-    cfg = dataclasses.replace(base, projection_specs=tuple(
-        dataclasses.replace(s, every_k=1, norm="l12")
-        for s in base.projection_specs))
-    if m["depth"]:
-        cfg = dataclasses.replace(cfg, n_layers=m["depth"])
-    model = Z.build(cfg)
-    gc.collect()
-    # tensors earlier phases shared with their ranks by CUDA IPC stay
-    # allocated here until collected once the ranks are gone
-    torch.cuda.ipc_collect()
-    torch.cuda.empty_cache()
     data, mdl = m["mesh"]
-    params = _cast(torch, model.init(torch.Generator(device=dev).manual_seed(
-        0), device=dev), torch.bfloat16)
-    tok = torch.randint(0, cfg.vocab, (data, m["seq"] + 1), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(4))
-    batch = {"tokens": tok[:, :-1].contiguous(),
-             "labels": tok[:, 1:].contiguous()}
-    acfg = AdamConfig(moment_dtype=torch.float32)
-    step = TS.build_train_step(model, None, None, acfg)
 
-    def one_device(p):
-        p = tree_map(lambda a: a.clone(), p)
-        opt = adam_init(p, acfg)
-        proj = TS.projection_engine_for(cfg).init_state(p)
-        losses, ms = [], []
-        for _ in range(m["steps"]):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            loss, _, p, opt, proj = step(p, opt, proj, batch)
-            losses.append(float(loss))
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t) * 1e3)
-        del opt
-        return p, losses, ms
+    def train_check(dtype, depth, perturb, steps, main):
+        """``steps`` mesh steps of ``base`` at ``depth`` (None: whole) with
+        params in ``dtype`` against the one-device steps; with ``main``,
+        the path whose kernels are held, timed and counted for the kernels
+        line. Returns the ranks' results."""
+        # the config's leaves under the l1,2 ball at every_k 1: a family
+        # the fused step takes, so fused_sharded launches its kernels every
+        # step
+        cfg = dataclasses.replace(base, projection_specs=tuple(
+            dataclasses.replace(s, every_k=1, norm="l12")
+            for s in base.projection_specs))
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        model = Z.build(cfg)
+        gc.collect()
+        # tensors earlier phases shared with their ranks by CUDA IPC stay
+        # allocated here until collected once the ranks are gone
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        params = _cast(torch, model.init(torch.Generator(
+            device=dev).manual_seed(0), device=dev), dtype)
+        tok = torch.randint(0, cfg.vocab, (data, m["seq"] + 1), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(4))
+        batch = {"tokens": tok[:, :-1].contiguous(),
+                 "labels": tok[:, 1:].contiguous()}
+        acfg = AdamConfig(moment_dtype=torch.float32)
+        step = TS.build_train_step(model, None, None, acfg)
 
-    def accumulated(p):
-        """The one-device step with the batch as ``data`` microbatches of
-        one row, their bf16 gradients summed: the data axis's sum."""
-        p = tree_map(lambda a: a.clone(), p)
-        opt = adam_init(p, acfg)
-        eng = ProjectionEngine(cfg.projection_specs, solver="fused")
-        proj = eng.init_state(p)
-        acc = TL.build_accum_step(model, acfg, TL.TrainConfig(
-            microbatches=data), engine=eng)
-        losses = []
-        for i in range(m["steps"]):
-            p, opt, proj, loss = acc(p, opt, proj, batch, acfg.lr,
-                                     count=i + 1)
-            losses.append(float(loss))
-        del opt
-        return p, losses
+        def one_device(p):
+            p = tree_map(lambda a: a.clone(), p)
+            opt = adam_init(p, acfg)
+            proj = TS.projection_engine_for(cfg).init_state(p)
+            losses, ms = [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                loss, _, p, opt, proj = step(p, opt, proj, batch)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            del opt
+            return p, losses, ms
 
-    g = torch.Generator(device=dev).manual_seed(6)
-    pert = tree_map(lambda a: (a.float() * (1 + m["perturb"] * torch.randn(
-        a.shape, generator=g, device=dev))).to(a.dtype), params)
-    prefill = TS.build_prefill_step(model)(params, {"tokens": batch[
-        "tokens"]})
-    prefill_floor = float((TS.build_prefill_step(model)(
-        pert, {"tokens": batch["tokens"]}).float() - prefill.float())
-        .abs().max())
-    one, one_losses, one_ms = one_device(params)
-    # each rank's floor, leaf by leaf, over the box it holds (rank r sits
-    # at mesh coordinate divmod(r, model)); only these numbers reach it.
-    # The floor is the larger of two same-run distances from the
-    # one-device step: params moved by one bf16 rounding, and the batch's
-    # gradient summed from its data-parallel halves in bf16; one run is
-    # kept at a time
-    from repro_torch.dist.layout import _box
-    from repro_torch.dist.sharding import placements
-    grid = types.SimpleNamespace(mesh_dim_names=("data", "model"),
-                                 mesh=torch.zeros((data, mdl)))
-    spec_of = dict(flatten_with_path(TS.param_shardings(
-        model, grid, TS.rules_for_cell(cfg, "train_4k", False))))
-    floors = [{} for _ in range(data * mdl)]
+        def accumulated(p):
+            """The one-device step with the batch as ``data``
+            microbatches of one row, their gradients summed in ``dtype``:
+            the data axis's sum."""
+            p = tree_map(lambda a: a.clone(), p)
+            opt = adam_init(p, acfg)
+            eng = ProjectionEngine(cfg.projection_specs, solver="fused")
+            proj = eng.init_state(p)
+            acc = TL.build_accum_step(model, acfg, TL.TrainConfig(
+                microbatches=data), engine=eng)
+            losses = []
+            for i in range(steps):
+                p, opt, proj, loss = acc(p, opt, proj, batch, acfg.lr,
+                                         count=i + 1)
+                losses.append(float(loss))
+            del opt
+            return p, losses
 
-    def widen(other):
-        for (path, o), f in zip(flatten_with_path(one), leaves(other)):
-            d = (f.float() - o.float()).abs()
-            pl = placements(grid, spec_of[path])
-            for r in range(data * mdl):
-                box = _box(tuple(o.shape), pl, (data, mdl), divmod(r, mdl))
-                floors[r][path] = max(floors[r].get(path, 0.0), float(d[
-                    tuple(slice(lo, hi) for lo, hi in box)].max()))
-            del d
+        g = torch.Generator(device=dev).manual_seed(6)
+        pert = tree_map(lambda a: (a.float() * (1 + perturb * torch.randn(
+            a.shape, generator=g, device=dev))).to(a.dtype), params)
+        prefill = prefill_floor = None
+        if main:
+            prefill = TS.build_prefill_step(model)(params, {"tokens": batch[
+                "tokens"]})
+            prefill_floor = float((TS.build_prefill_step(model)(
+                pert, {"tokens": batch["tokens"]}).float() - prefill.float())
+                .abs().max())
+        one, one_losses, one_ms = one_device(params)
+        # each rank's floor, leaf by leaf, over the box it holds (rank r
+        # sits at mesh coordinate divmod(r, model)); only these numbers
+        # reach it. The floor is the larger of two same-run distances from
+        # the one-device update (p after - p before, Frobenius norm over
+        # the box): the update from params moved by ``perturb``, and the
+        # update from the batch's gradient summed from its data-parallel
+        # halves; one run is kept at a time. Beside it, the one-device
+        # update's own norm: a piece that kept its start value is that far
+        # away
+        from repro_torch.dist.layout import _box
+        from repro_torch.dist.sharding import placements
+        grid = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                     mesh=torch.zeros((data, mdl)))
+        spec_of = dict(flatten_with_path(TS.param_shardings(
+            model, grid, TS.rules_for_cell(cfg, "train_4k", False))))
+        floors = [{} for _ in range(data * mdl)]
 
-    floor, floor_losses, _ = one_device(pert)
-    del pert
-    widen(floor)
-    del floor
-    gc.collect()
-    torch.cuda.empty_cache()
-    micro, micro_losses = accumulated(params)
-    widen(micro)
-    del micro
-    floor_losses = [b if abs(b - a) >= abs(c - a) else c
-                    for a, b, c in zip(one_losses, floor_losses,
-                                       micro_losses)]
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    G = sum(p.num_segments for p in TS.projection_engine_for(cfg).plans(
-        params)[0])
-    # the one-device result goes to the ranks as a file they map (not on
-    # the card: four ranks' state and the parent's params fill it)
-    root = os.path.dirname(os.path.abspath(__file__))
-    one_file = os.path.join(root, "build", "lm_train_mesh_one.pt")
-    torch.save({p: t.cpu() for p, t in flatten_with_path(one)}, one_file)
-    del one
-    gc.collect()
-    torch.cuda.empty_cache()
-    shared = {"params": params, "batch": batch, "prefill": prefill}
-    ranks, failed, wall = _spawn(
-        _mesh_rank, data * mdl,
-        ((data, mdl), shared, {"cfg": cfg, "steps": m["steps"], "G": G,
-                               "floors": floors, "one_file": one_file}),
-        m["timeout"])
-    os.remove(one_file)
-    check(failed is None and len(ranks) == data * mdl,
-          f"lm_train_mesh: {failed or 'missing rank results'}")
-    if not ranks:
-        return {}
-    loss_floor = max(abs(a - b) for a, b in zip(floor_losses, one_losses))
-    bf16_half_ulp = 2.0 ** -9
-    for r in ranks:
-        for what, ok in r["checks"].items():
-            check(ok, f"lm_train_mesh rank {r['rank']}: {what}")
-        for k in FUSED_REPLACES:
-            check(r["launches"][0].get(k, 0) > 0,
-                  f"lm_train_mesh rank {r['rank']}: the step never "
-                  f"launched {k}")
-        loss_diff = max(abs(a - b) for a, b in zip(r["losses"], one_losses))
-        check(loss_diff <= FLOOR_FACTOR * loss_floor,
-              f"lm_train_mesh rank {r['rank']}: losses {r['losses']} vs "
-              f"one-device {one_losses}, floor {loss_floor}")
-        for path, lf in r["leaves"].items():
-            check(lf["max_abs_diff"] <= FLOOR_FACTOR * lf["noise_floor"]
-                  + bf16_half_ulp * lf["scale"],
-                  f"lm_train_mesh rank {r['rank']} {path}: {lf}")
-        check(r["prefill_max_abs_diff"] <= FLOOR_FACTOR * prefill_floor,
-              f"lm_train_mesh rank {r['rank']}: prefill "
-              f"{r['prefill_max_abs_diff']} vs floor {prefill_floor}")
-        for c in r["counts"]:
-            check(c["all_gather_calls"] == c.get("fsdp_gather", 0),
-                  f"lm_train_mesh rank {r['rank']}: an all_gather that is "
-                  f"no FSDP weight gather: {c}")
-            want = ([[[3, G], "SUM"]] + [[[2, G], "SUM"]] * c["newton_evals"]
-                    + [[[G], "MAX"]])
-            check(c["projection_reduces"] == want,
-                  f"lm_train_mesh rank {r['rank']}: projection all-reduces "
-                  f"{c['projection_reduces']}, want {want}")
-    emit({"phase": "lm_train_mesh", "arch": cfg.name,
-          "n_layers": cfg.n_layers, "n_params": model.n_params(),
-          "mesh": [data, mdl], "ranks": data * mdl, "batch": data,
-          "seq": m["seq"], "dtype": "bfloat16", "moments": "float32",
-          "card": card,
-          "times": "gloo through host memory, 4 ranks sharing one card",
-          "run_s": wall, "one_device_losses": one_losses,
-          "one_device_step_ms": one_ms, "loss_noise_floor": loss_floor,
-          "prefill_noise_floor": prefill_floor, "perturb": m["perturb"],
-          "G": G, "parent_allocated_bytes_after": torch.cuda.memory_allocated(),
-          "per_rank": [{k: r[k] for k in (
-              "rank", "losses", "counts", "step_ms", "gloo_s", "launches",
-              "kernel_max_abs_err", "kernels", "prefill_max_abs_diff",
-              "peak_bytes", "checks")} for r in ranks],
-          "worst_leaf": max(
-              ({"path": p, **lf, "rank": r["rank"]} for r in ranks
-               for p, lf in r["leaves"].items()),
-              key=lambda e: e["max_abs_diff"] / max(e["noise_floor"], 1e-30))
-          if ranks else None})
-    del shared, params, prefill, batch, tok
-    gc.collect()
-    torch.cuda.empty_cache()
+        def widen(other, other_start):
+            for (path, o), f, f0, p0 in zip(
+                    flatten_with_path(one), leaves(other),
+                    leaves(other_start), leaves(params)):
+                u = o.float() - p0.float()
+                d = (f.float() - f0.float()) - u
+                pl = placements(grid, spec_of[path])
+                for r in range(data * mdl):
+                    box = tuple(slice(lo, hi) for lo, hi in _box(
+                        tuple(o.shape), pl, (data, mdl), divmod(r, mdl)))
+                    e = floors[r].setdefault(path, {"floor_norm": 0.0})
+                    e["floor_norm"] = max(e["floor_norm"], float(
+                        torch.linalg.vector_norm(d[box])))
+                    e["update_norm"] = float(torch.linalg.vector_norm(
+                        u[box]))
+                del d, u
+
+        floor, floor_losses, _ = one_device(pert)
+        widen(floor, pert)
+        del floor, pert
+        gc.collect()
+        torch.cuda.empty_cache()
+        micro, micro_losses = accumulated(params)
+        widen(micro, params)
+        del micro
+        floor_losses = [b if abs(b - a) >= abs(c - a) else c
+                        for a, b, c in zip(one_losses, floor_losses,
+                                           micro_losses)]
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        G = sum(p.num_segments for p in TS.projection_engine_for(cfg).plans(
+            params)[0])
+        # the one-device result goes to the ranks as a file they map (not
+        # on the card: four ranks' state and the parent's params fill it)
+        root = os.path.dirname(os.path.abspath(__file__))
+        one_file = os.path.join(root, "build", "lm_train_mesh_one.pt")
+        torch.save({p: t.cpu() for p, t in flatten_with_path(one)},
+                   one_file)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        shared = {"params": params, "batch": batch, "prefill": prefill}
+        ranks, failed, wall = _spawn(
+            _mesh_rank, data * mdl,
+            ((data, mdl), shared, {"cfg": cfg, "steps": steps, "G": G,
+                                   "floors": floors, "one_file": one_file,
+                                   "main": main}),
+            m["timeout"])
+        os.remove(one_file)
+        what = f"lm_train_mesh {str(dtype).split('.')[-1]}"
+        check(failed is None and len(ranks) == data * mdl,
+              f"{what}: {failed or 'missing rank results'}")
+        if not ranks:
+            return []
+        loss_floor = max(abs(a - b) for a, b in zip(floor_losses,
+                                                    one_losses))
+        # f32's loss floor may be 0 (the same sums in the same order): its
+        # losses are held at the mesh tests' atol 1e-5, rtol 1e-5
+        loss_tol = FLOOR_FACTOR * loss_floor if main else 1e-5 + 1e-5 * max(
+            abs(v) for v in one_losses)
+        # each rank runs every layer on its batch rows and its heads: the
+        # one-device step's launches of the LM kernels
+        want = _step_counts(cfg)
+        if main:
+            want["flash_attention_bwd_bf16"] = want["flash_attention_bwd"]
+        for r in ranks:
+            for name, ok in r["checks"].items():
+                check(ok, f"{what} rank {r['rank']}: {name}")
+            first_step = r["launches"][0]
+            for k in list(FUSED_REPLACES) + list(LM_MESH_KERNELS
+                                                 if main else ()):
+                check(first_step.get(k, 0) > 0,
+                      f"{what} rank {r['rank']}: the step never launched "
+                      f"{k}")
+            check({k: first_step.get(k) for k in want} == want,
+                  f"{what} rank {r['rank']}: LM launches {first_step}, "
+                  f"want {want}")
+            loss_diff = max(abs(a - b) for a, b in zip(r["losses"],
+                                                       one_losses))
+            check(loss_diff <= loss_tol,
+                  f"{what} rank {r['rank']}: losses {r['losses']} vs "
+                  f"one-device {one_losses}, limit {loss_tol}")
+            for path, lf in r["leaves"].items():
+                limit = FLOOR_FACTOR * lf["floor_norm"]
+                check(lf["diff_norm"] <= limit,
+                      f"{what} rank {r['rank']} {path}: update {lf}")
+                # the control fails where the one-device step moved the
+                # piece: in f32. In bf16 the whole model's floor is as
+                # large as the update (PERF.md section 6), and the control
+                # is reported
+                check(main or lf["update_norm"] == 0
+                      or lf["control_norm"] > limit,
+                      f"{what} rank {r['rank']} {path}: a piece left at "
+                      f"its start passes: {lf}")
+            if main:
+                check(r["prefill_max_abs_diff"]
+                      <= FLOOR_FACTOR * prefill_floor,
+                      f"{what} rank {r['rank']}: prefill "
+                      f"{r['prefill_max_abs_diff']} vs floor "
+                      f"{prefill_floor}")
+            for c in r["counts"]:
+                check(c["all_gather_calls"] == c.get("fsdp_gather", 0),
+                      f"{what} rank {r['rank']}: an all_gather that is no "
+                      f"FSDP weight gather: {c}")
+                pat = ([[[3, G], "SUM"]] + [[[2, G], "SUM"]]
+                       * c["newton_evals"] + [[[G], "MAX"]])
+                check(c["projection_reduces"] == pat,
+                      f"{what} rank {r['rank']}: projection all-reduces "
+                      f"{c['projection_reduces']}, want {pat}")
+        moved = [(p, lf) for r in ranks for p, lf in r["leaves"].items()
+                 if lf["update_norm"] > 0]
+        emit({"phase": "lm_train_mesh", "arch": cfg.name,
+              "n_layers": cfg.n_layers, "n_params": model.n_params(),
+              "mesh": [data, mdl], "ranks": data * mdl, "batch": data,
+              "seq": m["seq"], "dtype": str(dtype).split(".")[-1],
+              "moments": "float32", "card": card,
+              "times": "gloo through host memory, 4 ranks sharing one card",
+              "run_s": wall, "one_device_losses": one_losses,
+              "one_device_step_ms": one_ms, "loss_noise_floor": loss_floor,
+              "loss_limit": loss_tol,
+              "prefill_noise_floor": prefill_floor, "perturb": perturb,
+              "G": G,
+              "parent_allocated_bytes_after": torch.cuda.memory_allocated(),
+              "per_rank": [{k: r[k] for k in (
+                  "rank", "losses", "counts", "step_ms", "gloo_s",
+                  "launches", "kernel_max_abs_err", "kernels",
+                  "prefill_max_abs_diff", "peak_bytes", "checks")}
+                  for r in ranks],
+              "worst_leaf": max(
+                  ({"path": p, **lf, "rank": r["rank"]} for r in ranks
+                   for p, lf in r["leaves"].items()),
+                  key=lambda e: e["diff_norm"] / max(e["floor_norm"],
+                                                     1e-30)),
+              "controls_caught": sum(
+                  lf["control_norm"] > FLOOR_FACTOR * lf["floor_norm"]
+                  for _, lf in moved),
+              "controls": len(moved),
+              "leaves_by_rank": [{p: {k: lf[k] for k in (
+                  "diff_norm", "floor_norm", "control_norm",
+                  "max_abs_diff")} for p, lf in r["leaves"].items()}
+                  for r in ranks]})
+        del shared, params, prefill, batch, tok
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ranks
+
+    # the main path: the whole model in bf16; then the update check in f32
+    # at ``check_depth``, one step (bf16's floor, and f32's after a second
+    # step, hide a missing update: PERF.md section 6)
+    ranks = train_check(torch.bfloat16, m["depth"], m["perturb"],
+                        m["steps"], True)
+    train_check(torch.float32, m["check_depth"], PERTURB, 1, False)
 
     # the MoE: deepseek-v2 at depth 2 on (1, 2)
     mcfg = dataclasses.replace(C.get_config(m["moe_arch"]),
@@ -4988,13 +5352,20 @@ def lm_train_mesh_phase(torch, Z, C, FK, dev, card, mesh_cfg=MESH):
           "per_rank": pranks})
     del stages, x, want
     torch.cuda.empty_cache()
-    return {k: {"launches": sum(r["launches"][0].get(k, 0) for r in ranks),
-                "launches_by_rank": [r["launches"][0].get(k, 0)
-                                     for r in ranks],
-                "max_abs_err": max(r["kernel_max_abs_err"].get(k, 0.0)
-                                   for r in ranks),
-                **(ranks[0]["kernels"].get(k, {}) if ranks else {})}
-            for k in FUSED_REPLACES}
+    rows = {}
+    for k in list(FUSED_REPLACES) + list(LM_MESH_KERNELS):
+        fused = k in FUSED_REPLACES
+        rows[k] = {
+            "source": FUSED_SOURCE if fused else LM_SOURCE[k],
+            "replaces": FUSED_REPLACES[k] if fused else LM_REPLACES[k],
+            "launches": sum(r["launches"][0].get(k, 0) for r in ranks),
+            "launches_by_rank": [r["launches"][0].get(k, 0) for r in ranks],
+            **ranks[0]["kernels"].get(k, {}),
+            "max_abs_err": max(
+                r["kernel_max_abs_err"].get(k, 0.0) if fused
+                else r["kernels"].get(k, {}).get("max_abs_err", 0.0)
+                for r in ranks)}
+    return rows
 
 
 def main():
@@ -5575,6 +5946,8 @@ def main():
     dist_ranks = dist_projection_phase(torch, C, dev, smi)
 
     # -- result ------------------------------------------------------------
+    emit({"phase": "timing", "seconds": PHASE_SECONDS,
+          "total_s": time.perf_counter() - _CLOCK[0]})
     if FAILURES:
         print(json.dumps({"failures": FAILURES}), file=sys.stderr)
         return 1
@@ -5666,11 +6039,11 @@ def main():
          "replaces": LM_REPLACES["ssd_fwd" if "fwd" in k else "ssd_bwd"],
          "launches": tile_launches[k], **row}
         for k, row in tile_rows.items()] + [
-        # this slice: the fused step's kernels on one rank's block of
-        # phase 18's sharded bf16 train step (rank 0's device ms, the ranks
-        # timed in turn), launches summed over the ranks' first step
-        {"name": k, "route": "cuda", "source": FUSED_SOURCE,
-         "replaces": FUSED_REPLACES[k], "shape": "hymba_bf16_mesh_2x2_block",
+        # this slice: the kernels of phase 18's sharded bf16 train step,
+        # the fused step's on one rank's block and the LM kernels on the
+        # first launch's inputs (rank 0's device ms, the ranks timed in
+        # turn), launches summed over the ranks' first step
+        {"name": k, "route": "cuda", "shape": "hymba_bf16_mesh_2x2_rank",
          "path": "lm_train_mesh", "library_ms": None, **row}
         for k, row in mesh_rows.items()]})
     print(smi, flush=True)

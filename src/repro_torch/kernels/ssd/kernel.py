@@ -83,12 +83,10 @@ from ... import _build
 
 __all__ = ["ssd_fwd", "ssd_fwd_plain", "ssd_bwd", "ssd_bwd_plain",
            "SSDFunction", "KERNEL_SHAPES", "TILE_BF16_SHAPES", "kernel_shape",
-           "launch_counts", "tile_launch_counts",
-           "reset_launch_counts", "bwd_kernel_attrs"]
+           "launch_counts", "reset_launch_counts", "bwd_kernel_attrs"]
 
-_LAUNCHES: Dict[str, int] = {"ssd_fwd": 0, "ssd_bwd": 0}
-_TILE_LAUNCHES: Dict[str, int] = {"ssd_fwd_tile_bf16": 0,
-                                  "ssd_bwd_tile_bf16": 0}
+_LAUNCHES: Dict[str, int] = {"ssd_fwd": 0, "ssd_bwd": 0,
+                             "ssd_fwd_tile_bf16": 0, "ssd_bwd_tile_bf16": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,22 +100,16 @@ _NO_BF16_BWD = ("the SSD kernels are forward-only in bf16: there is no bf16 "
 
 
 def launch_counts() -> Dict[str, int]:
-    """Snapshot {kernel name: launches since the last reset} of the f32
-    kernels (the bf16-tile variant's: ``tile_launch_counts``)."""
+    """Snapshot {kernel name: launches since the last reset}, the
+    bf16-tile variant's (``ssd_fwd_tile_bf16``, ``ssd_bwd_tile_bf16``)
+    beside the f32 kernels'."""
     return dict(_LAUNCHES)
 
 
-def tile_launch_counts() -> Dict[str, int]:
-    """Snapshot {kernel name: launches since the last reset} of the
-    bf16-tile variant (``ssd_fwd_tile_bf16``, ``ssd_bwd_tile_bf16``)."""
-    return dict(_TILE_LAUNCHES)
-
-
 def reset_launch_counts() -> None:
-    """Set every launch count to 0, the bf16-tile variant's too."""
-    for counts in (_LAUNCHES, _TILE_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    """Set every launch count to 0."""
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -341,10 +333,7 @@ def _fwd_kernel(x, dt, a, d, B, C, chunk: int, groups: int,
     else:
         rc = _lib("ssd").ssd_fwd(_CODE[x.dtype], *ptrs)
     _raise_on(rc, "ssd")
-    if tile_bf16:
-        _TILE_LAUNCHES["ssd_fwd_tile_bf16"] += 1
-    else:
-        _LAUNCHES["ssd_fwd"] += 1
+    _LAUNCHES["ssd_fwd_tile_bf16" if tile_bf16 else "ssd_fwd"] += 1
     if (Pk, Nk) != (P, N):
         y = y[..., :P].contiguous()
         state = state[:, :P, :N].contiguous()
@@ -370,8 +359,8 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ``tile_bf16``: the bf16-tile variant (the reference's
     ``ssd_apply(tile_bf16=True)``): f32 inputs, G, L, M and the intra term
     rounded to bf16 (``ssd_fwd_plain``), chunk 8 or 64 on the card
-    (``TILE_BF16_SHAPES``); its launches count in ``tile_launch_counts``
-    (``ssd_fwd_tile_bf16``, ``ssd_bwd_tile_bf16``)."""
+    (``TILE_BF16_SHAPES``); its launches count under ``ssd_fwd_tile_bf16`` and
+    ``ssd_bwd_tile_bf16``."""
     _check(x, dt, a, d, B, C, chunk, groups)
     card = _on_card(x)
     if torch.is_grad_enabled() and any(t.requires_grad
@@ -665,10 +654,7 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         BH, S, Pk, Nk, chunk, groups,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "ssd_bwd")
-    if tile_bf16:
-        _TILE_LAUNCHES["ssd_bwd_tile_bf16"] += 1
-    else:
-        _LAUNCHES["ssd_bwd"] += 1
+    _LAUNCHES["ssd_bwd_tile_bf16" if tile_bf16 else "ssd_bwd"] += 1
     if Pk != P:
         dx = dx[..., :P].contiguous()
     if Nk != N:

@@ -81,7 +81,7 @@ def _softplus(v: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_apply(params, u: torch.Tensor, *, headdim: int, chunk: int = 64,
-              tile_bf16: bool = False) -> torch.Tensor:
+              tile_bf16: bool = False, eps: float = 1e-6) -> torch.Tensor:
     """Full-sequence SSD block. u: (B, S, d), S a multiple of ``chunk``.
 
     dt = softplus(dt_raw + dt_bias) in f32; the intra-chunk, inter-chunk
@@ -92,67 +92,48 @@ def ssd_apply(params, u: torch.Tensor, *, headdim: int, chunk: int = 64,
 
     Under a mesh whose "model" axis splits the inner width (``wx`` holds
     fewer than the heads' columns), this is the rank's share of a
-    tensor-parallel block (``_ssd_apply_tp``)."""
-    H = params["A_log"].shape[0]
-    if params["wx"].shape[-1] < H * headdim:
-        return _ssd_apply_tp(params, u, headdim=headdim, chunk=chunk,
-                             tile_bf16=tile_bf16)
-    B_, S, d = u.shape
-    z, x, Bm, Cm, dt_raw = _ssd_inputs(params, u)
-    x = _causal_conv(x, params["conv_x"])
-    Bm = _causal_conv(Bm, params["conv_B"])
-    Cm = _causal_conv(Cm, params["conv_C"])
-
-    xh = x.reshape(B_, S, H, headdim).float()
-    dt = _softplus(dt_raw.float() + params["dt_bias"].float())     # (B,S,H)
-    y = ssd_attention(xh, dt, params["A_log"], params["D"], Bm.float(),
-                      Cm.float(), chunk=chunk, tile_bf16=tile_bf16)
-    y = y.reshape(B_, S, H * headdim).to(u.dtype)
-
-    # gated output norm (mamba2: RMSNorm(y * silu(z)))
-    y = rmsnorm_apply({"scale": params["norm"]}, y * F.silu(z))
-    return y @ params["wo"]
-
-
-def _ssd_apply_tp(params, u, *, headdim: int, chunk: int, tile_bf16: bool,
-                  eps: float = 1e-6):
-    """``ssd_apply`` on this rank's heads when "model" splits the inner
-    width: ``wz`` / ``wx`` / ``conv_x`` hold its columns and ``wo`` its
-    rows. u, and every weight the rank uses whole or in part (``wB``,
-    ``wC``, ``wdt``, the B / C convs, and the per-head ``dt_bias``,
-    ``A_log``, ``D`` and ``norm`` before it takes its slice), enter
-    through ``tp_enter``: each rank's heads give a part of their
-    gradients. The gated RMSNorm spans the full inner width: the sum of
-    squares of the rank's columns is summed over model (``ssm_norm``; its
-    gradient, which each rank's columns give a part of, too).
-    ``wo``'s partial output leaves through ``tp_exit``."""
+    tensor-parallel block, its heads the slice ``lo:lo + h_loc``: ``wz`` /
+    ``wx`` / ``conv_x`` hold its columns and ``wo`` its rows. u, and every
+    weight the rank uses whole or in part (``wB``, ``wC``, ``wdt``, the B /
+    C convs, and the per-head ``dt_bias``, ``A_log``, ``D`` and ``norm``
+    before it takes its slice), enter through ``tp_enter``: each rank's
+    heads give a part of their gradients. The gated RMSNorm spans the full
+    inner width: the sum of squares of the rank's columns is summed over
+    model (``ssm_norm``; its gradient, which each rank's columns give a
+    part of, too). ``wo``'s partial output leaves through ``tp_exit``."""
     B_, S, d = u.shape
     H = params["A_log"].shape[0]
     cols = params["wx"].shape[-1]
     h_loc = cols // headdim
-    lo = axis_index(active_axis("model"), "model") * h_loc
-    u = tp_enter(u)
-    whole = {k: tp_enter(params[k]) for k in (
+    tp = h_loc < H
+    enter = tp_enter if tp else (lambda t: t)
+    lo = axis_index(active_axis("model"), "model") * h_loc if tp else 0
+    heads = slice(lo, lo + h_loc)
+    u = enter(u)
+    w = {k: enter(params[k]) for k in (
         "wB", "wC", "wdt", "conv_B", "conv_C", "dt_bias", "A_log", "D",
         "norm")}
     z = u @ params["wz"]
     x = _causal_conv(u @ params["wx"], params["conv_x"])
-    Bm = _causal_conv(u @ whole["wB"], whole["conv_B"])
-    Cm = _causal_conv(u @ whole["wC"], whole["conv_C"])
-    dt_raw = (u @ whole["wdt"])[..., lo:lo + h_loc]
+    Bm = _causal_conv(u @ w["wB"], w["conv_B"])
+    Cm = _causal_conv(u @ w["wC"], w["conv_C"])
+    dt_raw = (u @ w["wdt"])[..., heads]
     x = shard(x, "batch", "seq", "mlp")
     xh = x.reshape(B_, S, h_loc, headdim).float()
-    dt = _softplus(dt_raw.float()
-                   + whole["dt_bias"][lo:lo + h_loc].float())
-    y = ssd_attention(xh, dt, whole["A_log"][lo:lo + h_loc],
-                      whole["D"][lo:lo + h_loc], Bm.float(), Cm.float(),
-                      chunk=chunk, tile_bf16=tile_bf16)
+    dt = _softplus(dt_raw.float() + w["dt_bias"][heads].float())  # (B,S,h)
+    y = ssd_attention(xh, dt, w["A_log"][heads], w["D"][heads], Bm.float(),
+                      Cm.float(), chunk=chunk, tile_bf16=tile_bf16)
+
+    # gated output norm (mamba2: RMSNorm(y * silu(z))), its mean square
+    # over the full inner width
     g = (y.reshape(B_, S, cols).to(u.dtype) * F.silu(z)).float()
-    ss = model_sum((g * g).sum(dim=-1, keepdim=True), "ssm_norm",
-                   parts=True)
-    scale = whole["norm"][lo * headdim:lo * headdim + cols].float()
+    ss = (g * g).sum(dim=-1, keepdim=True)
+    if tp:
+        ss = model_sum(ss, "ssm_norm", parts=True)
+    scale = w["norm"][lo * headdim:lo * headdim + cols].float()
     y = (g * torch.rsqrt(ss / (H * headdim) + eps) * scale).to(u.dtype)
-    return tp_exit(y @ params["wo"])
+    y = y @ params["wo"]
+    return tp_exit(y) if tp else y
 
 
 def ssm_init_cache(B: int, d_inner: int, n_state: int, headdim: int,

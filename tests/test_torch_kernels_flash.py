@@ -810,7 +810,8 @@ def test_cuda_reduced_stablelm_loss_and_grads_match_cpu(card):
     layers = cfg.n_layers
     _loss_and_grads_card_vs_cpu(card, model, params, batch, {
         "flash_attention_fwd": (2 if cfg.remat else 1) * layers,
-        "flash_attention_bwd": layers, "ssd_fwd": 0, "ssd_bwd": 0})
+        "flash_attention_bwd": layers, "ssd_fwd": 0, "ssd_bwd": 0,
+        "ssd_fwd_tile_bf16": 0, "ssd_bwd_tile_bf16": 0})
 
 
 @pytest.mark.cuda
@@ -829,7 +830,8 @@ def test_cuda_reduced_ssm_loss_and_grads_match_cpu(card, arch):
     _loss_and_grads_card_vs_cpu(card, model, params, batch, {
         "flash_attention_fwd": fwd if attn else 0,
         "flash_attention_bwd": layers if attn else 0,
-        "ssd_fwd": fwd, "ssd_bwd": layers})
+        "ssd_fwd": fwd, "ssd_bwd": layers,
+        "ssd_fwd_tile_bf16": 0, "ssd_bwd_tile_bf16": 0})
 
 
 @pytest.mark.cuda

@@ -213,7 +213,9 @@ def test_cpu_run_launches_nothing():
     y, st = ssd_fwd(*args, chunk=8)
     (y.sum() + st.sum()).backward()
     assert all(t.grad is not None for t in args)
-    assert launch_counts() == {"ssd_fwd": 0, "ssd_bwd": 0}
+    assert launch_counts() == {"ssd_fwd": 0, "ssd_bwd": 0,
+                               "ssd_fwd_tile_bf16": 0,
+                               "ssd_bwd_tile_bf16": 0}
 
 
 @pytest.mark.parametrize("bad", ["chunk", "groups", "dtype", "a_dtype",
@@ -721,7 +723,9 @@ def test_cuda_gradient_arrives_through_ssd_function(card, needs_grad):
     dy = torch.randn(y.shape, device=card, generator=torch.Generator(
         device=card).manual_seed(1))
     (y * dy).sum().backward()
-    assert launch_counts() == {"ssd_fwd": 1, "ssd_bwd": 1}
+    assert launch_counts() == {"ssd_fwd": 1, "ssd_bwd": 1,
+                               "ssd_fwd_tile_bf16": 0,
+                               "ssd_bwd_tile_bf16": 0}
     plain = [t.detach() for t in args]
     _, _, saved = K.ssd_fwd_plain(*plain, chunk=64, groups=2,
                                   return_saved=True)

@@ -314,7 +314,7 @@ def test_cuda_tile_bf16_vs_plain(card, shape):
     x, dt, a, d, B, C = _inputs(BG, groups, S, P, N, (0.05, 0.6), card)
     K.reset_launch_counts()
     y, st, saved = K._fwd_kernel(x, dt, a, d, B, C, Q, groups, True)
-    assert K.tile_launch_counts()["ssd_fwd_tile_bf16"] == 1
+    assert K.launch_counts()["ssd_fwd_tile_bf16"] == 1
     yp, stp, savedp = K.ssd_fwd_plain(x, dt, a, d, B, C, chunk=Q,
                                       groups=groups, return_saved=True,
                                       tile_bf16=True)
@@ -325,7 +325,7 @@ def test_cuda_tile_bf16_vs_plain(card, shape):
     dy = torch.randn_like(y)
     got = K.ssd_bwd(x, dt, a, d, B, C, dy, None, saved, chunk=Q,
                     groups=groups, tile_bf16=True)
-    assert K.tile_launch_counts()["ssd_bwd_tile_bf16"] == 1
+    assert K.launch_counts()["ssd_bwd_tile_bf16"] == 1
     want = K.ssd_bwd_plain(x, dt, a, d, B, C, dy, None, savedp, chunk=Q,
                            groups=groups, tile_bf16=True)
     for gk, gp in zip(got, want):
