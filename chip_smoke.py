@@ -439,7 +439,45 @@ and prints no result. Phases:
                their plain versions at hymba-1.5b's and mamba2-370m's
                training shapes and run a depth-2 ssd_bf16 hymba-1.5b loss
                backward that launches them.
- 19. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+ 19. lm_serve_mesh — serving over a mesh, 4 gloo ranks sharing the card,
+               no hand-written kernel (the decode path is plain PyTorch in
+               both packages; each call's launches of the LM kernels
+               counted: none). (a) launch.steps.build_decode_step(model,
+               mesh, rules) under the reference's decode rules on a (2, 2)
+               mesh, hymba-1.5b and stablelm-3b at full width, 8 of their
+               32 layers, f32 params, a bf16 cache filled from a seed below
+               each row's first position, the cache in its pieces on the
+               ranks (convert.cache_to_mesh) and written in place:
+               hymba-1.5b decode_32k (B 16 of 128, S 32768), long_500k (B
+               1, S 524288), stablelm-3b decode_32k (B 2, S 32768); two
+               calls each (a per-row position vector with rows in the last
+               slice, hymba's 1024-token window straddling a slice
+               boundary and slices wholly masked; then a scalar), each
+               held against the one-device step on the same cache run in
+               the parent: logits within 1e-5 + 1e-5 of their scale or
+               twice the noise floor (the same calls from params x (1 +
+               1e-6 N(0, 1))), the written cache entries and the SSM
+               state / conv tails within one bf16 ulp (f32 state: 1e-5
+               relative) or twice their floor, every other position bit
+               for bit unchanged; reruns bit-equal; per call one
+               decode_max and one decode_sum per attention layer, one FSDP
+               gather per data-split leaf, the SSM's norm sum and conv
+               gather per layer, tensor-parallel sums, no other
+               all_gather, no all-to-all; per-rank call ms and gloo
+               seconds, cache bytes and peak memory a rank beside the
+               one-device step's device ms. (b) FleetEngine(mesh=) on a
+               (4, 1) data mesh, hymba-1.5b at 8 layers, B 8 (2 slots a
+               rank), phase 10b's 24 requests in three waves with a cancel
+               and its compacted model refreshed and recompacted
+               mid-flight: every completion equal to the request served
+               alone by a one-device engine of 2 slots (each rank checks a
+               quarter), one capture per engine per rank, replays = steps,
+               no collective in the captured step and one
+               engine_out_gather a step outside it; replay ms beside the
+               2-slot engine's, the exchange's ms a step. (c)
+               make_serve_step(mesh=) of phase 5c's compact SAE over 4
+               ranks against the one-device step, no collective.
+ 20. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
@@ -5368,6 +5406,540 @@ def lm_train_mesh_phase(torch, Z, C, FK, dev, card, mesh_cfg=MESH):
     return rows
 
 
+# phase 19: serving over a mesh. hymba-1.5b and stablelm-3b at full width,
+# ``depth`` of their 32 layers (the cut keeps the run inside its time
+# limit), f32 params and a bf16 cache: the decode step under the
+# reference's decode rules on a (2, 2) mesh, one call at a time against
+# the one-device step (``cases``: arch, cell, batch, sequence, the first
+# call's per-row positions, the second call's scalar; slices of 16384
+# positions at decode_32k, 131072 at long_500k); FleetEngine on a (4, 1)
+# data mesh (``slots``, 2 a rank) on phase 10b's requests; the paper-width
+# SAE's serve step over 4 ranks
+SERVE_MESH = dict(
+    depth=8, mesh=(2, 2), fleet_mesh=(4, 1), slots=8, timeout=600,
+    cases=(
+        ("hymba-1.5b", "decode_32k", 16, 32768,
+         [32767, 16884, 8000, 30000, 16383, 16384, 1023, 0, 20000, 12000,
+          16400, 32000, 100, 16000, 24576, 31000], 16900),
+        ("hymba-1.5b", "long_500k", 1, 524288, [131372], 524287),
+        ("stablelm-3b", "decode_32k", 2, 32768, [30000, 10000], 16384)))
+BF16_ULP = 2.0 ** -7
+
+
+def _seeded_cache(torch, model, B, S, first, dev, seed):
+    """A bf16 decode cache whose position-indexed leaves hold seeded N(0, 1)
+    values below each row's ``first`` position (zeros from there on) and
+    whose other leaves (the SSM state in f32, the conv tails) are seeded
+    whole."""
+    from repro_torch._tree import flatten_with_path
+    cache = model.init_cache(B, S, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    below = (torch.arange(S, device=dev)[None, :]
+             < torch.as_tensor(first, device=dev)[:, None])      # (B, S)
+    for path, leaf in flatten_with_path(cache):
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=dev,
+                               dtype=leaf.dtype))
+        if path.rsplit("/", 1)[-1] in ("k", "v"):
+            leaf.mul_(below[None, :, :, None, None].to(leaf.dtype))
+    return cache
+
+
+def _written(calls, B, S):
+    """The (row, position) pairs the calls write, in order."""
+    out = set()
+    for _, pos in calls:
+        pos = pos.tolist() if hasattr(pos, "tolist") else pos
+        for b in range(B):
+            out.add((b, int(pos[b] if isinstance(pos, list) else pos) % S))
+    return sorted(out)
+
+
+def _cache_extract(torch, cache, pairs):
+    """What the ranks compare against: each position-indexed leaf at the
+    written (row, position) pairs ((L, n, ...)), the other leaves whole."""
+    from repro_torch._tree import flatten_with_path
+    out = {}
+    for path, leaf in flatten_with_path(cache):
+        rows = torch.tensor([b for b, _ in pairs], device=leaf.device)
+        cols = torch.tensor([p for _, p in pairs], device=leaf.device)
+        if path.rsplit("/", 1)[-1] in ("k", "v"):
+            out[path] = leaf[:, rows, cols].clone()
+        else:
+            out[path] = leaf.clone()
+    return out
+
+
+def _one_device_decode(torch, model, params, cache0, calls, V, reps=None):
+    """The one-device step (``build_decode_step(model)``, a new cache a
+    call) through ``calls``: each call's logits over the true vocab, the
+    final cache's extract, the written pairs, and with ``reps`` the
+    in-place step's device ms a call (``model.decode_`` on that cache,
+    ``reps`` times, CUDA events)."""
+    from repro_torch.launch import steps as TS
+    step = TS.build_decode_step(model)
+    cache, logits = cache0, []
+    for tok, pos in calls:
+        lg, new = step(params, cache, tok, pos)
+        if cache is not cache0:
+            del cache
+        cache = new
+        logits.append(lg[:, :V].float())
+    k = next(v["k"] for v in cache0["blocks"].values())    # (L, B, S, ...)
+    pairs = _written(calls, k.shape[1], k.shape[2])
+    ext = _cache_extract(torch, cache, pairs)
+    tok, pos = calls[0]
+    ms = None if reps is None else _event_ms(
+        torch, lambda: model.decode_(params, cache, tok, pos), reps)
+    del cache
+    torch.cuda.empty_cache()
+    return logits, ext, pairs, ms
+
+
+def _serve_mesh_decode(torch, dist, mesh, lay, shared, case):
+    """One case of phase 19 (a) on this rank: two calls of the mesh step
+    from the shared cache laid out in pieces, held against the one-device
+    step's extract; a rerun; the collectives and launches by kind."""
+    import _dist_ranks as R
+    from repro_torch._tree import flatten_with_path, leaves
+    from repro_torch.convert import cache_to_mesh, params_to_mesh
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.layout import local_of
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import zoo as Z
+    cfg, cell, calls = case["cfg"], case["cell"], shared["calls"]
+    model = Z.build(cfg)
+    dev = torch.device(mesh.device_type)
+    rules = TS.rules_for_cell(cfg, cell, False)
+    specs = TS.param_shardings(model, mesh, rules)
+    params = params_to_mesh(shared["params"], mesh, specs, dev)
+    cache0 = shared["cache"]
+    c_specs = TS.cache_shardings(cache0, mesh, rules)
+    step = TS.build_decode_step(model, mesh, rules)
+
+    def run(record):
+        cache = cache_to_mesh(cache0, mesh, c_specs, dev)
+        logits, counts, ms, gloo_s = [], [], [], []
+        for tok, pos in calls:
+            SH.reset_collective_counts()
+            for mod in (FA, SK):
+                mod.reset_launch_counts()
+            gathers = R._count_calls("all_gather")
+            a2a = R._count_calls("all_to_all_single")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with R.recorded_collectives(torch.cuda.synchronize) as log, \
+                    gathers, a2a:
+                lg, _ = step(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            gloo_s.append(log.seconds)
+            c = SH.collective_counts()
+            c.update(all_gather_calls=gathers.n, all_to_all_calls=a2a.n,
+                     all_reduce_calls=len(log.reduces),
+                     lm_kernel_launches=sum(FA.launch_counts().values())
+                     + sum(SK.launch_counts().values()))
+            counts.append(c)
+            logits.append(lg)
+        return logits, cache, counts, ms, gloo_s
+
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache, counts, ms, gloo_s = run(True)
+    peak = torch.cuda.max_memory_allocated()
+    one, ext, floors = shared["one"], shared["ext"], case["floors"]
+    V = cfg.vocab
+    out = {"cell": cell, "arch": cfg.name, "counts": counts,
+           "call_ms": ms, "gloo_s": gloo_s, "peak_bytes": peak,
+           "cache_bytes": sum(local_of(x).numel() * local_of(x)
+                              .element_size() for x in leaves(cache)),
+           "logits": [], "leaves": {}}
+    for lg, want, fl in zip(logits, one, floors["logits"]):
+        box = _box_of(lg, lay)
+        got = local_of(lg).float()
+        v = min(got.shape[1], max(0, V - box[1].start))   # true vocab
+        w = want[box[0], box[1].start:box[1].start + v]
+        err = float((got[:, :v] - w).abs().max()) if v else 0.0
+        scale = float(w.abs().max()) if v else 0.0
+        out["logits"].append({"max_abs_diff": err, "scale": scale,
+                              "limit": max(1e-5 + 1e-5 * scale,
+                                           FLOOR_FACTOR * fl)})
+    pairs, flat0 = case["pairs"], dict(flatten_with_path(cache0))
+    for path, x in flatten_with_path(cache):
+        box = _box_of(x, lay)
+        piece = local_of(x)
+        name = path.rsplit("/", 1)[-1]
+        fl = floors["cache"][path]
+        if name in ("k", "v"):
+            b0, s0 = box[1].start, box[2].start
+            mine = [(j, b - b0, p - s0) for j, (b, p) in enumerate(pairs)
+                    if box[1].start <= b < box[1].stop
+                    and box[2].start <= p < box[2].stop]
+            changed = (piece != flat0[path][box]).flatten(3).any(-1).any(0)
+            allowed = torch.zeros_like(changed)          # (rows, positions)
+            for _, b, p in mine:
+                allowed[b, p] = True
+            untouched_ok = not bool((changed & ~allowed).any())
+            del changed
+            if mine:
+                j = torch.tensor([m[0] for m in mine], device=dev)
+                g = piece[:, [m[1] for m in mine], [m[2] for m in mine]]
+                w = ext[path][:, j]
+            else:
+                g = w = torch.zeros(0, device=dev)
+        else:
+            untouched_ok = True
+            g, w = piece, ext[path][box]
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        if piece.dtype == torch.bfloat16:   # one bf16 ulp, or the floor
+            excess = float((diff - BF16_ULP * torch.maximum(
+                g.abs(), w.abs()) - 1e-5).max()) if w.numel() else 0.0
+            ok = excess <= 0 or float(diff.max()) <= FLOOR_FACTOR * fl
+        else:
+            ok = float(diff.max()) <= max(1e-5 + 1e-5 * scale,
+                                          FLOOR_FACTOR * fl) \
+                if w.numel() else True
+        out["leaves"][path] = {
+            "max_abs_diff": float(diff.max()) if w.numel() else 0.0,
+            "scale": scale, "floor": fl, "ok": bool(ok),
+            "written_here": int(w.shape[1]) if name in ("k", "v") and
+            w.numel() else None, "untouched_bit_equal": untouched_ok}
+    logits2, cache2, _, ms2, gloo2 = run(False)
+    out["rerun_bit_equal"] = all(
+        torch.equal(local_of(a), local_of(b)) for a, b in zip(
+            logits + leaves(cache), logits2 + leaves(cache2)))
+    out["rerun_call_ms"], out["rerun_gloo_s"] = ms2, gloo2
+    out["n_fsdp_leaves"] = sum(
+        any(a == "data" or (isinstance(a, tuple) and "data" in a)
+            for a in s) for _, s in flatten_with_path(specs))
+    del params, cache, cache2, logits, logits2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_mesh_fleet(torch, dist, mesh4, shared, meta):
+    """Phase 19 (b) on this rank: FleetEngine over the (4, 1) data mesh
+    with phase 10b's requests (three waves and a cancel, dense; the
+    compact engine's refresh and recompact mid-flight), each completion
+    against the request served alone by a one-device engine of this
+    rank's width (this rank takes every fourth request); captures,
+    replays, collectives in and out of the step, replay and exchange
+    times."""
+    import _dist_ranks as R
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import zoo as Z
+    from repro_torch.serve import EngineConfig, FleetEngine
+    f = meta["fleet"]
+    model = Z.build(f["cfg"])
+    ecfg = EngineConfig(max_seq=f["max_seq"])
+    B, world = meta["slots"], dist.get_world_size()
+    rank = dist.get_rank()
+    out = {}
+    solo = FleetEngine(model, B // world, ecfg)
+    for tag, params in (("dense", shared["fleet_params"]),
+                        ("compact", shared["fleet_cm"])):
+        eng = FleetEngine(model, B, ecfg, mesh=mesh4)
+        if tag == "dense":
+            eng.load(params)
+        else:
+            eng.load_compact(params)
+        in_step = R._count_in_steps(eng)
+        SH.reset_collective_counts()
+        prompts, budgets = f[tag]["prompts"], f[tag]["budgets"]
+        rids, done, cancelled = {}, [], None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if tag == "dense":
+            waves = np.array_split(np.arange(len(prompts)), f["waves"])
+            for w, idx in enumerate(waves):
+                for i in idx:
+                    rids[eng.submit(prompts[i], budgets[i])] = int(i)
+                for _ in range(f["wave_steps"]):
+                    done += eng.step()
+                if w == 0:
+                    finished = {c.rid for c in done}
+                    left = {r: len(prompts[i]) + budgets[i]
+                            for r, i in rids.items() if r not in finished}
+                    cancelled = max(left, key=left.get)
+                    eng.cancel(cancelled)
+            switches = ()
+        else:
+            for i, (p, n) in enumerate(zip(prompts, budgets)):
+                rids[eng.submit(p, n)] = i
+            switches = ((f["refresh_at"], "refresh",
+                         shared["fleet_dense2"]),
+                        (f["recompact_at"], "recompact",
+                         shared["fleet_dense3"]))
+            steps = 0
+            for at, method, tree in switches:
+                while steps < at:
+                    done += eng.step()
+                    steps += 1
+                getattr(eng, method)(tree)
+        done += eng.drain()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        st = eng.stats()
+        got = {c.rid: c for c in done}
+        mismatched = []
+        for r, i in rids.items():
+            if i % world != rank:
+                continue
+            want = _solo_tokens(solo, params, prompts[i], budgets[i],
+                                switches)
+            c = got[r]
+            ok = (c.tokens == want[:len(c.tokens)] and c.evicted
+                  if r == cancelled else
+                  c.tokens == want and not c.evicted and not c.truncated)
+            if not ok:
+                mismatched.append(r)
+        out[tag] = {
+            "requests": len(rids), "completions": len(got),
+            "tokens": {str(r): got[r].tokens for r in sorted(got)},
+            "mismatched": mismatched, "cancelled": cancelled,
+            "n_traces": eng.n_traces, "n_replays": eng.n_replays,
+            "steps": st["steps"], "in_step_collectives": sum(in_step),
+            "in_step_calls": len(in_step),
+            "engine_out_gather": SH.collective_counts().get(
+                "engine_out_gather", 0),
+            "exchange_ms_per_step": st["exchange_s"] * 1e3 / st["steps"],
+            "serve_s": serve_s, "wall_ms_per_step": serve_s * 1e3
+            / st["steps"], "replay_ms": _replay_ms(torch, eng),
+            "solo_replay_ms": _replay_ms(torch, solo),
+            "solo_n_traces": solo.n_traces}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del solo
+    return out
+
+
+def _serve_mesh_sae(torch, mesh4, shared):
+    """Phase 19 (c) on this rank: the compact SAE's serve step over 4
+    ranks against the one-device step (this rank's rows)."""
+    import _dist_ranks as R
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.layout import MeshLayout, local_of
+    from repro_torch.sae import compact_sae, make_serve_step
+    compact = compact_sae(shared["sae_params"], (shared["sae_spec"],))
+    step = make_serve_step(compact, mesh=mesh4)
+    SH.reset_collective_counts()
+    with R._count_all() as calls:
+        z, xh = step(compact.params, shared["sae_x"])
+    torch.cuda.synchronize()
+    errs, lay = [], MeshLayout(mesh4)
+    for got, want in ((z, shared["sae_z"]), (xh, shared["sae_xh"])):
+        errs.append(float((local_of(got) - want[_box_of(got, lay)]).abs()
+                          .max()))
+    return {"rows": int(local_of(z).shape[0]), "max_abs_diff": max(errs),
+            "collectives": calls.n, "counts": SH.collective_counts(),
+            "selected": compact.n_selected,
+            "wall_ms": wall_ms(torch, lambda: step(compact.params,
+                                                   shared["sae_x"]), 20)}
+
+
+def _serve_rank(rank, world, work, shape, shared, meta):
+    """One rank of phase 19 (a spawned process): (a) the decode cases on
+    the (2, 2) mesh, (b) the fleet engine and (c) the SAE serve step on
+    the (4, 1) data mesh."""
+    torch, dist, mesh = _rank_setup(rank, world, work, shape)
+    from repro_torch.dist.layout import MeshLayout
+    from repro_torch.launch.mesh import make_local_mesh
+    lay = MeshLayout(mesh)
+    t0 = time.perf_counter()
+    decode = [_serve_mesh_decode(torch, dist, mesh, lay, sh, case)
+              for sh, case in zip(shared["decode"], meta["decode"])]
+    t1 = time.perf_counter()
+    mesh4 = make_local_mesh(*meta["fleet_mesh"], device="cuda")
+    fleet = _serve_mesh_fleet(torch, dist, mesh4, shared, meta)
+    t2 = time.perf_counter()
+    sae = _serve_mesh_sae(torch, mesh4, shared)
+    out = {"rank": dist.get_rank(), "decode": decode, "fleet": fleet,
+           "sae": sae, "seconds": {"decode": t1 - t0, "fleet": t2 - t1,
+                                   "sae": time.perf_counter() - t2}}
+    _rank_done(dist, work, rank, out, shared)
+
+
+def lm_serve_mesh_phase(torch, Z, C, K, dev, card, sae, sm=SERVE_MESH):
+    """Phase 19 (lm_serve_mesh): serving over a mesh, 4 gloo ranks sharing
+    the card (``_serve_rank``), the parent's tensors reaching them by CUDA
+    IPC. (a) each decode case's one-device step and its noise floor (the
+    same calls from params x (1 + PERTURB N(0, 1))) run here first;
+    (b) phase 10b's requests and compacted model; (c) the compact SAE's
+    one-device outputs (``sae``: phase 5's l1,inf params, its spec, the
+    test rows). No hand-written kernel runs in this phase: the decode
+    path is plain PyTorch in both packages."""
+    from repro_torch._tree import flatten_with_path, tree_map
+    from repro_torch.core import ProjectionEngine
+    from repro_torch.sae import compact_sae, make_serve_step
+    from repro_torch.serve import compact_model
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    shared, meta = {"decode": []}, {"decode": [], "slots": sm["slots"],
+                                    "fleet_mesh": sm["fleet_mesh"]}
+    params_of, one_rows = {}, []
+    for n, (arch, cell, B, S, vec, scalar) in enumerate(sm["cases"]):
+        cfg = dataclasses.replace(C.get_config(arch), n_layers=sm["depth"])
+        model = Z.build(cfg)
+        if arch not in params_of:
+            params_of[arch] = model.init(torch.Generator(
+                device=dev).manual_seed(19), device=dev)
+        params = params_of[arch]
+        cache0 = _seeded_cache(torch, model, B, S, vec, dev, 190 + n)
+        g = torch.Generator(device=dev).manual_seed(290 + n)
+        calls = [(torch.randint(0, cfg.vocab, (B, 1), generator=g,
+                                device=dev), torch.tensor(vec, device=dev)),
+                 (torch.randint(0, cfg.vocab, (B, 1), generator=g,
+                                device=dev), scalar)]
+        logits, ext, pairs, one_ms = _one_device_decode(
+            torch, model, params, cache0, calls, cfg.vocab, reps=5)
+        gp = torch.Generator(device=dev).manual_seed(390 + n)
+        pert = tree_map(lambda a: a * (1 + PERTURB * torch.randn(
+            a.shape, generator=gp, device=dev)), params)
+        plog, pext, _, _ = _one_device_decode(torch, model, pert, cache0,
+                                              calls, cfg.vocab)
+        del pert
+        floors = {"logits": [float((a - b).abs().max())
+                             for a, b in zip(plog, logits)],
+                  "cache": {p: float((pext[p].float() - ext[p].float())
+                                     .abs().max()) for p in ext}}
+        del plog, pext
+        torch.cuda.empty_cache()
+        shared["decode"].append({"params": params, "cache": cache0,
+                                 "calls": calls, "one": logits,
+                                 "ext": ext})
+        meta["decode"].append({"cfg": cfg, "cell": cell, "pairs": pairs,
+                               "floors": floors})
+        one_rows.append({"arch": arch, "cell": cell, "batch": B, "seq": S,
+                         "first_positions": vec, "second_position": scalar,
+                         "one_device_decode_ms": one_ms,
+                         "cache_bytes": sum(
+                             t.numel() * t.element_size()
+                             for _, t in flatten_with_path(cache0)),
+                         "noise_floor": floors})
+    # (b) phase 10b's requests and its compacted model, refreshed and
+    # recompacted at its steps
+    f = FLEET
+    fcfg = dataclasses.replace(C.get_config(f["arch"]), n_layers=sm["depth"])
+    rng = np.random.default_rng(11)
+    dp, db = _fleet_requests(rng, f["requests"], fcfg.vocab, f["prompt"],
+                             f["budget"])
+    cp, cb = _fleet_requests(rng, sm["slots"], fcfg.vocab,
+                             f["compact_prompt"], f["compact_budget"])
+    _, raw = lm_compact_params(torch, Z, C, dev, depth=fcfg.n_layers)
+    dense, _ = ProjectionEngine(fcfg.projection_specs,
+                                solver="kernel").apply(raw)
+    del raw
+    cm = compact_model(dense, fcfg.projection_specs)
+    w1 = next(p for p in cm.live if p.endswith("mlp/w1"))
+    dense2 = tree_map(lambda a: a * 1.25, dense)
+    dense3 = tree_map(torch.clone, dense2)
+    for block in dense3["blocks"].values():
+        block["mlp"]["w1"][..., int(cm.sels[w1][0])] = 0.0
+    del dense
+    shared.update(fleet_params=params_of[f["arch"]], fleet_cm=cm,
+                  fleet_dense2=dense2, fleet_dense3=dense3)
+    meta["fleet"] = {"cfg": fcfg, "max_seq": f["max_seq"],
+                     "waves": f["waves"], "wave_steps": f["wave_steps"],
+                     "refresh_at": f["refresh_at"],
+                     "recompact_at": f["recompact_at"],
+                     "dense": {"prompts": dp, "budgets": db},
+                     "compact": {"prompts": cp, "budgets": cb}}
+    # (c) the compact SAE on one device
+    sae_params, spec, X = sae
+    x = torch.from_numpy(X).to(dev)
+    compact = compact_sae(sae_params, (spec,))
+    z, xh = make_serve_step(compact)(compact.params, x)
+    shared.update(sae_params=sae_params, sae_spec=spec, sae_x=x, sae_z=z,
+                  sae_xh=xh)
+    sae_scale = max(float(z.abs().max()), float(xh.abs().max()), 1.0)
+    torch.cuda.synchronize()
+    parent_bytes = torch.cuda.memory_allocated()
+    ranks, failed, wall = _spawn(_serve_rank, 4, (sm["mesh"], shared, meta),
+                                 sm["timeout"])
+    check(failed is None and len(ranks) == 4,
+          f"lm_serve_mesh: {failed or 'missing rank results'}")
+    for r in ranks:
+        tag = f"lm_serve_mesh rank {r['rank']}"
+        for j, (case, row, d) in enumerate(zip(meta["decode"], one_rows,
+                                               r["decode"])):
+            what = f"{tag} {row['arch']} {row['cell']}"
+            cfg = case["cfg"]
+            for i, lg in enumerate(d["logits"]):
+                check(lg["max_abs_diff"] <= lg["limit"],
+                      f"{what}: call {i} logits {lg}")
+            for path, lf in d["leaves"].items():
+                check(lf["ok"] and lf["untouched_bit_equal"],
+                      f"{what}: cache {path} {lf}")
+            check(d["rerun_bit_equal"], f"{what}: a rerun is not bit-equal")
+            n_attn = cfg.n_layers if set(cfg.pattern) & {
+                "global", "local", "hybrid"} else 0
+            n_ssm = cfg.n_layers if set(cfg.pattern) & {"ssm",
+                                                          "hybrid"} else 0
+            for c in d["counts"]:
+                check(c.get("decode_max") == c.get("decode_sum") == n_attn
+                      and c.get("fsdp_gather") == d["n_fsdp_leaves"]
+                      and c.get("ssm_conv_gather", 0) == c.get(
+                          "ssm_norm", 0) == n_ssm
+                      and c.get("tp_exit_sum", 0) > 0
+                      and c["all_gather_calls"] == c["fsdp_gather"]
+                      + c.get("ssm_conv_gather", 0)
+                      and c["all_to_all_calls"] == 0
+                      and c["lm_kernel_launches"] == 0,
+                      f"{what}: collectives {c}")
+            check(d["counts"] == ranks[0]["decode"][j]["counts"],
+                  f"{what}: counts differ from rank 0's")
+        for tag_f in ("dense", "compact"):
+            fl = r["fleet"][tag_f]
+            what = f"{tag} fleet {tag_f}"
+            check(fl["completions"] == fl["requests"] and not fl[
+                "mismatched"], f"{what}: continuous != solo for "
+                f"{fl['mismatched']}")
+            check(fl["n_traces"] == 1 and fl["n_replays"] == fl["steps"],
+                  f"{what}: captures {fl['n_traces']}, replays "
+                  f"{fl['n_replays']} of {fl['steps']} steps")
+            check(fl["in_step_collectives"] == 0
+                  and fl["engine_out_gather"] == fl["steps"],
+                  f"{what}: {fl['in_step_collectives']} collectives in "
+                  f"the step, {fl['engine_out_gather']} gathers for "
+                  f"{fl['steps']} steps")
+            check(fl["tokens"] == ranks[0]["fleet"][tag_f]["tokens"],
+                  f"{what}: completions differ from rank 0's")
+        s = r["sae"]
+        check(s["rows"] == X.shape[0] // 4 and s["collectives"] == 0
+              and s["max_abs_diff"] <= SERVE_TOL["float32"] * sae_scale,
+              f"{tag} sae: {s}")
+    emit({"phase": "lm_serve_mesh", "card": card, "depth": sm["depth"],
+          "mesh": list(sm["mesh"]), "fleet_mesh": list(sm["fleet_mesh"]),
+          "times": "gloo through host memory, 4 ranks sharing one card",
+          "run_s": wall, "parent_allocated_bytes": parent_bytes,
+          "params": "float32", "cache": "bfloat16",
+          "kernels": "none (decode attention is plain PyTorch in both "
+                     "packages)",
+          "decode_one_device": one_rows,
+          "per_rank": [{"rank": r["rank"], "seconds": r["seconds"],
+                        "decode": [{k: d[k] for k in (
+                            "arch", "cell", "call_ms", "rerun_call_ms",
+                            "gloo_s", "rerun_gloo_s", "cache_bytes",
+                            "peak_bytes", "counts", "logits",
+                            "rerun_bit_equal")} | {"worst_leaf": max(
+                                d["leaves"].items(), key=lambda kv:
+                                kv[1]["max_abs_diff"] / max(
+                                    kv[1]["scale"], 1e-30))}
+                            for d in r["decode"]],
+                        "fleet": {k: {kk: v for kk, v in fl.items()
+                                      if kk != "tokens"}
+                                  for k, fl in r["fleet"].items()},
+                        "sae": r["sae"]} for r in ranks]})
+    del shared, params_of, cm, dense2, dense3, z, xh, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -5940,6 +6512,12 @@ def main():
     # torch.cuda.ipc_collect does not release), and hymba-1.5b's four
     # ranks need that room
     mesh_rows = lm_train_mesh_phase(torch, Z, C, FK, dev, smi)
+
+    # -- 19. this slice: serving over a mesh, 4 ranks sharing the card (the
+    # decode step under the reference's decode rules, FleetEngine on a data
+    # mesh, the SAE's serve step); before 17, for the same reason as 18
+    lm_serve_mesh_phase(torch, Z, C, K, dev, smi,
+                        (res_l1inf.params, spec, Xte))
 
     # -- 17. the sharded and fused_sharded solvers and the compressed
     # gradient sum, 2 and 4 ranks sharing the card over gloo

@@ -11,7 +11,10 @@ Nested dicts keep their keys, so a parameter path (``enc1/w``) names the
 same tensor in both packages, and layouts are unchanged (no transposes).
 Over a mesh, ``params_to_mesh`` keeps each rank's piece of every full
 leaf under its ``Spec`` (``launch.steps.param_shardings``), and
-``params_from_mesh`` puts the full leaves back on every rank.
+``params_from_mesh`` puts the full leaves back on every rank;
+``cache_to_mesh`` / ``cache_from_mesh`` do the same for a decode cache
+under ``launch.steps.cache_shardings`` (a JAX cache given as numpy, or
+the port's own).
 bfloat16 arrays (numpy's ``ml_dtypes`` extension type, which torch cannot
 read directly) go through float32, which holds every bfloat16 value
 exactly, and come out as ``torch.bfloat16``.
@@ -28,7 +31,7 @@ from ._tree import tree_map
 from .optim.adam import AdamState
 
 __all__ = ["params_from_numpy", "opt_state_from_numpy", "params_to_mesh",
-           "params_from_mesh"]
+           "params_from_mesh", "cache_to_mesh", "cache_from_mesh"]
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
@@ -71,6 +74,10 @@ def params_to_mesh(tree: Any, mesh, specs: Any,
     of each under the tree of ``dist.sharding.Spec`` ``specs``: a local
     slice, no collective. ``device``: where the pieces live (the card when
     None)."""
+    return _to_mesh(tree, mesh, specs, device, copy=False)
+
+
+def _to_mesh(tree, mesh, specs, device, copy: bool):
     from .dist.layout import MeshLayout, _box, wrap
     from .dist.sharding import placements
     dev = resolve_device(device)
@@ -80,7 +87,9 @@ def params_to_mesh(tree: Any, mesh, specs: Any,
         t = x.to(dev) if isinstance(x, torch.Tensor) else _tensor(x, dev)
         pl = placements(mesh, spec)
         box = _box(tuple(t.shape), pl, lay.shape, lay.coords[lay.me])
-        piece = t[tuple(slice(lo, hi) for lo, hi in box)].contiguous()
+        piece = t[tuple(slice(lo, hi) for lo, hi in box)]
+        piece = piece.clone(memory_format=torch.contiguous_format) if copy \
+            else piece.contiguous()
         return wrap(piece, t.shape, pl, lay)
 
     return tree_map(one, tree, specs)
@@ -101,3 +110,24 @@ def params_from_mesh(tree: Any, mesh) -> Any:
                     replicated_placements(lay), lay)
 
     return tree_map(one, tree)
+
+
+def cache_to_mesh(tree: Any, mesh, specs: Any,
+                  device: Optional[str] = None) -> Any:
+    """A whole decode cache (numpy arrays, e.g. JAX's, or tensors; the
+    same on every rank) -> ``DTensor``s over ``mesh`` holding this rank's
+    piece of each leaf under ``specs`` (``launch.steps.cache_shardings``):
+    the pieces the mesh decode step writes in place. A local slice, no
+    collective; each piece is a copy (the step writes it in place, and
+    the whole cache given here stays as it was).
+
+    >>> pieces = cache_to_mesh(cache, mesh, cache_shardings(cache, mesh,
+    ...                                                     rules), "cpu")
+    """
+    return _to_mesh(tree, mesh, specs, device, copy=True)
+
+
+def cache_from_mesh(tree: Any, mesh) -> Any:
+    """A decode cache's ``DTensor`` pieces -> the whole leaves on every
+    rank (one ``dist.layout.move`` each)."""
+    return params_from_mesh(tree, mesh)

@@ -41,7 +41,16 @@ collective, each counted by kind (``collective_counts``):
     norm over its split width (``ssm_norm``, and ``ssm_norm_grad``: its
     consumers are split, so the backward sums too), the MoE's combine and
     auxiliaries (``moe_combine``, ``moe_aux``), and a few no-gradient
-    sums (``dp_count``, ``dp_loss``).
+    sums (``dp_count``, ``dp_loss``);
+  * the decode step's, no gradient (serving runs under ``no_grad``):
+    ``seq_max(x)`` / ``seq_sum(x)`` over the axes that split the cache's
+    sequence (the rules' "cache_seq", ``cache_seq_split``), the
+    split-softmax combine's global max (``decode_max``) and its sum of
+    the partial weights and weighted values (``decode_sum``);
+    ``model_gather(x)``, the SSM's new conv input columns gathered over
+    "model" into the whole conv state (``ssm_conv_gather``);
+    ``gather_rows(x, mesh, axes)``, the serving engine's step outputs
+    gathered over its batch axes (``engine_out_gather``).
 
 ``shard`` moves a piece from the layout recorded on it (by an earlier
 ``shard``, or ``placed``) to the names' layout by ``dist.layout.move`` (one
@@ -54,9 +63,9 @@ reruns are bit-equal and every rank gets the same bits.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
-from collections import Counter
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -66,7 +75,9 @@ __all__ = ["Spec", "default_rules", "axis_rules", "current_rules",
            "logical_spec", "fit_spec", "shard", "placed", "placements",
            "mesh_axes", "axis_size", "axis_index", "active_axis",
            "gather_over", "tp_enter", "tp_exit", "model_sum", "model_max",
-           "data_sum", "collective_counts", "reset_collective_counts"]
+           "data_sum", "axes_group", "axes_index", "cache_seq_split", "seq_max",
+           "seq_sum", "model_gather", "gather_rows", "collective_counts",
+           "reset_collective_counts"]
 
 Axes = Union[None, str, Tuple[str, ...]]
 
@@ -289,7 +300,7 @@ def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
 # the explicit collectives
 # ---------------------------------------------------------------------------
 
-_COUNTS: Counter = Counter()
+_COUNTS: collections.Counter = collections.Counter()
 
 
 def collective_counts() -> Dict[str, int]:
@@ -323,10 +334,7 @@ class _GatherOver(torch.autograd.Function):
     def forward(ctx, x, mesh, name, dim):
         ctx.args = (mesh, name, dim, x.shape[dim])
         _COUNTS["fsdp_gather"] += 1
-        n = axis_size(mesh, name)
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=_group(mesh, name))
-        return torch.cat(parts, dim=dim)
+        return _gather_dim(x, _group(mesh, name), axis_size(mesh, name), dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -435,3 +443,111 @@ def data_sum(x: torch.Tensor, kind: str) -> torch.Tensor:
     mesh = active_axis("data")
     x = x.detach()
     return x if mesh is None else _all_reduce(x, mesh, "data", kind)
+
+
+# ---------------------------------------------------------------------------
+# the decode step's and the serving engine's collectives (no gradient)
+# ---------------------------------------------------------------------------
+
+def _axes_tuple(mesh, axes: Axes) -> Tuple[str, ...]:
+    """``axes`` (a name, a tuple of names or None) as the tuple of those
+    present on ``mesh``, in the mesh's dim order."""
+    if axes is None:
+        return ()
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(n for n in mesh.mesh_dim_names if n in names)
+
+
+def axes_group(mesh, axes: Axes):
+    """One process group over the ranks that differ only in mesh ``axes``
+    (a name or a tuple of names): the axis's own group for one, the mesh's
+    group (``dist.layout.mesh_group``) when they are all of its dims, else
+    the flattened sub-mesh's. Group rank order is the row-major order of
+    the ranks' coordinates on ``axes``."""
+    from .layout import mesh_group
+    names = _axes_tuple(mesh, axes)
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    if len(names) == len(mesh.mesh_dim_names):
+        return mesh_group(mesh)
+    return mesh[names]._flatten().get_group()
+
+
+def axes_index(mesh, axes: Axes) -> Tuple[int, int]:
+    """(index, ways): this rank's row-major position over mesh ``axes``
+    and their total size (GSPMD's order for a dim split over several)."""
+    index, ways = 0, 1
+    for n in _axes_tuple(mesh, axes):
+        size = axis_size(mesh, n)
+        index, ways = index * size + axis_index(mesh, n), ways * size
+    return index, ways
+
+
+# the mesh axes that split the decode cache's sequence, this rank's slice
+# among them and their number
+SeqSplit = collections.namedtuple("SeqSplit", "mesh axes index ways")
+
+
+def cache_seq_split() -> Optional[SeqSplit]:
+    """The split of the cache's sequence under the active rules: the mesh
+    axes that "cache_seq" names (those of more than one rank in all), or
+    None (no context, a None mesh, or no such split). The decode step
+    fits "cache_seq" to the cache before it enters the rules, so a split
+    named here splits every position-indexed cache leaf."""
+    state = current_rules()
+    if state is None or state[0] is None or state[1] is None:
+        return None
+    mesh, rules = state
+    axes = _axes_tuple(mesh, rules.get("cache_seq"))
+    index, ways = axes_index(mesh, axes)
+    if ways == 1:
+        return None
+    return SeqSplit(mesh, axes, index, ways)
+
+
+def seq_max(x: torch.Tensor, split: SeqSplit) -> torch.Tensor:
+    """The elementwise max of ``x`` over the cache's sequence shards
+    (``decode_max``): the split-softmax's global max."""
+    _COUNTS["decode_max"] += 1
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                    group=axes_group(split.mesh, split.axes))
+    return out
+
+
+def seq_sum(x: torch.Tensor, split: SeqSplit) -> torch.Tensor:
+    """``x`` summed over the cache's sequence shards (``decode_sum``): the
+    split-softmax's weights and weighted values, in the group's fixed
+    order, so every rank gets the same bits and reruns are bit-equal."""
+    _COUNTS["decode_sum"] += 1
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, group=axes_group(split.mesh, split.axes))
+    return out
+
+
+def _gather_dim(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def model_gather(x: torch.Tensor, dim: int, kind: str) -> torch.Tensor:
+    """The pieces of ``x`` over "model" concatenated along ``dim`` (one
+    all_gather, counted ``kind``), no gradient; ``x`` itself without an
+    active model axis."""
+    mesh = active_axis("model")
+    if mesh is None:
+        return x
+    _COUNTS[kind] += 1
+    return _gather_dim(x.detach(), mesh.get_group("model"),
+                       axis_size(mesh, "model"), dim)
+
+
+def gather_rows(x: torch.Tensor, mesh, axes: Axes, dim: int = 0,
+                kind: str = "engine_out_gather") -> torch.Tensor:
+    """The pieces of ``x`` over mesh ``axes`` concatenated along ``dim`` in
+    the axes' row-major order (one all_gather, counted ``kind``), no
+    gradient."""
+    _COUNTS[kind] += 1
+    return _gather_dim(x.detach(), axes_group(mesh, axes),
+                       axes_index(mesh, axes)[1], dim)

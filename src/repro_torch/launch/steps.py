@@ -9,7 +9,11 @@
                         proj_state)``; ``metrics`` carries the step's
                         Newton evaluations beyond the 2-evaluation floor.
 ``build_prefill_step``— the full forward, last-token logits.
-``build_decode_step`` — one-token serve step against a cache.
+``build_decode_step`` — one-token serve step against a cache; on a mesh
+                        the cache stays in its pieces on the ranks (the
+                        decode rules: sequence over "cache_seq", the SSM
+                        state by heads, cross memory by heads) and is
+                        written in place.
 
 On the card a step runs every kernel of its path: the flash-attention and
 SSD kernels forward and backward (bf16 or f32, the params' dtype), and,
@@ -52,8 +56,8 @@ import torch
 
 from .._tree import flatten_with_path, leaves, tree_map, unflatten_like
 from ..core import ProjectionEngine
-from ..dist.sharding import (Spec, axis_rules, default_rules, fit_spec,
-                             placements)
+from ..dist.sharding import (Spec, axes_index, axis_rules, default_rules,
+                             fit_spec, logical_spec, placements)
 from ..models.param import PM
 from ..models.zoo import SHAPES, Model
 from ..optim import AdamConfig
@@ -348,16 +352,77 @@ def build_prefill_step(model: Model, mesh=None,
     return mesh_prefill_step
 
 
+def _rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """This rank's block of ``x``'s rows over mesh ``axes`` (a local
+    slice; every rank holds all of ``x``)."""
+    index, ways = axes_index(mesh, axes)
+    n = x.shape[0] // ways
+    return x[index * n:(index + 1) * n]
+
+
+def _cache_pieces(cache, c_specs, mesh):
+    """This rank's piece of every cache leaf (the tensors the step writes
+    in place), after checking that each is laid out under its spec."""
+    from ..dist.layout import MeshLayout, local_of, placements_of
+    lay = MeshLayout(mesh)
+
+    def one(x, spec):
+        want = placements(mesh, spec)
+        if not hasattr(x, "placements") or placements_of(x, lay) != want:
+            raise ValueError(
+                f"build_decode_step: a cache leaf of shape {tuple(x.shape)} "
+                f"is not laid out under its spec {spec} (lay the cache out "
+                f"with convert.cache_to_mesh(cache, mesh, "
+                f"cache_shardings(cache, mesh, rules)))")
+        return local_of(x)
+
+    return tree_map(one, cache, c_specs)
+
+
+def _seq_axes(c_specs):
+    """The mesh axes that split the sequence of the position-indexed cache
+    leaves (k / v, c / kr: dim 1, or 2 when layer-stacked), or None."""
+    for path, spec in flatten_with_path(c_specs):
+        if path.rsplit("/", 1)[-1] in ("k", "v", "c", "kr"):
+            return spec[2 if path.startswith("blocks/") else 1]
+    return None
+
+
+def _batch_axes(c_specs):
+    """The mesh axes that split the cache's rows (dim 0, or 1 when
+    layer-stacked) of any of its leaves."""
+    for path, spec in flatten_with_path(c_specs):
+        return spec[1 if path.startswith("blocks/") else 0]
+    return None
+
+
 def build_decode_step(model: Model, mesh=None,
                       rules: Optional[dict] = None):
-    """``serve_step(params, cache, tokens, pos) -> (logits (B, V), new
-    cache)``; the cache passed in is left as it was. On a mesh: params as
-    ``build_train_step``'s, the global cache and tokens; each rank decodes
-    its rows of the batch over ``rules["cache_batch"]`` with the weights
-    whole (gathered once a call; the sequence- and head-sharded cache of
-    the reference's decode rules waits for serving over a mesh, ROADMAP.md
-    queue A item 8c), and the logits and new cache come back whole on
-    every rank."""
+    """``serve_step(params, cache, tokens, pos) -> (logits (B, V), cache)``
+    against a KV cache.
+
+    One device (``mesh=None``): the new cache is a copy; the cache passed
+    in is left as it was.
+
+    On a mesh (every rank calls the step with the same arguments), under
+    ``rules`` (the reference's decode rules, ``rules_for_cell(cfg,
+    "decode_32k" | "long_500k", ...)``, or the train rules): params as
+    ``build_train_step``'s (``DTensor``s under ``param_shardings``: FSDP
+    gathers over data each call, ``fsdp_gather``, and the tensor-parallel
+    regions split over model); ``cache`` the ``DTensor`` pieces under
+    ``cache_shardings`` (``convert.cache_to_mesh``), which live on their
+    ranks between calls and which the step writes in place (the
+    reference donates the cache), never gathered, moved or sliced;
+    ``tokens`` (B, 1) and ``pos`` (a scalar or (B,)) the global ones,
+    every rank's copy the same. Each rank decodes its rows (the rules'
+    "batch") against its pieces: a cache sequence split over
+    "cache_seq" is combined by one MAX and one SUM over those axes per
+    attention layer (``decode_max``, ``decode_sum``: the split-softmax,
+    ``models.attention``), the SSM state and its weights by whole heads
+    over model, cross attention's memory by heads over model. Returns the
+    logits as a ``DTensor`` under the reference's out-sharding
+    ``logical_spec(("batch", "vocab"))`` (each rank its rows and vocab
+    columns) and the same cache tree, updated."""
     if mesh is None:
         @torch.no_grad()
         def serve_step(params, cache, tokens, pos):
@@ -365,27 +430,34 @@ def build_decode_step(model: Model, mesh=None,
             return logits[:, -1, :], new_cache
 
         return serve_step
+    from ..dist.layout import MeshLayout, wrap
+    from ..models.attention import pos_tensor
+    from ..models.transformer import decode_step_
     rules = dict(rules or default_rules())
-    rows = dict(rules, cache_seq=None, kv_heads=None, heads=None, mlp=None)
+    specs = param_shardings(model, mesh, rules)
+    table = "embed" if model.cfg.tie_embeddings else "unembed"
+    vocab = specs[table]["table"][0]
+    lay = MeshLayout(mesh)
 
     @torch.no_grad()
     def mesh_serve_step(params, cache, tokens, pos):
-        from ..convert import params_from_mesh
-        from ..dist.layout import MeshLayout, move, replicated_placements
-        lay = MeshLayout(mesh)
-        whole = params_from_mesh(params, mesh)
-        c_specs = cache_shardings(cache, mesh, rows)
-        b = batch_shardings({"tokens": tokens}, mesh, rules)["tokens"]
-        take = lambda x, spec: move(x.contiguous(), x.shape,
-                                    replicated_placements(lay),
-                                    placements(mesh, spec), lay)
-        local_cache = tree_map(take, cache, c_specs)
-        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-            pos = take(pos, Spec(b[0]))
-        logits, new_cache = model.decode(whole, local_cache,
-                                         take(tokens, b), pos)
-        return (_whole(logits[:, -1, :], Spec(b[0], None), mesh),
-                tree_map(lambda x, s: _whole(x, s, mesh), new_cache,
-                         c_specs))
+        c_specs = cache_shardings(cache, mesh, rules)
+        local = _cache_pieces(cache, c_specs, mesh)
+        b = fit_spec(mesh, (rules["batch"],), (tokens.shape[0],))[0]
+        if axes_index(mesh, b)[1] != axes_index(mesh, _batch_axes(c_specs))[1]:
+            raise ValueError(
+                f"build_decode_step: the tokens' rows split over {b!r}, the "
+                f"cache's over {_batch_axes(c_specs)!r}")
+        pos = pos_tensor(pos, tokens.device)
+        with axis_rules(mesh, dict(rules, cache_seq=_seq_axes(c_specs))):
+            _, tree = mesh_weights(params, specs, grad=False)
+            logits = decode_step_(tree, local, _rows(tokens, mesh, b),
+                                  _rows(pos, mesh, b) if pos.ndim else pos,
+                                  model.cfg)
+        shape = (tokens.shape[0], model.cfg.vocab_padded)
+        out = fit_spec(mesh, tuple(logical_spec(("batch", "vocab"), dict(
+            rules, vocab=vocab))), shape)
+        return wrap(logits[:, -1, :].contiguous(), shape,
+                    placements(mesh, out), lay), cache
 
     return mesh_serve_step

@@ -20,6 +20,31 @@ with no RoPE. MLA (deepseek-v2) runs its full-sequence form through flash
 at q/k head dim nope + rope with v's head dim below it (``flash_attention``
 zero-pads v); its decode reads and writes the compressed cache (c, k_rope),
 in place in ``mla_decode_``, plainly or in the matrix-absorbed form.
+
+Decode over a mesh (``launch.steps.build_decode_step`` under the
+reference's decode rules) hands each rank its pieces of the cache:
+
+  * a cache whose sequence the rules' "cache_seq" splits
+    (``dist.sharding.cache_seq_split``) holds the positions ``offset +
+    arange(local)`` of this rank's slice. Keys are masked by their global
+    position (against ``pos`` and the window); only the rank whose slice
+    holds a row's ``pos`` writes that row's new k / v (or c / k_rope); the
+    softmax is the split-softmax (``_split_softmax``): one MAX of the
+    logits' row max over the sequence shards (``decode_max``), each rank's
+    exp(logits - global max) summed and applied to its values in f32, and
+    one SUM of those partial weights and weighted values
+    (``decode_sum``). Masked keys keep the reference's finite -1e30, so a
+    slice with no valid key adds exactly zero (exp(-1e30 - max) is 0.0)
+    and a row with no valid key anywhere is uniform, as on one device;
+  * GQA attention whose heads and kv heads the "model" axis splits (the
+    train rules) computes the rank's heads against its kv heads of the
+    cache, ``tp_exit`` after its rows of ``wo``;
+  * cross attention's memory cache (ck / cv) split over "heads" attends
+    with the rank's heads and sums the output projection over "model"
+    (``cross_decode``, ``tp_exit``).
+
+The decode path runs plain PyTorch on both packages (no ``pallas_call``
+behind the reference's decode), so no kernel is launched here.
 """
 from __future__ import annotations
 
@@ -30,13 +55,15 @@ import torch
 
 from .param import PM
 from .layers import apply_rope, rmsnorm_apply
-from ..dist.sharding import shard, tp_enter, tp_exit
+from ..dist.sharding import (active_axis, axis_index, axis_size,
+                             cache_seq_split, seq_max, seq_sum, shard,
+                             tp_enter, tp_exit)
 from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = ["attn_layout", "attn_apply", "attn_prefill_cache",
            "decode_attention", "attn_decode", "attn_decode_",
-           "cross_attn_layout", "cross_attn_apply", "mla_layout",
-           "mla_apply", "mla_decode", "mla_decode_"]
+           "cross_attn_layout", "cross_attn_apply", "cross_decode",
+           "mla_layout", "mla_apply", "mla_decode", "mla_decode_"]
 
 _NEG = -1e30
 
@@ -89,21 +116,56 @@ def pos_tensor(pos, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device)
 
 
+def _split_softmax(logits: torch.Tensor, weigh, split) -> torch.Tensor:
+    """``weigh(softmax(logits))`` over a sequence split across ranks:
+    ``logits`` (..., S_local) of this rank's slice. One MAX of the row
+    maxima over the shards (``decode_max``), this rank's p = exp(logits -
+    global max) in f32, and one SUM of [weigh(p), sum(p)] over the shards
+    (``decode_sum``), each rank's partial weighed at the global max; the
+    quotient of the two sums."""
+    m = seq_max(logits.amax(dim=-1), split)
+    p = torch.exp(logits - m[..., None])
+    part = torch.cat([weigh(p), p.sum(dim=-1)[..., None]], dim=-1)
+    tot = seq_sum(part, split)
+    return tot[..., :-1] / tot[..., -1:]
+
+
+def _weighted_softmax(logits: torch.Tensor, weigh, split=None
+                      ) -> torch.Tensor:
+    """``weigh(softmax(logits, -1))``: the attention weights over the
+    cache's positions applied to its values (``weigh`` is linear in the
+    weights and sums over their last dim). ``split``: the cache's sequence
+    shards (``cache_seq_split``), combined by ``_split_softmax``."""
+    if split is None:
+        return weigh(torch.softmax(logits, dim=-1))
+    return _split_softmax(logits, weigh, split)
+
+
+def _kv_positions(S: int, split, device) -> torch.Tensor:
+    """The global positions of a cache slice of S keys: this rank's slice
+    of the sequence shards, or the whole cache."""
+    off = 0 if split is None else split.index * S
+    return off + torch.arange(S, device=device)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos, window: int = 0
-                     ) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos, window: int = 0,
+                     split=None) -> torch.Tensor:
     """One-token attention against a cache.
 
     q: (B, 1, KV, R, hd); caches: (B, Smax, KV, hd); pos: current position
     (tokens at indices <= pos are valid) — a scalar shared by the batch or
-    a (B,) vector of per-row positions.
+    a (B,) vector of per-row positions. ``split``
+    (``dist.sharding.cache_seq_split``): the caches are this rank's slice
+    of a sequence split over ranks; keys are masked by their global
+    position and the softmax is the split-softmax.
     """
     B, _, KVh, R, hd = q.shape
     Smax = k_cache.shape[1]
     scale = hd ** -0.5
     logits = torch.einsum("bqkrh,bskh->bqkrs", q.float(),
                           k_cache.float()) * scale
-    kv_pos = torch.arange(Smax, device=q.device)
+    kv_pos = _kv_positions(Smax, split, q.device)
     pos = pos_tensor(pos, q.device)
     pos_b = pos[:, None] if pos.ndim else pos
     valid = kv_pos <= pos_b                       # () or (B,) -> bcast
@@ -112,8 +174,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     valid = torch.broadcast_to(valid, (B, Smax))
     logits = torch.where(valid[:, None, None, None, :], logits,
                          torch.full((), _NEG, device=q.device))
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bqkrs,bskh->bqkrh", p, v_cache.float())
+    v = v_cache.float()
+    out = _weighted_softmax(
+        logits, lambda p: torch.einsum("bqkrs,bskh->bqkrh", p, v), split)
     return out.to(q.dtype)
 
 
@@ -126,7 +189,8 @@ def _decode_positions(pos, B: int, device) -> torch.Tensor:
     return pos.to(torch.int32)[:, None]
 
 
-def _cache_write_(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+def _cache_write_(cache: torch.Tensor, new: torch.Tensor, pos,
+                  split=None) -> None:
     """Write one new timestep (B, 1, ...) into a (B, Smax, ...) cache at
     ``pos``, in place, with the JAX package's semantics:
 
@@ -137,12 +201,28 @@ def _cache_write_(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
       writes nothing.
 
     A dropped row writes its old value back at a clamped index, so no
-    branch depends on the data and nothing waits for the device."""
+    branch depends on the data and nothing waits for the device.
+    ``split``: ``cache`` is this rank's slice of a sequence split over
+    ranks (``cache_seq_split``); ``pos`` is global, resolved as above
+    against the whole sequence, and a row whose position another rank's
+    slice holds writes nothing here."""
     B, Smax = cache.shape[:2]
     pos = pos_tensor(pos, cache.device).long()
-    pos = torch.where(pos < 0, pos + Smax, pos)
     rows = torch.arange(B, device=cache.device)
     val = new[:, 0].to(cache.dtype)
+    if split is not None:
+        total, off = Smax * split.ways, Smax * split.index
+        pos = torch.where(pos < 0, pos + total, pos)
+        if pos.ndim == 0:
+            pos = pos.clamp(0, total - 1).expand(B)
+        local = pos - off
+        idx = local.clamp(0, Smax - 1)
+        keep = ((local >= 0) & (local < Smax)).reshape(
+            (B,) + (1,) * (val.ndim - 1))
+        cache.index_put_((rows, idx), torch.where(keep, val,
+                                                  cache[rows, idx]))
+        return
+    pos = torch.where(pos < 0, pos + Smax, pos)
     if pos.ndim == 0:
         cache.index_put_((rows, pos.clamp(0, Smax - 1).expand(B)), val)
         return
@@ -234,20 +314,38 @@ def attn_decode_(params, x, cache: Tuple[torch.Tensor, torch.Tensor],
                  rope_frac: float = 1.0) -> torch.Tensor:
     """One-token decode. x: (B, 1, d); cache: (k, v) each (B, Smax, KV, hd),
     written in place; pos: index of the new token — scalar (whole batch at
-    one depth) or (B,) per-row. Returns y."""
+    one depth) or (B,) per-row. Returns y.
+
+    Over a mesh: a cache sequence split over ranks (the decode rules'
+    "cache_seq") is masked by global position, written only by the rank
+    whose slice holds ``pos`` and combined by the split-softmax; heads
+    split over "model" (``wq`` holding fewer than ``n_heads``, the cache
+    the same kv heads as ``wk``) attend with the rank's heads, the output
+    summed over model after its rows of ``wo`` (``tp_exit``)."""
     B = x.shape[0]
+    tp = params["wq"].shape[1] < n_heads
+    if tp:
+        x = tp_enter(x)
+    h_loc, kv_loc = params["wq"].shape[1], params["wk"].shape[1]
+    k_cache, v_cache = cache
+    if k_cache.shape[2] != kv_loc:
+        raise ValueError(
+            f"attn_decode_: the cache holds {k_cache.shape[2]} kv heads, "
+            f"the weights {kv_loc}: lay the cache out under the rules the "
+            f"params were laid out under (launch.steps.cache_shardings)")
+    split = cache_seq_split()
     pos = pos_tensor(pos, x.device)
     positions = _decode_positions(pos, B, x.device)
     q, k_new, v_new = _project_qkv(params, x, n_heads, n_kv, head_dim,
                                    positions, rope_theta, rope_frac)
-    k_cache, v_cache = cache
-    _cache_write_(k_cache, k_new, pos)
-    _cache_write_(v_cache, v_new, pos)
-    R = n_heads // n_kv
-    qg = q.reshape(B, 1, n_kv, R, head_dim)
-    out = decode_attention(qg, k_cache, v_cache, pos, window=window)
-    out = out.reshape(B, 1, n_heads, head_dim)
-    return _out_proj(out, params["wo"])
+    _cache_write_(k_cache, k_new, pos, split)
+    _cache_write_(v_cache, v_new, pos, split)
+    qg = q.reshape(B, 1, kv_loc, h_loc // kv_loc, head_dim)
+    out = decode_attention(qg, k_cache, v_cache, pos, window=window,
+                           split=split)
+    out = out.reshape(B, 1, h_loc, head_dim)
+    y = _out_proj(out, params["wo"])
+    return tp_exit(y) if tp else y
 
 
 def attn_decode(params, x, cache: Tuple[torch.Tensor, torch.Tensor],
@@ -282,6 +380,32 @@ def cross_attn_apply(params, x, memory, *, n_heads: int, head_dim: int,
     out = flash_attention(q, k, v, causal=False, block_q=q_chunk,
                           block_kv=kv_chunk)
     return _out_proj(out, params["wo"])
+
+
+def cross_decode(params, x, ck: torch.Tensor, cv: torch.Tensor, *,
+                 n_heads: int, head_dim: int) -> torch.Tensor:
+    """One-token cross attention against the memory cache ck / cv (B, Sm,
+    H, hd), which it only reads. Where the cache holds fewer than
+    ``n_heads`` heads (split over "model" by the decode rules' "heads"),
+    the rank attends with its heads and its rows of ``wo``, the output
+    summed over model (``tp_exit``)."""
+    B = x.shape[0]
+    q = _proj_heads(x, params["wq"])
+    wo = params["wo"]
+    h_loc = ck.shape[2]
+    split = h_loc < q.shape[2]
+    if split:
+        mesh = active_axis("model")
+        if mesh is None or axis_size(mesh, "model") * h_loc != q.shape[2]:
+            raise ValueError(
+                f"cross_decode: the memory cache holds {h_loc} of "
+                f"{q.shape[2]} heads, which is not the model axis's share")
+        lo = axis_index(mesh, "model") * h_loc
+        q, wo = q[:, :, lo:lo + h_loc], wo[lo:lo + h_loc]
+    qg = q.reshape(B, 1, h_loc, 1, head_dim)
+    out = decode_attention(qg, ck, cv, ck.shape[1] - 1)
+    y = _out_proj(out.reshape(B, 1, h_loc, head_dim), wo)
+    return tp_exit(y) if split else y
 
 
 # -------------------------------- MLA ---------------------------------------
@@ -333,31 +457,35 @@ def mla_decode_(params, x, cache, pos, *, n_heads: int, nope: int,
     kv_lora) and (B, Smax, rope), written in place. ``absorb=True`` uses
     the matrix-absorbed form (q projected into latent space; no per-step
     K/V materialization). ``pos`` may be a scalar or a (B,) per-row
-    position vector. Returns y (B, 1, d)."""
+    position vector. Over a mesh whose decode rules split the cache's
+    sequence, the slice is masked by global position, written by its
+    owner only and combined by the split-softmax. Returns y (B, 1, d)."""
     B = x.shape[0]
+    split = cache_seq_split()
     pos = pos_tensor(pos, x.device)
     positions = _decode_positions(pos, B, x.device)
     q_nope, q_rope, c_new, k_rope_new = _mla_qkv(
         params, x, n_heads, nope, rope_dim, positions, rope_theta)
     c_cache, kr_cache = cache
-    _cache_write_(c_cache, c_new, pos)
-    _cache_write_(kr_cache, k_rope_new, pos)
+    _cache_write_(c_cache, c_new, pos, split)
+    _cache_write_(kr_cache, k_rope_new, pos, split)
     Smax = c_cache.shape[1]
     scale = (nope + rope_dim) ** -0.5
     pos_b = pos[:, None] if pos.ndim else pos
     valid = torch.broadcast_to(
-        torch.arange(Smax, device=x.device) <= pos_b, (B, Smax))
+        _kv_positions(Smax, split, x.device) <= pos_b, (B, Smax))
     neg = torch.full((), _NEG, device=x.device)
     if absorb:
         # q_nope (B, 1, H, nope) @ wk_b^T -> latent space (B, 1, H, kv_lora)
         q_lat = torch.einsum("bqhk,lhk->bqhl", q_nope.float(),
                              params["wk_b"].float())
-        logits = (torch.einsum("bqhl,bsl->bqhs", q_lat, c_cache.float())
+        c32 = c_cache.float()
+        logits = (torch.einsum("bqhl,bsl->bqhs", q_lat, c32)
                   + torch.einsum("bqhk,bsk->bqhs", q_rope.float(),
                                  kr_cache.float())) * scale
         logits = torch.where(valid[:, None, None, :], logits, neg)
-        p = torch.softmax(logits, dim=-1)
-        o_lat = torch.einsum("bqhs,bsl->bqhl", p, c_cache.float())
+        o_lat = _weighted_softmax(
+            logits, lambda p: torch.einsum("bqhs,bsl->bqhl", p, c32), split)
         out = torch.einsum("bqhl,lhk->bqhk", o_lat,
                            params["wv_b"].float()).to(x.dtype)
     else:
@@ -370,8 +498,10 @@ def mla_decode_(params, x, cache, pos, *, n_heads: int, nope: int,
         logits = torch.einsum("bqhk,bshk->bqhs", q_full.float(),
                               k_full.float()) * scale
         logits = torch.where(valid[:, None, None, :], logits, neg)
-        p = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bqhs,bshk->bqhk", p, v.float()).to(x.dtype)
+        v32 = v.float()
+        out = _weighted_softmax(
+            logits, lambda p: torch.einsum("bqhs,bshk->bqhk", p, v32),
+            split).to(x.dtype)
     return _out_proj(out, params["wo"])
 
 

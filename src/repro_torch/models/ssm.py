@@ -22,8 +22,8 @@ import torch.nn.functional as F
 from .param import PM
 from .layers import rmsnorm_apply
 from .._device import resolve_device
-from ..dist.sharding import (active_axis, axis_index, model_sum, shard,
-                             tp_enter, tp_exit)
+from ..dist.sharding import (active_axis, axis_index, model_gather,
+                             model_sum, shard, tp_enter, tp_exit)
 from ..kernels.ssd.ops import ssd_attention
 
 __all__ = ["CONV_W", "ssm_layout", "ssd_apply", "ssm_init_cache",
@@ -156,14 +156,29 @@ def ssm_init_cache(B: int, d_inner: int, n_state: int, headdim: int,
 def ssd_decode_(params, u, cache, *, headdim: int) -> torch.Tensor:
     """Single-token recurrent step. u: (B, 1, d); ``cache`` (state,
     conv_x, conv_B, conv_C) is updated in place (each leaf keeps its
-    dtype). Returns y."""
+    dtype). Returns y.
+
+    Under a mesh whose "model" axis splits the heads (``wx`` holding fewer
+    than the heads' columns; the decode rules' "mlp"), as ``ssd_apply``
+    splits them: the rank's heads ``lo:lo + h_loc`` of the state (its
+    piece of ``cache["state"]``), its columns of ``wz`` / ``wx`` /
+    ``conv_x`` and rows of ``wo``; the gated norm's sum of squares summed
+    over model (``ssm_norm``) and the output too (``tp_exit``). The conv
+    states stay whole on every rank (``cache_shardings``' conv rows): the
+    rank convolves its columns, and its new conv input columns are
+    gathered over model into the whole ``conv_x`` (``ssm_conv_gather``)."""
     B_ = u.shape[0]
+    H = params["A_log"].shape[0]
+    cols = params["wx"].shape[-1]
+    h_loc = cols // headdim
+    if h_loc < H:
+        return _ssd_decode_tp_(params, u, cache, headdim=headdim,
+                               h_loc=h_loc)
     z, x, Bm, Cm, dt_raw = _ssd_inputs(params, u)
     x, conv_x = _causal_conv_step(x, cache["conv_x"], params["conv_x"])
     Bm, conv_B = _causal_conv_step(Bm, cache["conv_B"], params["conv_B"])
     Cm, conv_C = _causal_conv_step(Cm, cache["conv_C"], params["conv_C"])
 
-    H = params["A_log"].shape[0]
     xh = x.reshape(B_, H, headdim).float()
     dt = _softplus(dt_raw[:, 0].float() + params["dt_bias"].float())  # (B,H)
     a = -torch.exp(params["A_log"].float())
@@ -180,6 +195,53 @@ def ssd_decode_(params, u, cache, *, headdim: int) -> torch.Tensor:
                      ("conv_B", conv_B), ("conv_C", conv_C)):
         cache[key].copy_(new)
     return y @ params["wo"]
+
+
+def _ssd_decode_tp_(params, u, cache, *, headdim: int, h_loc: int,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """``ssd_decode_``'s tensor-parallel share: this rank's ``h_loc``
+    heads (see there)."""
+    B_ = u.shape[0]
+    H = params["A_log"].shape[0]
+    cols = h_loc * headdim
+    lo = axis_index(active_axis("model"), "model") * h_loc
+    heads, width = slice(lo, lo + h_loc), slice(lo * headdim,
+                                                lo * headdim + cols)
+    if cache["state"].shape[1] != h_loc:
+        raise ValueError(
+            f"ssd_decode_: the state holds {cache['state'].shape[1]} heads, "
+            f"the weights {h_loc}: lay the cache out under the rules the "
+            f"params were laid out under (launch.steps.cache_shardings)")
+    u = tp_enter(u)
+    z, x, Bm, Cm, dt_raw = _ssd_inputs(params, u)   # z, x: this rank's cols
+    x_all = model_gather(x, -1, "ssm_conv_gather")
+    conv_x = torch.cat([cache["conv_x"][:, 1:], x_all], dim=1)
+    x, _ = _causal_conv_step(x, cache["conv_x"][..., width],
+                             params["conv_x"])
+    Bm, conv_B = _causal_conv_step(Bm, cache["conv_B"], params["conv_B"])
+    Cm, conv_C = _causal_conv_step(Cm, cache["conv_C"], params["conv_C"])
+
+    xh = x.reshape(B_, h_loc, headdim).float()
+    dt = _softplus(dt_raw[:, 0].float()
+                   + params["dt_bias"].float())[:, heads]            # (B,h)
+    a = -torch.exp(params["A_log"].float())[heads]
+    decay = torch.exp(dt * a[None, :])
+
+    state = cache["state"]                                           # (B,h,P,N)
+    state = (state * decay[:, :, None, None]
+             + torch.einsum("bh,bn,bhp->bhpn", dt, Bm[:, 0].float(), xh))
+    y = torch.einsum("bhpn,bn->bhp", state, Cm[:, 0].float())
+    y = y + params["D"].float()[heads][None, :, None] * xh
+    y = y.reshape(B_, 1, cols).to(u.dtype)
+    # the gated RMSNorm over the full inner width
+    g = (y * F.silu(z)).float()
+    ss = model_sum((g * g).sum(dim=-1, keepdim=True), "ssm_norm")
+    y = (g * torch.rsqrt(ss / (H * headdim) + eps)
+         * params["norm"][width].float()).to(u.dtype)
+    for key, new in (("state", state), ("conv_x", conv_x),
+                     ("conv_B", conv_B), ("conv_C", conv_C)):
+        cache[key].copy_(new)
+    return tp_exit(y @ params["wo"])
 
 
 def ssd_decode(params, u, cache, *, headdim: int):

@@ -59,7 +59,7 @@ from . import attention as A
 from . import ssm as SSMOD
 from . import moe as MOE
 from ..dist.sharding import (active_axis, axis_rules, axis_size,
-                             current_rules, data_sum, shard)
+                             cache_seq_split, current_rules, data_sum, shard)
 from .._device import resolve_device
 from .._tree import tree_map
 
@@ -549,13 +549,8 @@ def _block_decode_(params, x, kind: str, cfg: ArchConfig, cache, pos):
             x = x + y
     if kind in ("cross", "dec_cross"):
         h = L.norm_apply(params["cross_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        q = A._proj_heads(h, params["cross"]["wq"])
-        B = x.shape[0]
-        qg = q.reshape(B, 1, cfg.n_heads, 1, cfg.head_dim)
-        out = A.decode_attention(qg, cache["ck"], cache["cv"],
-                                 cache["ck"].shape[1] - 1)
-        out = out.reshape(B, 1, cfg.n_heads, cfg.head_dim)
-        x = x + A._out_proj(out, params["cross"]["wo"])
+        x = x + A.cross_decode(params["cross"], h, cache["ck"], cache["cv"],
+                               n_heads=cfg.n_heads, head_dim=cfg.head_dim)
     if kind == "mla":
         h = L.norm_apply(params["attn_norm"], x, cfg.norm_kind, cfg.norm_eps)
         x = x + A.mla_decode_(params["mla"], h, (cache["c"], cache["kr"]),
@@ -584,13 +579,23 @@ def decode_step_(params, cache, tokens, pos, cfg: ArchConfig):
     vector of per-row positions. Each layer updates views of the stacked
     cache leaves. Returns the logits (B, 1, V) in the activation dtype.
     With ``pos`` a tensor on the cache's device it never waits for the
-    device, so a CUDA graph can capture it."""
+    device, so a CUDA graph can capture it.
+
+    Under a mesh (``launch.steps.build_decode_step``, inside its
+    ``axis_rules``) the tree and cache are this rank's: its rows, its
+    vocab rows of the embedding (looked up and summed over model, the
+    logits its vocab columns), its pieces of the cache (``pos`` global;
+    see ``models.attention`` and ``models.ssm`` for the sequence-, head-
+    and width-split layers)."""
     x = L.embed_apply(params["embed"], tokens,
-                      scale=np.sqrt(cfg.d_model) if cfg.embed_scale else None)
+                      scale=np.sqrt(cfg.d_model) if cfg.embed_scale else None,
+                      vocab=cfg.vocab_padded)
     pos = A.pos_tensor(pos, x.device)        # once, not at every layer
     if not cfg.rope_theta:
-        table = _position_table(cache_max_len(cache, cfg), cfg.d_model,
-                                x.device)
+        split = cache_seq_split()             # the whole sequence's length
+        table = _position_table(
+            cache_max_len(cache, cfg, 1 if split is None else split.ways),
+            cfg.d_model, x.device)
         if pos.ndim:                      # per-row absolute positions
             x = x + table[pos].to(x.dtype)[:, None]
         else:                             # clamped, as dynamic_slice does
@@ -608,7 +613,8 @@ def decode_step_(params, cache, tokens, pos, cfg: ArchConfig):
         x = _block_decode_(params[key], x, kind, cfg, cache[key], pos)
     x = L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed_apply(table, x, true_vocab=cfg.vocab)
+    return L.unembed_apply(table, x, true_vocab=cfg.vocab,
+                           vocab=cfg.vocab_padded)
 
 
 def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
@@ -618,10 +624,11 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
     return decode_step_(params, new_cache, tokens, pos, cfg), new_cache
 
 
-def cache_max_len(cache, cfg: ArchConfig) -> int:
+def cache_max_len(cache, cfg: ArchConfig, ways: int = 1) -> int:
     """Max sequence capacity of the self-attention caches (for absolute
     position tables): the 'k' leaves are (cycles, B, Smax, ...) stacked or
-    (B, Smax, ...) as a remainder block."""
+    (B, Smax, ...) as a remainder block; a rank's slices of a sequence
+    split ``ways`` ways over a mesh hold 1 / ways of it."""
     dims = []
 
     def walk(tree):
@@ -629,7 +636,7 @@ def cache_max_len(cache, cfg: ArchConfig) -> int:
             if isinstance(v, dict):
                 walk(v)
             elif k == "k":
-                dims.append(v.shape[-3])
+                dims.append(v.shape[-3] * ways)
 
     walk(cache)
     return max(dims) if dims else cfg.enc_seq

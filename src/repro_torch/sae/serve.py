@@ -146,19 +146,53 @@ def make_serve_step(compact: CompactSAE, *, mesh=None, rules=None):
     features, then every GEMM runs at compact width. Pass
     ``compact.params`` as ``params``: it carries its own ``"sel"`` leaf,
     so a refreshed ``CompactSAE`` with a DIFFERENT surviving set serves
-    correctly through an old step. ``mesh=`` / ``rules=`` (the JAX
-    package's batch-sharded step) raise NotImplementedError until ROADMAP.md
-    queue A item 8c ports it.
+    correctly through an old step.
+
+    With ``mesh`` (a ``DeviceMesh``; every rank calls the step with the
+    same arguments) the batch is laid out over the mesh axes that
+    ``rules`` (``dist.sharding.default_rules()`` when None) assign to
+    "batch": B must divide, and rules that map "batch" to None are
+    refused (every rank would compute the whole batch). ``params`` are
+    replicated (every rank holds them whole); ``x`` is the global batch
+    (every rank's copy the same) or a ``DTensor`` already split so. Each
+    rank serves its rows, so no collective runs in the step (rows are
+    independent); ``z`` and ``xhat_sel`` come back as ``DTensor``s of its
+    rows under that layout.
 
     >>> step = make_serve_step(compact)   # then: z, xr = step(compact.params, x)
     """
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "make_serve_step(mesh=...) is not ported: ROADMAP.md queue A "
-            "item 8c (the batch-sharded serve step)")
 
     def step(params, x):
         x_sel = torch.index_select(x, x.ndim - 1, params["sel"])
         return sae_apply(params, x_sel)
 
-    return step
+    if mesh is None:
+        return step
+
+    from ..dist.layout import MeshLayout, local_of, wrap
+    from ..dist.sharding import Spec, axes_index, default_rules, placements
+    rules = default_rules() if rules is None else rules
+    batch_axes = rules.get("batch")
+    if batch_axes is None:
+        raise ValueError(
+            "make_serve_step: the sharding rules map 'batch' to None — "
+            "every rank would redundantly compute the FULL batch; name a "
+            "mesh axis for 'batch' (see dist.sharding.default_rules)")
+    index, ways = axes_index(mesh, batch_axes)
+    lay = MeshLayout(mesh)
+
+    def mesh_step(params, x):
+        B = x.shape[0]
+        if B % ways:
+            raise ValueError(f"make_serve_step: batch {B} does not divide "
+                             f"over {ways} ranks of {batch_axes!r}")
+        n = B // ways
+        rows = local_of(x) if hasattr(x, "placements") else \
+            x[index * n:(index + 1) * n]
+        outs = step(params, rows)
+        return tuple(wrap(o.contiguous(), (B,) + tuple(o.shape[1:]),
+                          placements(mesh, Spec(batch_axes,
+                                                *(None,) * (o.ndim - 1))),
+                          lay) for o in outs)
+
+    return mesh_step

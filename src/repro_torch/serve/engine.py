@@ -56,8 +56,24 @@ generator state and depends only on the request's own key and position, so
 continuous == solo holds by construction. The stream differs from JAX's;
 the distribution, ``softmax(logits / T)``, is the same.
 
-Not ported: ``mesh`` / ``rules`` (the sharded serve step, ROADMAP.md
-queue A item 8c) and ``step_hlo`` (XLA text, no torch counterpart; item 9).
+Over a mesh (``mesh`` / ``rules``, the reference's shard_map'd step): the
+B slots are laid out over the mesh axes that the rules assign to "batch"
+(B must divide), and each rank holds its B / D of them: the cache's rows
+(dim 1 of the layer-stacked ``blocks`` leaves, dim 0 of the others), the
+slot state and the admission buffer. Params are replicated (every rank
+loads the whole tree), so each rank's step is the one-device step on its
+rows, captured into its own CUDA graph on the card, and holds no
+collective. The host bookkeeping runs the same on every rank: every rank
+makes the same ``submit`` / ``cancel`` / ``refresh`` / ``recompact``
+calls, so the queue, the slot assignment and the admission merge are the
+same everywhere (the reference's single controller), and each rank stages
+its rows of the merge. The step's packed (4, B / D) outputs reach every
+rank by one all-gather over the batch axes a step, outside the graph, on
+the host copies at drain time (``dist.sharding.gather_rows``, counted
+``engine_out_gather``; its seconds in ``stats()["exchange_s"]``).
+
+Not ported: ``step_hlo`` (XLA text, no torch counterpart; ROADMAP.md
+queue A item 9).
 """
 from __future__ import annotations
 
@@ -330,8 +346,12 @@ class FleetEngine:
     the card).
 
     ``model``: a zoo ``Model``; ``batch_slots``: fixed decode width B;
-    ``cfg``: ``EngineConfig``; ``mesh`` / ``rules``: must be None (the
-    sharded serve step is not ported, ROADMAP.md queue A item 8c).
+    ``cfg``: ``EngineConfig``; ``mesh`` / ``rules`` (optional): lay the
+    slots out over the mesh axes the rules (``default_rules()`` when
+    None) assign to "batch", each rank stepping its rows with replicated
+    params and no collective in the step; one all-gather of the outputs
+    a step (see the module docstring). Every rank must make the same
+    calls.
 
     Lifecycle: ``load`` / ``load_compact`` a checkpoint, ``submit``
     requests, call ``step`` per decode step (or ``drain`` to run the
@@ -348,10 +368,6 @@ class FleetEngine:
     def __init__(self, model, batch_slots: int, cfg: EngineConfig,
                  mesh=None, rules=None,
                  scheduler: Optional[RecompactScheduler] = None):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "mesh / rules: the sharded serve step is not ported to "
-                "repro_torch yet (ROADMAP.md queue A item 8c)")
         if model.cfg.encdec or model.cfg.n_img_tokens:
             raise ValueError(
                 "FleetEngine serves decoder-only archs; enc-dec / vision "
@@ -363,6 +379,26 @@ class FleetEngine:
         self.compact: Optional[CompactModel] = None
         self.n_traces = 0            # step builds (CPU) / captures (CUDA)
         self.n_replays = 0           # graph replays (CUDA)
+        self._mesh = mesh
+        self._rows = slice(0, batch_slots)   # this rank's slots
+        self._exchange_s = 0.0       # host seconds in the output gather
+        if mesh is not None:
+            from ..dist.sharding import axes_index, default_rules
+            rules = dict(default_rules() if rules is None else rules)
+            self._batch_axes = rules.get("batch")
+            if self._batch_axes is None:
+                raise ValueError(
+                    "FleetEngine: the sharding rules map 'batch' to None — "
+                    "every rank would redundantly serve the FULL batch; "
+                    "name a mesh axis for 'batch' (see "
+                    "dist.sharding.default_rules)")
+            index, ways = axes_index(mesh, self._batch_axes)
+            if batch_slots % ways:
+                raise ValueError(f"FleetEngine: {batch_slots} slots do not "
+                                 f"divide over {ways} ranks of "
+                                 f"{self._batch_axes!r}")
+            n = batch_slots // ways
+            self._rows = slice(index * n, (index + 1) * n)
         # device state: the step's inputs and outputs, allocated once
         self._params = None
         self._sig = None             # signature of _params
@@ -589,7 +625,8 @@ class FleetEngine:
             raise RuntimeError("no checkpoint loaded: call load/load_compact")
         if self._cache is not None:
             return
-        B, Pmax, dev = self.B, self.cfg.prompt_width, self._dev
+        B = self._rows.stop - self._rows.start      # this rank's slots
+        Pmax, dev = self.cfg.prompt_width, self._dev
         dtype = (self.cfg.cache_dtype if self.cfg.cache_dtype is not None
                  else _param_dtype(self._params))
         long = dict(dtype=torch.long, device=dev)
@@ -644,6 +681,8 @@ class FleetEngine:
         """Stage the merge (if any), run the step once; returns the handle
         ``_drain_one`` reads this step's outputs through."""
         rebuild = self._built_sig != self._sig
+        if admit is not None:
+            admit = admit[self._rows]
         if self._stream is None:
             if rebuild:
                 self.n_traces += 1
@@ -732,6 +771,8 @@ class FleetEngine:
         if isinstance(handle, int):
             self._out_events[handle].synchronize()
             handle = self._out_host[handle].numpy().copy()
+        if self._mesh is not None:
+            handle = self._exchange(handle)
         now = time.perf_counter()
         token, emitted, finished, truncated = handle
         for i in range(self.B):
@@ -746,6 +787,16 @@ class FleetEngine:
                 if self._slot_rid[i] == rid:
                     self._slot_rid[i] = None
                 self._finalize(rid, truncated=bool(truncated[i]))
+
+    def _exchange(self, local: np.ndarray) -> np.ndarray:
+        """Every rank's (4, B / D) step outputs as the whole (4, B): one
+        all-gather over the batch axes of the host copies."""
+        from ..dist.sharding import gather_rows
+        t = time.perf_counter()
+        out = gather_rows(torch.from_numpy(local), self._mesh,
+                          self._batch_axes, dim=1).numpy()
+        self._exchange_s += time.perf_counter() - t
+        return out
 
     def step(self) -> List[Completion]:
         """One engine step: admit queued prompts into freed slots, run the
@@ -809,6 +860,8 @@ class FleetEngine:
             "slot_utilization": (self._tokens_out / (self._steps * self.B)
                                  if self._steps else 0.0),
         }
+        if self._mesh is not None:
+            out["exchange_s"] = self._exchange_s
         if self.compact is not None:
             out["live_ratio"] = {
                 p: self.compact.live[p] / max(self.compact.slot_width(p), 1)

@@ -44,8 +44,11 @@ class ServeConfig:
 class BatchServer:
     """Fixed B decode slots; requests are prompts (lists of token ids).
 
-    ``mesh`` / ``rules`` must be None (the sharded serve step waits for
-    ROADMAP.md queue A item 8c).
+    ``mesh`` / ``rules`` (optional) pass to the engine: the slots laid out
+    over the mesh axes the rules assign to "batch", params replicated,
+    each rank stepping its rows with no collective in the step, and one
+    all-gather of the step's outputs a step (``serve.engine``). Every rank
+    makes the same calls.
     ``scheduler`` (optional ``serve.RecompactScheduler``) lets ``refresh``
     upgrade itself to a live re-compaction when the live/slot ratio of a
     new checkpoint decays past the scheduler's threshold.

@@ -555,10 +555,10 @@ def mesh_train_step(mesh, model_cfg, params_np, tok, labels, steps=2,
     ``params_np`` on the global batch (tok, labels): per step the loss and
     the collectives by kind (``dist.sharding``, the engine's all-reduces
     and all-to-alls), then the params and moments whole; a rerun from the
-    same start (bit-equal flag); one prefill and one decode step over the
-    mesh, logits whole."""
+    same start (bit-equal flag); one prefill and two decode steps over the
+    mesh under the train rules (the cache in its pieces), logits whole."""
     from repro_torch._tree import flatten_with_path, leaves, tree_map
-    from repro_torch.convert import params_to_mesh
+    from repro_torch.convert import cache_to_mesh, params_to_mesh
     from repro_torch.dist import sharding as SH
     from repro_torch.launch import steps as ST
     from repro_torch.models import zoo as TZ
@@ -611,9 +611,11 @@ def mesh_train_step(mesh, model_cfg, params_np, tok, labels, steps=2,
     dec = ST.build_decode_step(model, mesh, rules)
     cache = model.init_cache(tok.shape[0], 8, dtype=torch.float32,
                              device=dev)
-    lg, new_cache = dec(start, cache, batch["tokens"][:, :1], 0)
-    lg2, _ = dec(start, new_cache, batch["tokens"][:, 1:2], 1)
-    out["decode"] = [lg.float().cpu().numpy(), lg2.float().cpu().numpy()]
+    cache = cache_to_mesh(cache, mesh, ST.cache_shardings(cache, mesh, rules),
+                          dev)
+    lg, cache = dec(start, cache, batch["tokens"][:, :1], 0)
+    lg2, _ = dec(start, cache, batch["tokens"][:, 1:2], 1)
+    out["decode"] = [_whole_np(lg, mesh), _whole_np(lg2, mesh)]
     return out
 
 
@@ -711,3 +713,375 @@ def mesh_train_loop(mesh, train_dir):
     res = train(model, batcher, tcfg, mesh=mesh, resume=False,
                 device=mesh.device_type)
     return {"losses": res["losses"], "params": _full_np(res["params"], mesh)}
+
+
+# -- serving over a mesh (launch/steps.build_decode_step, serve/, sae/) --------
+
+# the decode cases: (arch, config changes). Reduced whisper drops its
+# rules_overrides, which keep 12 heads off the production 16-way model
+# axis: its 4 heads divide 2, so the cross memory splits by heads
+DECODE_CASES = {
+    "gemma_7b": ("gemma_7b", {}),
+    "hymba_15b": ("hymba_15b", {}),
+    "stablelm_3b": ("stablelm_3b", {}),
+    "mamba2_370m": ("mamba2_370m", {}),
+    "deepseek_plain": ("deepseek_v2_236b", {}),
+    "deepseek_absorb": ("deepseek_v2_236b", {"mla_absorb": True}),
+    "whisper_small": ("whisper_small", {"rules_overrides": ()}),
+}
+# (B, S) of each cell, shrunk as tests/test_multidevice.py:102-103 does
+DECODE_CELLS = {"decode_32k": (8, 64), "long_500k": (1, 64)}
+# the two calls' positions: a per-row vector (rows in the last slice, a
+# window straddling a slice boundary, slices wholly masked), then a scalar
+DECODE_POS = {"decode_32k": ([63, 33, 5, 40, 16, 31, 32, 0], 47),
+              "long_500k": ([33], 63)}
+
+
+def decode_config(name):
+    import dataclasses
+    from repro_torch import configs as TC
+    arch, over = DECODE_CASES[name]
+    return dataclasses.replace(TC.get_reduced(arch), **over)
+
+
+def _seq_dim(path):
+    """The sequence dim of a position-indexed cache leaf, else None."""
+    if path.rsplit("/", 1)[-1] not in ("k", "v", "c", "kr"):
+        return None
+    return 2 if path.startswith("blocks/") else 1
+
+
+def decode_inputs(name, cell, seed=0):
+    """(numpy params, numpy cache, tokens (2, B, 1)) of one decode case:
+    the port's draw; the cache f32, its positions below each row's first
+    position filled from a seed (the rest zero), its other leaves (SSM
+    state, conv tails, cross memory) filled whole."""
+    from repro_torch._tree import flatten_with_path, tree_map, unflatten_like
+    from repro_torch.models import zoo as TZ
+    cfg = decode_config(name)
+    model = TZ.build(cfg)
+    params = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    B, S = DECODE_CELLS[cell]
+    cache = model.init_cache(B, S, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(seed + 1)
+    first = np.broadcast_to(np.asarray(DECODE_POS[cell][0]), (B,))
+    out = []
+    for path, leaf in flatten_with_path(cache):
+        a = rng.normal(size=tuple(leaf.shape)).astype(np.float32)
+        d = _seq_dim(path)
+        if d is not None:
+            bdim = d - 1
+            idx = np.arange(S).reshape((1,) * d + (S,) + (1,) * (
+                a.ndim - d - 1))
+            lim = first.reshape((1,) * bdim + (B,) + (1,) * (a.ndim - bdim
+                                                              - 1))
+            a = np.where(idx < lim, a, 0.0).astype(np.float32)
+        out.append(a)
+    tok = rng.integers(0, cfg.vocab, size=(2, B, 1))
+    return (tree_map(lambda p: p.numpy(), params),
+            unflatten_like(cache, out), tok)
+
+
+def _decode_positions(cell):
+    vec, scalar = DECODE_POS[cell]
+    return [torch.tensor(vec, dtype=torch.long), scalar]
+
+
+def _whole_np(x, mesh):
+    """A DTensor (or a tree of them) whole as numpy, on every rank."""
+    from repro_torch._tree import tree_map
+    from repro_torch.convert import params_from_mesh
+    return tree_map(lambda t: t.float().cpu().numpy(),
+                    params_from_mesh(x, mesh))
+
+
+def mesh_decode(mesh, name, cell, params_np, cache_np, tok):
+    """Two calls of ``build_decode_step(model, mesh, rules_for_cell(cfg,
+    cell))`` from the case's cache laid out in pieces
+    (``convert.cache_to_mesh``): per call the logits whole, the
+    collectives by kind, every all_gather / all_to_all / all_reduce call;
+    the cache whole after the calls; a rerun's pieces and logits
+    (bit-equal flag); whether each piece kept its storage."""
+    from repro_torch._tree import flatten_with_path, leaves, tree_map
+    from repro_torch.convert import cache_to_mesh, params_to_mesh
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.layout import local_of
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import zoo as TZ
+    cfg = decode_config(name)
+    model = TZ.build(cfg)
+    dev = mesh.device_type
+    rules = ST.rules_for_cell(cfg, cell, False)
+    specs = ST.param_shardings(model, mesh, rules)
+    params = params_to_mesh(tree_map(torch.from_numpy, params_np), mesh,
+                            specs, dev)
+    full = tree_map(torch.from_numpy, cache_np)
+    c_specs = ST.cache_shardings(full, mesh, rules)
+    step = ST.build_decode_step(model, mesh, rules)
+
+    def run(record):
+        cache = cache_to_mesh(full, mesh, c_specs, dev)
+        ptrs = [local_of(x).data_ptr() for x in leaves(cache)]
+        logits, counts = [], []
+        for t, pos in zip(tok, _decode_positions(cell)):
+            SH.reset_collective_counts()
+            gathers, a2a = _count_calls("all_gather"), _count_calls(
+                "all_to_all_single")
+            with recorded_collectives() as log, gathers, a2a:
+                lg, out = step(params, cache, torch.from_numpy(t).to(dev),
+                               pos)
+            assert out is cache
+            c = SH.collective_counts()
+            c.update(all_gather_calls=gathers.n, all_to_all_calls=a2a.n,
+                     all_reduce_calls=len(log.reduces))
+            counts.append(c)
+            logits.append(lg)
+        same = ptrs == [local_of(x).data_ptr() for x in leaves(cache)]
+        return logits, cache, counts, same
+
+    logits, cache, counts, same = run(True)
+    logits2, cache2, _, _ = run(False)
+    rerun = all(torch.equal(local_of(a), local_of(b)) for a, b in zip(
+        logits + leaves(cache), logits2 + leaves(cache2)))
+    return {"logits": [_whole_np(lg, mesh) for lg in logits],
+            "cache": dict(flatten_with_path(_whole_np(cache, mesh))),
+            "counts": counts, "rerun_equal": rerun, "in_place": same,
+            "specs": {k: tuple(v) for k, v in flatten_with_path(c_specs)},
+            "param_specs": {k: tuple(v) for k, v in
+                            flatten_with_path(specs)}}
+
+
+def _planted_split_softmax(kind):
+    """A broken split-softmax combine: "drop" loses the second shard's
+    partial; "local_max" weighs each shard at its own max, so a wholly
+    masked slice (all -1e30, its p all 1) weighs in."""
+    from repro_torch.dist.sharding import seq_max, seq_sum
+    from repro_torch.models import attention as A
+
+    def combine(logits, weigh, split):
+        if kind == "drop":
+            m = seq_max(logits.amax(dim=-1), split)
+            p = torch.exp(logits - m[..., None])
+            part = torch.cat([weigh(p), p.sum(dim=-1)[..., None]], dim=-1)
+            part = part * float(split.index != 1)
+        else:
+            p = torch.exp(logits - logits.amax(dim=-1)[..., None])
+            part = torch.cat([weigh(p), p.sum(dim=-1)[..., None]], dim=-1)
+        tot = seq_sum(part, split)
+        return tot[..., :-1] / tot[..., -1:]
+
+    return A, combine
+
+
+def decode_group(mesh, inputs, shapes, faults=()):
+    """The decode file's cases in one group of 4 ranks (``mesh`` is the
+    group's (2, 2) mesh; each shape of ``shapes`` is built over the same
+    ranks): ``mesh_decode`` of every (name, cell) of ``inputs`` on each
+    (rank 0's whole results, the other ranks' counts); the refusal of a
+    whole cache; then, on (2, 2), each planted fault of ``faults``
+    ((kind, name, cell)) with ``_split_softmax`` replaced."""
+    from repro_torch._tree import tree_map
+    from repro_torch.convert import params_to_mesh
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import zoo as TZ
+    out = {}
+    for shape in shapes:
+        m = mesh if tuple(shape) == tuple(mesh.mesh.shape) else \
+            make_local_mesh(*shape, device=mesh.device_type)
+        for key, args in inputs.items():
+            res = mesh_decode(m, *key, *args)
+            out[(tuple(shape),) + key] = res if dist.get_rank() == 0 else {
+                "counts": res["counts"]}
+    # a whole cache (not laid out by cache_to_mesh) is refused
+    name, cell = next(iter(inputs))
+    params_np, cache_np, tok = inputs[(name, cell)]
+    model = TZ.build(decode_config(name))
+    rules = ST.rules_for_cell(model.cfg, cell, False)
+    params = params_to_mesh(tree_map(torch.from_numpy, params_np), mesh,
+                            ST.param_shardings(model, mesh, rules),
+                            mesh.device_type)
+    try:
+        ST.build_decode_step(model, mesh, rules)(
+            params, tree_map(torch.from_numpy, cache_np),
+            torch.from_numpy(tok[0]), 0)
+        out["whole_cache_refused"] = None
+    except ValueError as e:
+        out["whole_cache_refused"] = str(e)
+    for kind, name, cell in faults:
+        A, broken = _planted_split_softmax(kind)
+        real = A._split_softmax
+        A._split_softmax = broken
+        try:
+            res = mesh_decode(mesh, name, cell, *inputs[(name, cell)])
+        finally:
+            A._split_softmax = real
+        out[("fault", kind, name, cell)] = {"logits": res["logits"]}
+    return out
+
+
+# the collectives a serving step could call
+_ALL_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+                    "all_to_all_single", "broadcast", "reduce_scatter_tensor")
+
+
+class _count_all:
+    """Count every ``torch.distributed`` collective called inside the
+    block (``.n``)."""
+
+    def __enter__(self):
+        self.parts = [_count_calls(n) for n in _ALL_COLLECTIVES]
+        for p in self.parts:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.parts:
+            p.__exit__(*exc)
+
+    @property
+    def n(self):
+        return sum(p.n for p in self.parts)
+
+
+def _count_in_steps(engine):
+    """Wrap the engine's step so that the collectives called inside it
+    are counted; returns the list that collects one count a step."""
+    real, per_step = engine._traced_step, []
+
+    def counted(*a, **kw):
+        with _count_all() as c:
+            real(*a, **kw)
+        per_step.append(c.n)
+    engine._traced_step = counted
+    return per_step
+
+
+def sae_serve(mesh, params, radius, x):
+    """``make_serve_step(compact, mesh=)`` of the compacted SAE on ``x``:
+    z and xhat_sel whole, the support, the collectives in the step, this
+    rank's row count; and the refusals (rules mapping "batch" to None, a
+    batch the ranks do not divide)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.core import ProjectionSpec
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.sharding import axes_index
+    from repro_torch.sae import compact_sae, make_serve_step
+    compact = compact_sae(tree_map(torch.from_numpy, params), (
+        ProjectionSpec(pattern=r"enc1/w", norm="l1inf", radius=radius,
+                       axis=1),))
+    step = make_serve_step(compact, mesh=mesh)
+    xt = torch.from_numpy(x).to(mesh.device_type)
+    SH.reset_collective_counts()
+    with _count_all() as calls:
+        z, xh = step(compact.params, xt)
+    out = {"z": _whole_np(z, mesh), "xh": _whole_np(xh, mesh),
+           "sel": np.asarray(compact.sel), "calls": calls.n,
+           "counts": SH.collective_counts(),
+           "rows": tuple(z.to_local().shape)}
+    for tag, call in (
+            ("batch_none", lambda: make_serve_step(
+                compact, mesh=mesh, rules={"batch": None})),
+            ("indivisible", lambda: step(compact.params, xt[:axes_index(
+                mesh, "data")[1] + 1]))):
+        try:
+            call()
+            out[tag] = None
+        except ValueError as e:
+            out[tag] = str(e)
+    return out
+
+
+def lm_serve_config():
+    """The port's twin of ``tests/_jax_serve_mesh.py``'s ``lm_config``:
+    reduced gemma-7b at 2 layers with an l1,inf spec on ``mlp/w2`` too."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import ProjectionSpec
+    cfg = dataclasses.replace(get_reduced("gemma_7b"), n_layers=2)
+    return dataclasses.replace(cfg, projection_specs=cfg.projection_specs
+                               + (ProjectionSpec(pattern="blocks/.*/mlp/w2$",
+                                                 norm="l1inf", radius=64.0,
+                                                 axis=0, every_k=10),))
+
+
+def batch_serve(mesh, cfg, params, prompts, max_new, compact):
+    """``BatchServer(model, 8, ..., mesh=)``'s ``generate``: the tokens,
+    the collectives inside each step, the engine's ``engine_out_gather``
+    count against its steps, ``n_traces``."""
+    from repro_torch._tree import tree_map
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import zoo as TZ
+    from repro_torch.train.serve import BatchServer, ServeConfig
+    srv = BatchServer(TZ.build(cfg), 8, ServeConfig(max_seq=32), mesh=mesh)
+    p = tree_map(lambda a: torch.from_numpy(a).to(
+        "cpu" if mesh is None else mesh.device_type), params)
+    if compact:
+        srv.load_compact(params=p)
+    else:
+        srv.load(p)
+    in_step = _count_in_steps(srv.engine)
+    SH.reset_collective_counts()
+    tokens = srv.generate(prompts, max_new=max_new)
+    st = srv.engine.stats()
+    return {"tokens": tokens, "in_step": in_step,
+            "gathers": SH.collective_counts().get("engine_out_gather", 0),
+            "steps": st["steps"], "n_traces": srv.n_traces}
+
+
+def engine_lifecycle(mesh, cfg, checkpoints, prompts, max_new):
+    """A compact ``FleetEngine`` (8 slots) through load, refresh,
+    cancel (one request in flight, one queued) and recompact mid-flight:
+    every completion (rid, tokens, evicted, truncated), ``n_traces`` and
+    the collectives inside each step. ``mesh=None``: the one-device run
+    it is held to."""
+    from repro_torch._tree import tree_map
+    from repro_torch.models import zoo as TZ
+    from repro_torch.serve.engine import EngineConfig, FleetEngine
+    dev = "cpu" if mesh is None else mesh.device_type
+    p1, p2, p3 = (tree_map(lambda a: torch.from_numpy(a).to(dev), c)
+                  for c in checkpoints)
+    eng = FleetEngine(TZ.build(cfg), 8, EngineConfig(max_seq=32), mesh=mesh)
+    eng.load_compact(params=p1)
+    in_step = _count_in_steps(eng)
+    rids = [eng.submit(p, max_new) for p in prompts]
+    done = []
+    for _ in range(3):
+        done += eng.step()
+    eng.refresh(p2)
+    for _ in range(2):
+        done += eng.step()
+    eng.cancel(rids[1])
+    eng.cancel(rids[-1])
+    eng.recompact(p3)
+    done += eng.drain()
+    return {"done": sorted((c.rid, c.tokens, c.evicted, c.truncated)
+                           for c in done),
+            "n_traces": eng.n_traces, "in_step": in_step}
+
+
+def serve_group(mesh, shapes, sae, lm, hybrid, life):
+    """The serve file's cases in one group of 4 ranks, on each mesh of
+    ``shapes`` (built over the same ranks): the SAE serve step, the
+    compact gemma ``BatchServer``, a dense hybrid ``BatchServer`` with more
+    prompts than slots, and the compact engine's lifecycle."""
+    from repro_torch.launch.mesh import make_local_mesh
+    out = {}
+    for shape in shapes:
+        m = mesh if tuple(shape) == tuple(mesh.mesh.shape) else \
+            make_local_mesh(*shape, device=mesh.device_type)
+        out[tuple(shape)] = {
+            "sae": sae_serve(m, **sae),
+            "lm": batch_serve(m, lm_serve_config(), compact=True, **lm),
+            "hybrid": batch_serve(m, hybrid_config(), compact=False,
+                                  **hybrid),
+            "life": engine_lifecycle(m, lm_serve_config(), **life)}
+    return out
+
+
+def hybrid_config():
+    """Reduced hymba-1.5b at 2 layers (the SSM state and conv tails are
+    the recurrent leaves an admitted slot zeroes)."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    return dataclasses.replace(get_reduced("hymba_15b"), n_layers=2)

@@ -267,8 +267,10 @@ def test_latency_stats_and_report():
 
 
 def test_submit_validation():
-    """Prompt length and budget validation fail loudly at submit; a mesh,
-    a checkpoint on two devices and one on another device are refused."""
+    """Prompt length and budget validation fail loudly at submit; mesh
+    rules that map "batch" to None (as the reference refuses them, at its
+    first step), a checkpoint on two devices and one on another device
+    are refused."""
     cfg, model, params = _tiny(n_layers=1)
     eng = FleetEngine(model, 1, EngineConfig(max_seq=8))
     eng.load(params)
@@ -278,8 +280,16 @@ def test_submit_validation():
         eng.submit(list(range(9)), 4)
     with pytest.raises(ValueError, match="max_new"):
         eng.submit([1], 0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        FleetEngine(model, 1, EngineConfig(), mesh=object())
+    with pytest.raises(ValueError, match="map 'batch' to None"):
+        FleetEngine(model, 1, EngineConfig(), mesh=object(),
+                    rules={"batch": None})
+    if jax is not None:
+        jm = j_build(_tiny_cfg(j_reduced, 1))
+        jeng = JS.FleetEngine(jm, 1, JS.EngineConfig(max_seq=8),
+                              mesh=object(), rules={"batch": None})
+        jeng.load(jm.init(jax.random.PRNGKey(0)))
+        with pytest.raises(ValueError, match="map 'batch' to None"):
+            jeng.step()
     with pytest.raises(RuntimeError, match="no checkpoint"):
         FleetEngine(model, 1, EngineConfig()).step()
     meta = tree_map(lambda a: a.to("meta"), params)

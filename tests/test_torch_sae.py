@@ -301,8 +301,11 @@ def test_serve_step_matches_dense_and_jax():
     z_j, xh_j = JS.make_serve_step(cj)(cj.params, jnp.asarray(x))
     np.testing.assert_allclose(_np(z_c), np.asarray(z_j), **SERVE)
     np.testing.assert_allclose(_np(xh_c), np.asarray(xh_j), **SERVE)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        TS.make_serve_step(compact, mesh=object())
+    # mesh rules that map "batch" to None are refused by both packages
+    for step_of, c in ((TS.make_serve_step, compact),
+                       (JS.make_serve_step, cj)):
+        with pytest.raises(ValueError, match="map 'batch' to None"):
+            step_of(c, mesh=object(), rules={"batch": None})
 
 
 def test_serve_step_follows_refreshed_support():
