@@ -477,7 +477,27 @@ and prints no result. Phases:
                2-slot engine's, the exchange's ms a step. (c)
                make_serve_step(mesh=) of phase 5c's compact SAE over 4
                ranks against the one-device step, no collective.
- 20. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+ 20. dryrun — launch/dryrun.py against the card, in a spawned process
+               of its own after phase 16 (its fake process group meets no
+               gloo group): (a) hymba-1.5b at phase 16's settings (bf16
+               params, f32 moments, 8 of 32 layers, B 1 x S 2048, its
+               l1,inf spec) on a (1, 1) mesh, traced by
+               launch.steps.lower_cell on meta tensors as the one rank of
+               a fake group, and the same step from the same builder on
+               the card over a one-rank gloo group (a warm-up step, a
+               measured one, one under FlopCounterMode, one traced), every
+               step at a count that fires the every_k gate (the dry-run's
+               rule): kernel launches by name (the wrappers' counts)
+               equal to the dry-run's, FlopCounterMode's aten dot FLOPs
+               equal to the dry-run's, its live-bytes peak within 20% of
+               max_memory_allocated after reset_peak_memory_stats; the
+               step's wall ms and device busy ms and the counted FLOPs'
+               share of 989 TFLOP/s at each, beside the card's name and
+               power limit. (b) hymba_15b train_4k, stablelm_3b
+               decode_32k and deepseek_v2_236b prefill_32k at full size
+               as rank 0 of 256 fake ranks, each "ok": dominant term,
+               roofline_fraction, bytes a device against 80 GB.
+ 21. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
 """
@@ -496,9 +516,6 @@ import types
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 SHAPES = {"sae_enc1": (96, 10112), "fig2_wide": (1000, 10112),
           "fig2_tall": (10000, 1024)}
 SOURCE = "src/repro_torch/csrc/l1inf.cu"
@@ -635,6 +652,18 @@ FLEET = dict(arch="hymba-1.5b", depth=8, slots=8, max_seq=256, requests=24,
 # three at every_k 1, and f32 steps at the same shape to compare with
 TRAIN_BF16 = dict(arch="hymba-1.5b", depth=8, seq=2048, steps=10,
                   dots_steps=2, every1_steps=3, f32_steps=4)
+# phase 20: the dry-run against the card. (a) hymba-1.5b at phase 16's
+# settings (bf16 params, f32 Adam moments, ``depth`` of its 32 layers, B 1
+# x S 2048, its l1,inf spec) on a (1, 1) mesh: launch/steps.lower_cell's
+# trace of the train step on meta tensors under a fake process group of one
+# rank, and the same step from the same builder on the card over a one-rank
+# gloo group, every step at a count that fires every every_k gate (the
+# dry-run's rule); launches by kernel and aten dot FLOPs equal, the peak
+# estimate within ``peak_tol`` of the card's peak; (b) ``cells``, full
+# size, as rank 0 of the production mesh's 256 fake ranks
+DRYRUN = dict(arch="hymba-1.5b", depth=8, seq=2048, batch=1, peak_tol=0.2,
+              cells=(("hymba_15b", "train_4k"), ("stablelm_3b", "decode_32k"),
+                     ("deepseek_v2_236b", "prefill_32k")))
 # phases 14 and 15: the rest of the zoo at full width. whisper-small whole
 # (B 2, its 1500 encoder positions, 448 decoder tokens); llama-3.2-vision-
 # 90b cut to one cycle of its pattern (4 global + 1 cross), B 1 x S 2048,
@@ -833,6 +862,7 @@ def loop_phase(torch, K, O, Y, C, flush, empty_lib):
     (``time_cold_ms``), the empty loop the same way at the kernel's step
     count, the plain loop on the host clock (``wall_ms``: it syncs once a
     step, so it cannot be captured)."""
+    from repro_torch.roofline.analysis import kernel_bound_ms
     n, m = Y.shape
     Ypad, bm = O._padded(Y, 0)
     sids = (torch.arange(Ypad.shape[1], device=Y.device) >= m).to(
@@ -865,15 +895,11 @@ def loop_phase(torch, K, O, Y, C, flush, empty_lib):
     check(all(bits_equal(torch, a, b) if a.is_floating_point()
               else torch.equal(a, b) for a, b in zip(got, again)),
           "newton_loop: rerun not bit-equal")
-    # bound: read the first evaluation's prefix once; 2 f32 operations an
-    # element on each of pass 2's 36 cold passes over its prefix and on the
-    # 2 passes (a step and the one that confirms it) a warm evaluation
-    # takes at least over each later prefix
+    # bound: newton_loop_cost of the first evaluation's prefix and the
+    # columns of every later one (the work counter less m and the first)
     first = min(int(li["num_active"]) + bm - 1, Ypad.shape[1]) // bm * bm
     later = int(work) - Ypad.shape[1] - first
-    bound = max((n * first * 4 / HBM_BYTES_PER_S * 1e3, "bytes"),
-                (2 * n * (36 * first + 2 * later) / F32_OPS_PER_S * 1e3,
-                 "operations"))
+    bound = kernel_bound_ms(K.newton_loop_cost(n, first, later))
     loop = lambda: K.newton_loop(*args, **kw)
     empty = _empty_loop(torch, empty_lib, args, kw, int(it))
     return {"newton_iters": int(it), "newton_iters_plain": int(itp),
@@ -950,12 +976,13 @@ def _profile(torch, fn, kernels=()):
 
 def attn_kernel_phase(torch, FA, dev, flush, shapes=ATTN_SHAPES):
     """Phase 6; returns the kernels-line row of the first shape (f32)."""
+    from repro_torch.roofline.analysis import kernel_bound_ms
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(11)
     err, row, bf16 = 0.0, None, None
     for name, B, H, KV, S, hd, causal, window in shapes:
         kw = dict(groups=H // KV, causal=causal, window=window)
-        pairs, mask = _pairs(S, causal, window)
+        _, mask = _pairs(S, causal, window)
         line = {"phase": "attn_kernels", "shape": name, "B": B, "H": H,
                 "KV": KV, "S": S, "head_dim": hd, "causal": causal,
                 "window": window}
@@ -980,12 +1007,9 @@ def attn_kernel_phase(torch, FA, dev, flush, shapes=ATTN_SHAPES):
             line[f"max_abs_err_{dname}"] = e
             if name != shapes[0][0]:
                 continue
-            size = q.element_size()
-            nbytes = 2 * q.numel() * size + 2 * k.numel() * size
-            ops = 4 * hd * pairs * B * H
-            peak = F32_OPS_PER_S if dname == "float32" else BF16_OPS_PER_S
-            bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (ops / peak * 1e3, "operations"))
+            ops, nbytes = FA.flash_attention_fwd_cost(
+                B * H, S, S, hd, H // KV, causal, window, q.element_size())
+            bound = kernel_bound_ms((ops, nbytes), q.dtype)
             qs, ks, vs = (t.view(B, -1, S, hd) for t in (q, k, v))
             mk = torch.from_numpy(mask).to(dev)
             lib = lambda: F.scaled_dot_product_attention(
@@ -1086,15 +1110,15 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES,
     traced call and the main kernel's CTAs an SM. Returns the kernels-line
     rows of every shape (the backward's) and of the first shape's forward
     with lse, as training runs it."""
+    from repro_torch.roofline.analysis import kernel_bound_ms
     import torch.nn.functional as F
     dt = _dtype(torch, dname)
     esize = 4 if dname == "float32" else 2
-    peak = F32_OPS_PER_S if dname == "float32" else BF16_OPS_PER_S
     g = torch.Generator(device=dev).manual_seed(13)
     rows, fwd_row = [], None
     for name, B, H, KV, S, hd, causal, window in shapes:
         kw = dict(groups=H // KV, causal=causal, window=window)
-        pairs, mask = _pairs(S, causal, window)
+        _, mask = _pairs(S, causal, window)
         q = torch.randn((B * H, S, hd), generator=g, device=dev).to(dt)
         k = torch.randn((B * KV, S, hd), generator=g, device=dev).to(dt)
         v = torch.randn((B * KV, S, hd), generator=g, device=dev).to(dt)
@@ -1135,11 +1159,9 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES,
               f"flash bwd {dname} {name}: rerun not bit-equal")
         # bound: five products over the unmasked pairs; q, k, v, out, dout
         # and lse read once, dq, dk, dv written once
-        ops = 5 * 2 * hd * pairs * B * H
-        nbytes = esize * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
-            + 4 * lse.numel()
-        bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                    (ops / peak * 1e3, "operations"))
+        ops, nbytes = FA.flash_attention_bwd_cost(
+            B * H, S, S, hd, H // KV, causal, window, esize)
+        bound = kernel_bound_ms((ops, nbytes), dt)
         # the library yardstick: SDPA's backward in the same dtype (its
         # flash, efficient or math kernel), forward + backward minus
         # forward
@@ -1220,11 +1242,9 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES,
                                          True)
             no_lse = lambda: FA._fwd_kernel(q, k, v, H // KV, causal,
                                             window, False)
-            fops = 4 * hd * pairs * B * H
-            fbytes = esize * (2 * q.numel() + 2 * k.numel()) \
-                + 4 * lse.numel()
-            fbound = max((fbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                         (fops / peak * 1e3, "operations"))
+            fops, fbytes = FA.flash_attention_fwd_cost(
+                B * H, S, S, hd, H // KV, causal, window, esize, lse=True)
+            fbound = kernel_bound_ms((fops, fbytes), dt)
             fwd_row = {
                 "shape": name, "ms": time_ms(torch, fwd),
                 "ms_l2_flushed": time_cold_ms(torch, fwd, flush),
@@ -1244,6 +1264,7 @@ def attn_bwd_phase(torch, FA, dev, flush, shapes=BWD_SHAPES,
 
 def ssd_kernel_phase(torch, SK, Sref, dev, flush, shapes=SSD_SHAPES):
     """Phase 7; returns the kernels-line row of the first shape."""
+    from repro_torch.roofline.analysis import kernel_bound_ms
     g = torch.Generator(device=dev).manual_seed(12)
     err, row = 0.0, None
     for name, BG, groups, S, P, N, Q, (lo, hi), dname in shapes:
@@ -1282,13 +1303,9 @@ def ssd_kernel_phase(torch, SK, Sref, dev, flush, shapes=SSD_SHAPES):
               f"ssd {name}: rerun not bit-equal")
         same = bits_equal(torch, y, yp) and bits_equal(torch, st, stp)
         err = max(err, e)
-        size = x.element_size()
-        nbytes = (2 * x.numel() + dt.numel() + 2 * Bm.numel()) * size \
-            + (2 * BH + BH * P * N) * 4
-        tri = Q * (Q + 1) // 2
-        ops = (S // Q) * BH * (2 * tri * (N + P) + 4 * Q * P * N)
-        bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                    (ops / F32_OPS_PER_S * 1e3, "operations"))
+        ops, nbytes = SK.ssd_fwd_cost(BH, S, P, N, Q, groups,
+                                      x.element_size())
+        bound = kernel_bound_ms((ops, nbytes))
         line = {"phase": "ssd_kernels", "shape": name, "BH": BH, "S": S,
                 "P": P, "N": N, "chunk": Q, "dt_range": [lo, hi],
                 "dtype": dname, "finite": finite, "max_abs_err_vs_plain": e,
@@ -1351,6 +1368,7 @@ def ssd_bwd_phase(torch, SK, Sref, dev, flush, shapes=SSD_BWD_SHAPES):
     gradient, as ``ssd_attention`` runs it), on the forward kernels' saved
     state; times, the bound and the four launches' device ms. Returns the
     kernels-line row of the first shape."""
+    from repro_torch.roofline.analysis import kernel_bound_ms
     g = torch.Generator(device=dev).manual_seed(14)
     names = ("dx", "ddt", "da", "dd", "dB", "dC")
     row, worst = None, 0.0
@@ -1395,17 +1413,8 @@ def ssd_bwd_phase(torch, SK, Sref, dev, flush, shapes=SSD_BWD_SHAPES):
         check(all(bits_equal(torch, u, v) for u, v in zip(got, again)),
               f"ssd_bwd {name}: rerun not bit-equal")
         del again
-        # bound: the products over the lower triangle (dy x^T, M^T dy,
-        # dG^T C, dG B) and the four full (Q, P, N) products of a chunk;
-        # x, dy, dt, cum, B, C, the saved states and G read once, dx,
-        # ddt, dB, dC, da, dd written once
-        nc, tri = S // Q, Q * (Q + 1) // 2
-        ops = nc * BH * (2 * tri * (2 * P + 2 * N) + 8 * Q * P * N)
-        hst, cum, G = saved
-        nbytes = 4 * (3 * x.numel() + 3 * dt.numel() + 4 * Bm.numel()
-                      + hst.numel() + G.numel() + 4 * BH)
-        bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                    (ops / F32_OPS_PER_S * 1e3, "operations"))
+        ops, nbytes = SK.ssd_bwd_cost(BH, S, P, N, Q, groups)
+        bound = kernel_bound_ms((ops, nbytes))
         trace = _profile(torch, lambda: SK.ssd_bwd(*bargs, **kw),
                          SSD_BWD_TRACE_NAMES)
         t = {"ms": time_ms(torch, lambda: SK.ssd_bwd(*bargs, **kw)),
@@ -3681,6 +3690,7 @@ def attn_zoo_phase(torch, FA, dev, flush, shapes=None):
     counts 192 for q . k and 128 for p . v, and ``padding_waste`` is the
     share of the kernel's products that the padding adds. Returns the
     kernels-line rows."""
+    from repro_torch.roofline.analysis import kernel_bound_ms
     import torch.nn.functional as F
     shapes = shapes or ZOO_ATTN_SHAPES
     g = torch.Generator(device=dev).manual_seed(14)
@@ -3743,10 +3753,8 @@ def attn_zoo_phase(torch, FA, dev, flush, shapes=None):
         b_ops = 2 * pairs * BH * (3 * hd + 2 * hv)
         b_bytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                        + 2 * BH * Sq * hv + lse.numel())
-        fb = max((f_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                 (f_ops / F32_OPS_PER_S * 1e3, "operations"))
-        bb = max((b_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                 (b_ops / F32_OPS_PER_S * 1e3, "operations"))
+        fb = kernel_bound_ms((f_ops, f_bytes))
+        bb = kernel_bound_ms((b_ops, b_bytes))
         common = {"shape": name, "B": B, "H": H, "Sq": Sq, "Skv": Skv,
                   "head_dim": hd, "v_head_dim": hv, "causal": causal,
                   "kernel_head_dim": kd}
@@ -4310,6 +4318,7 @@ def _rank_kernel_times(torch, dist, FK, lay, cols, acfg, adam_scalars,
     other rank's work shares the card meanwhile; the bound from the bytes
     moved (each input read once, each output written once) and the f32
     operations, as phase 2b counts them."""
+    from repro_torch.roofline.analysis import kernel_bound_ms
     from repro_torch.dist.layout import local_of
     pick = lambda t: local_of(t["blocks"]["p0_hybrid"]["mlp"]["w1"])
     g, m, v, p = (pick(cols[k]) for k in ("grads", "mu", "nu", "params"))
@@ -4330,16 +4339,8 @@ def _rank_kernel_times(torch, dist, FK, lay, cols, acfg, adam_scalars,
                                           mode="clip", **kw),
                lambda: FK.adam_clip_apply_plain(sc, a[0], a[1], p, mu, None,
                                                 mode="clip", **kw))}
-    L, R, Cc = p.shape
-    n_el = L * R * Cc
-    bound = {"adam_colstats": max(
-                 ((6 * n_el * 4 + 2 * L * Cc * 4 + 16) / HBM_BYTES_PER_S
-                  * 1e3, "bytes"),
-                 (20 * n_el / F32_OPS_PER_S * 1e3, "operations")),
-             "adam_clip_apply": max(
-                 ((4 * n_el * 4 + L * Cc * 4 + 16) / HBM_BYTES_PER_S * 1e3,
-                  "bytes"),
-                 (14 * n_el / F32_OPS_PER_S * 1e3, "operations"))}
+    bound = {name: kernel_bound_ms(getattr(FK, name + "_cost")(
+        *p.shape, False)) for name in fns}
     out = {}
     for q in range(lay.size):
         torch.cuda.synchronize()
@@ -4351,7 +4352,7 @@ def _rank_kernel_times(torch, dist, FK, lay, cols, acfg, adam_scalars,
                          "plain_ms": _event_ms(torch, plain),
                          "bound_ms": bound[name][0],
                          "bound_by": bound[name][1],
-                         "block": [L, R, Cc]}
+                         "block": list(p.shape)}
     torch.cuda.synchronize()
     dist.barrier()
     return out
@@ -4396,6 +4397,7 @@ def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
     (the path that launches the variant, counted), its loss within 1e-2
     of the f32 tiles' and every gradient finite. Returns ({kernel: row}
     of the first shape, {kernel: launches})."""
+    from repro_torch.roofline.analysis import kernel_bound_ms
     from repro_torch._tree import leaves
     g = torch.Generator(device=dev).manual_seed(21)
     rows = {}
@@ -4465,8 +4467,7 @@ def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
                  b_ops, b_bytes,
                  max(float((u - v).abs().max()) for u, v in zip(got,
                                                                 want)))):
-            bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (ops / F32_OPS_PER_S * 1e3, "operations"))
+            bound = kernel_bound_ms((ops, nbytes))
             line = {"ms": time_ms(torch, kern),
                     "ms_l2_flushed": time_cold_ms(torch, kern, flush),
                     "plain_ms": time_ms(torch, plain, budget_ms=300.0),
@@ -4636,6 +4637,7 @@ def _time_recorded(torch, dist, FK, first, lay):
     and of its plain version, CUDA events, the ranks taking turns; the
     bound from the bytes its tensors move (each read once, each written
     once) and phase 2b's f32 operation counts."""
+    from repro_torch.roofline.analysis import kernel_bound_ms
     res = {}
     for q in range(lay.size):
         torch.cuda.synchronize()
@@ -4646,8 +4648,7 @@ def _time_recorded(torch, dist, FK, first, lay):
             a = tuple(t.cuda() if isinstance(t, torch.Tensor) else t
                       for t in host)
             ops = (20 if name == "adam_colstats" else 14) * n_el
-            bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (ops / F32_OPS_PER_S * 1e3, "operations"))
+            bound = kernel_bound_ms((ops, nbytes))
             kern = getattr(FK, name)
             plain = getattr(FK, name + "_plain")
             res[name] = {"ms": _event_ms(torch, lambda: kern(*a, **kw)),
@@ -4817,8 +4818,7 @@ def _lm_hold(torch, F, FA, SK, name, a, kw, out):
         plain = lambda: SK.ssd_bwd_plain(x, dt, A, D, Bm, Cm, dy, dstate,
                                          psaved, **kw)
         lib = None
-    peak = BF16_OPS_PER_S if a[0].dtype == torch.bfloat16 else F32_OPS_PER_S
-    return ok, err, rel, kern, plain, lib, nbytes, ops, peak
+    return ok, err, rel, kern, plain, lib, nbytes, ops, a[0].dtype
 
 
 def _lm_hold_and_time(torch, dist, FA, SK, first, lay):
@@ -4829,6 +4829,7 @@ def _lm_hold_and_time(torch, dist, FA, SK, first, lay):
     backward less forward; none for SSD), CUDA events; the bound from this
     launch's bytes (each input read once, each output written once) and
     operations. Returns ({what: ok}, {kernel: row})."""
+    from repro_torch.roofline.analysis import kernel_bound_ms
     import torch.nn.functional as F
     checks, rows = {}, {}
     for turn in range(lay.size):
@@ -4837,11 +4838,10 @@ def _lm_hold_and_time(torch, dist, FA, SK, first, lay):
         if turn != lay.me:
             continue
         for name, (a, kw, out) in first.items():
-            ok, err, rel, kern, plain, lib, nbytes, ops, peak = _lm_hold(
+            ok, err, rel, kern, plain, lib, nbytes, ops, dt = _lm_hold(
                 torch, F, FA, SK, name, a, kw, out)
             checks[f"{name}_vs_plain"] = bool(ok)
-            bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (ops / peak * 1e3, "operations"))
+            bound = kernel_bound_ms((ops, nbytes), dt)
             if isinstance(lib, tuple):
                 fwd_ms = _event_ms(torch, lib[0])
                 lib_ms = _event_ms(torch, lib[1]) - fwd_ms
@@ -5940,6 +5940,174 @@ def lm_serve_mesh_phase(torch, Z, C, K, dev, card, sae, sm=SERVE_MESH):
     torch.cuda.empty_cache()
 
 
+def _dryrun_part(rank, world, work, dr):
+    """Phase 20's work, in a process of its own (its fake and gloo groups
+    meet no other phase's): (a) the dry-run's counts of DRYRUN's cell and
+    the same step's on the card, (b) the production cells' records."""
+    import torch
+    import torch.distributed as dist
+    from math import lcm
+    from torch.utils.flop_counter import FlopCounterMode
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import configs as C
+    from repro_torch.convert import params_to_mesh
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.fused_step import kernel as FK
+    from repro_torch.kernels.l1inf import kernel as K
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (build_train_step, lower_cell,
+                                          param_shardings,
+                                          projection_engine_for,
+                                          rules_for_cell, shard_opt_state)
+    from repro_torch.models import zoo as Z
+    from repro_torch.optim import AdamConfig
+    from repro_torch.roofline.analysis import HBM_BYTES, PEAK_FLOPS
+    cfg = dataclasses.replace(C.get_config(dr["arch"]), n_layers=dr["depth"])
+    model = Z.build(cfg)
+    Z.SHAPES["dryrun_phase"] = dict(seq=dr["seq"], batch=dr["batch"],
+                                    kind="train")
+    out = {}
+    # (a) the dry-run's trace on meta tensors, one fake rank
+    t0 = time.perf_counter()
+    with dryrun.fake_group(1):
+        cell = lower_cell(model, "dryrun_phase",
+                          make_local_mesh(1, 1, device="cpu"), False)
+    counts = cell.counts
+    out["trace_s"] = time.perf_counter() - t0
+    # the same step on the card, over a one-rank gloo group
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            init_method="file://" + os.path.join(work, "rdv"))
+    mesh = make_local_mesh(1, 1, device="cuda")
+    rules = rules_for_cell(cfg, "dryrun_phase", False)
+    acfg = AdamConfig(moment_dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.bfloat16, device="cuda")
+    params = params_to_mesh(params, mesh, param_shardings(model, mesh, rules),
+                            device="cuda")
+    opt = shard_opt_state(params, acfg)
+    proj = projection_engine_for(cfg, mesh).init_state(params)
+    step = build_train_step(model, mesh, rules, acfg)
+    batch = Z.make_batch(cfg, dr["batch"], dr["seq"], device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    k = lcm(*(spec.every_k for spec in cfg.projection_specs))
+    # the step's state lives in ``state`` alone: a name left holding the
+    # first params and moments would keep them on the card
+    state = [params, opt, proj]
+    del params, opt, proj
+
+    def fire(i):
+        # the i-th step at a count every every_k divides: every gate fires
+        state[1].count.fill_(k * i - 1)
+        state[:] = step(*state, batch)[2:]
+
+    fire(1)                                   # warm-up
+    torch.cuda.synchronize()
+    gc.collect()
+    for mod in (FA, SK, K, FK):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = time.perf_counter()
+    e0.record()
+    fire(2)                                   # the measured step
+    e1.record()
+    torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t) * 1e3
+    out["event_ms"] = e0.elapsed_time(e1)
+    out["card_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["card_launches"] = {n: c for mod in (FA, SK, K, FK)
+                            for n, c in mod.launch_counts().items() if c}
+    with FlopCounterMode(display=False) as fc:
+        fire(3)
+    out["card_dot_flops"] = fc.get_total_flops()
+    out["profile"] = _profile(torch, lambda: fire(4))
+    dist.destroy_process_group()
+    out.update(
+        dry_launches=counts.launches(), dry_dot_flops=counts.dot_flops,
+        dry_kernel_operations=counts.kernel_operations,
+        dry_peak_bytes=counts.peak_bytes,
+        dry_argument_bytes=counts.argument_bytes,
+        dry_bytes=counts.bytes_proxy + counts.kernel_bytes,
+        collectives=len(counts.collectives), every_k=k, peak=PEAK_FLOPS)
+    # (b) the production cells, 256 fake ranks each
+    out["cells"] = []
+    for arch, shape in dr["cells"]:
+        t0 = time.perf_counter()
+        try:
+            rec = dryrun.run_cell(arch, shape, "pod")
+        except Exception as e:          # recorded; the parent fails it
+            rec = {"status": "failed", "error": f"{type(e).__name__}: {e}"}
+        mem = rec.get("memory_analysis", {})
+        out["cells"].append({
+            "arch": arch, "shape": shape, "mesh": "pod",
+            "seconds": time.perf_counter() - t0,
+            "bytes_per_device": mem.get("total_bytes_per_device"),
+            "fits_80gb": mem.get("fits_80gb"), "hbm_bytes": HBM_BYTES,
+            **{key: rec.get(key) for key in (
+                "status", "error", "dominant", "roofline_fraction",
+                "compute_s", "memory_s", "collective_s", "flops_per_device",
+                "collective_counts", "trace_s")}})
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(_jsonable(out), f)
+
+
+def dryrun_phase(torch, smi, dr=DRYRUN):
+    """Phase 20: launch/dryrun.py against the card (DRYRUN; the work runs
+    in ``_dryrun_part``'s process): the dry-run's kernel launches by name
+    equal to the card step's (the wrappers' own counts), its aten dot
+    FLOPs equal to ``FlopCounterMode``'s over the card's step, its peak of
+    live bytes within ``peak_tol`` of ``torch.cuda.max_memory_allocated``
+    after ``reset_peak_memory_stats``; the step's wall ms (host clock,
+    synchronised), its device busy ms (one traced step), and the counted
+    FLOPs' share of the bf16 peak at each; then the production cells,
+    each "ok", with the dominant term, ``roofline_fraction`` and bytes a
+    device against 80 GB."""
+    ranks, failed, sec = _spawn(_dryrun_part, 1, (dr,), timeout=300)
+    check(failed is None and len(ranks) == 1, f"dryrun: {failed}")
+    if not ranks:
+        return
+    r = ranks[0]
+    check(r["dry_launches"] == r["card_launches"],
+          f"dryrun launches {r['dry_launches']} vs the card's "
+          f"{r['card_launches']}")
+    check(r["dry_dot_flops"] == r["card_dot_flops"],
+          f"dryrun dot FLOPs {r['dry_dot_flops']} vs the card's "
+          f"{r['card_dot_flops']}")
+    ratio = r["dry_peak_bytes"] / r["card_peak_bytes"]
+    check(abs(ratio - 1) <= dr["peak_tol"],
+          f"dryrun peak {r['dry_peak_bytes']} vs the card's "
+          f"{r['card_peak_bytes']} ({ratio:.3f})")
+    flops = r["dry_dot_flops"] + r["dry_kernel_operations"]
+    device_ms = r["profile"]["device_ms"]
+    share = lambda ms: flops / (ms * 1e-3 * r["peak"])
+    emit({"phase": "dryrun", "arch": dr["arch"], "depth": dr["depth"],
+          "seq": dr["seq"], "batch": dr["batch"], "card": smi,
+          "every_k_count": r["every_k"], "trace_s": r["trace_s"],
+          "launches": r["card_launches"], "dry_launches": r["dry_launches"],
+          "dot_flops": r["dry_dot_flops"],
+          "card_dot_flops": r["card_dot_flops"],
+          "kernel_operations": r["dry_kernel_operations"],
+          "counted_flops": flops, "dry_bytes": r["dry_bytes"],
+          "peak_bytes_dry": r["dry_peak_bytes"],
+          "peak_bytes_card": r["card_peak_bytes"], "peak_ratio": ratio,
+          "argument_bytes": r["dry_argument_bytes"],
+          "step_wall_ms": r["wall_ms"], "step_event_ms": r["event_ms"],
+          "step_device_ms": device_ms,
+          "device_idle_share": r["profile"]["device_idle_share"],
+          "flops_share_of_peak_at_wall": share(r["wall_ms"]),
+          "flops_share_of_peak_at_device": share(device_ms),
+          "collectives": r["collectives"], "seconds": sec})
+    for c in r["cells"]:
+        check(c["status"] == "ok", f"dryrun {c['arch']} {c['shape']}: "
+              f"{c['status']} {c.get('error')}")
+        emit({"phase": "dryrun_cells", "card": smi, **c})
+
+
 def main():
     import torch
 
@@ -5963,6 +6131,7 @@ def main():
     from repro_torch.kernels.l1inf import ref
     from repro_torch.kernels.l1inf.ops import project_l1inf_kernel
     from repro_torch.optim import AdamConfig, adam_init
+    from repro_torch.roofline.analysis import kernel_bound_ms
     from repro_torch.sae import (SAEConfig, SAETrainConfig,
                                  make_classification, projected_step,
                                  sae_init, train_sae, train_test_split)
@@ -6060,22 +6229,18 @@ def main():
         mu_lo = mu[None, :]
         t = {
             "colstats": (time_ms(torch, lambda: K.colstats(A)),
-                         time_ms(torch, lambda: K.colstats_plain(A)), None,
-                         (n * m * 4 + 2 * m * 4) / HBM_BYTES_PER_S * 1e3,
-                         "bytes"),
+                         time_ms(torch, lambda: K.colstats_plain(A)), None)
+            + kernel_bound_ms(K.colstats_cost(n, m)),
             "mu_solve": (time_ms(torch, lambda: K.mu_solve(
                 A, theta, block_m=bm, nact_blocks=nact)),
                 time_ms(torch, lambda: K.mu_solve_plain(
                     A, theta, block_m=bm, nact=nact)), None)
-            + max(((n * P * 4 + P * 4 + m * 13) / HBM_BYTES_PER_S * 1e3,
-                   "bytes"),
-                  (36 * 2 * n * P / F32_OPS_PER_S * 1e3, "operations")),
+            + kernel_bound_ms(K.mu_solve_cost(n, m, P)),
             "clip_apply": (time_ms(torch, lambda: K.clip_apply(Y, mu)),
                            time_ms(torch, lambda: K.clip_apply_plain(Y, mu)),
                            time_ms(torch, lambda: torch.clamp(
-                               Y, -mu_lo, mu_lo)),
-                           (2 * n * m * 4 + m * 4) / HBM_BYTES_PER_S * 1e3,
-                           "bytes"),
+                               Y, -mu_lo, mu_lo)))
+            + kernel_bound_ms(K.clip_apply_cost(n, m)),
         }
         timing[name] = t
         flushed[name] = cold = {}
@@ -6114,7 +6279,6 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(3)
     for name, (shape, transpose) in FUSED_SHAPES.items():
         L, R, C = shape
-        mcols = R if transpose else C
         g0, m0, p0 = (torch.randn(shape, generator=gen, device=dev)
                       for _ in range(3))
         v0 = torch.rand(shape, generator=gen, device=dev) * 1e-2
@@ -6167,7 +6331,6 @@ def main():
         kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.0, transpose=transpose)
         a = FK.adam_colstats(sc, g, m, v, p, mk, stat="sq", **kw)
         mu = torch.full_like(a[3], 0.7)
-        n_el = L * R * C
         p1 = lambda: FK.adam_colstats(sc, g, m, v, p, mk, stat="sq", **kw)
         p2 = lambda: FK.adam_clip_apply(sc, a[0], a[1], p, mu, mk,
                                         mode="scale", **kw)
@@ -6175,16 +6338,14 @@ def main():
             time_ms(torch, p1), time_cold_ms(torch, p1, flush),
             time_ms(torch, lambda: FK.adam_colstats_plain(
                 sc, g, m, v, p, mk, stat="sq", **kw)),
-            max(((7 * n_el * 4 + 2 * L * mcols * 4 + 16) / HBM_BYTES_PER_S
-                 * 1e3, "bytes"),
-                (20 * n_el / F32_OPS_PER_S * 1e3, "operations"))),
+            kernel_bound_ms(FK.adam_colstats_cost(L, R, C, transpose,
+                                                  mask=True))),
             "adam_clip_apply": (
             time_ms(torch, p2), time_cold_ms(torch, p2, flush),
             time_ms(torch, lambda: FK.adam_clip_apply_plain(
                 sc, a[0], a[1], p, mu, mk, mode="scale", **kw)),
-            max(((5 * n_el * 4 + L * mcols * 4 + 16) / HBM_BYTES_PER_S
-                 * 1e3, "bytes"),
-                (14 * n_el / F32_OPS_PER_S * 1e3, "operations")))}
+            kernel_bound_ms(FK.adam_clip_apply_cost(L, R, C, transpose,
+                                                    mask=True)))}
         ftiming[name] = t
         emit({"phase": "fused", "shape": name, "stack": list(shape),
               "transpose": transpose, "variants": len(variants), **worst,
@@ -6504,6 +6665,14 @@ def main():
     # step (launch/steps.py), remat "full" and "dots", every_k 1, and f32
     bf16_launches, bf16_by_dtype = lm_train_bf16_phase(
         torch, Z, C, FA, SK, K, FK, dev)
+
+    # -- 20. this slice: the dry-run (launch/dryrun.py) against the card
+    # step and three production cells, in a process of its own (its fake
+    # process group never meets 17-19's gloo groups); before 18, whose
+    # ranks and 17's IPC memory would crowd the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase(torch, smi)
 
     # -- 18. this slice: the sharded production step on a (data, model)
     # mesh of 4 ranks sharing the card, the MoE's expert parallelism and the

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from .._device import taken
 from .l1inf import _post, _prep, l1inf_norm
 from .simplex import simplex_threshold
 
@@ -117,10 +118,10 @@ def _k1_newton(u: torch.Tensor, C: torch.Tensor, theta0, max_iter: int):
     t2, mu = eval_step(t1)
     theta, prev = torch.maximum(t2, t1), t1
     iters = 2
-    while iters < max_iter and bool(theta > prev):
+    while iters < max_iter and taken(theta > prev):
         new, mu = eval_step(theta)
         iters, theta, prev = iters + 1, torch.maximum(new, theta), theta
-    if bool(theta > prev):
+    if taken(theta > prev):
         mu = eval_step(theta)[1]
 
     inside = norm <= C

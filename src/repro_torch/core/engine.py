@@ -34,6 +34,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from .._device import host_int
 from .._tree import flatten_with_path, leaves, tree_map, unflatten_like
 from .constraints import (ProjectionSpec, build_packed_plans, engine_count,
                           _apply_2d, _gated, _pack_entry, _project_fn,
@@ -159,8 +160,9 @@ class ProjectionEngine:
         new_state: Dict[str, torch.Tensor] = {}
         stats: Dict[str, Any] = {}
         if self.mesh is not None and isinstance(step, torch.Tensor):
-            # every rank must take the same solves: gate on the host
-            step = int(step)
+            # every rank must take the same solves: gate on the host (None
+            # on meta, where every gate fires)
+            step = host_int(step)
         off = lambda every_k: isinstance(step, int) and step % every_k != 0
         for plan in plans:
             if plan.key in skip:

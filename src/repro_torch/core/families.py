@@ -22,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from .._device import taken
 from .bilevel import _BilevelSegOps, project_bilevel, project_bilevel_ref
 from .hoyer import hoyer_sparseness, project_hoyer, project_hoyer_ref
 from .l12 import _L12SegOps
@@ -283,5 +284,5 @@ register_family(ConstraintFamily(
     reference=lambda Y, C, axis=0, w=None:
         project_hoyer_ref(Y, C, axis=axis),
     feasible=lambda Y, C, axis=0, w=None:
-        bool(hoyer_sparseness(Y, axis=axis).min() >= C - 1e-5),
+        taken(hoyer_sparseness(Y, axis=axis).min() >= C - 1e-5),
 ))

@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from .._device import taken
 from .l1inf import _post, _prep
 
 __all__ = [
@@ -75,7 +76,7 @@ def _alternating_cols(b, L1, L2, n):
     active = torch.ones(b.shape, dtype=torch.bool, device=b.device)
     done = torch.zeros((b.shape[1],), dtype=torch.bool, device=b.device)
     i = 0
-    while i < n + 2 and not bool(done.all()):
+    while i < n + 2 and taken(~done.all()):
         p = active.to(dt).sum(dim=0)
         mid = torch.where(active, (L1 / torch.clamp(p, min=1.0))[None, :],
                           zero)

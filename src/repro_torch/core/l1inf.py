@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .._device import on_card, taken
 from .simplex import cumsum_in_order
 
 __all__ = [
@@ -142,7 +143,7 @@ def _segment_summer(seg_ids: torch.Tensor, num_segments: int):
     column order. The masked copy costs num_segments * M per call: cheap
     for the few segments of today's plans, a segmented-reduction kernel
     once plans carry many stacked layers."""
-    if seg_ids.is_cuda:
+    if on_card(seg_ids):
         onehot = seg_ids[None, :] == torch.arange(
             num_segments, dtype=seg_ids.dtype, device=seg_ids.device)[:, None]
         return lambda vals: torch.where(onehot, vals[None, :],
@@ -204,11 +205,11 @@ def _newton_solve(S, b, Csafe, theta_start, max_iter: int):
     t2, mu = _eq19_step(S, b, Csafe, t1)
     th, prev = torch.maximum(t2, t1), t1
     i = 2
-    while i < max_iter and bool(th > prev):
+    while i < max_iter and taken(th > prev):
         new, mu = _eq19_step(S, b, Csafe, th)
         i, th, prev = i + 1, torch.maximum(new, th), th
     # a max_iter cap exit leaves mu one iterate behind theta: re-evaluate
-    if bool(th > prev):
+    if taken(th > prev):
         mu = _eq19_step(S, b, Csafe, th)[1]
     return th, mu, i
 
@@ -291,7 +292,7 @@ def project_l1inf_sorted(Y: torch.Tensor, C, axis: int = 0) -> torch.Tensor:
     slots = torch.arange(valid.numel(), device=dev)
     t = torch.where(valid, slots, valid.numel()).min()
     Csafe = torch.where(C > 0, C, torch.ones_like(C))
-    if bool(t < valid.numel()):
+    if taken(t < valid.numel()):
         theta = torch.minimum(torch.maximum(theta_t[t].to(dt), lo[t]), hi[t])
         _, mu, _ = _newton_solve(S, b, Csafe, theta, max_iter=4)
     else:
@@ -498,10 +499,10 @@ def _segmented_newton(aux, seg_ids: torch.Tensor, C_seg, num_segments: int,
     t2, mu = eval_step(t1)
     theta, prev = torch.maximum(t2, t1), t1
     iters = 2
-    while iters < max_iter and bool((theta > prev).any()):
+    while iters < max_iter and taken((theta > prev).any()):
         new, mu = eval_step(theta)
         iters, theta, prev = iters + 1, torch.maximum(new, theta), theta
-    if bool((theta > prev).any()):
+    if taken((theta > prev).any()):
         mu = eval_step(theta)[1]
 
     inside_seg = norm_seg <= C_seg

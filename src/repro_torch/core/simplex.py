@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import on_card
+
 __all__ = ["project_simplex_sort", "project_l1_ball",
            "project_weighted_l1_ball", "simplex_threshold",
            "project_simplex_michelot_np", "project_simplex_condat_np",
@@ -47,7 +49,7 @@ def cumsum_in_order(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     accumulates f32, each prefix rounded to x's dtype. Every other scan is
     torch's own, which already runs in a fixed order.
     """
-    if (not x.is_cuda or not x.is_floating_point() or x.numel() < 2
+    if (not on_card(x) or not x.is_floating_point() or x.numel() < 2
             or x.numel() != x.shape[dim]):
         return torch.cumsum(x, dim=dim)
     v = x.reshape(-1).to(torch.float64)

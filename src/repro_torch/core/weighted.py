@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import taken
 from .l1inf import _post, _prep, _sorted_stats, _theta_state
 
 __all__ = ["project_l1inf_weighted", "l1inf_weighted_norm"]
@@ -94,7 +95,7 @@ def project_l1inf_weighted(Y: torch.Tensor, w, C, axis: int = 0,
         return (Aa - C) / torch.clamp(Ba, min=torch.finfo(dt).tiny)
 
     i, theta, prev = 1, step(theta0), theta0
-    while i < max_iter and bool(theta > prev):
+    while i < max_iter and taken(theta > prev):
         i, theta, prev = i + 1, step(theta), theta
 
     k, S_k, active = _theta_state(S, b, theta * w)

@@ -68,8 +68,13 @@ scaled; its tiles default to the kernel's (``bwd_tiles``). ``scale``
 (default ``head_dim ** -0.5``) lets a test run the plain versions on
 zero-padded inputs as the card runs the kernels.
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel (building it at first use) or
-the call raises. The wrappers check device, dtype, shape and
+version, a CUDA tensor launches the kernel (building it at first use), a
+meta tensor (the dry-run's) takes the kernel's path with its launch
+replaced by a record, with its cost (``flash_attention_fwd_cost``,
+``flash_attention_bwd_cost``: the unmasked pairs only), in the active
+``roofline.counter.Counter`` (no launch count moves; the bf16 backward's
+scratch on meta is the f32 kernel's, the card's plan being unknown); any
+other device raises. The wrappers check device, dtype, shape and
 contiguity, copy an input whose address is not 16-byte aligned (the
 kernels' vector and TMA loads need it), allocate outputs and scratch with
 ``torch.empty``, launch on the current stream without synchronising, raise
@@ -83,16 +88,21 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ... import _build
+from ..._device import is_meta, kernel_side
+from ...roofline.counter import record_kernel
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "FlashAttentionFunction", "KERNEL_HEAD_DIMS", "MAX_HEAD_DIM",
            "bwd_ctas_per_sm", "bwd_kernel_attrs", "bwd_tiles",
            "kernel_head_dim", "launch_counts", "BWD_KERNELS",
-           "bwd_launches_by_dtype", "reset_launch_counts"]
+           "bwd_launches_by_dtype", "reset_launch_counts",
+           "attention_pairs", "flash_attention_fwd_cost",
+           "flash_attention_bwd_cost"]
 
 _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                              "flash_attention_bwd": 0}
@@ -183,15 +193,6 @@ def _check(q, k, v, groups: int):
         raise ValueError("flash_attention_fwd: q, k, v on different devices")
 
 
-def _on_card(x: torch.Tensor, what: str = "flash_attention_fwd") -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"{what}: no kernel or plain version for device "
-                     f"{x.device}")
-
 
 def kernel_head_dim(hd: int, what: str = "flash_attention_fwd") -> int:
     """The head dim of the kernel that runs ``hd``: the next of
@@ -226,6 +227,43 @@ def _aligned(*ts):
         t = t.contiguous()
         out.append(t if t.data_ptr() % 16 == 0 else t.clone())
     return out
+
+
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The unmasked (query, key) pairs of one head: query i sees key j
+    when j <= i (causal) and i - j < window (window > 0), as the kernels'
+    mask."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full_like(i, Skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros_like(i)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_attention_fwd_cost(BH: int, Sq: int, Skv: int, hd: int,
+                             groups: int = 1, causal: bool = True,
+                             window: int = 0, itemsize: int = 4,
+                             lse: bool = False):
+    """(operations, bytes) of one ``flash_attention_fwd`` launch: two
+    products (q k^T, p v) over the unmasked pairs at the true head dim; q,
+    k, v read once, out (and lse) written once."""
+    pairs = attention_pairs(Sq, Skv, causal, window)
+    BKV = BH // groups
+    return (4 * hd * pairs * BH,
+            itemsize * (2 * BH * Sq * hd + 2 * BKV * Skv * hd)
+            + (4 * BH * Sq if lse else 0))
+
+
+def flash_attention_bwd_cost(BH: int, Sq: int, Skv: int, hd: int,
+                             groups: int = 1, causal: bool = True,
+                             window: int = 0, itemsize: int = 4):
+    """(operations, bytes) of one ``flash_attention_bwd`` call: five
+    products (s and dp recomputed, dv, dk, dq) over the unmasked pairs; q,
+    k, v, out, dout and lse read once, dq, dk, dv written once."""
+    pairs = attention_pairs(Sq, Skv, causal, window)
+    BKV = BH // groups
+    return (10 * hd * pairs * BH,
+            itemsize * (4 * BH * Sq * hd + 4 * BKV * Skv * hd)
+            + 4 * BH * Sq)
 
 
 def flash_attention_fwd_plain(q, k, v, *, groups: int = 1,
@@ -300,6 +338,11 @@ def _fwd_kernel(q, k, v, groups, causal, window, want_lse: bool):
     out = torch.empty_like(q)
     lse = (torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    if is_meta(q):
+        record_kernel("flash_attention_fwd", flash_attention_fwd_cost(
+            BH, Sq, k.shape[1], hd, groups, causal, window, q.element_size(),
+            want_lse))
+        return (out[..., :hd].contiguous() if hdp != hd else out), lse
     rc = _lib("flash_attention").flash_attention_fwd(
         _CODE[q.dtype], hdp, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(), BH, Sq,
@@ -327,7 +370,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention_bwd`` (f32 or bf16).
     """
     _check(q, k, v, groups)
-    card = _on_card(q)
+    card = kernel_side(q, "flash_attention_fwd")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, groups, causal, window,
                                             block_q, block_kv)
@@ -478,7 +521,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"flash_attention_bwd: out {out.dtype}, dout "
                         f"{dout.dtype} must be q's dtype {q.dtype} and lse "
                         f"{lse.dtype} float32")
-    if not _on_card(q, "flash_attention_bwd"):
+    if not kernel_side(q, "flash_attention_bwd"):
         return flash_attention_bwd_plain(
             q, k, v, out, dout, lse, groups=groups, causal=causal,
             window=window, block_q=block_q, block_kv=block_kv)
@@ -488,7 +531,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, out, dout = (_pad_hd(t, hdp) for t in (q, k, v, out, dout))
     q, k, v, out, dout, lse = _aligned(q, k, v, out, dout, lse)
     name = BWD_KERNELS[q.dtype]
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and not is_meta(q):
         # delta, the turn counters and the work counter, then dk's and dv's
         # f32 partials where an item takes one query head of a group
         n = _lib(name).flash_attention_bwd_bf16_scratch(
@@ -504,6 +547,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # bf16: dq's f32 partial sums between the turns
     dqacc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
              if q.dtype == torch.bfloat16 else None)
+    if is_meta(q):
+        record_kernel("flash_attention_bwd", flash_attention_bwd_cost(
+            BH, Sq, k.shape[1], hd, groups, causal, window, q.element_size()))
+        if hdp != hd:
+            dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
+        return dq, dk, dv
     rc = getattr(_lib(name), name)(
         hdp, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
@@ -526,7 +575,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, groups, causal, window, block_q, block_kv):
-        if _on_card(q):
+        if kernel_side(q, "flash_attention_fwd"):
             out, lse = _fwd_kernel(q, k, v, groups, causal, window, True)
         else:
             out, lse = flash_attention_fwd_plain(

@@ -23,7 +23,10 @@ arithmetic operation for operation (every constant an f32 tensor, sign as
 and outputs and the column maxima; the column sums differ only by the
 order of the reduction. Dispatch is by the tensor's device alone: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel
-(building it at first use) or the call raises. Each wrapper checks device,
+(building it at first use), a meta tensor (the dry-run's) gets empty meta
+outputs and its launch recorded with its ``*_cost`` in the active
+``roofline.counter.Counter`` (no launch count moves); any other device
+raises. Each wrapper checks device,
 dtype, shape and contiguity, allocates its outputs with ``torch.empty``,
 launches on the current stream without synchronising, raises if the
 launch reports an error, and adds one to its launch count.
@@ -36,9 +39,12 @@ from typing import Dict, Optional
 import torch
 
 from ... import _build
+from ..._device import is_meta, kernel_side
+from ...roofline.counter import record_kernel
 
 __all__ = ["adam_colstats", "adam_clip_apply", "adam_colstats_plain",
-           "adam_clip_apply_plain", "launch_counts", "reset_launch_counts"]
+           "adam_clip_apply_plain", "adam_colstats_cost",
+           "adam_clip_apply_cost", "launch_counts", "reset_launch_counts"]
 
 _LAUNCHES: Dict[str, int] = {"adam_colstats": 0, "adam_clip_apply": 0}
 _LIB: Optional[ctypes.CDLL] = None
@@ -81,15 +87,6 @@ def _launched(name: str, rc: int) -> None:
                            f"({msg})")
     _LAUNCHES[name] += 1
 
-
-def _on_card(x: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: no kernel or plain version for device "
-                     f"{x.device}")
 
 
 def _check(name: str, p: torch.Tensor, like_p, like_m, sc: torch.Tensor):
@@ -153,6 +150,30 @@ def _u_plain(m_st, v_st, p, mk, lr_t, b1c, b2c, eps, wd, has_wd):
 # pass 1: adam_colstats
 # -----------------------------------------------------------------------------
 
+def adam_colstats_cost(L: int, R: int, C: int, transpose: bool,
+                       p_size: int = 4, m_size: int = 4,
+                       mask: bool = False):
+    """(operations, bytes) of ``adam_colstats`` on (L, R, C) stacks with
+    params (and g, mask) of ``p_size`` bytes and moments of ``m_size``: 20
+    f32 operations an element; g, p, m, v (and the mask) read, m and v
+    written, two (L, mcols) f32 and the 16-byte scalars."""
+    n = L * R * C
+    mcols = R if transpose else C
+    return (20 * n, n * (2 * p_size + 4 * m_size + (p_size if mask else 0))
+            + 2 * 4 * L * mcols + 16)
+
+
+def adam_clip_apply_cost(L: int, R: int, C: int, transpose: bool,
+                         p_size: int = 4, m_size: int = 4,
+                         mask: bool = False):
+    """(operations, bytes) of ``adam_clip_apply``: 14 f32 operations an
+    element; m, v, p (and the mask) and mu read, the params written."""
+    n = L * R * C
+    mcols = R if transpose else C
+    return (14 * n, n * (2 * p_size + 2 * m_size + (p_size if mask else 0))
+            + 4 * L * mcols + 16)
+
+
 def adam_colstats_plain(sc, g, m, v, p, mask=None, *, b1, b2, eps, wd,
                         transpose: bool, stat: str = "abs"):
     """Plain version of ``adam_colstats`` (same arguments and results)."""
@@ -186,7 +207,7 @@ def adam_colstats(sc: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if stat not in ("abs", "sq"):
         raise ValueError(f"unknown stat {stat!r} (abs | sq)")
     _check("adam_colstats", p, (g, mask), (m, v), sc)
-    if not _on_card(p, "adam_colstats"):
+    if not kernel_side(p, "adam_colstats"):
         return adam_colstats_plain(sc, g, m, v, p, mask, b1=b1, b2=b2,
                                    eps=eps, wd=wd, transpose=transpose,
                                    stat=stat)
@@ -195,6 +216,11 @@ def adam_colstats(sc: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     m_new, v_new = torch.empty_like(m), torch.empty_like(v)
     colsum = torch.empty((L, mcols), dtype=torch.float32, device=p.device)
     colmax = torch.empty((L, mcols), dtype=torch.float32, device=p.device)
+    if is_meta(p):
+        record_kernel("adam_colstats", adam_colstats_cost(
+            L, R, C, transpose, p.element_size(), m.element_size(),
+            mask is not None))
+        return m_new, v_new, colsum, colmax
     rc = _lib().fused_adam_colstats(
         _CODE[p.dtype], _CODE[m.dtype], g.data_ptr(), m.data_ptr(),
         v.data_ptr(), p.data_ptr(), None if mask is None else mask.data_ptr(),
@@ -245,11 +271,16 @@ def adam_clip_apply(sc: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
             or tuple(mu.shape) != (L, mcols) or not mu.is_contiguous()):
         raise ValueError(f"adam_clip_apply: mu must be a contiguous "
                          f"({L}, {mcols}) f32 tensor on {p.device}")
-    if not _on_card(p, "adam_clip_apply"):
+    if not kernel_side(p, "adam_clip_apply"):
         return adam_clip_apply_plain(sc, m, v, p, mu, mask, b1=b1, b2=b2,
                                      eps=eps, wd=wd, transpose=transpose,
                                      mode=mode)
     x = torch.empty_like(p)
+    if is_meta(p):
+        record_kernel("adam_clip_apply", adam_clip_apply_cost(
+            L, R, C, transpose, p.element_size(), m.element_size(),
+            mask is not None))
+        return x
     rc = _lib().fused_adam_clip_apply(
         _CODE[p.dtype], _CODE[m.dtype], m.data_ptr(), v.data_ptr(),
         p.data_ptr(), None if mask is None else mask.data_ptr(),

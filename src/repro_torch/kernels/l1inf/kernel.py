@@ -21,11 +21,16 @@ plain PyTorch version that repeats the kernel's arithmetic:
                      over the same solves.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel (building it at first use) or
-the call raises. Each wrapper checks device, dtype, shape and contiguity
-first, allocates its outputs with ``torch.empty``, launches on the current
-stream without synchronising, raises if the launch reports an error, and
-adds one to its launch count (``launch_counts``).
+version, a CUDA tensor launches the kernel (building it at first use), a
+meta tensor (the dry-run's) takes the kernel's shape rule: its outputs
+are empty meta tensors and the launch is recorded, with its cost, in the
+active ``roofline.counter.Counter`` (no launch count moves); any other
+device raises. Each ``*_cost`` gives a kernel's (operations, bytes) from
+its shapes: each input byte read once, each output byte written once.
+Each wrapper checks device, dtype, shape and contiguity first, allocates
+its outputs with ``torch.empty``, launches on the current stream without
+synchronising, raises if the launch reports an error, and adds one to
+its launch count (``launch_counts``).
 """
 from __future__ import annotations
 
@@ -35,12 +40,20 @@ from typing import Dict, Optional
 import torch
 
 from ... import _build
+from ..._device import is_meta, kernel_side, taken
+from ...roofline.counter import record_kernel
 from ...core.l1inf import _PAD_THETA, _segment_summer
 
 __all__ = ["colstats", "mu_solve", "clip_apply", "newton_loop",
            "colstats_plain", "mu_solve_plain", "clip_apply_plain",
            "newton_loop_plain", "warm_levels", "eq19_step", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "colstats_cost", "mu_solve_cost",
+           "clip_apply_cost", "newton_loop_cost", "NEWTON_LOOP_MAX_ROWS"]
+
+# The tallest buffer the cooperative Newton keeps in registers: 8 cluster
+# CTAs of 1280 rows (kRegRows = kMaxCluster * kSlabRows in csrc/l1inf.cu,
+# whose l1inf_newton_loop_max_rows() returns it).
+NEWTON_LOOP_MAX_ROWS = 8 * 1280
 
 _LAUNCHES: Dict[str, int] = {"colstats": 0, "mu_solve": 0, "clip_apply": 0,
                              "newton_loop": 0}
@@ -90,15 +103,6 @@ def _launched(name: str, rc: int) -> None:
     _LAUNCHES[name] += 1
 
 
-def _on_card(x: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: no kernel or plain version for device "
-                     f"{x.device}")
-
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
@@ -132,6 +136,12 @@ def _check_vector(name: str, v: torch.Tensor, m: int, like: torch.Tensor,
 # colstats
 # -----------------------------------------------------------------------------
 
+def colstats_cost(n: int, m: int):
+    """(operations, bytes) of ``colstats`` on an (n, m) f32 matrix: |.|,
+    a sum and a max an element; Y read, two (m,) f32 written."""
+    return 3 * n * m, 4 * n * m + 2 * 4 * m
+
+
 def colstats_plain(Y: torch.Tensor):
     """Plain version of ``colstats``: (sum |Y|, max |Y|) per column, f32."""
     A = Y.to(torch.float32).abs()
@@ -146,11 +156,14 @@ def colstats(Y: torch.Tensor):
     16-byte aligned); CPU: ``colstats_plain``.
     """
     _check_matrix("colstats", Y, (torch.float32,))
-    if not _on_card(Y, "colstats"):
+    if not kernel_side(Y, "colstats"):
         return colstats_plain(Y)
     n, m = Y.shape
     colsum = torch.empty((m,), dtype=torch.float32, device=Y.device)
     colmax = torch.empty((m,), dtype=torch.float32, device=Y.device)
+    if is_meta(Y):
+        record_kernel("colstats", colstats_cost(n, m))
+        return colsum, colmax
     vec4 = int(m % 4 == 0 and Y.data_ptr() % 16 == 0)
     rc = _lib().l1inf_colstats(Y.data_ptr(), colsum.data_ptr(),
                                colmax.data_ptr(), n, m, vec4, _stream(Y))
@@ -210,6 +223,17 @@ def _cold_levels(y, th, colmax, n_bisect, n_polish):
     return mu, k, S
 
 
+def mu_solve_cost(n: int, m: int, active: int, n_bisect: int = 26,
+                  n_polish: int = 8):
+    """(operations, bytes) of ``mu_solve`` on an (n, m) f32 |Y| of which
+    the first ``active`` columns solve (the ``nact_blocks`` prefix, data
+    dependent): two f32 operations an element of those columns on each of
+    the n_bisect + n_polish + 2 passes; their values and a theta read, 13
+    bytes a column written (mu, k, S_k, active)."""
+    return (2 * n * active * (n_bisect + n_polish + 2),
+            4 * n * active + 4 * active + 13 * m)
+
+
 def mu_solve_plain(Yabs: torch.Tensor, theta: torch.Tensor, *,
                    block_m: int, nact: torch.Tensor, n_bisect: int = 26,
                    n_polish: int = 8):
@@ -243,8 +267,9 @@ def mu_solve(Yabs: torch.Tensor, theta, *, block_m: int = 128,
     Inactive columns get (0, 1, 0, False).
     """
     _check_matrix("mu_solve", Yabs, (torch.float32,))
+    card = kernel_side(Yabs, "mu_solve")
     theta, nact = _mu_inputs(Yabs, theta, block_m, nact_blocks)
-    if not _on_card(Yabs, "mu_solve"):
+    if not card:
         return mu_solve_plain(Yabs, theta, block_m=block_m, nact=nact,
                               n_bisect=n_bisect, n_polish=n_polish)
     n, m = Yabs.shape
@@ -253,6 +278,9 @@ def mu_solve(Yabs: torch.Tensor, theta, *, block_m: int = 128,
     k = torch.empty((m,), dtype=torch.float32, device=dev)
     S = torch.empty((m,), dtype=torch.float32, device=dev)
     act = torch.empty((m,), dtype=torch.bool, device=dev)
+    if is_meta(Yabs):       # every column solves: the count's cap
+        record_kernel("mu_solve", mu_solve_cost(n, m, m, n_bisect, n_polish))
+        return mu, k, S, act
     rc = _lib().l1inf_mu_solve(
         Yabs.data_ptr(), theta.data_ptr(), 1 if theta.numel() == m and m > 1
         else 0, nact.data_ptr(), block_m, mu.data_ptr(), k.data_ptr(),
@@ -264,6 +292,13 @@ def mu_solve(Yabs: torch.Tensor, theta, *, block_m: int = 128,
 # -----------------------------------------------------------------------------
 # clip_apply
 # -----------------------------------------------------------------------------
+
+def clip_apply_cost(n: int, m: int, itemsize: int = 4):
+    """(operations, bytes) of ``clip_apply`` on an (n, m) Y of
+    ``itemsize`` bytes an element: |.|, a min and the sign an element; Y
+    and mu read, X written."""
+    return 3 * n * m, 2 * itemsize * n * m + 4 * m
+
 
 def clip_apply_plain(Y: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     """Plain version of ``clip_apply``: sign(Y) * min(|Y|, mu_j), with mu
@@ -281,9 +316,12 @@ def clip_apply(Y: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     _check_matrix("clip_apply", Y, (torch.float32, torch.bfloat16))
     n, m = Y.shape
     _check_vector("clip_apply", mu, m, Y, torch.float32)
-    if not _on_card(Y, "clip_apply"):
+    if not kernel_side(Y, "clip_apply"):
         return clip_apply_plain(Y, mu)
     X = torch.empty_like(Y)
+    if is_meta(Y):
+        record_kernel("clip_apply", clip_apply_cost(n, m, Y.element_size()))
+        return X
     fn = (_lib().l1inf_clip_apply_f32 if Y.dtype == torch.float32
           else _lib().l1inf_clip_apply_bf16)
     rc = fn(Y.data_ptr(), mu.data_ptr(), X.data_ptr(), n, m, _stream(Y))
@@ -345,13 +383,13 @@ def _host_loop(solve, A, sids, colsum, t1, Csafe, G, bm, shrink,
     theta, prev = torch.maximum(t2, t1), t1
     work = nblocks * bm + nact1 * bm
     iters = 2
-    while iters < max_newton and bool((theta > prev).any()):
+    while iters < max_newton and taken((theta > prev).any()):
         nact = nact_of(theta)
         new, mu = step(theta, nact)
         iters, theta, prev = iters + 1, torch.maximum(new, theta), theta
         work = work + nact * bm
     # max_newton cap exit: mu lags theta by one iterate; re-evaluate
-    if bool((theta > prev).any()):
+    if taken((theta > prev).any()):
         mu = step(theta, nact_of(theta))[1]
     return (theta, mu, torch.tensor(iters, device=dev), work,
             nact_of(theta) * bm)
@@ -389,6 +427,20 @@ def warm_levels(y, th, th_prev, mu_prev, k_prev, colmax, n_polish):
         done |= stop
         mu = torch.where(done, mu, nm)
     return mu, k, S, converged
+
+
+def newton_loop_cost(n: int, first: int, later: int, n_bisect: int = 26,
+                     n_polish: int = 8):
+    """(operations, bytes) of ``newton_loop`` on n rows: data dependent, so
+    its arguments are the columns of pass 2's prefix (``first``) and the
+    columns summed over every later evaluation's prefix (``later``; the
+    work counter less m and ``first``). The first prefix read once; two
+    f32 operations an element on each of pass 2's n_bisect + n_polish + 2
+    cold passes over it and on the 2 passes (a step and the one that
+    confirms it) a warm evaluation takes at least over each later
+    prefix."""
+    return (2 * n * ((n_bisect + n_polish + 2) * first + 2 * later),
+            4 * n * first)
 
 
 def newton_loop_plain(A, sids, colsum, t1, Csafe, num_active, *,
@@ -443,8 +495,10 @@ def newton_loop(A: torch.Tensor, sids: torch.Tensor, colsum: torch.Tensor,
     Returns (theta (G,), mu (m,), newton_iters, work_cols,
     active_cols_per_step), the counters as 0-d tensors on A's device.
     CUDA: one cooperative launch of ``l1inf_newton_loop`` and no host sync,
-    for n up to ``l1inf_newton_loop_max_rows()``; taller buffers run the
-    host loop over the ``mu_solve`` kernel. CPU: ``newton_loop_plain``.
+    for n up to ``NEWTON_LOOP_MAX_ROWS``; taller buffers run the host
+    loop over the ``mu_solve`` kernel. Meta: the same choice, the launch
+    (or each ``mu_solve`` of the host loop) recorded at the loop's cap.
+    CPU: ``newton_loop_plain``.
     """
     _check_matrix("newton_loop", A, (torch.float32,))
     n, m = A.shape
@@ -459,11 +513,10 @@ def newton_loop(A: torch.Tensor, sids: torch.Tensor, colsum: torch.Tensor,
     _check_vector("newton_loop", num_active, 1, A, torch.int32)
     kw = dict(num_segments=G, block_m=block_m, shrink=shrink,
               n_bisect=n_bisect, n_polish=n_polish, max_newton=max_newton)
-    if not _on_card(A, "newton_loop"):
+    if not kernel_side(A, "newton_loop"):
         return newton_loop_plain(A, sids, colsum, t1, Csafe, num_active,
                                  **kw)
-    lib = _lib()
-    if n > lib.l1inf_newton_loop_max_rows():
+    if n > NEWTON_LOOP_MAX_ROWS:
         def solve(A_, th, nact):
             return mu_solve(A_, th, block_m=block_m, n_bisect=n_bisect,
                             n_polish=n_polish, nact_blocks=nact)
@@ -473,6 +526,11 @@ def newton_loop(A: torch.Tensor, sids: torch.Tensor, colsum: torch.Tensor,
     mu = torch.empty((m,), dtype=torch.float32, device=dev)
     theta = torch.empty((G,), dtype=torch.float32, device=dev)
     stats = torch.empty((3,), dtype=torch.int64, device=dev)
+    if is_meta(A):          # the cap: every evaluation over every column
+        record_kernel("newton_loop", newton_loop_cost(
+            n, m, (max_newton - 1) * m, n_bisect, n_polish))
+        return theta, mu, stats[0], stats[1], stats[2]
+    lib = _lib()
     clusters = lib.l1inf_newton_loop_clusters(n, m, G)
     if clusters < 0:
         _launched("newton_loop", -clusters)       # raises with the error

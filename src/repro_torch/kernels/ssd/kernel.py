@@ -63,8 +63,11 @@ with every sum that is not a matrix product in the kernels' order (it is
 held to the kernel within a tolerance, not bit for bit: the products and
 fmaf differ).
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernels (building them at first use)
-or the call raises. The wrappers check device, dtype, shape and
+version, a CUDA tensor launches the kernels (building them at first use),
+a meta tensor (the dry-run's) takes the kernels' path with the launch
+replaced by a record, with its cost (``ssd_fwd_cost``, ``ssd_bwd_cost``),
+in the active ``roofline.counter.Counter`` (no launch count moves); any
+other device raises. The wrappers check device, dtype, shape and
 contiguity, allocate outputs and f32 scratch with ``torch.empty``, copy an
 input whose address is not 16-byte aligned (the kernels' vector loads
 need it), launch on the current stream without synchronising, raise if a
@@ -80,10 +83,13 @@ import torch
 import torch.nn.functional as F
 
 from ... import _build
+from ..._device import is_meta, kernel_side
+from ...roofline.counter import record_kernel
 
 __all__ = ["ssd_fwd", "ssd_fwd_plain", "ssd_bwd", "ssd_bwd_plain",
            "SSDFunction", "KERNEL_SHAPES", "TILE_BF16_SHAPES", "kernel_shape",
-           "launch_counts", "reset_launch_counts", "bwd_kernel_attrs"]
+           "launch_counts", "reset_launch_counts", "bwd_kernel_attrs",
+           "ssd_fwd_cost", "ssd_bwd_cost"]
 
 _LAUNCHES: Dict[str, int] = {"ssd_fwd": 0, "ssd_bwd": 0,
                              "ssd_fwd_tile_bf16": 0, "ssd_bwd_tile_bf16": 0}
@@ -172,15 +178,6 @@ def _check(x, dt, a, d, B, C, chunk: int, groups: int, what: str = "ssd_fwd"):
         raise ValueError(f"{what}: inputs on different devices")
 
 
-def _on_card(x: torch.Tensor, what: str = "ssd_fwd") -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"{what}: no kernel or plain version for device "
-                     f"{x.device}")
-
 
 def kernel_shape(P: int, N: int, chunk: int, what: str = "ssd_fwd",
                  tile_bf16: bool = False) -> Tuple[int, int]:
@@ -245,6 +242,35 @@ def _decay(cum: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------- forward -------------------------------------
 
+def ssd_fwd_cost(BH: int, S: int, P: int, N: int, chunk: int,
+                 groups: int = 1, itemsize: int = 4):
+    """(operations, bytes) of one ``ssd_fwd`` call at the true P and N:
+    each chunk's products over the lower triangle (G = C B^T and M x) and
+    its four full (Q, P, N) products; x, dt, B, C, a, d read once, y and
+    the f32 final state written once."""
+    Q, nc = chunk, S // chunk
+    tri = Q * (Q + 1) // 2
+    BG = BH // groups
+    return (nc * BH * (2 * tri * (N + P) + 4 * Q * P * N),
+            itemsize * (2 * BH * S * P + BH * S + 2 * BG * S * N)
+            + 4 * (2 * BH + BH * P * N))
+
+
+def ssd_bwd_cost(BH: int, S: int, P: int, N: int, chunk: int,
+                 groups: int = 1):
+    """(operations, bytes) of one ``ssd_bwd`` call (f32) at the true P and
+    N: the products over the lower triangle (dy x^T, M^T dy, dG^T C, dG
+    B) and the four full (Q, P, N) products of each chunk; x, dy, dt,
+    cum, B, C, the saved states and G read once, dx, ddt, dB, dC, da, dd
+    written once."""
+    Q, nc = chunk, S // chunk
+    tri = Q * (Q + 1) // 2
+    BG = BH // groups
+    return (nc * BH * (2 * tri * (2 * P + 2 * N) + 8 * Q * P * N),
+            4 * (3 * BH * S * P + 3 * BH * S + 4 * BG * S * N
+                 + BH * nc * P * N + BG * nc * Q * Q + 4 * BH))
+
+
 def ssd_fwd_plain(x, dt, a, d, B, C, *, chunk: int = 64, groups: int = 1,
                   return_saved: bool = False, tile_bf16: bool = False):
     """Plain version of ``ssd_fwd`` (same arguments and results): the
@@ -297,8 +323,9 @@ def ssd_fwd_plain(x, dt, a, d, B, C, *, chunk: int = 64, groups: int = 1,
 
 def _fwd_kernel(x, dt, a, d, B, C, chunk: int, groups: int,
                 tile_bf16: bool = False):
-    """Launch the forward kernels on contiguous CUDA inputs; returns (y,
-    final state, saved) with saved at the kernels' padded P and N."""
+    """Launch the forward kernels on contiguous CUDA inputs (on meta ones,
+    record the launch); returns (y, final state, saved) with saved at the
+    kernels' padded P and N."""
     if not all(t.is_contiguous() for t in (x, dt, a, d, B, C)):
         raise ValueError("ssd_fwd: inputs must be contiguous")
     if tile_bf16 and x.dtype != torch.float32:
@@ -323,6 +350,25 @@ def _fwd_kernel(x, dt, a, d, B, C, chunk: int, groups: int,
     eseg = torch.empty((BH, nc), **f32)
     cum = torch.empty((BH, S), **f32)
     G = torch.empty((BG, nc, chunk, chunk), **f32)
+    name = "ssd_fwd_tile_bf16" if tile_bf16 else "ssd_fwd"
+    if is_meta(x):
+        record_kernel(name, ssd_fwd_cost(BH, S, P, N, chunk, groups,
+                                         dt.element_size()))
+    else:
+        _fwd_launch(x, dt, a, d, B, C, y, state, hst, eseg, cum, G, chunk,
+                    groups, tile_bf16)
+        _LAUNCHES[name] += 1
+    if (Pk, Nk) != (P, N):
+        y = y[..., :P].contiguous()
+        state = state[:, :P, :N].contiguous()
+    return y, state, (hst, cum, G)
+
+
+def _fwd_launch(x, dt, a, d, B, C, y, state, hst, eseg, cum, G, chunk,
+                groups, tile_bf16):
+    """Launch the forward kernels on padded, aligned CUDA tensors."""
+    BH, S, Pk = x.shape
+    Nk = B.shape[2]
     ptrs = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), d.data_ptr(),
             B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
             hst.data_ptr(), eseg.data_ptr(), cum.data_ptr(), G.data_ptr(),
@@ -333,11 +379,6 @@ def _fwd_kernel(x, dt, a, d, B, C, chunk: int, groups: int,
     else:
         rc = _lib("ssd").ssd_fwd(_CODE[x.dtype], *ptrs)
     _raise_on(rc, "ssd")
-    _LAUNCHES["ssd_fwd_tile_bf16" if tile_bf16 else "ssd_fwd"] += 1
-    if (Pk, Nk) != (P, N):
-        y = y[..., :P].contiguous()
-        state = state[:, :P, :N].contiguous()
-    return y, state, (hst, cum, G)
 
 
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -362,7 +403,7 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (``TILE_BF16_SHAPES``); its launches count under ``ssd_fwd_tile_bf16`` and
     ``ssd_bwd_tile_bf16``."""
     _check(x, dt, a, d, B, C, chunk, groups)
-    card = _on_card(x)
+    card = kernel_side(x, "ssd_fwd")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, a, d, B, C)):
         if card and x.dtype != torch.float32:
@@ -616,7 +657,7 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     bf16-tile forward (``ssd_bwd_plain``), whose ``saved`` it takes."""
     _check(x, dt, a, d, B, C, chunk, groups, "ssd_bwd")
     _check_bwd(x, dy, dstate, saved, chunk, groups)
-    if not _on_card(x, "ssd_bwd"):
+    if not kernel_side(x, "ssd_bwd"):
         return ssd_bwd_plain(x, dt, a, d, B, C, dy, dstate, saved,
                              chunk=chunk, groups=groups, tile_bf16=tile_bf16)
     if any(t.dtype != torch.float32 for t in (x, dy)) or (
@@ -646,6 +687,12 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dH = torch.empty((BH, nc, Pk, Nk), **f32)
     dBp, dCp = (torch.empty((BH, S, Nk), **f32) for _ in range(2))
     dad = torch.empty((BH, nc, 2), **f32)
+    if is_meta(x):
+        record_kernel("ssd_bwd_tile_bf16" if tile_bf16 else "ssd_bwd",
+                      ssd_bwd_cost(BH, S, P, N, chunk, groups))
+        return (dx[..., :P].contiguous() if Pk != P else dx, ddt, da, dd,
+                *((t[..., :N].contiguous() for t in (dB, dC)) if Nk != N
+                  else (dB, dC)))
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _lib("ssd_bwd")
     rc = (lib.ssd_bwd_tile_bf16 if tile_bf16 else lib.ssd_bwd)(
@@ -686,7 +733,7 @@ class SSDFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, a, d, B, C, chunk, groups, tile_bf16=False):
-        if _on_card(x):
+        if kernel_side(x, "ssd_fwd"):
             y, state, saved = _fwd_kernel(x, dt, a, d, B, C, chunk, groups,
                                           tile_bf16)
         else:

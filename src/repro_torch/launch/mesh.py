@@ -7,6 +7,10 @@ the group it is given carries the collectives. Functions, so importing
 this module touches no device or group.
 
 >>> mesh = make_local_mesh(2, 2, device="cpu")   # 4 ranks: data x model
+
+The dry-run (``launch/dryrun.py``) builds the production meshes over a
+fake process group of 256 or 512 ranks with ``device="cpu"`` (the mesh's
+device type; its tensors are meta).
 """
 from __future__ import annotations
 

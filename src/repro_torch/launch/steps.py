@@ -45,15 +45,21 @@ global one on every rank. Regions of the model that have no
 tensor-parallel path here (MLA, cross attention, the dense MoE),
 attention whose heads or kv heads the model axis does not divide and an
 SSM whose heads it does not divide run replicated over model (their
-weights split over data only): see ``param_shardings``. ``lower_cell`` (the dry-run) waits for ROADMAP.md
-queue A item 9.
+weights split over data only): see ``param_shardings``. On a one-rank
+mesh the engine is the one-device one, and it runs on the pieces.
+
+``lower_cell`` (the dry-run's) builds a cell's step from these builders
+on meta tensors and runs it once under ``roofline.counter.Counter``.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 
+from .._device import host_int
 from .._tree import flatten_with_path, leaves, tree_map, unflatten_like
 from ..core import ProjectionEngine
 from ..dist.sharding import (Spec, axes_index, axis_rules, default_rules,
@@ -68,7 +74,7 @@ from ..train.loop import (_grad_tree, local_batch, mesh_loss_and_grads,
 __all__ = ["projection_engine_for", "build_train_step", "build_prefill_step",
            "build_decode_step", "rules_for_cell", "batch_shardings",
            "cache_shardings", "param_shardings", "opt_shardings",
-           "shard_opt_state", "lower_cell"]
+           "shard_opt_state", "lower_cell", "LoweredCell"]
 
 
 # ---------------------------------------------------------------------------
@@ -220,13 +226,90 @@ def shard_opt_state(params, acfg: AdamConfig = AdamConfig()) -> AdamState:
                      mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
-def lower_cell(*args, **kwargs):
-    """The dry-run's lowering of one (arch, shape, mesh) cell: waits for
-    ROADMAP.md queue A item 9 (the dry-run and analysis)."""
-    raise NotImplementedError(
-        "lower_cell: the dry-run (launch/dryrun.py, lower_cell, "
-        "LoweredCell) is not ported to repro_torch yet (ROADMAP.md queue A "
-        "item 9)")
+@dataclasses.dataclass
+class LoweredCell:
+    """One traced cell: its step's ``kind`` ("train", "prefill",
+    "decode"), the ``Counts`` of one run of it on meta tensors (rank 0's
+    view), and the bytes of the step's outputs that are not its arguments
+    (a train step's updated state, the logits, a decode step's cache are
+    written in place on one device)."""
+    kind: str
+    counts: Any
+    output_bytes: int = 0
+
+
+def _meta_tokens(batch):
+    """The cell's int32 token ids as the port's batches carry them
+    (int64, ``make_batch`` / ``LMBatcher``); other leaves as given."""
+    return {k: v.to(torch.int64) if k in ("tokens", "labels") else v
+            for k, v in batch.items()}
+
+
+def lower_cell(model: Model, shape_name: str, mesh, multi_pod: bool,
+               dtype: torch.dtype = torch.bfloat16,
+               with_optimizer: bool = True, with_projection: bool = True,
+               extra_rules: Optional[dict] = None) -> LoweredCell:
+    """Trace one (arch x shape x mesh) cell on meta tensors: nothing is
+    allocated. The cell's step comes from this module's builders under
+    ``rules_for_cell`` (with ``extra_rules``), on ``abstract_params``
+    (``dtype``), the zoo's ``input_specs`` and, for a train step, f32 Adam
+    moments and the engine's theta state, all meta; on ``mesh`` (a
+    ``DeviceMesh`` over a process group, e.g. the dry-run's fake one) the
+    params, moments and cache are this rank's pieces under their specs.
+    The step runs once under a ``roofline.counter.Counter``; returns its
+    kind and counts. ``with_optimizer`` is the reference's argument, which
+    its body does not read either: a train step always carries Adam."""
+    from .. import convert
+    from ..models.zoo import input_specs
+    from ..optim import adam_init
+    from ..roofline.counter import Counter
+
+    cfg = model.cfg
+    sh = SHAPES[shape_name]
+    rules = rules_for_cell(cfg, shape_name, multi_pod)
+    if extra_rules:
+        rules.update(extra_rules)
+    params = model.abstract_params(dtype)
+    if mesh is not None:
+        params = convert.params_to_mesh(
+            params, mesh, param_shardings(model, mesh, rules), device="meta")
+    specs = input_specs(cfg, shape_name, dtype)
+
+    if sh["kind"] == "train":
+        acfg = AdamConfig(moment_dtype=torch.float32)
+        opt = (adam_init(params, acfg) if mesh is None
+               else shard_opt_state(params, acfg))
+        proj = projection_engine_for(cfg, mesh, with_projection).init_state(
+            params)
+        step = build_train_step(model, mesh, rules, acfg,
+                                with_projection=with_projection)
+        args = (params, opt, proj, _meta_tokens(specs))
+    elif sh["kind"] == "prefill":
+        step = build_prefill_step(model, mesh, rules)
+        args = (params, _meta_tokens(specs))
+    else:
+        cache = specs["cache"]
+        if mesh is not None:
+            cache = convert.cache_to_mesh(
+                cache, mesh, cache_shardings(cache, mesh, rules),
+                device="meta")
+        step = build_decode_step(model, mesh, rules)
+        args = (params, cache, _meta_tokens(specs)["tokens"], specs["pos"])
+    with Counter(arguments=args) as counter:
+        out = step(*args)
+    held = {t.untyped_storage()._cdata for t in _locals(args)}
+    fresh = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+             for t in _locals(out)}
+    return LoweredCell(sh["kind"], counter.counts,
+                       sum(n for k, n in fresh.items() if k not in held))
+
+
+def _locals(tree):
+    """The plain tensors of a tree of dicts, tuples and named tuples (a
+    ``DTensor``'s piece)."""
+    from torch.utils._pytree import tree_leaves
+    return [getattr(t, "_local_tensor", t) for t in tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
 
 
 def projection_engine_for(cfg, mesh=None,
@@ -242,6 +325,14 @@ def projection_engine_for(cfg, mesh=None,
     if mesh is not None and mesh.size() > 1:
         return ProjectionEngine(specs, solver="fused_sharded", mesh=mesh)
     return ProjectionEngine(specs, solver="fused")
+
+
+def _next_count(opt_state) -> Optional[int]:
+    """The step's new optimizer count read on the host, so that the
+    every_k gates run there; None on meta (``host_int``): the count stays
+    on the device and every gate fires."""
+    count = host_int(opt_state.count)
+    return None if count is None else count + 1
 
 
 def _extra_evals(stats: Dict[str, Any], device) -> torch.Tensor:
@@ -267,6 +358,25 @@ def _whole(x: torch.Tensor, spec, mesh) -> torch.Tensor:
                 placements(mesh, spec), replicated_placements(lay), lay)
 
 
+def _one_rank_update(engine, grads, opt_state, params, acfg, **kw):
+    """``engine.projected_update`` on a one-rank mesh: the engine is the
+    one-device one (``projection_engine_for``), whose solvers take plain
+    tensors, so it runs on the pieces (each its whole leaf) and the
+    results go back as ``DTensor``s laid out as their inputs."""
+    from ..dist.layout import MeshLayout, local_of, wrap
+    pieces = lambda t: tree_map(local_of, t)
+    like = lambda t, ref: tree_map(lambda x, r: wrap(
+        x, r.shape, tuple(r.placements), MeshLayout(r.device_mesh)), t, ref)
+    new_p, new_o, new_proj, stats = engine.projected_update(
+        pieces(grads), AdamState(count=opt_state.count,
+                                 mu=pieces(opt_state.mu),
+                                 nu=pieces(opt_state.nu)),
+        pieces(params), acfg, **kw)
+    return (like(new_p, params),
+            AdamState(count=new_o.count, mu=like(new_o.mu, opt_state.mu),
+                      nu=like(new_o.nu, opt_state.nu)), new_proj, stats)
+
+
 def _mesh_train_step(model: Model, mesh, rules: dict, acfg: AdamConfig,
                      with_projection: bool):
     engine = projection_engine_for(model.cfg, mesh, with_projection)
@@ -277,10 +387,11 @@ def _mesh_train_step(model: Model, mesh, rules: dict, acfg: AdamConfig,
             loss, metrics, grads = mesh_loss_and_grads(model, params, specs,
                                                        batch, mesh)
             with torch.no_grad():
-                new_params, new_opt, new_proj, stats = \
-                    engine.projected_update(
-                        grads, opt_state, params, acfg, state=proj_state,
-                        with_stats=True, count=int(opt_state.count) + 1)
+                update = (engine.projected_update if engine.mesh is not None
+                          else functools.partial(_one_rank_update, engine))
+                new_params, new_opt, new_proj, stats = update(
+                    grads, opt_state, params, acfg, state=proj_state,
+                    with_stats=True, count=_next_count(opt_state))
                 new_params, new_opt = to_specs_state(new_params, new_opt,
                                                      specs, mesh)
         metrics["proj_newton_extra_evals"] = _extra_evals(stats, loss.device)
@@ -315,7 +426,7 @@ def build_train_step(model: Model, mesh=None, rules: Optional[dict] = None,
         with torch.no_grad():
             new_params, new_opt, new_proj, stats = engine.projected_update(
                 grads, opt_state, params, acfg, state=proj_state,
-                with_stats=True, count=int(opt_state.count) + 1,
+                with_stats=True, count=_next_count(opt_state),
                 inplace=True)
         metrics["proj_newton_extra_evals"] = _extra_evals(stats, loss.device)
         return loss, metrics, new_params, new_opt, new_proj

@@ -3,8 +3,9 @@ and logical sharding axes (the axes are kept for the distributed slice).
 
 ``model_layout(cfg)`` (transformer.py) builds a nested dict of ``PM``
 leaves; ``materialize`` turns it into initialized tensors and
-``partition_specs`` into the mesh rules' ``Spec`` per leaf. The JAX
-package's ``abstract`` (the dry-run's) waits for ROADMAP queue A item 9.
+``partition_specs`` into the mesh rules' ``Spec`` per leaf, and
+``abstract`` into ``meta`` tensors (the dry-run's: shapes and dtypes,
+nothing allocated).
 """
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["PM", "is_pm", "materialize", "partition_specs", "stack_layout",
-           "count_params"]
+__all__ = ["PM", "is_pm", "abstract", "materialize", "partition_specs",
+           "stack_layout", "count_params"]
 
 
 class PM(NamedTuple):
@@ -47,6 +48,15 @@ def _pm_leaves(layout):
     if isinstance(layout, dict):
         return [pm for k in sorted(layout) for pm in _pm_leaves(layout[k])]
     return [layout]
+
+
+def abstract(layout, default_dtype: torch.dtype = torch.bfloat16):
+    """The layout as a tree of ``meta`` tensors of each leaf's shape and
+    dtype (``pm.dtype`` or ``default_dtype``): nothing is allocated (the
+    dry-run's params)."""
+    return _map_pm(lambda pm: torch.empty(pm.shape, dtype=pm.dtype
+                                          or default_dtype, device="meta"),
+                   layout)
 
 
 def materialize(generator: torch.Generator, layout,

@@ -599,8 +599,8 @@ def decode_step_(params, cache, tokens, pos, cfg: ArchConfig):
         if pos.ndim:                      # per-row absolute positions
             x = x + table[pos].to(x.dtype)[:, None]
         else:                             # clamped, as dynamic_slice does
-            i = pos.clamp(0, table.shape[0] - 1)
-            x = x + table[i].to(x.dtype)[None, None]
+            i = pos.clamp(0, table.shape[0] - 1).reshape(1)
+            x = x + table[i].to(x.dtype)[None]    # a gather: no host read
     cycles, rem = _split_pattern(cfg)
     for c in range(cycles):
         for i, kind in enumerate(cfg.pattern):

@@ -1,9 +1,9 @@
 """Architecture zoo: build models from ArchConfig.
 
-``SHAPES`` are the assigned input-shape cells; ``make_batch`` materializes
-small real batches for smoke tests. The JAX package's allocation-free
-``input_specs`` / ``abstract_params`` belong to the dry-run, which is not
-ported yet (ROADMAP queue A item 9).
+``SHAPES`` are the assigned input-shape cells; ``input_specs`` returns
+every model input of a cell as ``meta`` tensors, nothing allocated (the
+dry-run's, with ``Model.abstract_params``), and ``make_batch``
+materializes small real batches for smoke tests.
 """
 from __future__ import annotations
 
@@ -15,10 +15,10 @@ import torch
 from .._device import resolve_device
 from .transformer import (ArchConfig, model_layout, forward, train_loss,
                           init_cache, decode_step, decode_step_)
-from .param import materialize, count_params, partition_specs
+from .param import abstract, materialize, count_params, partition_specs
 
-__all__ = ["SHAPES", "cell_supported", "make_batch", "Model", "build",
-           "reduce_config"]
+__all__ = ["SHAPES", "cell_supported", "input_specs", "make_batch", "Model",
+           "build", "reduce_config"]
 
 SHAPES: Dict[str, Dict[str, Any]] = {
     "train_4k":    dict(seq=4096,   batch=256, kind="train"),
@@ -34,6 +34,30 @@ def cell_supported(cfg: ArchConfig, shape_name: str) -> Tuple[bool, str]:
         return False, ("pure full-attention arch: long_500k skipped per "
                        "assignment (needs sub-quadratic attention)")
     return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape_name: str,
+                dtype: torch.dtype = torch.bfloat16):
+    """Every input of the (arch, shape) cell as ``meta`` tensors, nothing
+    allocated: train / prefill a batch dict (tokens, labels for train,
+    frames, image_embeds); decode {"tokens" (B, 1), "pos" (), "cache"}.
+    Token ids and positions are int32, as the reference's specs."""
+    sh = SHAPES[shape_name]
+    B, S = sh["batch"], sh["seq"]
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    i32 = torch.int32
+    if sh["kind"] in ("train", "prefill"):
+        batch = {"tokens": meta((B, S), i32)}
+        if sh["kind"] == "train":
+            batch["labels"] = meta((B, S), i32)
+        if cfg.encdec:
+            batch["frames"] = meta((B, S, cfg.d_model), dtype)
+        if cfg.n_img_tokens:
+            batch["image_embeds"] = meta((B, cfg.n_img_tokens, cfg.d_model),
+                                         dtype)
+        return batch
+    return {"tokens": meta((B, 1), i32), "pos": meta((), i32),
+            "cache": init_cache(cfg, B, S, dtype, device="meta")}
 
 
 def make_batch(cfg: ArchConfig, B: int, S: int, *,
@@ -64,6 +88,10 @@ def make_batch(cfg: ArchConfig, B: int, S: int, *,
 class Model:
     cfg: ArchConfig
     layout: Any
+
+    def abstract_params(self, dtype: torch.dtype = torch.bfloat16):
+        """The params as ``meta`` tensors (``param.abstract``)."""
+        return abstract(self.layout, dtype)
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None):

@@ -72,8 +72,9 @@ rank by one all-gather over the batch axes a step, outside the graph, on
 the host copies at drain time (``dist.sharding.gather_rows``, counted
 ``engine_out_gather``; its seconds in ``stats()["exchange_s"]``).
 
-Not ported: ``step_hlo`` (XLA text, no torch counterpart; ROADMAP.md
-queue A item 9).
+``step_hlo`` has no counterpart: it returns the reference's compiled XLA
+text, and the port has no compiler; its tests read the cache's addresses
+instead.
 """
 from __future__ import annotations
 

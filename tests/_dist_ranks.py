@@ -1085,3 +1085,48 @@ def hybrid_config():
     import dataclasses
     from repro_torch.configs import get_reduced
     return dataclasses.replace(get_reduced("hymba_15b"), n_layers=2)
+
+
+def one_rank_steps(mesh, inputs, steps=2):
+    """``build_train_step(model, mesh, rules)`` on a one-rank mesh for
+    ``steps`` steps of each (name, (cfg, params, tok, labels)) of
+    ``inputs``: per step the loss and the optimizer count, whether every
+    returned param, mu and nu leaf is a ``DTensor`` with its input's
+    placements and shape, then the leaves (each piece whole) as numpy."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch._tree import flatten_with_path, leaves
+    from repro_torch.convert import params_to_mesh
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import zoo as TZ
+    from repro_torch.optim import AdamConfig
+    acfg = AdamConfig(moment_dtype=torch.float32)
+    np_of = lambda t: {k: v.to_local().numpy().copy()
+                       for k, v in flatten_with_path(t)}
+    out = {}
+    for name, (cfg, params_np, tok, labels) in sorted(inputs.items()):
+        model = TZ.build(cfg)
+        rules = ST.rules_for_cell(cfg, "train_4k", False)
+        specs = ST.param_shardings(model, mesh, rules)
+        params = params_to_mesh(params_np, mesh, specs, "cpu")
+        opt = ST.shard_opt_state(params, acfg)
+        proj = ST.projection_engine_for(cfg, mesh).init_state(params)
+        step = ST.build_train_step(model, mesh, rules, acfg)
+        batch = {"tokens": torch.from_numpy(tok).long(),
+                 "labels": torch.from_numpy(labels).long()}
+        losses, counts, laid_out, thetas = [], [], [], []
+        for _ in range(steps):
+            trio = lambda p, o: leaves(p) + leaves(o.mu) + leaves(o.nu)
+            before = [(x.placements, x.shape) for x in trio(params, opt)]
+            loss, _, params, opt, proj = step(params, opt, proj, batch)
+            after = trio(params, opt)
+            laid_out.append(all(
+                isinstance(x, DTensor) and (x.placements, x.shape) == b
+                for x, b in zip(after, before)))
+            losses.append(float(loss))
+            counts.append(int(opt.count))
+            thetas.append({k: v.numpy().copy()
+                           for k, v in flatten_with_path(proj)})
+        out[name] = {"losses": losses, "counts": counts, "thetas": thetas,
+                     "laid_out": laid_out, "params": np_of(params),
+                     "mu": np_of(opt.mu), "nu": np_of(opt.nu)}
+    return out

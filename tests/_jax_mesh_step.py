@@ -1,7 +1,8 @@
 """JAX's sharded production step on a forced host-device mesh, run as a
 subprocess by ``tests/test_torch_mesh_step.py`` (XLA_FLAGS must be set
 before JAX starts): ``python _jax_mesh_step.py IN.npz OUT.npz DATA MODEL
-EVERY_K`` (the reduced configs' projection specs at EVERY_K).
+EVERY_K`` (the reduced configs' projection specs at EVERY_K; a case
+named ``<arch>@<k>`` takes every_k k instead).
 
 IN holds, per arch, the params (``<arch>/params/<path>``), tokens and
 labels; OUT, per arch, the loss of each of two steps of
@@ -40,9 +41,10 @@ def main(src, dst, data, model, every_k):
                          axis_types=(AxisType.Auto, AxisType.Auto))
     out = {}
     for arch in archs:
-        cfg = JC.get_reduced(arch)
+        base, _, k = arch.partition("@")
+        cfg = JC.get_reduced(base)
         cfg = dataclasses.replace(cfg, projection_specs=tuple(
-            dataclasses.replace(s, every_k=every_k)
+            dataclasses.replace(s, every_k=int(k) if k else every_k)
             for s in cfg.projection_specs))
         m = JZ.build(cfg)
         flat = {k[len(arch) + 8:]: inp[k] for k in inp.files

@@ -173,6 +173,21 @@ def test_colstats_describe_the_rounded_update(transpose):
     _tol(a.sum(dim=red), colsum, 1e-4)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor of ``like``'s shape and dtype on a device with neither a
+    kernel nor a plain version (meta is the dry-run's now): metadata only,
+    any op on it raises."""
+
+    @staticmethod
+    def __new__(cls, like):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, like.shape, dtype=like.dtype, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a stand-in device")
+
+
 def test_wrappers_check_their_inputs():
     g, m, v, p, _ = (torch.tensor(x)[None] for x in _leaf_set(3, (8, 16)))
     sc = torch.tensor([1.0, 1e-2, 0.3, 0.05])
@@ -183,7 +198,7 @@ def test_wrappers_check_their_inputs():
         K.adam_colstats(sc, g, m, v, p.transpose(1, 2).contiguous()
                         .transpose(1, 2), **kw)
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        K.adam_colstats(sc.to("meta"), *(x.to("meta") for x in (g, m, v, p)),
+        K.adam_colstats(_Elsewhere(sc), *map(_Elsewhere, (g, m, v, p)),
                         **kw)
     with pytest.raises(ValueError, match="mu"):
         K.adam_clip_apply(sc, m, v, p, torch.ones(1, 7), **kw)

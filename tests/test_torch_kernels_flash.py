@@ -259,6 +259,21 @@ def test_cpu_run_launches_nothing():
                                "flash_attention_bwd": 0}
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor of ``like``'s shape and dtype on a device with neither a
+    kernel nor a plain version (meta is the dry-run's now): metadata only,
+    any op on it raises."""
+
+    @staticmethod
+    def __new__(cls, like):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, like.shape, dtype=like.dtype, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a stand-in device")
+
+
 @pytest.mark.parametrize("bad", ["groups", "dtype", "mixed", "hd", "device"])
 def test_wrapper_checks_inputs(bad):
     q = torch.ones((4, 8, 16))
@@ -268,7 +283,7 @@ def test_wrapper_checks_inputs(bad):
             "mixed": ((q, k.bfloat16(), k), dict(groups=2)),
             "hd": ((q, torch.ones((2, 8, 8)), torch.ones((2, 8, 8))),
                    dict(groups=2)),
-            "device": ((q.to("meta"), k.to("meta"), k.to("meta")),
+            "device": ((_Elsewhere(q), _Elsewhere(k), _Elsewhere(k)),
                        dict(groups=2))}[bad]
     with pytest.raises((TypeError, ValueError)):
         flash_attention_fwd(*args[0], **args[1])

@@ -641,9 +641,10 @@ def test_cuda_projection_never_syncs(card, segmented):
 
 @pytest.mark.cuda
 def test_cuda_engine_taller_than_the_loop_kernel(card):
-    """Past ``l1inf_newton_loop_max_rows()`` rows the loop runs on the host
-    over the streaming mu_solve kernel: the same projection, no loop
-    launch."""
+    """Past ``l1inf_newton_loop_max_rows()`` rows (``NEWTON_LOOP_MAX_ROWS``,
+    the meta branch's limit) the loop runs on the host over the streaming
+    mu_solve kernel: the same projection, no loop launch."""
+    assert K._lib().l1inf_newton_loop_max_rows() == K.NEWTON_LOOP_MAX_ROWS
     g = torch.Generator(device=card).manual_seed(4)
     Y = torch.rand((12000, 300), generator=g, device=card)
     K.reset_launch_counts()

@@ -218,6 +218,21 @@ def test_cpu_run_launches_nothing():
                                "ssd_bwd_tile_bf16": 0}
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor of ``like``'s shape and dtype on a device with neither a
+    kernel nor a plain version (meta is the dry-run's now): metadata only,
+    any op on it raises."""
+
+    @staticmethod
+    def __new__(cls, like):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, like.shape, dtype=like.dtype, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a stand-in device")
+
+
 @pytest.mark.parametrize("bad", ["chunk", "groups", "dtype", "a_dtype",
                                  "device"])
 def test_wrapper_checks_inputs(bad):
@@ -232,7 +247,7 @@ def test_wrapper_checks_inputs(bad):
     elif bad == "a_dtype":
         a = a.bfloat16()
     else:
-        x, dt, a, d, B, C = (t.to("meta") for t in (x, dt, a, d, B, C))
+        x, dt, a, d, B, C = map(_Elsewhere, (x, dt, a, d, B, C))
     with pytest.raises((TypeError, ValueError)):
         ssd_fwd(x, dt, a, d, B, C, **kw)
 

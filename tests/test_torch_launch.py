@@ -31,8 +31,9 @@
 * ``build_prefill_step`` and ``build_decode_step`` against the
   reference's (logits at the zoo's forward tolerance, the new cache).
 * ``rules_for_cell`` equal to the reference's; ``lower_cell`` (the
-  dry-run) raises NotImplementedError naming queue A item 9. The steps
-  over a mesh are held in ``tests/test_torch_mesh_step.py``.
+  dry-run's trace of a cell on meta tensors) counting the reference's
+  dot FLOPs within [0.5, 1.01]. The steps over a mesh are held in
+  ``tests/test_torch_mesh_step.py``.
 * ``launch/train.py``'s ``main`` on reduced stablelm-3b for 2 steps on
   ``--device cpu`` prints the reference's lines (numbers aside: the two
   packages draw their initial params from different generators).
@@ -280,11 +281,37 @@ def test_rules_for_cell_matches_reference(arch, shape):
             == JS.rules_for_cell(JC.get_reduced(arch), shape, multi_pod)
 
 
-def test_lower_cell_raises_naming_item_9():
-    """The dry-run's lowering is not ported: it names ROADMAP item 9."""
-    model = TZ.build(TC.get_reduced("stablelm_3b"))
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        TS.lower_cell(model, "train_4k", object(), False)
+def test_lower_cell_matches_reference_dot_flops(monkeypatch):
+    """``lower_cell`` traces reduced stablelm-3b's train, prefill and
+    decode cells (B 2 x S 32, no mesh) on meta tensors and returns each
+    step's kind and counts: aten dot FLOPs between 0.5x and 1.01x of the
+    reference's ``parse_hlo`` of its cell compiled on a (1, 1) mesh
+    (measured 0.88, 0.91 and 1.0: the reference's dots hold the attention
+    products, which the port's flash kernels count as their operations,
+    2 forward and 2 backward launches a train step), nothing allocated."""
+    from repro.roofline.hlo_parse import parse_hlo
+    for name, kind in (("train_4k", "train"), ("prefill_32k", "prefill"),
+                       ("decode_32k", "decode")):
+        monkeypatch.setitem(TZ.SHAPES, name, dict(seq=32, batch=2,
+                                                  kind=kind))
+        monkeypatch.setitem(JZ.SHAPES, name, dict(seq=32, batch=2,
+                                                  kind=kind))
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    launches = {"train_4k": {"flash_attention_fwd": 2,
+                             "flash_attention_bwd": 2},
+                "prefill_32k": {"flash_attention_fwd": 2},
+                "decode_32k": {}}
+    for name, want_launches in launches.items():
+        cell = JS.lower_cell(JZ.build(JC.get_reduced("stablelm_3b")), name,
+                             mesh, False)
+        want = parse_hlo(cell.compile().as_text()).dot_flops
+        got = TS.lower_cell(TZ.build(TC.get_reduced("stablelm_3b")), name,
+                            None, False)
+        assert got.kind == cell.kind
+        assert 0.5 <= got.counts.dot_flops / want <= 1.01, (name, want)
+        assert got.counts.launches() == want_launches
+        assert got.counts.peak_bytes > got.counts.argument_bytes > 0
 
 
 def test_projection_engine_for_matches_jax_policy():

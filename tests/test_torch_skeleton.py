@@ -181,12 +181,28 @@ def test_serving_entry_points_stay_on_the_params_device(no_cuda, entry):
     assert all(t.device.type == "cpu" for t in outs)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor of ``like``'s shape and dtype on a device with neither a
+    kernel nor a plain version (meta is the dry-run's now): metadata only,
+    any op on it raises."""
+
+    @staticmethod
+    def __new__(cls, like):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, like.shape, dtype=like.dtype, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a stand-in device")
+
+
 @pytest.mark.parametrize("call", ["colstats", "mu_solve", "clip_apply"])
 def test_kernel_wrapper_refuses_other_devices(call):
     """Only a CPU tensor takes the plain version; any device that is not
-    the card raises instead of computing elsewhere."""
-    Y = torch.ones((8, 4), device="meta")
-    mu = torch.ones((4,), device="meta")
+    the card or meta (the dry-run's shape rule) raises instead of
+    computing elsewhere."""
+    Y = _Elsewhere(torch.ones((8, 4)))
+    mu = _Elsewhere(torch.ones((4,)))
     fn = {"colstats": lambda: K.colstats(Y),
           "mu_solve": lambda: K.mu_solve(Y, 1.0, block_m=4),
           "clip_apply": lambda: K.clip_apply(Y, mu)}[call]
