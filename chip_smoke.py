@@ -430,9 +430,14 @@ and prints no result. Phases:
                all_gather an FSDP gather; per plan one (3, G) SUM, one
                (2, G) SUM per Newton evaluation, one (G,) MAX), one
                prefill over the mesh within twice its floor; each rank's
-               step ms, its share inside gloo, peak memory. deepseek-v2
-               at depth 2 (B 1 x S 512, bf16) on (1, 2): moe_impl
-               "shardmap" within 2e-2 of "gspmd" and of one device. The
+               step ms, its share inside gloo, peak memory (each layer
+               gathers its own weights over data on entry). deepseek-v2
+               at depth 2 (B 1 x S 512, bf16) on (1, 2), on the
+               reference's layout (MLA by heads, the routed experts over
+               model, the shared experts column / row parallel): moe_impl
+               "shardmap" and "gspmd" each within 2e-2 of one device; the
+               same for mixtral-8x7b at depth 2 (its query heads and the
+               experts' hidden units over model, "gspmd"). The
                GPipe ring (dist.pipeline) over 2 ranks, one full-width
                hymba MLP stage each, against the stages in order. Phases
                7 / 7b also hold the bf16-tile SSD kernels (ssd_bf16) to
@@ -461,9 +466,11 @@ and prints no result. Phases:
                relative) or twice their floor, every other position bit
                for bit unchanged; reruns bit-equal; per call one
                decode_max and one decode_sum per attention layer, one FSDP
-               gather per data-split leaf, the SSM's norm sum and conv
-               gather per layer, tensor-parallel sums, no other
-               all_gather, no all-to-all; per-rank call ms and gloo
+               gather per data-split leaf and layer, the SSM's norm sum
+               and conv gather per layer, stablelm's head-split wq / wo
+               gathered over model per layer (the decode rules give the
+               model axis to the cache's sequence), tensor-parallel sums,
+               no other all_gather, no all-to-all; per-rank call ms and gloo
                seconds, cache bytes and peak memory a rank beside the
                one-device step's device ms. (b) FleetEngine(mesh=) on a
                (4, 1) data mesh, hymba-1.5b at 8 layers, B 8 (2 slots a
@@ -496,7 +503,9 @@ and prints no result. Phases:
                power limit. (b) hymba_15b train_4k, stablelm_3b
                decode_32k and deepseek_v2_236b prefill_32k at full size
                as rank 0 of 256 fake ranks, each "ok": dominant term,
-               roofline_fraction, bytes a device against 80 GB.
+               roofline_fraction, bytes a device against 80 GB. In (a)
+               and (b) the arguments' bytes (their storages) equal the sum
+               of their pieces' own bytes, printed beside them.
  21. the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 
 TF32 is off for matmuls and cuDNN, so float32 products are full float32.
@@ -4526,14 +4535,17 @@ def ssd_tile_bf16_phase(torch, SK, Z, C, dev, flush,
 # moments on a (data 2, model 2) mesh of 4 gloo ranks sharing the card, B 2
 # (1 a data rank) x S 2048, its spec at every_k 1 so both steps project
 # (fused_sharded); deepseek-v2 at depth 2, B 1 x S 512, on (1, 2) with
-# moe_impl "shardmap" and "gspmd"; a two-stage pipeline of hymba-1.5b's
+# moe_impl "shardmap" and "gspmd", and mixtral-8x7b the same way with
+# "gspmd" (the reference's layout); a two-stage pipeline of hymba-1.5b's
 # full-width MLP. The update check runs the same step in f32 at
 # ``check_depth`` layers for one step (perturbed by PERTURB): in bf16 the
 # whole model's update floor is as large as the update, and in f32 after a
 # second step about half of it. The main path is cut to ``depth`` of the
 # model's 32 layers to keep the run inside its time limit
 MESH = dict(arch="hymba-1.5b", mesh=(2, 2), seq=2048, steps=2, depth=8,
-            perturb=2.0 ** -8, check_depth=2, moe_arch="deepseek-v2-236b",
+            perturb=2.0 ** -8, check_depth=2,
+            moe_cases=(("deepseek-v2-236b", ("shardmap", "gspmd")),
+                       ("mixtral-8x7b", ("gspmd",))),
             moe_depth=2, moe_seq=512, moe_tol=2e-2, pipe_micro=4,
             pipe_seq=512, timeout=900)
 
@@ -4999,29 +5011,47 @@ def _mesh_rank(rank, world, work, shape, shared, meta):
 
 
 def _moe_rank(rank, world, work, shape, shared, meta):
-    """One rank of phase 18's MoE check: Model.loss under the (1, 2) mesh
-    with moe_impl "shardmap" and "gspmd" (no gradient)."""
+    """One rank of phase 18's MoE check: for each of ``meta["cases"]``
+    (a config and its impls; its params and batch in ``shared``, in the
+    same order) Model.loss under the (1, 2) mesh for each impl (no
+    gradient), on the reference's layout (the gspmd impl: the experts, or
+    their hidden units, and MLA's heads split over model), with the
+    collectives by kind, the specs of the regions split over model and
+    the rank's peak memory."""
     torch, dist, mesh = _rank_setup(rank, world, work, shape)
+    from repro_torch._tree import flatten_with_path
     from repro_torch.convert import params_to_mesh
     from repro_torch.dist import sharding as SH
     from repro_torch.launch import steps as TS
     from repro_torch.models import zoo as Z
     from repro_torch.train.loop import local_batch, mesh_weights
-    out = {"rank": dist.get_rank()}
-    for impl in ("shardmap", "gspmd"):
-        cfg = dataclasses.replace(meta["cfg"], moe_impl=impl)
-        model = Z.build(cfg)
-        rules = TS.rules_for_cell(cfg, "train_4k", False)
-        specs = TS.param_shardings(model, mesh, rules)
-        params = params_to_mesh(shared["params"], mesh, specs, "cuda")
-        SH.reset_collective_counts()
-        with torch.no_grad(), SH.axis_rules(mesh, rules):
-            _, tree = mesh_weights(params, specs, grad=False)
-            loss, _ = model.loss(tree, local_batch(shared["batch"]))
-            loss = SH.data_sum(loss, "dp_loss")
-        out[impl] = {"loss": float(loss), "counts": SH.collective_counts()}
-        del params, tree
-        torch.cuda.empty_cache()
+    out = {"rank": dist.get_rank(), "cases": []}
+    for (base, impls), full, batch in zip(meta["cases"], shared["params"],
+                                          shared["batch"]):
+        case = {}
+        for impl in impls:
+            cfg = dataclasses.replace(base, moe_impl=impl)
+            model = Z.build(cfg)
+            rules = TS.rules_for_cell(cfg, "train_4k", False)
+            specs = TS.param_shardings(model, mesh, rules)
+            params = params_to_mesh(full, mesh, specs, mesh.device_type)
+            SH.reset_collective_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with torch.no_grad(), SH.axis_rules(mesh, rules):
+                _, tree = mesh_weights(params, specs, grad=False)
+                loss, _ = model.loss(tree, local_batch(batch))
+                loss = SH.data_sum(loss, "dp_loss")
+            torch.cuda.synchronize()
+            case[impl] = {
+                "loss": float(loss), "counts": SH.collective_counts(),
+                "ms": (time.perf_counter() - t) * 1e3,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "split": {p: list(v) for p, v in flatten_with_path(specs)
+                          if "model" in v and p.startswith("blocks/p0_")}}
+            del params, tree
+            torch.cuda.empty_cache()
+        out["cases"].append(case)
     _rank_done(dist, work, rank, out, shared)
 
 
@@ -5042,6 +5072,67 @@ def _pipe_rank(rank, world, work, shape, shared, meta):
            "scale": float(shared["want"].abs().max())}
     del y, pipe
     _rank_done(dist, work, rank, out, shared)
+
+
+def moe_mesh_check(torch, Z, C, dev, card, m):
+    """Phase 18's MoE check (``lm_train_mesh_phase``): each of
+    ``m["moe_cases"]`` at ``moe_depth``, full width, bf16, B 1 x S
+    ``moe_seq``, its loss on a (1, 2) mesh (one spawned group for all)
+    against the one-device loss run here, within ``moe_tol``; the regions
+    that split over model on the reference's layout, and their sums."""
+    # the MoE archs at depth 2 on (1, 2), on the reference's layout, in
+    # one spawned group (each arch's params reach it by CUDA IPC)
+    cases, mparams, mbatch, mones = [], [], [], []
+    for arch, impls in m["moe_cases"]:
+        mcfg = dataclasses.replace(C.get_config(arch),
+                                   n_layers=m["moe_depth"])
+        mmodel = Z.build(mcfg)
+        p = _cast(torch, mmodel.init(torch.Generator(device=dev)
+                                     .manual_seed(0), device=dev),
+                  torch.bfloat16)
+        mtok = torch.randint(0, mcfg.vocab, (1, m["moe_seq"] + 1),
+                             device=dev, generator=torch.Generator(
+                                 device=dev).manual_seed(5))
+        b = {"tokens": mtok[:, :-1].contiguous(),
+             "labels": mtok[:, 1:].contiguous()}
+        with torch.no_grad():
+            mones.append(float(mmodel.loss(p, b)[0]))
+        cases.append((mcfg, impls))
+        mparams.append(p)
+        mbatch.append(b)
+        del mmodel, mtok
+    torch.cuda.empty_cache()
+    mranks, mfailed, mwall = _spawn(
+        _moe_rank, 2, ((1, 2), {"params": mparams, "batch": mbatch},
+                       {"cases": cases}), m["timeout"])
+    check(mfailed is None and len(mranks) == 2,
+          f"lm_train_mesh moe: {mfailed or 'missing rank results'}")
+    for j, ((mcfg, impls), mone) in enumerate(zip(cases, mones)):
+        # the region each arch runs split over model, and its sum
+        split = (("moe/w1", "mla/wq_b", "moe/shared/w1")
+                 if mcfg.n_shared_experts else ("moe/w1", "attn/wq"))
+        kind = "moe_combine" if mcfg.expert_sharding == "ep" else \
+            "tp_exit_sum"
+        per_rank = [dict(r["cases"][j], rank=r["rank"]) for r in mranks]
+        for r in per_rank:
+            losses = {i: r[i]["loss"] for i in impls}
+            check(all(abs(v - mone) <= m["moe_tol"] and np.isfinite(v)
+                      for v in losses.values()),
+                  f"lm_train_mesh moe {mcfg.name} rank {r['rank']}: "
+                  f"{losses}, one-device {mone}")
+            gs = r["gspmd"]
+            check(all(any(p.endswith(leaf) for p in gs["split"])
+                      for leaf in split) and gs["counts"].get(kind, 0) > 0,
+                  f"lm_train_mesh moe {mcfg.name} rank {r['rank']}: split "
+                  f"{sorted(gs['split'])}, counts {gs['counts']}")
+        emit({"phase": "lm_train_mesh", "check": "moe_mesh",
+              "arch": mcfg.name, "n_layers": mcfg.n_layers, "mesh": [1, 2],
+              "impls": list(impls), "seq": m["moe_seq"], "dtype": "bfloat16",
+              "one_device_loss": mone, "run_s": mwall, "card": card,
+              "per_rank": per_rank})
+    del mparams, mbatch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def lm_train_mesh_phase(torch, Z, C, FK, dev, card, mesh_cfg=MESH):
@@ -5067,9 +5158,12 @@ def lm_train_mesh_phase(torch, Z, C, FK, dev, card, mesh_cfg=MESH):
       within atol 1e-5 + rtol 1e-5 (tests/test_torch_mesh_step.py's),
       every update within twice its floor, and the control, a piece left
       at its start, outside it;
-    * deepseek-v2 at depth 2 on (1, 2): moe_impl "shardmap" against
-      "gspmd" and the one-device loss within ``moe_tol`` (the reference's
-      2e-2);
+    * ``moe_cases`` at depth 2, full width, bf16, B 1 x S ``moe_seq`` on
+      (1, 2), the loss of each impl against the one-device loss within
+      ``moe_tol`` (the reference's 2e-2): deepseek-v2 with moe_impl
+      "shardmap" and "gspmd" (the reference's layout: MLA by heads, the
+      routed experts over model, one combine sum a layer) and mixtral-8x7b
+      (its query heads and the experts' hidden units over model);
     * ``build_pipeline_fn`` over 2 ranks, one full-width hymba MLP stage a
       rank (plus its residual), against the stages in order.
 
@@ -5329,38 +5423,7 @@ def lm_train_mesh_phase(torch, Z, C, FK, dev, card, mesh_cfg=MESH):
                         m["steps"], True)
     train_check(torch.float32, m["check_depth"], PERTURB, 1, False)
 
-    # the MoE: deepseek-v2 at depth 2 on (1, 2)
-    mcfg = dataclasses.replace(C.get_config(m["moe_arch"]),
-                               n_layers=m["moe_depth"])
-    mmodel = Z.build(mcfg)
-    mparams = _cast(torch, mmodel.init(torch.Generator(device=dev)
-                                       .manual_seed(0), device=dev),
-                    torch.bfloat16)
-    mtok = torch.randint(0, mcfg.vocab, (1, m["moe_seq"] + 1), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(5))
-    mbatch = {"tokens": mtok[:, :-1].contiguous(),
-              "labels": mtok[:, 1:].contiguous()}
-    with torch.no_grad():
-        mone = float(mmodel.loss(mparams, mbatch)[0])
-    torch.cuda.empty_cache()
-    mranks, mfailed, mwall = _spawn(
-        _moe_rank, 2, ((1, 2), {"params": mparams, "batch": mbatch},
-                       {"cfg": mcfg}), m["timeout"])
-    check(mfailed is None and len(mranks) == 2,
-          f"lm_train_mesh moe: {mfailed or 'missing rank results'}")
-    for r in mranks:
-        sm, gs = r["shardmap"]["loss"], r["gspmd"]["loss"]
-        check(abs(sm - gs) <= m["moe_tol"] and abs(sm - mone) <= m["moe_tol"]
-              and np.isfinite(sm),
-              f"lm_train_mesh moe rank {r['rank']}: shardmap {sm}, gspmd "
-              f"{gs}, one-device {mone}")
-    emit({"phase": "lm_train_mesh", "check": "moe_shardmap",
-          "arch": mcfg.name, "n_layers": mcfg.n_layers, "mesh": [1, 2],
-          "seq": m["moe_seq"], "one_device_loss": mone, "run_s": mwall,
-          "card": card, "per_rank": mranks})
-    del mparams, mbatch, mtok, mmodel
-    gc.collect()
-    torch.cuda.empty_cache()
+    moe_mesh_check(torch, Z, C, dev, card, m)
 
     # the pipeline: two full-width hymba MLP stages
     d, ff = base.d_model, base.d_ff
@@ -5611,9 +5674,8 @@ def _serve_mesh_decode(torch, dist, mesh, lay, shared, case):
         torch.equal(local_of(a), local_of(b)) for a, b in zip(
             logits + leaves(cache), logits2 + leaves(cache2)))
     out["rerun_call_ms"], out["rerun_gloo_s"] = ms2, gloo2
-    out["n_fsdp_leaves"] = sum(
-        any(a == "data" or (isinstance(a, tuple) and "data" in a)
-            for a in s) for _, s in flatten_with_path(specs))
+    out["n_fsdp_gathers"], out["n_head_gathers"] = R.decode_gathers(
+        dict(flatten_with_path(specs)), cfg)
     del params, cache, cache2, logits, logits2
     gc.collect()
     torch.cuda.empty_cache()
@@ -5882,12 +5944,15 @@ def lm_serve_mesh_phase(torch, Z, C, K, dev, card, sae, sm=SERVE_MESH):
                                                           "hybrid"} else 0
             for c in d["counts"]:
                 check(c.get("decode_max") == c.get("decode_sum") == n_attn
-                      and c.get("fsdp_gather") == d["n_fsdp_leaves"]
+                      and c.get("fsdp_gather") == d["n_fsdp_gathers"]
+                      and c.get("decode_head_gather", 0)
+                      == d["n_head_gathers"]
                       and c.get("ssm_conv_gather", 0) == c.get(
                           "ssm_norm", 0) == n_ssm
                       and c.get("tp_exit_sum", 0) > 0
                       and c["all_gather_calls"] == c["fsdp_gather"]
                       + c.get("ssm_conv_gather", 0)
+                      + c.get("decode_head_gather", 0)
                       and c["all_to_all_calls"] == 0
                       and c["lm_kernel_launches"] == 0,
                       f"{what}: collectives {c}")
@@ -6032,6 +6097,7 @@ def _dryrun_part(rank, world, work, dr):
         dry_kernel_operations=counts.kernel_operations,
         dry_peak_bytes=counts.peak_bytes,
         dry_argument_bytes=counts.argument_bytes,
+        dry_pieces_bytes=cell.pieces_bytes,
         dry_bytes=counts.bytes_proxy + counts.kernel_bytes,
         collectives=len(counts.collectives), every_k=k, peak=PEAK_FLOPS)
     # (b) the production cells, 256 fake ranks each
@@ -6047,6 +6113,8 @@ def _dryrun_part(rank, world, work, dr):
             "arch": arch, "shape": shape, "mesh": "pod",
             "seconds": time.perf_counter() - t0,
             "bytes_per_device": mem.get("total_bytes_per_device"),
+            "argument_bytes": mem.get("argument_size_in_bytes"),
+            "argument_pieces_bytes": mem.get("argument_pieces_bytes"),
             "fits_80gb": mem.get("fits_80gb"), "hbm_bytes": HBM_BYTES,
             **{key: rec.get(key) for key in (
                 "status", "error", "dominant", "roofline_fraction",
@@ -6066,7 +6134,8 @@ def dryrun_phase(torch, smi, dr=DRYRUN):
     synchronised), its device busy ms (one traced step), and the counted
     FLOPs' share of the bf16 peak at each; then the production cells,
     each "ok", with the dominant term, ``roofline_fraction`` and bytes a
-    device against 80 GB."""
+    device against 80 GB; in each trace the arguments' bytes (their
+    storages) equal to the sum of their pieces' own bytes."""
     ranks, failed, sec = _spawn(_dryrun_part, 1, (dr,), timeout=300)
     check(failed is None and len(ranks) == 1, f"dryrun: {failed}")
     if not ranks:
@@ -6078,6 +6147,9 @@ def dryrun_phase(torch, smi, dr=DRYRUN):
     check(r["dry_dot_flops"] == r["card_dot_flops"],
           f"dryrun dot FLOPs {r['dry_dot_flops']} vs the card's "
           f"{r['card_dot_flops']}")
+    check(r["dry_argument_bytes"] == r["dry_pieces_bytes"],
+          f"dryrun argument bytes {r['dry_argument_bytes']} vs the sum of "
+          f"the pieces {r['dry_pieces_bytes']}")
     ratio = r["dry_peak_bytes"] / r["card_peak_bytes"]
     check(abs(ratio - 1) <= dr["peak_tol"],
           f"dryrun peak {r['dry_peak_bytes']} vs the card's "
@@ -6096,6 +6168,7 @@ def dryrun_phase(torch, smi, dr=DRYRUN):
           "peak_bytes_dry": r["dry_peak_bytes"],
           "peak_bytes_card": r["card_peak_bytes"], "peak_ratio": ratio,
           "argument_bytes": r["dry_argument_bytes"],
+          "argument_pieces_bytes": r["dry_pieces_bytes"],
           "step_wall_ms": r["wall_ms"], "step_event_ms": r["event_ms"],
           "step_device_ms": device_ms,
           "device_idle_share": r["profile"]["device_idle_share"],
@@ -6105,6 +6178,10 @@ def dryrun_phase(torch, smi, dr=DRYRUN):
     for c in r["cells"]:
         check(c["status"] == "ok", f"dryrun {c['arch']} {c['shape']}: "
               f"{c['status']} {c.get('error')}")
+        check(c["argument_bytes"] == c["argument_pieces_bytes"],
+              f"dryrun {c['arch']} {c['shape']}: argument bytes "
+              f"{c['argument_bytes']} vs the sum of the pieces "
+              f"{c['argument_pieces_bytes']}")
         emit({"phase": "dryrun_cells", "card": smi, **c})
 
 

@@ -72,12 +72,13 @@ def params_to_mesh(tree: Any, mesh, specs: Any,
     """Full leaves (numpy arrays or tensors, the same on every rank, e.g.
     JAX's draw) -> ``DTensor``s over ``mesh`` holding this rank's piece
     of each under the tree of ``dist.sharding.Spec`` ``specs``: a local
-    slice, no collective. ``device``: where the pieces live (the card when
+    slice, copied into storage of its own (no rank keeps a whole leaf),
+    no collective. ``device``: where the pieces live (the card when
     None)."""
-    return _to_mesh(tree, mesh, specs, device, copy=False)
+    return _to_mesh(tree, mesh, specs, device)
 
 
-def _to_mesh(tree, mesh, specs, device, copy: bool):
+def _to_mesh(tree, mesh, specs, device):
     from .dist.layout import MeshLayout, _box, wrap
     from .dist.sharding import placements
     dev = resolve_device(device)
@@ -88,8 +89,9 @@ def _to_mesh(tree, mesh, specs, device, copy: bool):
         pl = placements(mesh, spec)
         box = _box(tuple(t.shape), pl, lay.shape, lay.coords[lay.me])
         piece = t[tuple(slice(lo, hi) for lo, hi in box)]
-        piece = piece.clone(memory_format=torch.contiguous_format) if copy \
-            else piece.contiguous()
+        # a copy: a slice (even a contiguous one, along dim 0) would keep
+        # the whole leaf's storage alive on every rank
+        piece = piece.clone(memory_format=torch.contiguous_format)
         return wrap(piece, t.shape, pl, lay)
 
     return tree_map(one, tree, specs)
@@ -124,7 +126,7 @@ def cache_to_mesh(tree: Any, mesh, specs: Any,
     >>> pieces = cache_to_mesh(cache, mesh, cache_shardings(cache, mesh,
     ...                                                     rules), "cpu")
     """
-    return _to_mesh(tree, mesh, specs, device, copy=True)
+    return _to_mesh(tree, mesh, specs, device)
 
 
 def cache_from_mesh(tree: Any, mesh) -> Any:

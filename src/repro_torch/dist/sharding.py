@@ -29,7 +29,17 @@ collective, each counted by kind (``collective_counts``):
     gradient over data and keeps this rank's piece (``fsdp_grad_reduce``),
     which is also the data-parallel gradient sum of that weight. A weight
     not split over data gets ``dp_grad_sum``: identity forward, a sum over
-    data backward;
+    data backward. The mesh step records on each piece the dim it splits
+    over data (``fsdp_piece``) and the model gathers a layer's pieces on
+    entry to the layer (``gathered``), so one layer's weights are whole at
+    a time;
+  * ``model_whole(w, full, dim, kind)`` — a weight's pieces gathered over
+    "model" at use for a region that runs whole on every model rank (an
+    SSM whose inner width the axis splits through its heads,
+    ``ssm_model_gather``; a decode step's head-split weights where the
+    cache's sequence takes the model axis, ``decode_head_gather``); its
+    backward keeps the rank's slice of the gradient, which the region
+    computes whole on every model rank;
   * ``tp_enter(x)`` — identity forward, a sum over model backward
     (``tp_enter_grad_sum``): the replicated input of a column-parallel
     product, whose gradient each model rank holds a part of;
@@ -74,7 +84,8 @@ import torch.distributed as dist
 __all__ = ["Spec", "default_rules", "axis_rules", "current_rules",
            "logical_spec", "fit_spec", "shard", "placed", "placements",
            "mesh_axes", "axis_size", "axis_index", "active_axis",
-           "gather_over", "tp_enter", "tp_exit", "model_sum", "model_max",
+           "gather_over", "fsdp_piece", "gathered", "model_whole",
+           "tp_enter", "tp_exit", "model_sum", "model_max",
            "data_sum", "axes_group", "axes_index", "cache_seq_split", "seq_max",
            "seq_sum", "model_gather", "gather_rows", "collective_counts",
            "reset_collective_counts"]
@@ -401,6 +412,67 @@ def gather_over(w: torch.Tensor, name: str, dim: Optional[int]):
     if dim is None:
         return _SumGrad.apply(w, mesh, name, "dp_grad_sum")
     return _GatherOver.apply(w, mesh, name, dim)
+
+
+_FSDP = "_repro_fsdp_dim"
+
+
+def fsdp_piece(w: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+    """Record on ``w`` (this rank's piece of a weight, or of one layer of
+    a stacked weight) the dim it is split along over "data", None when
+    it is not split over data; ``gathered`` takes it whole at use.
+    Returns ``w``."""
+    setattr(w, _FSDP, dim)
+    return w
+
+
+def gathered(tree):
+    """The weights of ``tree`` (a layer's dict, or one leaf) as the model
+    computes with them: each leaf recorded by ``fsdp_piece`` gathered over
+    data at this call (``gather_over``: ``fsdp_gather``, its gradient
+    reduced over data when the backward reaches it, ``fsdp_grad_reduce``;
+    ``dp_grad_sum`` for a piece not split over data); any other leaf as
+    it is. The mesh step hands the model its pieces and each layer
+    gathers its own on entry, so one layer's gathered weights are live at
+    a time (and, under remat, gathered again by the recompute)."""
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and hasattr(tree, _FSDP):
+        return gather_over(tree, "data", getattr(tree, _FSDP))
+    return tree
+
+
+class _GatherPieces(torch.autograd.Function):
+    """Forward: a weight's pieces over "model" concatenated along ``dim``
+    (one all_gather, counted ``kind``). The region that uses the whole
+    weight runs replicated over model, so every model rank computes the
+    whole gradient of it: the backward keeps this rank's slice, no
+    collective."""
+
+    @staticmethod
+    def forward(ctx, w, mesh, dim, kind):
+        ctx.args = (dim, w.shape[dim], axis_index(mesh, "model"))
+        _COUNTS[kind] += 1
+        return _gather_dim(w, mesh.get_group("model"),
+                           axis_size(mesh, "model"), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, size, i = ctx.args
+        return g.narrow(dim, i * size, size), None, None, None
+
+
+def model_whole(w: torch.Tensor, full: int, dim: int, kind: str
+                ) -> torch.Tensor:
+    """Weight ``w`` whole along ``dim`` (``full`` wide) where its piece
+    splits over "model" (one all_gather at use, counted ``kind``; the
+    backward keeps the rank's slice of the gradient, which the region,
+    replicated over model, computes whole); ``w`` itself where it is
+    whole already."""
+    mesh = active_axis("model")
+    if mesh is None or w.shape[dim] == full:
+        return w
+    return _GatherPieces.apply(w, mesh, dim, kind)
 
 
 def tp_enter(x: torch.Tensor) -> torch.Tensor:

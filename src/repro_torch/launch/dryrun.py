@@ -64,11 +64,14 @@ def fake_group(world_size: int):
 def _mem_dict(cell) -> dict:
     """The reference's memory keys where they mean something here, from
     the live-bytes peak: arguments (rank 0's pieces of params, moments,
-    theta state, batch or cache), outputs that are not arguments, temp
-    (the peak less the arguments: what the step holds at its peak beyond
-    them), total (the peak) and whether it fits one card's 80 GB."""
+    theta state, batch or cache; beside them the sum of those pieces' own
+    bytes, which the arguments' storages must equal), outputs that are
+    not arguments, temp (the peak less the arguments: what the step holds
+    at its peak beyond them), total (the peak) and whether it fits one
+    card's 80 GB."""
     c = cell.counts
     out = {"argument_size_in_bytes": int(c.argument_bytes),
+           "argument_pieces_bytes": int(cell.pieces_bytes),
            "output_size_in_bytes": int(cell.output_bytes),
            "temp_size_in_bytes": int(c.peak_bytes - c.argument_bytes),
            "total_bytes_per_device": int(c.peak_bytes)}

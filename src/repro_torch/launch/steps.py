@@ -30,23 +30,23 @@ optimizer count once a step, and a plan off its step is not solved.
 
 On a (data, model) mesh (``launch.mesh``; every rank calls the step with
 the same arguments): params and moments are ``DTensor``s holding each
-rank's piece under ``param_shardings`` (FSDP over data, tensor parallel
-over model; ``convert.params_to_mesh``, ``shard_opt_state``) and the
-batch is the global one, every rank's copy the same. Each rank takes its
-rows of the batch (``shard``), gathers each weight over data
-(``dist.sharding.gather_over``), runs the model on its heads, hidden
-units and vocab columns with the explicit collectives of
-``dist.sharding`` (counted by kind), and the engine's ``fused_sharded``
-update runs on the gradients' pieces, so the weights never gather for the
-projection: one (2, G) all-reduce per Newton evaluation; a leaf the
-projection returns in its column layout moves back to its spec's by one
-all-to-all (``train.loop.to_specs``). The loss is the
-global one on every rank. Regions of the model that have no
-tensor-parallel path here (MLA, cross attention, the dense MoE),
-attention whose heads or kv heads the model axis does not divide and an
-SSM whose heads it does not divide run replicated over model (their
-weights split over data only): see ``param_shardings``. On a one-rank
-mesh the engine is the one-device one, and it runs on the pieces.
+rank's piece under ``param_shardings`` (the reference's layout, leaf for
+leaf: FSDP over data, tensor parallel over model;
+``convert.params_to_mesh``, ``shard_opt_state``) and the batch is the
+global one, every rank's copy the same. Each rank takes its rows of the
+batch (``shard``), each layer gathers its weights over data on entry
+(``dist.sharding.gathered``; under remat the backward's recompute
+gathers again), and every region runs on the rank's share (heads, kv
+heads, MLA's heads, cross attention's heads, experts or their hidden
+units, hidden units, vocab columns) with the explicit collectives of
+``dist.sharding`` (counted by kind); an SSM whose inner width the model
+axis splits through its heads gathers its pieces over model at use. The
+engine's ``fused_sharded`` update runs on the gradients' pieces, so the
+weights never gather for the projection: one (2, G) all-reduce per
+Newton evaluation; a leaf the projection returns in its column layout
+moves back to its spec's by one all-to-all (``train.loop.to_specs``).
+The loss is the global one on every rank. On a one-rank mesh the engine
+is the one-device one, and it runs on the pieces.
 
 ``lower_cell`` (the dry-run's) builds a cell's step from these builders
 on meta tensors and runs it once under ``roofline.counter.Counter``.
@@ -64,7 +64,6 @@ from .._tree import flatten_with_path, leaves, tree_map, unflatten_like
 from ..core import ProjectionEngine
 from ..dist.sharding import (Spec, axes_index, axis_rules, default_rules,
                              fit_spec, logical_spec, placements)
-from ..models.param import PM
 from ..models.zoo import SHAPES, Model
 from ..optim import AdamConfig
 from ..optim.adam import AdamState
@@ -74,7 +73,7 @@ from ..train.loop import (_grad_tree, local_batch, mesh_loss_and_grads,
 __all__ = ["projection_engine_for", "build_train_step", "build_prefill_step",
            "build_decode_step", "rules_for_cell", "batch_shardings",
            "cache_shardings", "param_shardings", "opt_shardings",
-           "shard_opt_state", "lower_cell", "LoweredCell"]
+           "shard_opt_state", "cell_step", "lower_cell", "LoweredCell"]
 
 
 # ---------------------------------------------------------------------------
@@ -138,68 +137,18 @@ def cache_shardings(cache, mesh, rules: dict):
     return unflatten_like(cache, [one(p, l) for p, l in flat])
 
 
-# the regions (a block's param dicts) with a tensor-parallel path in the
-# port's model: their model-axis dims may stay split; in any other region
-# the model axis replicates
-_TP_REGIONS = ("attn", "mlp", "embed", "unembed", "ssm")
-_MODEL_NAMES = ("heads", "kv_heads", "mlp", "vocab", "experts")
-
-
-def _region_specs(cfg, layout, rules, mesh, region: str):
-    """The fitted specs of one region's PM leaves ({key: PM}), with the
-    model axis dropped from all of them unless the region is tensor
-    parallel here and every dim the rules give to model stays split."""
-    def has_model(axes):
-        return axes is not None and (axes == "model" if isinstance(
-            axes, str) else "model" in axes)
-
-    tp = region in _TP_REGIONS or (
-        region == "moe" and cfg.moe_impl == "shardmap"
-        and cfg.expert_sharding == "ep")
-    out = {}
-    for k, pm in layout.items():
-        raw = [rules.get(a) if a is not None else None for a in pm.axes]
-        fit = fit_spec(mesh, raw, pm.shape)
-        # a dim whose logical axis is a model name must split over model
-        # for the region's local arithmetic to hold (a GQA group's q and
-        # kv heads on one rank)
-        for a, r, f in zip(pm.axes, raw, fit):
-            if a in _MODEL_NAMES and has_model(r) != has_model(f):
-                tp = False
-        if any(a in ("heads", "kv_heads") and not has_model(f)
-               for a, f in zip(pm.axes, fit)):
-            tp = False
-        out[k] = fit
-    # the SSM splits its inner width over model by whole heads
-    if region == "ssm" and layout["A_log"].shape[-1] % max(
-            1, dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)).get(
-                "model", 1)):
-        tp = False
-    if tp:
-        return out
-    drop = lambda axes: (None if has_model(axes) and isinstance(axes, str)
-                         else tuple(a for a in axes if a != "model")
-                         if isinstance(axes, tuple) else axes)
-    return {k: Spec(*(drop(a) for a in f)) for k, f in out.items()}
-
-
 def param_shardings(model: Model, mesh, rules: dict):
-    """The ``Spec`` of every param leaf on ``mesh``: ``model.param_specs``
-    fit to the mesh (``fit_spec``: a dim an axis does not divide
-    replicates), and, region by region (a block's attention, MLP, SSM,
-    MoE, ...), the model axis dropped where the region has no
-    tensor-parallel path in the port (MLA, cross attention, the dense
-    MoE) or some head dim does not split over it, so that region
-    runs replicated over model with its weights split over data; the SSM
-    splits over model only by whole heads."""
-    def walk(layout, name):
-        if all(isinstance(v, PM) for v in layout.values()):
-            return _region_specs(model.cfg, layout, rules, mesh, name)
-        return {k: (walk(v, k) if isinstance(v, dict) else
-                    _region_specs(model.cfg, {k: v}, rules, mesh, name)[k])
-                for k, v in layout.items()}
-
-    return walk(model.layout, "")
+    """The ``Spec`` of every param leaf on ``mesh``: the reference's
+    ``model.param_specs(rules)`` fit to the mesh (``fit_spec``: a dim an
+    axis does not divide replicates), leaf for leaf. Whether a region
+    computes split over model follows from its pieces, in the model code:
+    heads, kv heads, experts and hidden units split over model compute on
+    the rank's share (``models.attention``, ``models.moe``), and an SSM
+    whose inner width splits through its heads gathers its pieces over
+    model at use (``models.ssm``)."""
+    return tree_map(lambda pm: fit_spec(
+        mesh, [rules.get(a) if a is not None else None for a in pm.axes],
+        pm.shape), model.layout)
 
 
 def opt_shardings(param_sh, mesh):
@@ -230,12 +179,15 @@ def shard_opt_state(params, acfg: AdamConfig = AdamConfig()) -> AdamState:
 class LoweredCell:
     """One traced cell: its step's ``kind`` ("train", "prefill",
     "decode"), the ``Counts`` of one run of it on meta tensors (rank 0's
-    view), and the bytes of the step's outputs that are not its arguments
+    view), the bytes of the step's outputs that are not its arguments
     (a train step's updated state, the logits, a decode step's cache are
-    written in place on one device)."""
+    written in place on one device), and the bytes of its arguments'
+    pieces, each counted once (what ``counts.argument_bytes``, from their
+    storages, must equal)."""
     kind: str
     counts: Any
     output_bytes: int = 0
+    pieces_bytes: int = 0
 
 
 def _meta_tokens(batch):
@@ -245,24 +197,21 @@ def _meta_tokens(batch):
             for k, v in batch.items()}
 
 
-def lower_cell(model: Model, shape_name: str, mesh, multi_pod: bool,
-               dtype: torch.dtype = torch.bfloat16,
-               with_optimizer: bool = True, with_projection: bool = True,
-               extra_rules: Optional[dict] = None) -> LoweredCell:
-    """Trace one (arch x shape x mesh) cell on meta tensors: nothing is
-    allocated. The cell's step comes from this module's builders under
-    ``rules_for_cell`` (with ``extra_rules``), on ``abstract_params``
-    (``dtype``), the zoo's ``input_specs`` and, for a train step, f32 Adam
-    moments and the engine's theta state, all meta; on ``mesh`` (a
-    ``DeviceMesh`` over a process group, e.g. the dry-run's fake one) the
-    params, moments and cache are this rank's pieces under their specs.
-    The step runs once under a ``roofline.counter.Counter``; returns its
-    kind and counts. ``with_optimizer`` is the reference's argument, which
-    its body does not read either: a train step always carries Adam."""
+def cell_step(model: Model, shape_name: str, mesh, multi_pod: bool,
+              dtype: torch.dtype = torch.bfloat16,
+              with_projection: bool = True,
+              extra_rules: Optional[dict] = None):
+    """(kind, step, args) of one (arch x shape x mesh) cell on meta
+    tensors, nothing allocated: the cell's step from this module's
+    builders under ``rules_for_cell`` (with ``extra_rules``), and its
+    arguments, ``abstract_params`` (``dtype``), the zoo's ``input_specs``
+    and, for a train step, f32 Adam moments and the engine's theta state;
+    on ``mesh`` (a ``DeviceMesh`` over a process group, e.g. the
+    dry-run's fake one) the params, moments and cache are this rank's
+    pieces under their specs, each in storage of its own."""
     from .. import convert
     from ..models.zoo import input_specs
     from ..optim import adam_init
-    from ..roofline.counter import Counter
 
     cfg = model.cfg
     sh = SHAPES[shape_name]
@@ -283,25 +232,42 @@ def lower_cell(model: Model, shape_name: str, mesh, multi_pod: bool,
             params)
         step = build_train_step(model, mesh, rules, acfg,
                                 with_projection=with_projection)
-        args = (params, opt, proj, _meta_tokens(specs))
-    elif sh["kind"] == "prefill":
-        step = build_prefill_step(model, mesh, rules)
-        args = (params, _meta_tokens(specs))
-    else:
-        cache = specs["cache"]
-        if mesh is not None:
-            cache = convert.cache_to_mesh(
-                cache, mesh, cache_shardings(cache, mesh, rules),
-                device="meta")
-        step = build_decode_step(model, mesh, rules)
-        args = (params, cache, _meta_tokens(specs)["tokens"], specs["pos"])
+        return "train", step, (params, opt, proj, _meta_tokens(specs))
+    if sh["kind"] == "prefill":
+        return "prefill", build_prefill_step(model, mesh, rules), (
+            params, _meta_tokens(specs))
+    cache = specs["cache"]
+    if mesh is not None:
+        cache = convert.cache_to_mesh(
+            cache, mesh, cache_shardings(cache, mesh, rules), device="meta")
+    step = build_decode_step(model, mesh, rules)
+    return "decode", step, (params, cache, _meta_tokens(specs)["tokens"],
+                            specs["pos"])
+
+
+def lower_cell(model: Model, shape_name: str, mesh, multi_pod: bool,
+               dtype: torch.dtype = torch.bfloat16,
+               with_optimizer: bool = True, with_projection: bool = True,
+               extra_rules: Optional[dict] = None) -> LoweredCell:
+    """Trace one (arch x shape x mesh) cell on meta tensors: nothing is
+    allocated. The cell's step and arguments come from ``cell_step``; the
+    step runs once under a ``roofline.counter.Counter`` (its arguments
+    live from the start); returns its kind and counts. ``with_optimizer``
+    is the reference's argument, which its body does not read either: a
+    train step always carries Adam."""
+    from ..roofline.counter import Counter
+
+    kind, step, args = cell_step(model, shape_name, mesh, multi_pod, dtype,
+                                 with_projection, extra_rules)
     with Counter(arguments=args) as counter:
         out = step(*args)
     held = {t.untyped_storage()._cdata for t in _locals(args)}
     fresh = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
              for t in _locals(out)}
-    return LoweredCell(sh["kind"], counter.counts,
-                       sum(n for k, n in fresh.items() if k not in held))
+    return LoweredCell(kind, counter.counts,
+                       sum(n for k, n in fresh.items() if k not in held),
+                       sum(t.numel() * t.element_size()
+                           for t in _locals(args)))
 
 
 def _locals(tree):
@@ -518,12 +484,15 @@ def build_decode_step(model: Model, mesh=None,
     On a mesh (every rank calls the step with the same arguments), under
     ``rules`` (the reference's decode rules, ``rules_for_cell(cfg,
     "decode_32k" | "long_500k", ...)``, or the train rules): params as
-    ``build_train_step``'s (``DTensor``s under ``param_shardings``: FSDP
-    gathers over data each call, ``fsdp_gather``, and the tensor-parallel
-    regions split over model); ``cache`` the ``DTensor`` pieces under
-    ``cache_shardings`` (``convert.cache_to_mesh``), which live on their
-    ranks between calls and which the step writes in place (the
-    reference donates the cache), never gathered, moved or sliced;
+    ``build_train_step``'s (``DTensor``s under ``param_shardings``: each
+    layer's FSDP gathers over data each call, ``fsdp_gather``, and the
+    tensor-parallel regions split over model; where the cache's sequence
+    takes the model axis, an attention layer's head-split weights are
+    gathered over model, ``decode_head_gather``); ``cache`` the
+    ``DTensor`` pieces under ``cache_shardings``
+    (``convert.cache_to_mesh``), which live on their ranks between calls
+    and which the step writes in place (the reference donates the
+    cache), never gathered, moved or sliced;
     ``tokens`` (B, 1) and ``pos`` (a scalar or (B,)) the global ones,
     every rank's copy the same. Each rank decodes its rows (the rules'
     "batch") against its pieces: a cache sequence split over

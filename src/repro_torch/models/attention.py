@@ -21,6 +21,13 @@ at q/k head dim nope + rope with v's head dim below it (``flash_attention``
 zero-pads v); its decode reads and writes the compressed cache (c, k_rope),
 in place in ``mla_decode_``, plainly or in the matrix-absorbed form.
 
+Over a mesh whose "model" axis splits the heads (the reference's layout,
+``launch.steps.param_shardings``), each layer computes the rank's heads
+from its pieces and sums its partial output over model (``tp_exit``):
+GQA by query heads (with the kv heads split too, or whole and each rank
+slicing those of its query heads), cross attention by heads, MLA by
+heads (its down projections and norms whole on every rank).
+
 Decode over a mesh (``launch.steps.build_decode_step`` under the
 reference's decode rules) hands each rank its pieces of the cache:
 
@@ -38,7 +45,10 @@ reference's decode rules) hands each rank its pieces of the cache:
     and a row with no valid key anywhere is uniform, as on one device;
   * GQA attention whose heads and kv heads the "model" axis splits (the
     train rules) computes the rank's heads against its kv heads of the
-    cache, ``tp_exit`` after its rows of ``wo``;
+    cache, ``tp_exit`` after its rows of ``wo``; query heads split with
+    the kv heads whole (the decode rules give the model axis to the
+    cache's sequence) gather their weights over model and attend whole,
+    as do MLA's heads where the sequence split takes the model axis;
   * cross attention's memory cache (ck / cv) split over "heads" attends
     with the rank's heads and sums the output projection over "model"
     (``cross_decode``, ``tp_exit``).
@@ -55,9 +65,9 @@ import torch
 
 from .param import PM
 from .layers import apply_rope, rmsnorm_apply
-from ..dist.sharding import (active_axis, axis_index, axis_size,
-                             cache_seq_split, seq_max, seq_sum, shard,
-                             tp_enter, tp_exit)
+from ..dist.sharding import (active_axis, axis_index, cache_seq_split,
+                             model_whole, seq_max, seq_sum, shard, tp_enter,
+                             tp_exit)
 from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = ["attn_layout", "attn_apply", "attn_prefill_cache",
@@ -285,8 +295,14 @@ def attn_apply(params, x, *, n_heads: int, n_kv: int, head_dim: int,
     than ``n_heads``), this is the rank's share of a tensor-parallel
     block: its query and kv heads (``wq`` / ``wk`` / ``wv`` column
     pieces), ``tp_enter`` on x and ``tp_exit`` (the sum over model) after
-    the row piece of ``wo``."""
+    the row piece of ``wo``. Where the kv heads do not split (the rules
+    replicate them: ``wk`` holds all ``n_kv``), the rank takes the kv
+    heads of its query heads by a local slice of ``wk`` / ``wv``, whose
+    gradients, parts from each rank's heads, are summed over model
+    (``tp_enter``)."""
     tp = params["wq"].shape[1] < n_heads
+    if tp:
+        params = _own_kv_heads(params, n_heads, n_kv)
     x = shard(tp_enter(x) if tp else x, "batch", "attn_seq", "embed")
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions,
                            rope_theta, rope_frac)
@@ -298,6 +314,45 @@ def attn_apply(params, x, *, n_heads: int, n_kv: int, head_dim: int,
     out = shard(out, "batch", "attn_seq", "heads", None)
     y = _out_proj(out, params["wo"])
     return shard(tp_exit(y) if tp else y, "batch", "seq", "embed")
+
+
+def _own_kv_heads(params, n_heads: int, n_kv: int):
+    """``params`` with ``wk`` / ``wv`` (and their biases) cut to the kv
+    heads of this rank's query heads, where the query heads split over
+    "model" and the kv heads do not: a local slice of each replicated
+    weight, entering through ``tp_enter`` (each rank's heads give a part
+    of its gradient). The rank's ``h_loc`` query heads lie in whole GQA
+    groups, or in one group (ValueError otherwise)."""
+    if params["wk"].shape[1] < n_kv:
+        return params
+    h_loc = params["wq"].shape[1]
+    group = n_heads // n_kv
+    if h_loc % group and group % h_loc:
+        raise ValueError(
+            f"attention: {h_loc} query heads a rank do not lie in whole "
+            f"GQA groups of {group}; split the kv heads over model too")
+    lo = axis_index(active_axis("model"), "model") * h_loc // group
+    n = max(h_loc // group, 1)
+    out = dict(params)
+    for k in ("wk", "wv", "bk", "bv"):
+        if k in params:
+            dim = 1 if k[0] == "w" else 0
+            out[k] = tp_enter(params[k]).narrow(dim, lo, n)
+    return out
+
+
+def _whole_heads(params, n_heads: int, n_kv: int):
+    """``params`` with every head-split weight of an attention layer
+    gathered over "model" (``decode_head_gather``, one all_gather each):
+    the decode step's, where the query heads split over model and the
+    cache does not hold the rank's kv heads alone (the decode rules give
+    the model axis to the cache's sequence, the train rules may replicate
+    the kv heads), so the layer runs replicated over model."""
+    dims = {"wq": (1, n_heads), "bq": (0, n_heads), "wo": (0, n_heads),
+            "wk": (1, n_kv), "wv": (1, n_kv), "bk": (0, n_kv),
+            "bv": (0, n_kv)}
+    return {k: model_whole(v, dims[k][1], dims[k][0], "decode_head_gather")
+            if k in dims else v for k, v in params.items()}
 
 
 def attn_prefill_cache(params, x, *, n_heads, n_kv, head_dim, positions,
@@ -319,10 +374,17 @@ def attn_decode_(params, x, cache: Tuple[torch.Tensor, torch.Tensor],
     Over a mesh: a cache sequence split over ranks (the decode rules'
     "cache_seq") is masked by global position, written only by the rank
     whose slice holds ``pos`` and combined by the split-softmax; heads
-    split over "model" (``wq`` holding fewer than ``n_heads``, the cache
-    the same kv heads as ``wk``) attend with the rank's heads, the output
-    summed over model after its rows of ``wo`` (``tp_exit``)."""
+    and kv heads split over "model" (``wq`` holding fewer than
+    ``n_heads``, the cache the same kv heads as ``wk``) attend with the
+    rank's heads, the output summed over model after its rows of ``wo``
+    (``tp_exit``); query heads split over model with the kv heads whole
+    (the cache holding them all, or its sequence split over model) gather
+    their weights over model (``_whole_heads``) and attend whole."""
     B = x.shape[0]
+    if (params["wq"].shape[1] < n_heads
+            and params["wk"].shape[1] == cache[0].shape[2]
+            and cache[0].shape[2] == n_kv):
+        params = _whole_heads(params, n_heads, n_kv)
     tp = params["wq"].shape[1] < n_heads
     if tp:
         x = tp_enter(x)
@@ -373,72 +435,93 @@ def cross_attn_apply(params, x, memory, *, n_heads: int, head_dim: int,
                      q_chunk: int = 512, kv_chunk: int = 512):
     """x: (B, S, d) queries; memory: (B, Sm, d_mem) keys/values (no RoPE).
     Non-causal flash with one kv head a query head; Sm need not be a
-    multiple of a tile (1600 image tokens)."""
+    multiple of a tile (1600 image tokens).
+
+    Under a mesh whose "model" axis splits the heads (``wq`` holds fewer
+    than ``n_heads``): the rank's heads of q, k and v (column pieces of
+    ``wq`` / ``wk`` / ``wv``; x and the memory enter through
+    ``tp_enter``), its rows of ``wo`` and the partial output summed over
+    model (``tp_exit``)."""
+    tp = params["wq"].shape[1] < n_heads
+    if tp:
+        x, memory = tp_enter(x), tp_enter(memory)
     q = _proj_heads(x, params["wq"])
     k = _proj_heads(memory, params["wk"])
     v = _proj_heads(memory, params["wv"])
     out = flash_attention(q, k, v, causal=False, block_q=q_chunk,
                           block_kv=kv_chunk)
-    return _out_proj(out, params["wo"])
+    y = _out_proj(out, params["wo"])
+    return tp_exit(y) if tp else y
 
 
 def cross_decode(params, x, ck: torch.Tensor, cv: torch.Tensor, *,
                  n_heads: int, head_dim: int) -> torch.Tensor:
     """One-token cross attention against the memory cache ck / cv (B, Sm,
-    H, hd), which it only reads. Where the cache holds fewer than
-    ``n_heads`` heads (split over "model" by the decode rules' "heads"),
-    the rank attends with its heads and its rows of ``wo``, the output
-    summed over model (``tp_exit``)."""
+    H, hd), which it only reads. Where the heads split over "model" (the
+    rules' "heads": ``wq`` and the cache hold the rank's share), the rank
+    attends with its heads and its rows of ``wo``, the output summed over
+    model (``tp_exit``)."""
     B = x.shape[0]
-    q = _proj_heads(x, params["wq"])
-    wo = params["wo"]
     h_loc = ck.shape[2]
-    split = h_loc < q.shape[2]
-    if split:
-        mesh = active_axis("model")
-        if mesh is None or axis_size(mesh, "model") * h_loc != q.shape[2]:
-            raise ValueError(
-                f"cross_decode: the memory cache holds {h_loc} of "
-                f"{q.shape[2]} heads, which is not the model axis's share")
-        lo = axis_index(mesh, "model") * h_loc
-        q, wo = q[:, :, lo:lo + h_loc], wo[lo:lo + h_loc]
+    if params["wq"].shape[1] != h_loc:
+        raise ValueError(
+            f"cross_decode: the memory cache holds {h_loc} heads, the "
+            f"weights {params['wq'].shape[1]}: lay the cache out under the "
+            f"rules the params were laid out under "
+            f"(launch.steps.cache_shardings)")
+    split = h_loc < n_heads
+    q = _proj_heads(tp_enter(x) if split else x, params["wq"])
     qg = q.reshape(B, 1, h_loc, 1, head_dim)
     out = decode_attention(qg, ck, cv, ck.shape[1] - 1)
-    y = _out_proj(out.reshape(B, 1, h_loc, head_dim), wo)
+    y = _out_proj(out.reshape(B, 1, h_loc, head_dim), params["wo"])
     return tp_exit(y) if split else y
 
 
 # -------------------------------- MLA ---------------------------------------
 
 def _mla_qkv(params, x, n_heads, nope, rope_dim, positions, rope_theta):
+    """q_nope, q_rope (this rank's heads), the latent c and k_rope. The
+    down projections and norms run whole on every rank; where the heads
+    split over "model" (``wq_b`` holds fewer than ``n_heads``) cq, c and
+    k_rope feed only the rank's heads, so each enters through ``tp_enter``
+    (its gradient, a part from each rank's heads, summed over model)."""
+    tp = params["wq_b"].shape[1] < n_heads
+    enter = tp_enter if tp else (lambda t: t)
     cq = rmsnorm_apply({"scale": params["q_norm"]}, x @ params["wq_a"])
-    q = _proj_heads(cq, params["wq_b"])
+    q = _proj_heads(enter(cq), params["wq_b"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, rope_theta)
     ckr = x @ params["wkv_a"]
     kv_lora = params["wkv_a"].shape[1] - rope_dim
     c, k_rope_raw = ckr[..., :kv_lora], ckr[..., kv_lora:]
-    c = rmsnorm_apply({"scale": params["kv_norm"]}, c)
-    k_rope = apply_rope(k_rope_raw, positions, rope_theta)  # (B, S, rope)
-    return q_nope, q_rope, c, k_rope
+    c = enter(rmsnorm_apply({"scale": params["kv_norm"]}, c))
+    k_rope = enter(apply_rope(k_rope_raw, positions, rope_theta))
+    return q_nope, q_rope, c, k_rope            # k_rope: (B, S, rope)
 
 
 def mla_apply(params, x, *, n_heads: int, nope: int, rope_dim: int,
               v_dim: int, positions, rope_theta: float = 10000.0,
               q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
     """Multi-head Latent Attention, full-sequence form (train / prefill):
-    causal flash at q/k head dim nope + rope_dim with v at v_dim."""
+    causal flash at q/k head dim nope + rope_dim with v at v_dim.
+
+    Under a mesh whose "model" axis splits the heads (``wq_b``, ``wk_b``,
+    ``wv_b`` and ``wo`` hold the rank's share; ``wq_a``, ``wkv_a`` and
+    the norms are whole), flash runs on the rank's heads and the partial
+    output after its rows of ``wo`` is summed over model (``tp_exit``)."""
     B, S, _ = x.shape
+    h_loc = params["wq_b"].shape[1]
     q_nope, q_rope, c, k_rope = _mla_qkv(params, x, n_heads, nope, rope_dim,
                                          positions, rope_theta)
     k_nope = _proj_heads(c, params["wk_b"])
     v = _proj_heads(c, params["wv_b"])
-    k_rope_h = k_rope[:, :, None, :].expand(B, S, n_heads, rope_dim)
+    k_rope_h = k_rope[:, :, None, :].expand(B, S, h_loc, rope_dim)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope_h], dim=-1)
     out = flash_attention(q_full, k_full, v, causal=True, block_q=q_chunk,
                           block_kv=kv_chunk)
-    return _out_proj(out, params["wo"])
+    y = _out_proj(out, params["wo"])
+    return tp_exit(y) if h_loc < n_heads else y
 
 
 def _promoted(*ts):
@@ -459,9 +542,22 @@ def mla_decode_(params, x, cache, pos, *, n_heads: int, nope: int,
     K/V materialization). ``pos`` may be a scalar or a (B,) per-row
     position vector. Over a mesh whose decode rules split the cache's
     sequence, the slice is masked by global position, written by its
-    owner only and combined by the split-softmax. Returns y (B, 1, d)."""
+    owner only and combined by the split-softmax. Heads split over
+    "model" (the rank's share of ``wq_b``, ``wk_b``, ``wv_b``, ``wo``)
+    attend against the whole latent cache with the rank's heads, the
+    output summed over model (``tp_exit``); where the sequence split
+    takes the model axis too, the heads' weights are gathered over model
+    first (``decode_head_gather``) and the layer runs whole. Returns y
+    (B, 1, d)."""
     B = x.shape[0]
     split = cache_seq_split()
+    if (params["wq_b"].shape[1] < n_heads and split is not None
+            and "model" in split.axes):
+        params = {k: model_whole(v, n_heads, 0 if k == "wo" else 1,
+                                 "decode_head_gather")
+                  if k in ("wq_b", "wk_b", "wv_b", "wo") else v
+                  for k, v in params.items()}
+    h_loc = params["wq_b"].shape[1]
     pos = pos_tensor(pos, x.device)
     positions = _decode_positions(pos, B, x.device)
     q_nope, q_rope, c_new, k_rope_new = _mla_qkv(
@@ -492,7 +588,7 @@ def mla_decode_(params, x, cache, pos, *, n_heads: int, nope: int,
         k_nope = _proj_heads(*_promoted(c_cache, params["wk_b"]))
         v = _proj_heads(*_promoted(c_cache, params["wv_b"]))
         k_rope_h = kr_cache[:, :, None, :].expand(
-            kr_cache.shape[:2] + (n_heads, rope_dim))
+            kr_cache.shape[:2] + (h_loc, rope_dim))
         k_full = torch.cat(_promoted(k_nope, k_rope_h), dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         logits = torch.einsum("bqhk,bshk->bqhs", q_full.float(),
@@ -502,7 +598,8 @@ def mla_decode_(params, x, cache, pos, *, n_heads: int, nope: int,
         out = _weighted_softmax(
             logits, lambda p: torch.einsum("bqhs,bshk->bqhk", p, v32),
             split).to(x.dtype)
-    return _out_proj(out, params["wo"])
+    y = _out_proj(out, params["wo"])
+    return tp_exit(y) if h_loc < n_heads else y
 
 
 def mla_decode(params, x, cache, pos, **kw):

@@ -31,11 +31,26 @@ Nothing in ``moe_apply`` reads a value back to the host (no boolean
 masks, ``nonzero`` or ``.item()``; every shape follows from B * S), so a
 serving step that runs it can be captured into a CUDA graph.
 
-Expert sharding ("ep" / "tp") only places the weights on a mesh; on one
-card it selects nothing. ``models/moe_shardmap.py`` is the manual
-expert parallelism over a mesh's "model" axis (``moe_impl="shardmap"``);
-over a mesh this dense MoE runs replicated over "model"
-(``launch.steps.param_shardings``).
+Expert sharding ("ep" / "tp") places the weights on a mesh; on one card
+it selects nothing. Over a mesh whose "model" axis splits them (the
+reference's GSPMD layout, ``launch.steps.param_shardings``) each rank
+computes its share, and the routing is the one-device routing of its
+rows, whole on every rank (the capacity, drops, auxiliaries and
+``dropped_frac`` equal ``moe_apply``'s on those rows):
+
+* "ep" (experts over model): the rank buckets and runs only the
+  assignments to its own experts (a local slice of the dispatch plan,
+  the others' rows and the dropped ones read zeros) and the combine's
+  partial sums are summed over model (``moe_combine``);
+* "tp" (d_ff over model): every expert's ``w1`` / ``w3`` are
+  column-parallel and ``w2`` row-parallel on the whole dispatch buffer,
+  the combine's partial output summed over model (``tp_exit``);
+
+in both the dispatched rows and the gate weights enter through
+``tp_enter`` (each rank's experts or hidden units give a part of their
+gradients), and the shared experts are column / row parallel as the MLP.
+``models/moe_shardmap.py`` is the manual expert parallelism of
+``moe_impl="shardmap"``.
 
 Aux outputs: switch-style load-balance loss + router z-loss, and the
 fraction of assignments dropped.
@@ -43,12 +58,14 @@ fraction of assignments dropped.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .param import PM
 from .layers import mlp_layout, mlp_apply, scatter_residual, _gelu
+from ..dist.sharding import (active_axis, axis_index, model_sum, tp_enter,
+                             tp_exit)
 
 __all__ = ["moe_layout", "moe_apply"]
 
@@ -128,22 +145,36 @@ def _route(params, xf: torch.Tensor, n_experts: int, top_k: int,
 
 def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25, mlp_kind: str = "swiglu",
-              router_norm: bool = True, expert_sharding: str = "ep"
+              router_norm: bool = True, expert_sharding: str = "ep",
+              d_ff: Optional[int] = None, shared_ff: Optional[int] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) -> (y, aux). Gate weights renormalized over the top-k.
-    ``expert_sharding`` is accepted for the reference's signature."""
+    ``expert_sharding`` is accepted for the reference's signature; over a
+    mesh the pieces of the expert weights say how they split (module
+    docstring): ``d_ff`` / ``shared_ff``, the experts' and the shared
+    experts' full hidden widths, tell a piece split over model from a
+    whole one (None: whole)."""
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
     logits, probs, gate, idx, order, dest, keep, cap = _route(
         params, xf, n_experts, top_k, capacity_factor, router_norm)
+    E_loc = params["w1"].shape[0]
+    ep = E_loc < n_experts                   # experts split over model
+    tp = ep or (d_ff is not None and params["w1"].shape[-1] < d_ff)
+    enter = tp_enter if tp else (lambda t: t)
+    if ep:          # this rank's experts' rows of the plan, the rest cut
+        lo = axis_index(active_axis("model"), "model") * E_loc * cap
+        mine = (dest >= lo) & (dest < lo + E_loc * cap)
+        dest = torch.where(mine, dest - lo,
+                           torch.full_like(dest, E_loc * cap))
 
     # ---- dispatch: sorted assignment j -> buffer row dest[j] ----------
     # x repeated k times in (token, k) order, then permuted into sort order
-    xs = _take_rows(xf[:, None, :].expand(T, top_k, d).reshape(T * top_k, d),
-                    order)
-    buf = x.new_zeros((n_experts * cap + 1, d)).index_put((dest,), xs)
-    buf = buf[:-1].reshape(n_experts, cap, d)
+    xs = _take_rows(enter(xf)[:, None, :].expand(T, top_k, d).reshape(
+        T * top_k, d), order)
+    buf = x.new_zeros((E_loc * cap + 1, d)).index_put((dest,), xs)
+    buf = buf[:-1].reshape(E_loc, cap, d)
 
     # ---- expert FFN (batched over E) -----------------------------------
     h1 = torch.bmm(buf, params["w1"])
@@ -159,9 +190,10 @@ def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
         out_buf = scatter_residual(out_buf, params["w2_sel"], d)
 
     # ---- combine --------------------------------------------------------
-    # a dropped assignment reads the sentinel row E * cap: zeros
-    gathered = _take_rows(out_buf.reshape(n_experts * cap, -1), dest)
-    weights = _take_rows(gate.reshape(-1, 1), order).to(x.dtype)
+    # a dropped assignment (and, split over model, another rank's) reads
+    # the sentinel row E * cap: zeros
+    gathered = _take_rows(out_buf.reshape(E_loc * cap, -1), dest)
+    weights = enter(_take_rows(gate.reshape(-1, 1), order).to(x.dtype))
     contrib = gathered * weights                    # (T*k, d), sort order
     inv = torch.empty_like(order)
     inv[order] = torch.arange(T * top_k, device=x.device)
@@ -174,10 +206,14 @@ def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     for j in range(1, top_k):
         y = y + slots[:, j]
     y = y.reshape(B, S, d)
+    if ep:
+        y = model_sum(y, "moe_combine")
+    elif tp:
+        y = tp_exit(y)
 
     # ---- shared experts (always-on dense path, deepseek) ----------------
     if "shared" in params:
-        y = y + mlp_apply(params["shared"], x, mlp_kind)
+        y = y + mlp_apply(params["shared"], x, mlp_kind, ff=shared_ff)
 
     # ---- aux losses ------------------------------------------------------
     me = probs.mean(dim=0)                                       # (E,)

@@ -26,12 +26,13 @@ there are no atomics. Gradients: x and the router enter through
 a part), and the auxiliary losses, which every rank computes whole from
 the same router probabilities, enter the total at 1 / model each (one
 stacked sum over model, ``moe_aux``), so that sum gives them weight 1.
-Shared experts run on every rank with replicated weights. With no "model"
-axis of more than one rank this is ``moe_apply``, as in the reference.
+Shared experts are column / row parallel over model, as the MLP. With no
+"model" axis of more than one rank this is ``moe_apply``, as in the
+reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,16 +46,19 @@ __all__ = ["moe_apply_shardmap"]
 
 def moe_apply_shardmap(params, x: torch.Tensor, *, n_experts: int,
                        top_k: int, capacity_factor: float = 1.25,
-                       mlp_kind: str = "swiglu", router_norm: bool = True
+                       mlp_kind: str = "swiglu", router_norm: bool = True,
+                       shared_ff: Optional[int] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Drop-in for ``moe_apply`` under an active mesh (expert parallelism
     over "model": ``n_experts`` a multiple of its size, else ValueError);
-    ``moe_apply`` itself on one device. x: (B, S, d) -> (y, aux)."""
+    ``moe_apply`` itself on one device. x: (B, S, d) -> (y, aux).
+    ``shared_ff``: the shared experts' full hidden width (their pieces
+    split over model compute column / row parallel)."""
     mesh = active_axis("model")
     if mesh is None:
         return moe_apply(params, x, n_experts=n_experts, top_k=top_k,
                          capacity_factor=capacity_factor, mlp_kind=mlp_kind,
-                         router_norm=router_norm)
+                         router_norm=router_norm, shared_ff=shared_ff)
     M, me = axis_size(mesh, "model"), axis_index(mesh, "model")
     if n_experts % M:
         raise ValueError(f"moe_apply_shardmap: {n_experts} experts do not "
@@ -124,5 +128,5 @@ def moe_apply_shardmap(params, x: torch.Tensor, *, n_experts: int,
     aux = {"lb_loss": stats[0], "z_loss": stats[1],
            "dropped_frac": stats[2].detach()}
     if "shared" in params:
-        y = y + mlp_apply(params["shared"], x, mlp_kind)
+        y = y + mlp_apply(params["shared"], x, mlp_kind, ff=shared_ff)
     return y, aux

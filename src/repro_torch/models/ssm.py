@@ -23,7 +23,8 @@ from .param import PM
 from .layers import rmsnorm_apply
 from .._device import resolve_device
 from ..dist.sharding import (active_axis, axis_index, model_gather,
-                             model_sum, shard, tp_enter, tp_exit)
+                             model_sum, model_whole, shard, tp_enter,
+                             tp_exit)
 from ..kernels.ssd.ops import ssd_attention
 
 __all__ = ["CONV_W", "ssm_layout", "ssd_apply", "ssm_init_cache",
@@ -75,6 +76,23 @@ def _ssd_inputs(params, u):
     return z, x, Bm, Cm, dt_raw
 
 
+def _whole_width(params, headdim: int):
+    """``params`` as the SSM computes with them: where the "model" axis
+    splits the inner width through its heads (the reference's layout of
+    an SSM whose heads the axis does not divide: ``wx`` holds a part of
+    a head), ``wz`` / ``wx`` / ``conv_x`` and ``wo`` gathered over model
+    at use (``ssm_model_gather``, one all_gather each, this layer's
+    only), so that the layer runs whole on every model rank; a split by
+    whole heads, or no split, as they are."""
+    full = params["A_log"].shape[0] * headdim
+    if params["wx"].shape[-1] % headdim == 0:
+        return params
+    out = dict(params)
+    for k, dim in (("wz", -1), ("wx", -1), ("conv_x", -1), ("wo", 0)):
+        out[k] = model_whole(params[k], full, dim, "ssm_model_gather")
+    return out
+
+
 def _softplus(v: torch.Tensor) -> torch.Tensor:
     """jax.nn.softplus: logaddexp(v, 0)."""
     return torch.logaddexp(v, torch.zeros((), dtype=v.dtype, device=v.device))
@@ -100,7 +118,11 @@ def ssd_apply(params, u: torch.Tensor, *, headdim: int, chunk: int = 64,
     heads give a part of their gradients. The gated RMSNorm spans the full
     inner width: the sum of squares of the rank's columns is summed over
     model (``ssm_norm``; its gradient, which each rank's columns give a
-    part of, too). ``wo``'s partial output leaves through ``tp_exit``."""
+    part of, too). ``wo``'s partial output leaves through ``tp_exit``.
+    Where the axis splits the width through the heads, the pieces are
+    gathered over model first (``_whole_width``) and the block runs
+    whole."""
+    params = _whole_width(params, headdim)
     B_, S, d = u.shape
     H = params["A_log"].shape[0]
     cols = params["wx"].shape[-1]
@@ -166,7 +188,10 @@ def ssd_decode_(params, u, cache, *, headdim: int) -> torch.Tensor:
     over model (``ssm_norm``) and the output too (``tp_exit``). The conv
     states stay whole on every rank (``cache_shardings``' conv rows): the
     rank convolves its columns, and its new conv input columns are
-    gathered over model into the whole ``conv_x`` (``ssm_conv_gather``)."""
+    gathered over model into the whole ``conv_x`` (``ssm_conv_gather``).
+    A split through the heads gathers the weights first, as
+    ``ssd_apply``'s."""
+    params = _whole_width(params, headdim)
     B_ = u.shape[0]
     H = params["A_log"].shape[0]
     cols = params["wx"].shape[-1]

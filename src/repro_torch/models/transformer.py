@@ -59,7 +59,8 @@ from . import attention as A
 from . import ssm as SSMOD
 from . import moe as MOE
 from ..dist.sharding import (active_axis, axis_rules, axis_size,
-                             cache_seq_split, current_rules, data_sum, shard)
+                             cache_seq_split, current_rules, data_sum,
+                             gathered, shard)
 from .._device import resolve_device
 from .._tree import tree_map
 
@@ -164,6 +165,11 @@ def _check_kind(kind: str):
                          f"{', '.join(PORTED_KINDS)}")
 
 
+def _shared_ff(cfg: ArchConfig) -> int:
+    """The shared experts' hidden width (``moe_layout``'s ``shared_ff``)."""
+    return cfg.d_ff * max(cfg.n_shared_experts, 1)
+
+
 def _mlp_part_layout(cfg: ArchConfig):
     if cfg.d_ff <= 0:
         return {}
@@ -171,8 +177,7 @@ def _mlp_part_layout(cfg: ArchConfig):
     if cfg.n_experts:
         lay["moe"] = MOE.moe_layout(
             cfg.d_model, cfg.d_ff, cfg.n_experts,
-            n_shared=cfg.n_shared_experts,
-            shared_ff=cfg.d_ff * max(cfg.n_shared_experts, 1),
+            n_shared=cfg.n_shared_experts, shared_ff=_shared_ff(cfg),
             expert_sharding=cfg.expert_sharding, mlp_kind=cfg.mlp_kind)
     else:
         lay["mlp"] = L.mlp_layout(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
@@ -215,12 +220,14 @@ def _mlp_part_apply(params, x, cfg: ArchConfig, aux_acc):
         from .moe_shardmap import moe_apply_shardmap
         y, aux = moe_apply_shardmap(
             params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
-            capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_kind)
+            capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_kind,
+            shared_ff=_shared_ff(cfg))
     else:
         y, aux = MOE.moe_apply(
             params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp_kind,
-            expert_sharding=cfg.expert_sharding)
+            expert_sharding=cfg.expert_sharding, d_ff=cfg.d_ff,
+            shared_ff=_shared_ff(cfg))
     aux_acc = {k: aux_acc.get(k, 0.0) + v for k, v in aux.items()}
     return x + y, aux_acc
 
@@ -373,11 +380,12 @@ def _encode(params, frames, cfg: ArchConfig):
     remat = _remat(cfg)
 
     def layer(x, blk):
-        return block_apply_full(blk, x, "enc", cfg, positions)[0]
+        return block_apply_full(gathered(blk), x, "enc", cfg, positions)[0]
 
     for i in range(cfg.n_enc_layers):
         x = remat(layer, x, _layer(params["enc_blocks"], i))
-    return L.norm_apply(params["enc_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return L.norm_apply(gathered(params["enc_norm"]), x, cfg.norm_kind,
+                        cfg.norm_eps)
 
 
 def _zero_aux(cfg: ArchConfig, device):
@@ -395,7 +403,8 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     auxiliaries summed over the layers, {} without experts)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = L.embed_apply(params["embed"], tokens,
+    embed = gathered(params["embed"])
+    x = L.embed_apply(embed, tokens,
                       scale=np.sqrt(cfg.d_model) if cfg.embed_scale else None,
                       vocab=cfg.vocab_padded)
     if not cfg.rope_theta:  # absolute sinusoidal positions
@@ -411,24 +420,28 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     aux = _zero_aux(cfg, x.device)
     cycles, rem = _split_pattern(cfg)
     remat = _remat(cfg)
+    def cycle(x, aux, cyc):
+        # the cycle's weights enter as its arguments and are gathered here,
+        # so under remat they are not kept past the cycle: the backward's
+        # recompute gathers them again
+        for i, kind in enumerate(cfg.pattern):
+            x, aux = block_apply_full(gathered(cyc[f"p{i}_{kind}"]), x, kind,
+                                      cfg, positions, memory=memory,
+                                      aux_acc=aux)
+        return x, aux
+
     for c in range(cycles):
         cyc = {f"p{i}_{kind}": _layer(params["blocks"][f"p{i}_{kind}"], c)
                for i, kind in enumerate(cfg.pattern)}
-
-        def cycle(x, aux, cyc=cyc):
-            for i, kind in enumerate(cfg.pattern):
-                x, aux = block_apply_full(cyc[f"p{i}_{kind}"], x, kind, cfg,
-                                          positions, memory=memory,
-                                          aux_acc=aux)
-            return x, aux
-
-        x, aux = remat(cycle, x, aux)
+        x, aux = remat(cycle, x, aux, cyc)
     for r in range(rem):
         kind = cfg.pattern[r]
-        x, aux = block_apply_full(params[f"rem{r}_{kind}"], x, kind, cfg,
-                                  positions, memory=memory, aux_acc=aux)
-    x = L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        x, aux = block_apply_full(gathered(params[f"rem{r}_{kind}"]), x,
+                                  kind, cfg, positions, memory=memory,
+                                  aux_acc=aux)
+    x = L.norm_apply(gathered(params["final_norm"]), x, cfg.norm_kind,
+                     cfg.norm_eps)
+    table = embed if cfg.tie_embeddings else gathered(params["unembed"])
     return L.unembed_apply(table, x, true_vocab=cfg.vocab,
                            vocab=cfg.vocab_padded), aux
 
@@ -586,8 +599,10 @@ def decode_step_(params, cache, tokens, pos, cfg: ArchConfig):
     vocab rows of the embedding (looked up and summed over model, the
     logits its vocab columns), its pieces of the cache (``pos`` global;
     see ``models.attention`` and ``models.ssm`` for the sequence-, head-
-    and width-split layers)."""
-    x = L.embed_apply(params["embed"], tokens,
+    and width-split layers); each layer gathers its weights over data on
+    entry (``dist.sharding.gathered``)."""
+    embed = gathered(params["embed"])
+    x = L.embed_apply(embed, tokens,
                       scale=np.sqrt(cfg.d_model) if cfg.embed_scale else None,
                       vocab=cfg.vocab_padded)
     pos = A.pos_tensor(pos, x.device)        # once, not at every layer
@@ -605,14 +620,17 @@ def decode_step_(params, cache, tokens, pos, cfg: ArchConfig):
     for c in range(cycles):
         for i, kind in enumerate(cfg.pattern):
             key = f"p{i}_{kind}"
-            x = _block_decode_(_layer(params["blocks"][key], c), x, kind,
-                               cfg, _layer(cache["blocks"][key], c), pos)
+            x = _block_decode_(gathered(_layer(params["blocks"][key], c)),
+                               x, kind, cfg, _layer(cache["blocks"][key], c),
+                               pos)
     for r in range(rem):
         kind = cfg.pattern[r]
         key = f"rem{r}_{kind}"
-        x = _block_decode_(params[key], x, kind, cfg, cache[key], pos)
-    x = L.norm_apply(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        x = _block_decode_(gathered(params[key]), x, kind, cfg, cache[key],
+                           pos)
+    x = L.norm_apply(gathered(params["final_norm"]), x, cfg.norm_kind,
+                     cfg.norm_eps)
+    table = embed if cfg.tie_embeddings else gathered(params["unembed"])
     return L.unembed_apply(table, x, true_vocab=cfg.vocab,
                            vocab=cfg.vocab_padded)
 

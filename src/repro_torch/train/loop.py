@@ -20,8 +20,9 @@ With ``mesh`` (a (data, model) ``DeviceMesh``, ``launch.mesh``) and
 ``rules`` (``dist.sharding``; ``default_rules()`` when None) the step is
 the sharded one of ``launch.steps``: params and moments are ``DTensor``s
 under ``launch.steps.param_shardings``, each rank computes on its rows of
-the batch with its weights gathered over data and its heads / hidden
-units / vocab split over model (``mesh_loss_and_grads``), and the update
+the batch with each layer's weights gathered over data on entry to it and
+its heads / experts / hidden units / vocab split over model
+(``mesh_loss_and_grads``), and the update
 is the engine's ``fused_sharded`` (``"fused"``) or ``sharded`` solve on
 the pieces. Checkpoints hold the full leaves in the reference's format:
 rank 0 writes them, every rank reads them.
@@ -101,23 +102,28 @@ def _data_dim(spec) -> Optional[int]:
 
 def mesh_weights(params, specs, grad: bool):
     """(pieces, tree): this rank's param pieces (leaves whose ``.grad``
-    takes the piece's gradient when ``grad``) and the weights the model
-    computes with, each gathered over data (``dist.sharding.gather_over``;
-    its backward sums the gradient over data); a stacked block leaf is
-    handed over as one tensor a layer (``unbind``: its backward stacks
-    the layers' gradients once)."""
+    takes the piece's gradient when ``grad``) and the tree the model
+    computes with: the same pieces, each recorded with the dim it splits
+    over data (``dist.sharding.fsdp_piece``), so that each layer gathers
+    its own weights over data on entry (``dist.sharding.gathered``; its
+    backward reduces their gradients over data) and only one layer's are
+    whole at a time; a stacked block leaf is handed over as one piece a
+    layer (``unbind``: its backward stacks the layers' gradients once)."""
     from .._tree import flatten_with_path, unflatten_like
     from ..dist.layout import local_of
-    from ..dist.sharding import gather_over
+    from ..dist.sharding import fsdp_piece
     spec_of = dict(flatten_with_path(specs))
     pieces, out = [], []
     for path, x in flatten_with_path(params):
         leaf = local_of(x).detach()
         if grad:
             leaf.requires_grad_()
-        w = gather_over(leaf, "data", _data_dim(spec_of[path]))
+        dim = _data_dim(spec_of[path])
         if path.split("/")[0] in ("blocks", "enc_blocks"):
-            w = list(w.unbind(0))
+            w = [fsdp_piece(t, None if dim is None else dim - 1)
+                 for t in leaf.unbind(0)]
+        else:
+            w = fsdp_piece(leaf.view_as(leaf), dim)
         pieces.append(leaf)
         out.append(w)
     return pieces, unflatten_like(params, out)

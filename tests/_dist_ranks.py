@@ -515,15 +515,16 @@ def all_cases(mesh):
 
 # -- the sharded production step (launch/steps.py, train/loop.py) -------------
 
-def _step_inputs(arch, seed=0, B=4, S=16, every_k=None):
+def _step_inputs(arch, seed=0, B=4, S=16, every_k=None, over=None):
     """(port model, numpy params drawn by the port, tokens, labels) of a
-    reduced config (its projection specs at ``every_k`` when given);
-    every rank draws the same."""
+    reduced config (with the ``ArchConfig`` changes ``over``; its
+    projection specs at ``every_k`` when given); every rank draws the
+    same."""
     import dataclasses
     from repro_torch import configs as TC
     from repro_torch._tree import tree_map
     from repro_torch.models import zoo as TZ
-    cfg = TC.get_reduced(arch)
+    cfg = dataclasses.replace(TC.get_reduced(arch), **(over or {}))
     if every_k is not None:
         cfg = dataclasses.replace(cfg, projection_specs=tuple(
             dataclasses.replace(s, every_k=every_k)
@@ -535,6 +536,22 @@ def _step_inputs(arch, seed=0, B=4, S=16, every_k=None):
     labels = rng.integers(0, cfg.vocab, size=(B, S))
     labels[0, :2] = -1
     return model, tree_map(lambda p: p.numpy(), params), tok, labels
+
+
+def extra_batch(cfg, tok, seed=0):
+    """The batch leaves beside tokens and labels that ``cfg`` reads, as
+    numpy f32, every rank's the same: image_embeds (B, n_img_tokens, d)
+    for a vision config, frames (B, S, d) for an encoder-decoder."""
+    rng = np.random.default_rng(seed + 2)
+    B, S = tok.shape
+    out = {}
+    if cfg.n_img_tokens:
+        out["image_embeds"] = rng.normal(
+            size=(B, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.encdec:
+        out["frames"] = rng.normal(size=(B, S, cfg.d_model)).astype(
+            np.float32)
+    return out
 
 
 def _full_np(tree, mesh):
@@ -571,6 +588,9 @@ def mesh_train_step(mesh, model_cfg, params_np, tok, labels, steps=2,
     acfg = AdamConfig(moment_dtype=torch.float32)
     batch = {"tokens": torch.from_numpy(tok).long().to(dev),
              "labels": torch.from_numpy(labels).long().to(dev)}
+    extra = {k: torch.from_numpy(v).to(dev)
+             for k, v in extra_batch(cfg, tok).items()}
+    batch.update(extra)
     step = ST.build_train_step(model, mesh, rules, acfg)
 
     def run():
@@ -606,7 +626,7 @@ def mesh_train_step(mesh, model_cfg, params_np, tok, labels, steps=2,
     full = tree_map(torch.from_numpy, params_np)
     start = params_to_mesh(full, mesh, specs, dev)
     pre = ST.build_prefill_step(model, mesh, rules)
-    out["prefill"] = pre(start, {"tokens": batch["tokens"]}).float(
+    out["prefill"] = pre(start, dict(extra, tokens=batch["tokens"])).float(
         ).cpu().numpy()
     dec = ST.build_decode_step(model, mesh, rules)
     cache = model.init_cache(tok.shape[0], 8, dtype=torch.float32,
@@ -679,16 +699,16 @@ def pipeline_wrong_axis(mesh):
     return None
 
 
-def mesh_cases(mesh, inputs, train_dir=None):
-    """``mesh_train_step`` for each (arch, (cfg, params, tok, labels)) of
-    ``inputs`` (reruns only for the first), and, with ``train_dir``, two
-    steps of ``train(mesh=)`` on reduced stablelm-3b checkpointing there:
-    its losses and params whole."""
+def mesh_cases(mesh, inputs, train_dir=None, steps=2):
+    """``mesh_train_step`` (``steps`` steps) for each (arch, (cfg, params,
+    tok, labels)) of ``inputs`` (reruns only for the first), and, with
+    ``train_dir``, two steps of ``train(mesh=)`` on reduced stablelm-3b
+    checkpointing there: its losses and params whole."""
     out = {}
     for i, (arch, (cfg, params_np, tok, labels)) in enumerate(
             sorted(inputs.items())):
         out[arch] = mesh_train_step(mesh, cfg, params_np, tok, labels,
-                                    rerun=i == 0)
+                                    steps=steps, rerun=i == 0)
     if train_dir is not None:
         out["train"] = mesh_train_loop(mesh, train_dir)
     return out
@@ -780,6 +800,33 @@ def decode_inputs(name, cell, seed=0):
     tok = rng.integers(0, cfg.vocab, size=(2, B, 1))
     return (tree_map(lambda p: p.numpy(), params),
             unflatten_like(cache, out), tok)
+
+
+def decode_gathers(specs, cfg):
+    """(FSDP gathers, head gathers) of one decode call from the param
+    specs ({path: spec}): a leaf split over data gathers once per layer it
+    serves (the encoder's never); a head-split weight of an attention
+    layer whose kv heads are whole (``wq`` / ``bq`` / ``wo``), and MLA's
+    four head projections, gather over model once per layer (the decode
+    rules give the model axis to the cache's sequence)."""
+    def has(spec, axis):
+        return any(a == axis or (isinstance(a, tuple) and axis in a)
+                   for a in spec)
+
+    layers = cfg.n_layers // len(cfg.pattern)
+    fsdp = head = 0
+    for path, spec in specs.items():
+        if path.startswith("enc_"):
+            continue
+        n = layers if path.startswith("blocks/") else 1
+        fsdp += n * has(spec, "data")
+        region, leaf = path.split("/")[-2:]
+        if region == "attn" and leaf in ("wq", "bq", "wo"):
+            kv = specs[path.rsplit("/", 1)[0] + "/wk"]
+            head += n * (has(spec, "model") and not has(kv, "model"))
+        if region == "mla" and leaf in ("wq_b", "wk_b", "wv_b", "wo"):
+            head += n * has(spec, "model")
+    return fsdp, head
 
 
 def _decode_positions(cell):

@@ -31,11 +31,15 @@ Held:
 * the collectives of each call by kind, the same on every rank: one
   ``decode_max`` and one ``decode_sum`` per self-attention layer where
   the cache's sequence is split (none where it is not), the FSDP gathers
-  (one per param leaf split over data) and tensor-parallel sums of the
-  forward, the SSM's norm sum and conv gather per layer where the model
-  axis splits it, and nothing else: every all_gather is an FSDP gather or
-  a conv gather (no gather of the cache or of a tensor-parallel weight),
-  no all-to-all;
+  (one per param leaf split over data, and per layer of a stacked leaf:
+  each layer gathers its own; the encoder's, which decode never runs,
+  none) and tensor-parallel sums of the forward, the SSM's norm sum and
+  conv gather per layer where the model axis splits it, the experts'
+  combine sum per MoE layer where it splits them, the head-split
+  weights of an attention layer gathered over model where its kv heads
+  are whole (``decode_head_gather``: the decode rules give the model axis
+  to the cache's sequence), and nothing else: every all_gather is one of
+  those (no gather of the cache), no all-to-all;
 * the cache's layout (``cache_shardings``) and that every piece keeps its
   storage (written in place); reruns bit-equal; a whole cache refused;
 * a planted fault in the split-softmax combine (a shard's partial
@@ -211,26 +215,29 @@ def test_collectives_by_kind(ranks, name, cell, shape):
     got = ranks[(shape, name, cell)]
     by_rank = ranks["counts_by_rank"][(shape, name, cell)]
     assert all(c == by_rank[0] for c in by_rank)
-    n_fsdp = sum("data" in [a for a in v if a is not None] or any(
-        isinstance(a, tuple) and "data" in a for a in v)
-        for v in got["param_specs"].values())
+    n_fsdp, n_head = R.decode_gathers(got["param_specs"], cfg)
     for c in got["counts"]:
         allowed = {"fsdp_gather", "tp_exit_sum", "ssm_norm",
                    "ssm_conv_gather", "decode_max", "decode_sum",
-                   "all_gather_calls", "all_to_all_calls",
-                   "all_reduce_calls"}
+                   "decode_head_gather", "moe_combine", "all_gather_calls",
+                   "all_to_all_calls", "all_reduce_calls"}
         assert set(c) <= allowed, set(c) - allowed
         assert c.get("decode_max", 0) == c.get("decode_sum", 0) == (
             n_attn if seq_ways > 1 else 0)
         assert c.get("fsdp_gather", 0) == (n_fsdp if data > 1 else 0)
+        assert c.get("decode_head_gather", 0) == (n_head if model > 1
+                                                  else 0)
         assert c.get("ssm_conv_gather", 0) == c.get("ssm_norm", 0) == (
             n_ssm if model > 1 else 0)
+        assert c.get("moe_combine", 0) == (cfg.n_layers if model > 1 and
+                                           cfg.n_experts else 0)
         assert (c.get("tp_exit_sum", 0) > 0) == (model > 1)
         assert c["all_gather_calls"] == c.get("fsdp_gather", 0) + c.get(
-            "ssm_conv_gather", 0)
+            "ssm_conv_gather", 0) + c.get("decode_head_gather", 0)
         assert c["all_to_all_calls"] == 0
         assert c["all_reduce_calls"] == sum(c.get(k, 0) for k in (
-            "tp_exit_sum", "ssm_norm", "decode_max", "decode_sum"))
+            "tp_exit_sum", "ssm_norm", "decode_max", "decode_sum",
+            "moe_combine"))
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -22,7 +22,17 @@ Held:
   (``tests/_jax_mesh_step.py`` in a subprocess), at the bounds
   ``tests/test_torch_mesh_step.py`` holds a mesh step to JAX's: the
   losses within atol / rtol 1e-5, every param within PARAM_ATOL +
-  STEP_REL of the leaf's scale.
+  STEP_REL of the leaf's scale;
+* the Adam moments (fault C-13): JAX's own (1, 1) sharded moments equal
+  its one-device moments bit for bit (stablelm-3b, the arch of the leaf
+  C-13 named; measured for gemma-7b and hymba-1.5b too), as the port's
+  (1, 1) moments equal
+  its one-device ones, so the distance between the two packages' mesh
+  moments after two steps (up to 1e-3 of a leaf's scale) is the distance
+  between their one-device steps. It comes from the first step's state:
+  the second step run by the port's (1, 1) mesh step from JAX's state
+  after its first step gives moments within MOMENT_REL of JAX's second
+  ones, every leaf (measured 1.1e-4); a leaf halved fails that.
 """
 import os
 import subprocess
@@ -42,6 +52,8 @@ CASES = {f"{arch}@{k}": (arch, k) for arch in ("hymba_15b", "stablelm_3b")
          for k in (1, 2)}
 ATOL = RTOL = 1e-5
 STEP_REL = 3e-4
+MOMENT_REL = 3e-4
+C13 = "stablelm_3b@1"           # the case of fault C-13's leaf
 PARAM_ATOL = 1e-4
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -86,22 +98,28 @@ def jax_one_rank(inputs, tmp_path_factory):
         for k, v in flatten_with_path(params_np):
             d[f"{name}/params/{k}"] = v
         d[f"{name}/tokens"], d[f"{name}/labels"] = tok, labels
+    d[f"{C13}/one"] = np.asarray(True)     # its one-device step too
     np.savez(work / "in.npz", **d)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=1",
                PYTHONPATH=os.path.join(_ROOT, "src"))
     r = subprocess.run(
         [sys.executable, os.path.join(_ROOT, "tests", "_jax_mesh_step.py"),
-         str(work / "in.npz"), str(work / "out.npz"), "1", "1", "1"],
-        env=env, capture_output=True, text=True, timeout=600)
+         str(work / "in.npz"), str(work / "out.npz"), "1", "1", "1",
+         "full"], env=env, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     o = np.load(work / "out.npz")
     out = {}
     for name in CASES:
-        pre = f"{name}/params/"
+        pick = lambda pre: {k[len(name) + len(pre) + 2:]: o[k]
+                            for k in o.files
+                            if k.startswith(f"{name}/{pre}/")}
         out[name] = {"losses": list(o[f"{name}/losses"]),
-                     "params": {k[len(pre):]: o[k] for k in o.files
-                                if k.startswith(pre)}}
+                     "params": pick("params"), "mu": pick("mu"),
+                     "one_mu": pick("one/mu"),
+                     "state1": {w: pick(f"state1/{w}")
+                                for w in ("params", "mu", "nu", "proj")},
+                     "count1": int(o[f"{name}/state1/count"])}
     return out
 
 
@@ -144,3 +162,72 @@ def test_one_rank_step_matches_jax_one_rank_mesh(one_rank, jax_one_rank,
         err = float(np.abs(got["params"][k] - w).max())
         assert err <= PARAM_ATOL + STEP_REL * scale, (name, k, err)
 
+
+
+def test_jax_mesh_moments_equal_its_one_device(jax_one_rank):
+    """C-13's measurement: JAX's (1, 1) sharded moments after two steps
+    are its one-device moments, bit for bit (stablelm-3b, the leaf's
+    arch)."""
+    ref = jax_one_rank[C13]
+    assert ref["mu"].keys() == ref["one_mu"].keys() and ref["mu"]
+    for k, w in ref["one_mu"].items():
+        assert np.array_equal(ref["mu"][k], w), k
+
+
+def _nest(flat):
+    out = {}
+    for path, v in flat.items():
+        *head, last = path.split("/")
+        d = out
+        for part in head:
+            d = d.setdefault(part, {})
+        d[last] = torch.from_numpy(np.array(v))
+    return out
+
+
+def _mesh_step_from(model, state, count, tok, labels):
+    """The port's production step on a (1, 1) mesh (one rank of a fake
+    process group: a one-rank mesh moves nothing) from a given state:
+    its first moments, whole, as numpy."""
+    from repro_torch.convert import params_to_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.adam import AdamState
+    acfg = AdamConfig(moment_dtype=torch.float32)
+    rules = TS.rules_for_cell(model.cfg, "train_4k", False)
+    with dryrun.fake_group(1):
+        mesh = make_local_mesh(1, 1, device="cpu")
+        specs = TS.param_shardings(model, mesh, rules)
+        put = lambda w: params_to_mesh(_nest(state[w]), mesh, specs, "cpu")
+        opt = AdamState(count=torch.tensor(count, dtype=torch.int32),
+                        mu=put("mu"), nu=put("nu"))
+        proj = {k: torch.from_numpy(np.array(v))
+                for k, v in state["proj"].items()}
+        batch = {"tokens": torch.from_numpy(tok).long(),
+                 "labels": torch.from_numpy(labels).long()}
+        _, _, _, opt, _ = TS.build_train_step(model, mesh, rules, acfg)(
+            put("params"), opt, proj, batch)
+        return {k: v.to_local().numpy().copy()
+                for k, v in flatten_with_path(opt.mu)}
+
+
+def _moments_rule(got, want):
+    """Every leaf within MOMENT_REL of its scale."""
+    return all(float(np.abs(got[k] - w).max())
+               <= MOMENT_REL * max(float(np.abs(w).max()), 1e-30)
+               for k, w in want.items())
+
+
+def test_mesh_moments_from_jax_state_match_jax(inputs, jax_one_rank):
+    """C-13: the second step of the port's (1, 1) mesh step, run from
+    JAX's sharded state after its first, gives JAX's second moments
+    within MOMENT_REL of each leaf's scale (stablelm-3b); a leaf halved
+    (a gradient part lost) fails the rule."""
+    model, _, tok, labels = inputs[C13]
+    ref = jax_one_rank[C13]
+    got = _mesh_step_from(model, ref["state1"], ref["count1"], tok, labels)
+    assert got.keys() == ref["mu"].keys()
+    assert _moments_rule(got, ref["mu"])
+    leaf = max(got, key=lambda k: float(np.abs(ref["mu"][k]).max()))
+    assert not _moments_rule(dict(got, **{leaf: 0.5 * got[leaf]}),
+                             ref["mu"])

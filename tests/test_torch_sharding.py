@@ -7,9 +7,8 @@ for entry (a ``Spec`` is a tuple, as a ``PartitionSpec`` is);
 ``Model.param_specs`` equals the reference's ``PartitionSpec``s leaf for
 leaf for every reduced config; ``cache_shardings`` and
 ``batch_shardings`` equal the reference's specs. ``param_shardings`` fits
-the specs to a mesh and keeps each region consistent (held here by its
-policy: the regions with a tensor-parallel path keep the model axis where
-every head dim splits). ``shard`` is a no-op outside a context and on a
+the reference's specs to a mesh, leaf for leaf in every region.
+``shard`` is a no-op outside a context and on a
 None mesh. The meshes here are stand-ins with a name and a size per dim
 (``mesh_dim_names``, ``mesh.shape``), which is all the specs read; the
 collectives run on real gloo meshes in ``tests/test_torch_mesh_step.py``.
@@ -147,12 +146,16 @@ def _ref_cache_axes(path, leaf, rules):
 
 
 def test_param_shardings_keep_regions_consistent():
-    """stablelm: attention, MLP and the vocab split over model, weights
-    over data (FSDP). hymba (heads and kv heads replicated by its
-    overrides): its attention replicates over model, its SSM (16 heads,
-    split by whole heads) and MLP split.
-    deepseek: MLA and the dense MoE replicate over model; with
-    ``moe_impl="shardmap"`` the experts split over it."""
+    """Every leaf takes the reference's spec fit to the mesh, whatever its
+    region (``tests/test_torch_layout.py`` holds the full configs to
+    JAX's per-device shapes). stablelm: attention, MLP and the vocab split
+    over model, weights over data (FSDP). hymba (heads and kv heads
+    replicated by its overrides): its attention replicates over model, its
+    SSM (16 heads, split by whole heads) and MLP split. deepseek: MLA's
+    head projections, the routed experts (either ``moe_impl``) and the
+    shared experts split over model, MLA's down projections do not.
+    mixtral (kv heads replicated by its overrides): the query heads and
+    the experts' hidden units split over model."""
     import dataclasses
     port, _ = _mesh(data=2, model=2)
 
@@ -175,12 +178,23 @@ def test_param_shardings_keep_regions_consistent():
     assert tuple(h["blocks/p0_hybrid/ssm/wB"]) == (None, "data", None)
     assert tuple(h["blocks/p0_hybrid/mlp/w1"]) == (None, "data", "model")
     ds = TC.get_reduced("deepseek_v2_236b")
-    d = specs(ds)
-    moe = next(k for k in d if k.endswith("moe/w1"))
-    assert "model" not in d[moe]
-    assert all("model" not in v for k, v in d.items() if "/mla/" in k)
-    d = specs(dataclasses.replace(ds, moe_impl="shardmap"))
-    assert tuple(d[moe]) == (None, "model", "data", None)
+    for cfg in (ds, dataclasses.replace(ds, moe_impl="shardmap")):
+        d = specs(cfg)
+        assert tuple(d["blocks/p0_mla/moe/w1"]) == (None, "model", "data",
+                                                     None)
+        assert tuple(d["blocks/p0_mla/moe/shared/w1"]) == (None, "data",
+                                                            "model")
+        assert tuple(d["blocks/p0_mla/mla/wq_b"]) == (None, None, "model",
+                                                       None)
+        assert tuple(d["blocks/p0_mla/mla/wo"]) == (None, "model", None,
+                                                     "data")
+        assert tuple(d["blocks/p0_mla/mla/wkv_a"]) == (None, "data", None)
+    mx = specs(TC.get_reduced("mixtral_8x7b"))
+    assert tuple(mx["blocks/p0_local/attn/wq"]) == (None, "data", "model",
+                                                     None)
+    assert tuple(mx["blocks/p0_local/attn/wk"]) == (None, "data", None, None)
+    assert tuple(mx["blocks/p0_local/moe/w1"]) == (None, None, "data",
+                                                    "model")
     # a 3-way model axis divides no reduced head count: every attention
     # and SSM region replicates over model, and no spec ever raises
     odd, _ = _mesh(data=2, model=3)
